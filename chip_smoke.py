@@ -9,25 +9,49 @@ Phases (any failure raises and the script exits nonzero):
 
 1. device: torch's view of the card and nvidia-smi's name and power limit;
    without a CUDA device the script stops before doing anything else;
-2. build: compiles the CUDA kernels from tpu_renderer_torch/csrc with nvcc
-   (cached under tpu_renderer_torch/_build by a hash of the sources);
-3. kernels: K1 (setup) and K2 (raster + shade) against their plain-PyTorch
-   versions on the card, on a 51,200-triangle sphere grid at 512x512 and
-   on the same grid with a large quad merged in (side list non-empty):
-   bit-equal outputs required;
-4. main path: the headline frame -- a 1,001,112-triangle dense Phong
-   sphere (construct_sphere_grid(708, 707)) at 1920x1080 with the
-   baseline_scene(4) camera and lights, rotated by rotation_y every frame
-   -- through Renderer for 3 warm-up and 20 timed frames. Every frame must
-   drop no entry and cover pixels; each kernel's launch count over the run
-   must equal the frame count; the frame is checked against the sphere's
-   analytic silhouette and depth range, and a small scene rendered on the
-   card against the same scene rendered by the plain versions on the CPU;
-5. timings: median ms per frame (CUDA events), the setup / binning /
-   raster split (each stage alone between syncs), and each kernel's time
-   beside its plain version's at the main path's shapes;
-6. with --profile only: host enqueue time, device time, top kernels and
-   device idle share of 10 main-path frames, from a torch.profiler trace.
+2. build: compiles the CUDA kernels from tpu_renderer_torch/csrc with nvcc,
+   one process per source (cached under tpu_renderer_torch/_build by a
+   hash of the sources);
+3. kernels: each kernel against its plain-PyTorch version on the card,
+   bit-equal outputs required, with the route of every launch asserted:
+   - K1 (setup) and K2 (raster + shade, 8-row tiles, row packing 2) on a
+     51,200-triangle sphere grid at 512x512, with and without a merged
+     large quad (side list non-empty);
+   - K1 and K3 (8-row tiles, one stream) on config 2's teapot at 512x512,
+     with and without a merged large quad;
+   - K7 (record transpose) on config 4's channel-major table, and K4
+     (16-row tiles) on config 4's sphere at 1920x1080 and on config 5's
+     three untextured objects at 1920x1080 in one launch;
+   - K2 on config 5's three untextured objects at 96x128 (several objects
+     under row packing);
+4. card against CPU: each route's small scene (models/route_scenes.py,
+   with and without side-list triangles) and a 4,140-triangle sphere grid,
+   rendered on the card and by the plain versions on the CPU: bit-equal;
+5. paths, each through Renderer(device="cuda") for 3 warm-up and 20 timed
+   frames, every object rotated about y each frame, the launch counts set
+   to 0 just before the path and read just after:
+   - headline: a 1,001,112-triangle dense Phong sphere
+     (construct_sphere_grid(708, 707)) at 1920x1080: K1 and K2 once per
+     frame; its last frame is held to the sphere's analytic silhouette
+     and depth range;
+   - config 2: the 5,428-triangle Gouraud teapot at 512x512: K1 and K3;
+   - config 4: the 2,208-triangle Phong sphere, 2 lights, at 1920x1080:
+     K7 and K4;
+   - config 5 untextured: sphere + torus + cube, 3,244 triangles, at
+     1920x1080 in one launch: K7 and K4, once per frame each;
+   every frame must drop no entry and cover pixels, and the first frame
+   of each new path must equal the CPU plain run of it bit for bit;
+6. timings: median ms per frame (CUDA events) of each path, the headline's
+   setup / binning / raster split (each stage alone between syncs), and
+   each kernel at its path's shapes (the headline for K1 and K2), first
+   held bit-equal to its plain version on those inputs, then timed beside
+   its plain version's
+   (K7 also beside ``t().contiguous()``, the one PyTorch call that
+   transposes), with the least time the card could take for the same
+   work (bytes at 3.35 TB/s against f32 operations at 67 TFLOP/s);
+7. with --profile only: host enqueue time, device time, top kernels and
+   device idle share of 10 frames of each path, from a torch.profiler
+   trace.
 
 The line before the last is a JSON object with one entry per kernel
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
@@ -43,13 +67,33 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WARMUP, FRAMES = 3, 20
+BYTES_PER_MS = 3.35e12 / 1e3  # H100 SXM device memory
+F32_OPS_PER_MS = 67e12 / 1e3  # H100 SXM f32 outside the tensor cores
+# f32 operations per unit of work, counted from the kernels' sources
+# (csrc/setup.cu, csrc/raster.cu) and rounded: the bound they give is a
+# floor on the work, not a cycle count.
+SETUP_OPS = 250  # per triangle: projection, cull, 3 edges' fields
+SETUP_LIGHT_OPS = 40  # per vertex and light, Gouraud only
+STAGE_A_OPS, STAGE_A_FIELD_OPS = 110, 12  # per (entry, row) pair
+FRAG_OPS, FRAG_FIELD_OPS = 8, 2  # per in-span fragment
+PACK_OPS = 24  # per covered pixel
+PHONG_OPS, PHONG_LIGHT_OPS = 40, 70  # per Phong-shaded pixel
 KERNELS = {
     "K1 setup": dict(
         source="tpu_renderer_torch/csrc/setup.cu",
-        replaces="tpu_renderer/ops/setup_pallas.py:174"),
+        replaces="tpu_renderer/ops/setup_pallas.py:174", path="headline"),
     "K2 raster+shade": dict(
         source="tpu_renderer_torch/csrc/raster.cu",
-        replaces="tpu_renderer/ops/raster_pallas.py:2192"),
+        replaces="tpu_renderer/ops/raster_pallas.py:2192", path="headline"),
+    "K3 raster+shade rows 1": dict(
+        source="tpu_renderer_torch/csrc/raster.cu",
+        replaces="tpu_renderer/ops/raster_pallas.py:2355", path="config 2"),
+    "K4 raster+shade 16-row": dict(
+        source="tpu_renderer_torch/csrc/raster.cu",
+        replaces="tpu_renderer/ops/raster_pallas.py:2372", path="config 4"),
+    "K7 record transpose": dict(
+        source="tpu_renderer_torch/csrc/records.cu",
+        replaces="tpu_renderer/ops/raster_pallas.py:469", path="config 4"),
 }
 
 
@@ -73,6 +117,21 @@ def bit_diff(a, b):
     return bool(same.all()), float(err.max()) if err.numel() else 0.0
 
 
+def assert_equal(what, got, want):
+    """Raise unless every output is bit-equal; returns the max error (0)."""
+    import torch
+
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        same, err = bit_diff(a, b.to(a.device))
+        worst = max(worst, err)
+        if not same:
+            raise AssertionError(f"{what}: output {i} differs, max |diff| "
+                                 f"{err}")
+    return worst
+
+
 def event_ms(fn, reps):
     """Median ms per call of ``fn`` over ``reps`` calls, CUDA events."""
     import torch
@@ -89,8 +148,65 @@ def event_ms(fn, reps):
     return statistics.median(times)
 
 
-def profile_frames(frame, angles, frame_ms):
-    """Host enqueue time and device time of the main path's frames.
+def in_turns(fn, plain, reps=20, plain_reps=3):
+    """(kernel ms, plain ms), taken in turns plain, kernel, kernel, plain;
+    each the median of its two readings."""
+    p1 = event_ms(plain, plain_reps)
+    k1 = event_ms(fn, reps)
+    k2 = event_ms(fn, reps)
+    p2 = event_ms(plain, plain_reps)
+    return statistics.median([k1, k2]), statistics.median([p1, p2])
+
+
+def bound(nbytes, ops):
+    """(least ms the card could take, what bounds it)."""
+    tb, to = nbytes / BYTES_PER_MS, ops / F32_OPS_PER_MS
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def setup_work(T, tp, phong, n_lights):
+    """(bytes, f32 operations) of K1 on T triangles padded to tp: vertex,
+    colour and normal planes in, the record table and bbox rows out."""
+    nbytes = T * 3 * (3 + 4 + 3) * 4 + tp * 128 * 4 + 8 * tp * 4
+    ops = T * SETUP_OPS + (0 if phong else T * 3 * n_lights * SETUP_LIGHT_OPS)
+    return nbytes, ops
+
+
+def raster_work(launch, gid_out):
+    """(bytes, f32 operations) this raster launch's data needs: the 88
+    record lanes of every distinct triangle it reads, its kept stream
+    entries, tile tables and side list, 12 bytes per output pixel; stage A
+    per (entry, row) pair, the fold per in-span fragment and the finalize
+    per covered pixel."""
+    import torch
+    from tpu_renderer_torch.ops import raster
+
+    recs, qbins, lcounts, params, objs = launch.operands
+    o = launch.options
+    nf = 7 if o["any_phong"] else 4
+    frags = raster.raster_fragments(
+        recs, qbins, lcounts, tile_h=launch.route.tile_h,
+        tiles_y=o["tiles_y"], tiles_x=o["tiles_x"], row0=o["row0"],
+        col0=o["col0"], frame_width=o["frame_width"], n_fields=nf)
+    n_tris = int(torch.unique(frags.pair_tri).numel())
+    n_pairs = int(frags.pair_tri.numel())
+    n_frag = int(frags.z.numel())
+    covered = gid_out >= 0
+    n_cov = int(covered.sum())
+    n_phong = int(raster._phong_mask(gid_out, objs).sum()) if nf == 7 else 0
+    nbytes = (n_tris * 88 * 4 + int(qbins.counts.sum()) * 4
+              + (qbins.starts.numel() + qbins.counts.numel()
+                 + int(qbins.n_large) + lcounts.numel()) * 4
+              + params.numel() * 4 + objs.numel() * 4 + gid_out.numel() * 12)
+    ops = (n_pairs * (STAGE_A_OPS + STAGE_A_FIELD_OPS * nf)
+           + n_frag * (FRAG_OPS + FRAG_FIELD_OPS * nf)
+           + n_cov * PACK_OPS
+           + n_phong * (PHONG_OPS + PHONG_LIGHT_OPS * o["n_lights"]))
+    return nbytes, ops
+
+
+def profile_frames(label, frame, angles, frame_ms):
+    """Host enqueue time and device time of a path's frames.
 
     ``frame(angle)`` renders one frame; ``frame_ms`` is the median frame
     time measured without the profiler. Prints the host's enqueue time per
@@ -140,75 +256,44 @@ def profile_frames(frame, angles, frame_ms):
         "top_device_ms_per_frame": {
             k: round(v / 1e3 / n, 4) for k, v in top},
     }
-    log("# profile: " + json.dumps(out))
+    log(f"# profile {label}: " + json.dumps(out))
 
 
-def make_scene(mesh, h, w, device):
+def torch_scene(sg, h, w, device):
+    """(scene, transform, lights) of a golden-form scene with the
+    baseline_scene camera and lights for an h x w frame."""
     from tpu_renderer_torch.models import scenes
 
     tr_d, li_d = scenes.baseline_camera_lights(h, w)
-    sg = [(dict(p=(0.0, 0.0, 0.0), **mesh), {"phong": True})]
-    scene, tr, li = scenes.to_torch_scene(sg, tr_d, li_d, device=device)
-    return scene[0][0], scene[0][1], tr, li
+    return scenes.to_torch_scene(sg, tr_d, li_d, device=device)
 
 
-class KernelCase:
-    """Everything one object's setup -> binning -> raster consumes, with
-    both versions of K1 and K2 callable on it."""
+def phong_mesh_scene(mesh):
+    return [(dict(p=(0.0, 0.0, 0.0), **mesh), {"phong": True})]
 
-    def __init__(self, obj, cfg, tr, li, h, w):
-        from tpu_renderer_torch.ops import raster, setup
 
-        self.h, self.w, self.T = h, w, obj.num_triangles
-        blk = setup._setup_blk(self.T)
-        self.k1_args = (setup.setup_params(obj.p, tr, li), obj.vertices,
-                        obj.colors, obj.normals)
-        self.k1_kw = dict(n_lights=li.count, phong=cfg.phong, gid0=0,
-                          frame_height=h, frame_width=w,
-                          tp=-(-self.T // blk) * blk)
-        recs, bbox = setup.setup_kernel(*self.k1_args, **self.k1_kw)
-        pre = setup.SetupOut(recs, (bbox[0] > 0.5,) + tuple(bbox[1:5]),
-                             self.T)
-        self.route = raster.raster_route(self.T, h, w)
-        self.qbins, self.lcounts = raster.bin_for_raster(pre, self.route, h,
-                                                         w)
-        self.k2_args = (recs, self.qbins, self.lcounts,
-                        raster.shade_params(tr, li))
-        self.k2_kw = dict(tiles_y=-(-h // 8), tiles_x=-(-w // 128), row0=0,
-                          col0=0, frame_width=w, phong=cfg.phong,
-                          n_lights=li.count)
+def k1_call(obj, cfg, tr, li, h, w):
+    """(kernel fn, plain fn, work) of K1 on one object."""
+    from tpu_renderer_torch.ops import setup
 
-    def k1(self, plain=False):
-        from tpu_renderer_torch.ops import setup
+    T = obj.num_triangles
+    blk = setup._setup_blk(T)
+    tp = -(-T // blk) * blk
+    args = (setup.setup_params(obj.p, tr, li), obj.vertices, obj.colors,
+            obj.normals)
+    kw = dict(n_lights=li.count, phong=cfg.phong, gid0=0, frame_height=h,
+              frame_width=w, tp=tp)
+    return (lambda: setup.setup_kernel(*args, **kw),
+            lambda: setup.setup_plain(*args, **kw),
+            setup_work(T, tp, cfg.phong, li.count))
 
-        fn = setup.setup_plain if plain else setup.setup_kernel
-        return fn(*self.k1_args, **self.k1_kw)
 
-    def k2(self, plain=False):
-        from tpu_renderer_torch.ops import raster
+def rotated(scene, angle, device):
+    """Every object of the scene rotated about y by ``angle``."""
+    from tpu_renderer_torch.geometry.transform import rotate_object, rotation_y
 
-        fn = raster.raster_plain if plain else raster.raster_kernel
-        return fn(*self.k2_args, **self.k2_kw)
-
-    def compare(self):
-        """Max error of each kernel against its plain version; raises
-        unless every output is bit-equal."""
-        import torch
-
-        errs = {}
-        for name, fn in (("K1 setup", self.k1), ("K2 raster+shade", self.k2)):
-            got, want = fn(), fn(plain=True)
-            torch.cuda.synchronize()
-            worst = 0.0
-            for i, (a, b) in enumerate(zip(got, want)):
-                same, err = bit_diff(a, b)
-                worst = max(worst, err)
-                if not same:
-                    raise AssertionError(
-                        f"{name} output {i} differs from its plain version "
-                        f"at {self.T} triangles: max |diff| {err}")
-            errs[name] = worst
-        return errs
+    rot = rotation_y(angle, device=device)
+    return [(rotate_object(obj, rot), cfg) for obj, cfg in scene]
 
 
 def main():
@@ -218,23 +303,32 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace 10 main-path frames with torch.profiler "
-                         "and print host enqueue time, device time and idle "
-                         "share per frame")
+                    help="also trace 10 frames of each path with "
+                         "torch.profiler and print host enqueue time, device "
+                         "time and idle share per frame")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
     sys.path.insert(0, ROOT)
     import tpu_renderer_torch as trt
     from tpu_renderer_torch import _cuda
-    from tpu_renderer_torch.geometry.transform import rotate_object, rotation_y
-    from tpu_renderer_torch.models.primitives import (
-        construct_quad, construct_sphere_grid, merge_meshes)
+    from tpu_renderer_torch.engine.renderer import prepare_scene
+    from tpu_renderer_torch.geometry.vertex import setup_records
+    from tpu_renderer_torch.models import primitives as prim
+    from tpu_renderer_torch.models import scenes
+    from tpu_renderer_torch.models.route_scenes import ROUTE_NAMES, route_scene
     from tpu_renderer_torch.ops import raster, setup
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    wrappers = {
+        "K1 setup": setup.setup_kernel,
+        "K2 raster+shade": raster.raster_kernel,
+        "K3 raster+shade rows 1": raster.raster_rows1_kernel,
+        "K4 raster+shade 16-row": raster.raster_narrow_kernel,
+        "K7 record transpose": raster.finish_records,
+    }
 
     # 1. Device.
     kind = torch.cuda.get_device_name(0)
@@ -260,90 +354,169 @@ def main():
 
     # 3. Each kernel against its plain version on the card.
     max_err = {name: 0.0 for name in KERNELS}
-    grid = construct_sphere_grid(160, 160)
-    for label, mesh in (("51,200-tri sphere", grid),
-                        ("sphere + large quad",
-                         merge_meshes(grid, construct_quad(1.2)))):
-        case = KernelCase(*make_scene(mesh, 512, 512, dev), 512, 512)
-        r = case.route
-        assert (r.strategy, r.tile_h, r.rows) == ("sorted", 8, 2), r
-        errs = case.compare()
-        n_large = int(case.qbins.n_large)
-        if label.startswith("sphere +"):
-            assert n_large > 0, "the quad did not reach the side list"
-        for name, e in errs.items():
-            max_err[name] = max(max_err[name], e)
-        log(f"# kernels == plain on {label} ({case.T} tris, 512x512, "
-            f"n_large {n_large}): bit-equal")
 
-    # A small scene on the card against the plain versions on the CPU
-    # (the CPU run is what the tests hold to the JAX package and golden).
-    small = construct_sphere_grid(46, 45)
-    fbs = []
-    for d in ("cpu", dev):
-        obj, cfg, tr, li = make_scene(small, 128, 128, d)
-        fbs.append(trt.Renderer(128, 128, device=d).render([(obj, cfg)],
-                                                           tr, li))
-    torch.cuda.synchronize()
-    (cpu_fb, gpu_fb) = fbs
-    same_z, err_z = bit_diff(gpu_fb.depth.cpu(), cpu_fb.depth)
-    same_c, _ = bit_diff(gpu_fb.color.cpu(), cpu_fb.color)
-    cov = int((cpu_fb.depth > -3.0e38).sum())
-    if not (same_z and same_c) or cov != 2174:
-        raise AssertionError(
-            f"4,140-tri frame on the card differs from the CPU run "
-            f"(depth equal {same_z}, max err {err_z}; color equal {same_c}; "
-            f"covered {cov})")
-    log("# 4,140-tri 128x128 frame: card == CPU plain, bit-equal, "
-        f"{cov} px covered")
+    def check_launch(name, label, launch, want_route, n_obj):
+        r = launch.route
+        if (r.tile_h, r.rows) != want_route or launch.kernel is not \
+                wrappers[name] or launch.operands[4].shape[0] != n_obj:
+            raise AssertionError(f"{label} took route {r} on "
+                                 f"{launch.kernel.__name__}")
+        err = assert_equal(f"{name} on {label}", launch.run(),
+                           launch.run_plain())
+        max_err[name] = max(max_err[name], err)
+        log(f"# {name} == plain on {label} (tile_h {r.tile_h}, rows "
+            f"{r.rows}, {n_obj} object(s), n_large "
+            f"{int(launch.qbins.n_large)}): bit-equal")
+        return int(launch.qbins.n_large)
 
-    # 4. The main path.
+    def check_k1(label, obj, cfg, tr, li, h, w):
+        fn, plain, _ = k1_call(obj, cfg, tr, li, h, w)
+        max_err["K1 setup"] = max(max_err["K1 setup"], assert_equal(
+            f"K1 on {label}", fn(), plain()))
+
+    grid = prim.construct_sphere_grid(160, 160)
+    teapot = {k: v for k, v in scenes.baseline_scene(2, 512, 512)[0][0][
+        0].items() if k != "p"}
+    for label, mesh, kname, want, hw, quad in (
+            ("51,200-tri sphere", grid, "K2 raster+shade", (8, 2), 512,
+             None),
+            ("sphere + large quad", grid, "K2 raster+shade", (8, 2), 512,
+             1.2),
+            ("config 2 teapot", teapot, "K3 raster+shade rows 1", (8, 1),
+             512, None),
+            ("teapot + large quad", teapot, "K3 raster+shade rows 1",
+             (8, 1), 512, 2.2)):
+        if quad is not None:
+            mesh = prim.merge_meshes(mesh, prim.construct_quad(quad))
+        cfg_d = {"phong": True} if kname.startswith("K2") else {}
+        sg = [(dict(p=(0.0, 0.0, 0.0), **mesh), cfg_d)]
+        scene, tr, li = torch_scene(sg, hw, hw, dev)
+        check_k1(label, *scene[0], tr, li, hw, hw)
+        n_large = check_launch(kname, f"{label} at {hw}x{hw}",
+                               prepare_scene(scene, tr, li, hw, hw), want, 1)
+        if (quad is not None) != (n_large > 0):
+            raise AssertionError(f"{label}: n_large {n_large}")
+
     H, W = 1080, 1920
-    mesh = construct_sphere_grid(708, 707)
-    obj, cfg, tr, li = make_scene(mesh, H, W, dev)
+    sg4 = scenes.baseline_scene(4, H, W)[0]
+    scene4, tr4, li4 = torch_scene(sg4, H, W, dev)
+    table4 = setup_records(scene4[0][0], tr4, li4, scene4[0][1])
+    max_err["K7 record transpose"] = assert_equal(
+        "K7 on config 4's table", (raster.finish_records(table4),),
+        (raster.finish_records_plain(table4),))
+    log(f"# K7 == plain on config 4's {tuple(table4.shape)} table: "
+        "bit-equal")
+    check_launch("K4 raster+shade 16-row", "config 4 at 1920x1080",
+                 prepare_scene(scene4, tr4, li4, H, W), (16, 1), 1)
+    sg5 = scenes.baseline_scene(5, H, W)[0][:3]
+    scene5, tr5, li5 = torch_scene(sg5, H, W, dev)
+    check_launch("K4 raster+shade 16-row",
+                 "config 5 untextured at 1920x1080",
+                 prepare_scene(scene5, tr5, li5, H, W), (16, 1), 3)
+    sg, (h, w) = route_scene("k2multi")
+    scene, tr, li = torch_scene(sg, h, w, dev)
+    check_launch("K2 raster+shade", f"config 5 untextured at {w}x{h}",
+                 prepare_scene(scene, tr, li, h, w), (8, 2), 3)
+
+    # 4. Small scenes on the card against the plain versions on the CPU
+    # (the CPU runs are what the tests hold to the JAX package and golden).
+    def card_vs_cpu(label, sg, h, w, min_cov=1):
+        fbs = []
+        for d in ("cpu", dev):
+            sc, tr_, li_ = torch_scene(sg, h, w, d)
+            fbs.append(trt.Renderer(h, w, device=d).render(sc, tr_, li_))
+        torch.cuda.synchronize()
+        cpu_fb, gpu_fb = fbs
+        same_z, err_z = bit_diff(gpu_fb.depth.cpu(), cpu_fb.depth)
+        same_c, _ = bit_diff(gpu_fb.color.cpu(), cpu_fb.color)
+        cov = int((cpu_fb.depth > -3.0e38).sum())
+        if not (same_z and same_c) or cov < min_cov:
+            raise AssertionError(
+                f"{label} on the card differs from the CPU run (depth "
+                f"equal {same_z}, max err {err_z}; color equal {same_c}; "
+                f"covered {cov})")
+        log(f"# {label} {w}x{h}: card == CPU plain, bit-equal, {cov} px "
+            "covered")
+        return cov
+
+    cov = card_vs_cpu("4,140-tri sphere grid",
+                      phong_mesh_scene(prim.construct_sphere_grid(46, 45)),
+                      128, 128)
+    if cov != 2174:
+        raise AssertionError(f"4,140-tri frame covers {cov} px, not 2174")
+    for name in ROUTE_NAMES:
+        for variant in ("base", "sidelist"):
+            sg, (h, w) = route_scene(name, variant)
+            card_vs_cpu(f"route {name} ({variant})", sg, h, w, 100)
+
+    # 5. Paths.
+    def drive(path, scene, tr, li, h, w, n_frames, kernels):
+        """Render n_frames of the scene, rotated a little each frame,
+        through Renderer on the card, the launch counts set to 0 just
+        before and read just after. Returns (ms per frame, stats and
+        covered px of the last frame, the last framebuffer, launches)."""
+        renderer = trt.Renderer(h, w, device=dev)
+        angles = [0.6 * i / max(n_frames - 1, 1) for i in range(n_frames)]
+        events, frame_stats = [], []
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+        for a in angles:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fb, st = renderer.render(rotated(scene, a, dev), tr, li,
+                                     with_stats=True)
+            e1.record()
+            events.append((e0, e1))
+            frame_stats.append((st["bins_dropped"],
+                                (fb.depth > -3.0e38).sum(),
+                                st["bins_real_entries"]))
+        torch.cuda.synchronize()
+        launches = {n: wr.launches for n, wr in wrappers.items()}
+        want = {n: (n_frames if n in kernels else 0) for n in wrappers}
+        if launches != want:
+            raise AssertionError(f"{path}: launches {launches} in "
+                                 f"{n_frames} frames, want {want}")
+        drops = [int(d) for d, _, _ in frame_stats]
+        covered = [int(c) for _, c, _ in frame_stats]
+        if any(drops) or min(covered) <= 0:
+            raise AssertionError(f"{path}: drops {drops}, covered {covered}")
+        ms = [e0.elapsed_time(e1) for e0, e1 in events[WARMUP:]]
+        log(f"# path {path}: {sum(o.num_triangles for o, _ in scene)} "
+            f"tris in {len(scene)} object(s), {w}x{h}, {n_frames} frames "
+            f"({WARMUP} warm-up), drops 0, covered {covered[-1]} px, real "
+            f"entries {int(frame_stats[-1][2])}, launches {launches}")
+        log(f"# path {path} ms/frame (CUDA events, median of "
+            f"{len(ms)}): {statistics.median(ms):.4f} (min {min(ms):.4f}, "
+            f"max {max(ms):.4f})")
+        return statistics.median(ms), fb, launches
+
+    def first_frame_vs_cpu(path, sg, h, w):
+        """Frame 0 of a path (no rotation) on the card against the CPU
+        plain run at full size."""
+        card_vs_cpu(f"path {path} frame 0", sg, h, w, 1000)
+
+    n_frames = WARMUP + FRAMES
+    path_ms, path_launches = {}, {}
+    mesh = prim.construct_sphere_grid(708, 707)
+    head_scene, head_tr, head_li = torch_scene(phong_mesh_scene(mesh), H, W,
+                                               dev)
+    obj, cfg = head_scene[0]
     T = obj.num_triangles
     assert T == 1_001_112, T
-    renderer = trt.Renderer(H, W, device=dev)
-    angles = [0.6 * i / (WARMUP + FRAMES - 1) for i in range(WARMUP + FRAMES)]
-    events, frame_stats = [], []
-    setup.setup_kernel.launches = 0
-    raster.raster_kernel.launches = 0
-    for a in angles:
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        spun = rotate_object(obj, rotation_y(a, device=dev))
-        fb, st = renderer.render([(spun, cfg)], tr, li, with_stats=True)
-        e1.record()
-        events.append((e0, e1))
-        frame_stats.append((st["bins_dropped"], (fb.depth > -3.0e38).sum(),
-                            st["bins_real_entries"]))
-    torch.cuda.synchronize()
-    launches = {"K1 setup": setup.setup_kernel.launches,
-                "K2 raster+shade": raster.raster_kernel.launches}
-    n_frames = len(angles)
-    for name, n in launches.items():
-        if n != n_frames:
-            raise AssertionError(f"{name} launched {n} times in {n_frames} "
-                                 "main-path frames")
-    drops = [int(d) for d, _, _ in frame_stats]
-    covered = [int(c) for _, c, _ in frame_stats]
-    if any(drops) or min(covered) <= 0:
-        raise AssertionError(f"drops {drops}, covered {covered}")
-    ms = [e0.elapsed_time(e1) for e0, e1 in events[WARMUP:]]
-    ms_med = statistics.median(ms)
-
+    path_ms["headline"], fb, path_launches["headline"] = drive(
+        "headline", head_scene, head_tr, head_li, H, W, n_frames,
+        ("K1 setup", "K2 raster+shade"))
     # The last frame, held to the sphere: its silhouette (radius
     # m2p * R / sqrt(d^2 - R^2) px), camera-space z within [-R, R], opaque
     # alpha on every covered pixel.
     z = fb.depth
     cov_mask = z > -3.0e38
     r_px = 1.2 * H * 0.5 / math.sqrt(3.0 ** 2 - 0.5 ** 2)
-    disc = math.pi * r_px ** 2
     zc = z[cov_mask]
     alpha = (fb.color.view(torch.int32)[cov_mask] >> 24) & 0xFF
     checks = {
-        "coverage/disc": covered[-1] / disc,
+        "coverage/disc": int(cov_mask.sum()) / (math.pi * r_px ** 2),
         "z_min": float(zc.min()), "z_max": float(zc.max()),
         "alpha_255_frac": float((alpha == 255).double().mean()),
     }
@@ -351,18 +524,29 @@ def main():
             and -0.5 - 1e-3 <= checks["z_min"] <= checks["z_max"]
             <= 0.5 + 1e-3 and checks["alpha_255_frac"] == 1.0
             and bool(torch.isfinite(zc).all())):
-        raise AssertionError(f"main-path frame fails its checks: {checks}")
-    log(f"# main path: {T} tris, {W}x{H} Phong, {n_frames} frames "
-        f"({WARMUP} warm-up), drops 0, covered {covered[-1]} px, "
-        f"real entries {int(frame_stats[-1][2])}, launches {launches}")
-    log(f"# frame checks: {json.dumps(checks)}")
-    log(f"# ms/frame (CUDA events, median of {FRAMES}): {ms_med:.4f} "
-        f"(min {min(ms):.4f}, max {max(ms):.4f})")
+        raise AssertionError(f"headline frame fails its checks: {checks}")
+    log(f"# headline frame checks: {json.dumps(checks)}")
 
-    # 5a. Split of the frame: rotate / setup / binning / raster. Each stage
-    # runs alone between two syncs, so its CUDA-event time is its host
-    # enqueue plus its device time; the stages sum to more than a frame,
-    # where the device overlaps one stage with the host's next.
+    sg2 = scenes.baseline_scene(2, 512, 512)[0]
+    scene2, tr2, li2 = torch_scene(sg2, 512, 512, dev)
+    first_frame_vs_cpu("config 2", sg2, 512, 512)
+    path_ms["config 2"], _, path_launches["config 2"] = drive(
+        "config 2", scene2, tr2, li2, 512, 512, n_frames,
+        ("K1 setup", "K3 raster+shade rows 1"))
+    first_frame_vs_cpu("config 4", sg4, H, W)
+    path_ms["config 4"], _, path_launches["config 4"] = drive(
+        "config 4", scene4, tr4, li4, H, W, n_frames,
+        ("K7 record transpose", "K4 raster+shade 16-row"))
+    first_frame_vs_cpu("config 5 untextured", sg5, H, W)
+    path_ms["config 5 untextured"], _, path_launches[
+        "config 5 untextured"] = drive(
+        "config 5 untextured", scene5, tr5, li5, H, W, n_frames,
+        ("K7 record transpose", "K4 raster+shade 16-row"))
+
+    # 6a. Split of the headline frame: rotate / setup / binning / raster.
+    # Each stage runs alone between two syncs, so its CUDA-event time is
+    # its host enqueue plus its device time; the stages sum to more than a
+    # frame, where the device overlaps one stage with the host's next.
     split = {"rotate": [], "setup": [], "binning": [], "raster": []}
 
     def timed(name, fn):
@@ -376,61 +560,99 @@ def main():
         split[name].append(e0.elapsed_time(e1))
         return out
 
-    for a in angles[:10]:
-        spun = timed("rotate", lambda: rotate_object(
-            obj, rotation_y(a, device=dev)))
+    route = raster.raster_route(T, H, W)
+    for a in [0.06 * i for i in range(10)]:
+        spun = timed("rotate", lambda: rotated(head_scene, a, dev)[0][0])
         pre = timed("setup", lambda: setup.setup_for_raster(
-            spun, tr, li, cfg, frame_height=H, frame_width=W))
+            spun, head_tr, head_li, cfg, frame_height=H, frame_width=W))
         qbins, lcounts = timed("binning", lambda: raster.bin_for_raster(
-            pre, raster.raster_route(T, H, W), H, W))
+            pre.bbox, route, H, W))
         timed("raster", lambda: raster.raster_kernel(
-            pre.recs, qbins, lcounts, raster.shade_params(tr, li),
+            pre.recs, qbins, lcounts, raster.shade_params(head_tr, head_li),
+            raster.obj_table((raster.ObjSpec(0, T, True),), dev),
             tiles_y=H // 8, tiles_x=W // 128, row0=0, col0=0,
-            frame_width=W, phong=True, n_lights=li.count))
+            frame_width=W, any_phong=True, n_lights=head_li.count))
     split_med = {k: round(statistics.median(v), 4) for k, v in split.items()}
-    log("# split (ms, each stage alone between syncs, host enqueue "
-        f"included, median of 10): {json.dumps(split_med)}")
+    log("# headline split (ms, each stage alone between syncs, host "
+        f"enqueue included, median of 10): {json.dumps(split_med)}")
 
-    # 5b. Each kernel beside its plain version at the main path's shapes,
-    # in turns: plain, kernel, kernel, plain.
-    case = KernelCase(rotate_object(obj, rotation_y(0.6, device=dev)), cfg,
-                      tr, li, H, W)
-    errs = case.compare()
-    for name, e in errs.items():
-        max_err[name] = max(max_err[name], e)
-    per_tile = case.qbins.counts[:-2].reshape(-1, 2).sum(dim=1)
-    busy = int((per_tile > 0).sum())
-    log(f"# K2 load: {busy} of {per_tile.numel()} tiles hold entries, "
-        f"{int(per_tile.sum())} entries, max {int(per_tile.max())} in one "
-        "tile")
+    # 6b. Each kernel at its path's shapes: held bit-equal to its plain
+    # version on the same inputs, then timed beside it in turns (plain,
+    # kernel, kernel, plain), with its bound.
     timing = {}
-    for name, fn in (("K1 setup", case.k1), ("K2 raster+shade", case.k2)):
-        p1 = event_ms(lambda: fn(plain=True), 3)
-        k1_ = event_ms(fn, 20)
-        k2_ = event_ms(fn, 20)
-        p2 = event_ms(lambda: fn(plain=True), 3)
-        timing[name] = (statistics.median([k1_, k2_]),
-                        statistics.median([p1, p2]))
-        log(f"# {name} at {T} tris {W}x{H}: kernel {k1_:.4f} / {k2_:.4f} "
-            f"ms, plain {p1:.4f} / {p2:.4f} ms")
+
+    def time_launch(name, label, launch):
+        key = name.split(" (")[0]
+        max_err[key] = max(max_err[key], assert_equal(
+            f"{key} at {label}", launch.run(), launch.run_plain()))
+        log(f"# {key} == plain at {label}: bit-equal")
+        kms, pms = in_turns(launch.run, launch.run_plain)
+        _, gid, _ = launch.run()
+        bms, by = bound(*raster_work(launch, gid))
+        timing.setdefault(name, (kms, pms, bms, by, None))
+        log(f"# {name} at {label}: kernel {kms:.4f} ms, plain {pms:.4f} "
+            f"ms, bound {bms:.4f} ms ({by})")
+
+    fn, plain, work = k1_call(obj, cfg, head_tr, head_li, H, W)
+    max_err["K1 setup"] = max(max_err["K1 setup"], assert_equal(
+        f"K1 at headline {T} tris", fn(), plain()))
+    log(f"# K1 setup == plain at headline {T} tris {W}x{H}: bit-equal")
+    kms, pms = in_turns(fn, plain)
+    bms, by = bound(*work)
+    timing["K1 setup"] = (kms, pms, bms, by, None)
+    log(f"# K1 setup at {T} tris {W}x{H}: kernel {kms:.4f} ms, plain "
+        f"{pms:.4f} ms, bound {bms:.4f} ms ({by})")
+    head_launch = prepare_scene(head_scene, head_tr, head_li, H, W)
+    per_tile = head_launch.qbins.counts[:-2].reshape(-1, 2).sum(dim=1)
+    log(f"# K2 load: {int((per_tile > 0).sum())} of {per_tile.numel()} "
+        f"tiles hold entries, {int(per_tile.sum())} entries, max "
+        f"{int(per_tile.max())} in one tile")
+    time_launch("K2 raster+shade", f"headline {T} tris {W}x{H}", head_launch)
+    time_launch("K3 raster+shade rows 1", "config 2 5,428 tris 512x512",
+                prepare_scene(scene2, tr2, li2, 512, 512))
+    time_launch("K4 raster+shade 16-row", "config 4 2,208 tris 1920x1080",
+                prepare_scene(scene4, tr4, li4, H, W))
+    time_launch("K4 raster+shade 16-row (config 5)",
+                "config 5 untextured 3,244 tris 1920x1080",
+                prepare_scene(scene5, tr5, li5, H, W))
+    R, T4 = table4.shape
+    tp4 = T4 + (-T4 % raster.REC_T_BLK)
+    padded = torch.nn.functional.pad(table4, (0, tp4 - T4, 0, 128 - R))
+    kms, pms = in_turns(lambda: raster.finish_records(table4),
+                        lambda: raster.finish_records_plain(table4), 50, 20)
+    lms = statistics.median([event_ms(lambda: padded.t().contiguous(), 50)
+                             for _ in range(2)])
+    bms, by = bound(R * T4 * 4 + tp4 * 128 * 4, 0)
+    timing["K7 record transpose"] = (kms, pms, bms, by, lms)
+    log(f"# K7 record transpose at config 4 ({R}, {T4}) -> ({tp4}, 128): "
+        f"kernel {kms:.4f} ms, plain {pms:.4f} ms, t().contiguous() "
+        f"{lms:.4f} ms, bound {bms:.6f} ms ({by})")
 
     if args.profile:
-        profile_frames(
-            lambda a: renderer.render(
-                [(rotate_object(obj, rotation_y(a, device=dev)), cfg)], tr,
-                li),
-            angles[:10], ms_med)
+        for path, (sc, tr_, li_, h, w) in (
+                ("headline", (head_scene, head_tr, head_li, H, W)),
+                ("config 2", (scene2, tr2, li2, 512, 512)),
+                ("config 4", (scene4, tr4, li4, H, W)),
+                ("config 5 untextured", (scene5, tr5, li5, H, W))):
+            renderer = trt.Renderer(h, w, device=dev)
+            profile_frames(
+                path, lambda a: renderer.render(rotated(sc, a, dev), tr_,
+                                                li_),
+                [0.06 * i for i in range(10)], path_ms[path])
 
     kernels = []
     for name, meta in KERNELS.items():
+        kms, pms, bms, by, lms = timing[name]
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
-            replaces=meta["replaces"], launches=launches[name],
-            max_abs_err=max_err[name], ms=round(timing[name][0], 4),
-            plain_ms=round(timing[name][1], 4)))
-    log("# frame: " + json.dumps({"ms_per_frame": round(ms_med, 4),
-                                  "split_ms": split_med,
-                                  "card": smi_line}))
+            replaces=meta["replaces"], path=meta["path"],
+            launches=path_launches[meta["path"]][name],
+            max_abs_err=max_err[name], ms=round(kms, 4),
+            plain_ms=round(pms, 4), bound_ms=round(bms, 6), bound_by=by,
+            library_ms=None if lms is None else round(lms, 4)))
+    log("# frames: " + json.dumps({
+        "ms_per_frame": {k: round(v, 4) for k, v in path_ms.items()},
+        "headline_split_ms": split_med, "card": smi_line}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

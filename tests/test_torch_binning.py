@@ -1,23 +1,29 @@
 """Port binning (tpu_renderer_torch.ops.binning) vs the JAX package's.
 
-Both packages get the SAME bbox rows (from the JAX package's fused setup)
-so binning is compared on its own; every output must be integer-exact:
+Both packages get the SAME bbox rows (from the JAX package's setup) so
+binning is compared on its own; every output must be integer-exact:
 sorted_tri (dead tail included), starts, counts, large_ids, n_large,
-n_dropped and n_real. The policy helpers that pick the route and the
-budget must agree as well.
+n_dropped and n_real. Both the row-packed strip streams (8-row tiles,
+WIDE_BLK) and the single stream (8-row tiles at WIDE_BLK with expansion 8,
+16-row tiles at QUEUE_BLK with expansion 32) are held to it. The policy
+helpers that pick the route and the budget must agree as well, and so must
+the K7 record transpose's plain version.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from tpu_renderer.geometry import vertex as jvx
 from tpu_renderer.models import scenes as js
 from tpu_renderer.ops import binning as jb
 from tpu_renderer.ops import raster_pallas as jrp
 from tpu_renderer.ops import setup_pallas as jsp
 from tpu_renderer_torch.models import primitives as tp
 from tpu_renderer_torch.models import scenes as ts
+from tpu_renderer_torch.models.sphere import construct_sphere
 from tpu_renderer_torch.ops import binning as tb
 from tpu_renderer_torch.ops import raster as trp
 
@@ -44,8 +50,8 @@ def bboxes():
 
 def both_bins(bbox, budget_factor, large_capacity=2048):
     args = (H, W, 8, 128, 256, budget_factor, large_capacity, 0, 0, 2)
-    jq = jb._bin_queue_rows(tuple(jnp.asarray(a) for a in bbox), *args,
-                            False)
+    jq = jax.jit(lambda b: jb._bin_queue_rows(b, *args, False))(
+        tuple(jnp.asarray(a) for a in bbox))
     tq = tb._bin_queue_rows(tuple(torch.tensor(a) for a in bbox), *args)
     return jq, tq
 
@@ -145,21 +151,37 @@ def test_bbox_core_special_values(seed):
 @pytest.mark.parametrize("T", [300, 600, 4140, 51200, 200000, 1001112])
 @pytest.mark.parametrize("hw", [(128, 128), (512, 512), (1080, 1920)])
 def test_route_policy_helpers(T, hw):
+    """The route follows the JAX package's gates (raster_pallas.py:2529-
+    2690): sorted above 512 triangles, 8- or 16-row tiles, row packing 2
+    on 8-row tiles at or below 12 px/triangle, the expansion and budget
+    block of the route, and the flat per-stream budget for several
+    objects under row packing. Only the mask strategy still raises."""
     h, w = hw
     assert trp._pick_tile_h(T, h, w) == jrp._pick_tile_h(T, h, w)
     for th in (8, 16):
         assert trp._queue_expansion(th, T) == jrp._queue_expansion(th, T)
     assert (trp._rows_stream_budget_factor(T, h, w)
             == jrp._rows_stream_budget_factor(T, h, w))
-    sorted_ = T > jrp.AUTO_SORTED_THRESHOLD
-    tile8 = jrp._pick_tile_h(T, h, w) == 8
-    rows2 = T * jrp.PACK_ROWS_MAX_PX_PER_TRI >= h * w
-    if sorted_ and tile8 and rows2:
-        r = trp.raster_route(T, h, w)
-        assert (r.strategy, r.tile_h, r.rows) == ("sorted", 8, 2)
-    else:
+    if T <= jrp.AUTO_SORTED_THRESHOLD:
         with pytest.raises(NotImplementedError):
             trp.raster_route(T, h, w)
+        return
+    tile_h = jrp._pick_tile_h(T, h, w)
+    exp, bf = jrp._queue_expansion(tile_h, T)
+    rows2 = tile_h == 8 and T * jrp.PACK_ROWS_MAX_PX_PER_TRI >= h * w
+    for n_obj in (1, 3):
+        r = trp.raster_route(T, h, w, n_obj)
+        assert (r.strategy, r.tile_h, r.rows) == (
+            "sorted", tile_h, 2 if rows2 else 1)
+        assert (r.expansion, r.policy_factor) == (exp, bf)
+        assert r.blk == (jrp.WIDE_BLK if tile_h == 8 else jrp.QUEUE_BLK)
+        if not rows2:
+            want = bf
+        elif n_obj > 1:
+            want = (1.2 * jrp.PACK_ROWS_STREAM_FRAC) * (2.0 / 2)
+        else:
+            want = jrp._rows_stream_budget_factor(T, h, w) * (2.0 / 2)
+        assert r.budget_factor == want
 
 
 def test_test_scene_takes_the_main_route():
@@ -169,3 +191,117 @@ def test_test_scene_takes_the_main_route():
     assert (r.strategy, r.tile_h, r.rows) == ("sorted", 8, 2)
     assert r.policy_factor == 2
     assert r.budget_factor == jrp._rows_stream_budget_factor(4140, H, W)
+
+
+# ---------------------------------------------------------------------------
+# The single stream (K3: 8-row tiles; K4: 16-row tiles) and its inputs
+# ---------------------------------------------------------------------------
+
+
+def jax_table(mesh, h, w, phong=True, p=(0.0, 0.0, 0.0)):
+    """The JAX package's channel-major setup_records table (85, T)."""
+    tr_d, li_d = ts.baseline_camera_lights(h, w)
+    sg = [(dict(p=p, **mesh), {"phong": phong})]
+    (o, c), tr, li = (lambda s_: (s_[0][0], s_[1], s_[2]))(
+        js.to_jax_scene(sg, tr_d, li_d))
+    return np.array(jax.jit(jvx.setup_records, static_argnums=3)(
+        o, tr, li, c))
+
+
+def test_triangle_bbox_rows_vs_jax():
+    """From the same channel-major table: tri_valid / ylo / yhi exact,
+    xlo / xhi to rtol 1e-6 (XLA contracts x0 + (ymax - 1 - ymin) * xg)."""
+    rec = jax_table(tp.merge_meshes(construct_sphere(12),
+                                    tp.construct_quad(2.2)), 384, 384)
+    want = jb.triangle_bbox_rows(jnp.asarray(rec), 384, 384)
+    got = tb.triangle_bbox_rows(torch.from_numpy(rec), 384, 384)
+    for i in range(3):
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(want[i]))
+    for i in (3, 4):
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(want[i]),
+                                   rtol=1e-6)
+    assert got[0].dtype == torch.bool and int(got[0].sum()) > 0
+
+
+SINGLE_ROUTES = {  # route -> (mesh, frame, tile_h)
+    "k3": (lambda: js.baseline_scene(2, 256, 256)[0][0][0], 256, 8),
+    "k4": (lambda: construct_sphere(12), 384, 16),
+}
+
+
+@pytest.fixture(scope="module")
+def single_bboxes():
+    """The JAX package's bbox rows of each route's scene and of its
+    side-list variant (a 2.2-unit quad merged in)."""
+    out = {}
+    for name, (mesh_fn, hw, tile_h) in SINGLE_ROUTES.items():
+        mesh = {k: v for k, v in mesh_fn().items()
+                if k in ("vertices", "colors", "normals", "uvs")}
+        for variant, m in (("base", mesh), ("sidelist", tp.merge_meshes(
+                mesh, tp.construct_quad(2.2)))):
+            bbox = jb.triangle_bbox_rows(jnp.asarray(jax_table(m, hw, hw)),
+                                         hw, hw)
+            out[name, variant] = (hw, tile_h, [np.asarray(a) for a in bbox])
+    return out
+
+
+def single_bins(hw, tile_h, bbox, budget_factor=None, large_capacity=2048):
+    T = bbox[0].shape[0]
+    route = trp.raster_route(T, hw, hw)
+    assert (route.tile_h, route.rows) == (tile_h, 1)
+    args = (hw, hw, tile_h, 128, route.blk)
+    kw = dict(expansion=route.expansion,
+              budget_factor=(route.budget_factor if budget_factor is None
+                             else budget_factor),
+              large_capacity=large_capacity)
+    jq = jax.jit(lambda b: jb.bin_triangles_queue(None, *args, bbox=b,
+                                                  **kw))(
+        tuple(jnp.asarray(a) for a in bbox))
+    tq = tb.bin_triangles_queue(*args, bbox=tuple(
+        torch.tensor(a) for a in bbox), **kw)
+    return jq, tq
+
+
+@pytest.mark.parametrize("variant", ["base", "sidelist"])
+@pytest.mark.parametrize("route", ["k3", "k4"])
+def test_bin_queue_single_integer_exact(single_bboxes, route, variant):
+    hw, tile_h, bbox = single_bboxes[route, variant]
+    jq, tq = single_bins(hw, tile_h, bbox)
+    assert_bins_equal(jq, tq)
+    assert tq.starts.shape[0] == (-(-hw // tile_h)) * (-(-hw // 128)) + 1
+    assert int(tq.n_dropped) == 0
+    assert (int(tq.n_large) > 0) == (variant == "sidelist")
+    lc_j = jb.count_subset_per_tile(
+        jq.large_ids, None, hw, hw, tile_h, 128,
+        bbox=tuple(jnp.asarray(a) for a in bbox))
+    lc_t = tb.count_subset_per_tile(
+        tq.large_ids, hw, hw, tile_h, 128,
+        bbox=tuple(torch.tensor(a) for a in bbox))
+    np.testing.assert_array_equal(lc_t.numpy(), np.asarray(lc_j))
+
+
+@pytest.mark.parametrize("route", ["k3", "k4"])
+@pytest.mark.parametrize("bf,cap", [(0.05, 2048), (2, 1)])
+def test_single_stream_drops_counted_identically(single_bboxes, route, bf,
+                                                 cap):
+    """A budget far below demand, or a one-slot side list: both packages
+    drop and count the same entries and keep the same prefix."""
+    hw, tile_h, bbox = single_bboxes[route, "sidelist"]
+    jq, tq = single_bins(hw, tile_h, bbox, bf, cap)
+    assert_bins_equal(jq, tq)
+    assert int(tq.n_dropped) > 0
+
+
+@pytest.mark.parametrize("T", [1, 300, 511, 512, 700])
+def test_finish_records_plain_vs_jax(T):
+    """K7's plain version (pad + t().contiguous()) against the JAX
+    package's Pallas transpose in interpret mode: bit-exact, NaN and -0
+    lanes included."""
+    rng = np.random.default_rng(T)
+    rec = rng.normal(size=(85, T)).astype(F)
+    rec[rng.integers(0, 85, 20), rng.integers(0, T, 20)] = np.nan
+    rec[0, 0] = -0.0
+    want = np.asarray(jrp.finish_records(jnp.asarray(rec)))
+    got = trp.finish_records(torch.from_numpy(rec)).numpy()
+    assert got.shape == want.shape == (T + (-T % 512), 128)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))

@@ -169,3 +169,23 @@ def test_port_imports_no_jax():
                          text=True, timeout=120, cwd=root)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize(
+    "path", ["chip_smoke.py", "tpu_renderer_torch/models/route_scenes.py"])
+def test_card_side_scripts_import_no_jax(path):
+    """chip_smoke.py and the route scenes it shares with the tests run
+    where JAX is absent: they import neither jax nor the JAX package."""
+    import ast
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, path)) as f:
+        tree = ast.parse(f.read())
+    mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+            for a in n.names]
+    mods += [n.module if n.level == 0 else "tpu_renderer_torch"
+             for n in ast.walk(tree)
+             if isinstance(n, ast.ImportFrom) and (n.module or n.level)]
+    tops = {m.split(".")[0] for m in mods}
+    assert "tpu_renderer_torch" in tops or "torch" in tops
+    assert not tops & {"jax", "jaxlib", "tpu_renderer"}, tops

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain-PyTorch versions on the card.
+"""The port's CUDA kernels against their plain-PyTorch versions on the card:
+K1 (setup), K2 / K3 / K4 (raster + shade, single and multi-object) and K7
+(record transpose), and whole frames on the card against the CPU run.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports no JAX, so it also runs on a machine that has only torch; there,
@@ -19,6 +21,7 @@ from tpu_renderer_torch.models import primitives as tp
 from tpu_renderer_torch.models import scenes as ts
 from tpu_renderer_torch.ops import raster as trp
 from tpu_renderer_torch.ops import setup as tsp
+from tpu_renderer_torch.models.route_scenes import ROUTE_NAMES, torch_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -64,17 +67,15 @@ def test_kernels_equal_plain(cuda, variant, phong):
 
     T = obj.num_triangles
     pre = tsp.SetupOut(recs_k, (bbox_k[0] > 0.5,) + tuple(bbox_k[1:5]), T)
-    route = trp.raster_route(T, h, w)
-    qbins, lcounts = trp.bin_for_raster(pre, route, h, w)
+    launch = trp.prepare_raster(pre, (trp.ObjSpec(0, T, phong),), tr, li,
+                                h, w)
+    assert launch.kernel is trp.raster_kernel
     if variant == "sidelist":
-        assert int(qbins.n_large) == 2
-    sp = trp.shade_params(tr, li)
-    kw2 = dict(tiles_y=h // 8, tiles_x=1, row0=0, col0=0, frame_width=w,
-               phong=phong, n_lights=li.count)
+        assert int(launch.qbins.n_large) == 2
     n0 = trp.raster_kernel.launches
-    out_k = trp.raster_kernel(recs_k, qbins, lcounts, sp, **kw2)
+    out_k = launch.run()
     assert trp.raster_kernel.launches == n0 + 1
-    out_p = trp.raster_plain(recs_k, qbins, lcounts, sp, **kw2)
+    out_p = launch.run_plain()
     torch.cuda.synchronize()
     for a, b in zip(out_k, out_p):
         assert torch.equal(bits(a), bits(b))
@@ -111,13 +112,10 @@ def test_subrect_origin_on_card(cuda):
     torch.cuda.synchronize()
     assert torch.equal(bits(zs), bits(z[r0:r0 + h, c0:c0 + w]))
     assert torch.equal(bits(cs), bits(color[r0:r0 + h, c0:c0 + w]))
-    route = trp.raster_route(obj.num_triangles, 128, 128)
-    qbins, lcounts = trp.bin_for_raster(pre, route, h, w, r0, c0)
-    kw = dict(tiles_y=-(-h // 8), tiles_x=1, row0=r0, col0=c0,
-              frame_width=128, phong=True, n_lights=li.count)
-    args = (pre.recs, qbins, lcounts, trp.shade_params(tr, li))
-    for a, b in zip(trp.raster_kernel(*args, **kw),
-                    trp.raster_plain(*args, **kw)):
+    launch = trp.prepare_raster(
+        pre, (trp.ObjSpec(0, obj.num_triangles, True),), tr, li, h, w, 128,
+        128, r0, c0)
+    for a, b in zip(launch.run(), launch.run_plain()):
         assert torch.equal(bits(a), bits(b))
 
 
@@ -136,3 +134,91 @@ def test_wrappers_check_their_inputs(cuda):
     with pytest.raises(ValueError):
         tsp.setup_kernel(params.cpu(), obj.vertices, obj.colors,
                          obj.normals, **kw)
+
+
+def route_launch(name, variant, device):
+    """The raster launch of a route's scene (models/route_scenes.py), as the
+    engine prepares it, with K1 / K7 run on ``device``."""
+    from tpu_renderer_torch.engine.renderer import prepare_scene
+
+    scene, tr, li, (h, w) = torch_scene(name, variant, device)
+    return prepare_scene(scene, tr, li, h, w)
+
+
+ROUTE_KERNEL = {"k3": "raster_rows1_kernel", "k4": "raster_narrow_kernel",
+                "mixed": "raster_kernel", "k4multi": "raster_narrow_kernel",
+                "k2multi": "raster_kernel"}
+
+
+@pytest.mark.parametrize("variant", ["base", "sidelist"])
+@pytest.mark.parametrize("name", ROUTE_NAMES)
+def test_route_kernel_equals_plain(cuda, name, variant):
+    """K2 / K3 / K4 on each route's launch, single and multi-object, with
+    and without side-list triangles: bit-equal to raster_plain on the same
+    card tensors, one launch counted on the route's own wrapper."""
+    launch = route_launch(name, variant, cuda)
+    wrapper = getattr(trp, ROUTE_KERNEL[name])
+    assert launch.kernel is wrapper
+    n0 = wrapper.launches
+    out_k = launch.run()
+    assert wrapper.launches == n0 + 1
+    out_p = launch.run_plain()
+    torch.cuda.synchronize()
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(bits(a), bits(b))
+    assert int((out_k[1] >= 0).sum()) > 1000
+    if variant == "sidelist":
+        assert int(launch.qbins.n_large) > 0
+
+
+@pytest.mark.parametrize("shape", [(85, 1), (85, 528), (85, 3456),
+                                   (128, 700), (3, 2000)])
+def test_finish_records_kernel_equals_plain(cuda, shape):
+    """K7: bit-equal to pad + t().contiguous(), NaN and -0 included."""
+    rng = np.random.default_rng(shape[1])
+    rec = rng.normal(size=shape).astype(np.float32)
+    rec[rng.integers(0, shape[0], 9), rng.integers(0, shape[1], 9)] = np.nan
+    rec[0, 0] = -0.0
+    rec = torch.from_numpy(rec).to(cuda)
+    n0 = trp.finish_records.launches
+    got = trp.finish_records(rec)
+    assert trp.finish_records.launches == n0 + 1
+    want = trp.finish_records_plain(rec)
+    torch.cuda.synchronize()
+    assert got.shape == (shape[1] + (-shape[1] % 512), 128)
+    assert torch.equal(bits(got), bits(want))
+
+
+@pytest.mark.parametrize("name", ROUTE_NAMES)
+def test_route_frame_on_card_equals_cpu(cuda, name):
+    """Each route's whole frame through Renderer on the card (kernels)
+    equals the CPU run (plain versions), which the CPU tests hold to the
+    JAX package and the golden."""
+    fbs = []
+    for dev in ("cpu", cuda):
+        scene, tr, li, (h, w) = torch_scene(name, "sidelist", dev)
+        fbs.append(trt.Renderer(h, w, device=dev).render(scene, tr, li))
+    torch.cuda.synchronize()
+    cpu, gpu = fbs
+    np.testing.assert_array_equal(gpu.depth.cpu().numpy(), cpu.depth.numpy())
+    np.testing.assert_array_equal(gpu.color.view(torch.int32).cpu().numpy(),
+                                  cpu.color.view(torch.int32).numpy())
+
+
+@pytest.mark.parametrize("name", ["k3", "k4"])
+def test_route_subrect_origin_on_card(cuda, name):
+    """K3's and K4's row0 / col0 offsets: a sub-rectangle off the tile grid
+    equals the plain version on the same card tensors."""
+    scene, tr, li, (h, w) = torch_scene(name, "sidelist", cuda)
+    obj, cfg = scene[0]
+    table = tsp.setup_for_raster(obj, tr, li, cfg, frame_height=h,
+                                 frame_width=w)
+    launch = trp.prepare_raster(
+        table, (trp.ObjSpec(0, obj.num_triangles, cfg.phong),), tr, li,
+        *{"k3": (150, 200), "k4": (300, 300)}[name], h, w, 37, 21)
+    assert launch.kernel is getattr(trp, ROUTE_KERNEL[name])
+    assert int(launch.qbins.n_large) > 0
+    out_k, out_p = launch.run(), launch.run_plain()
+    torch.cuda.synchronize()
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(bits(a), bits(b))

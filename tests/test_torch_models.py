@@ -11,11 +11,19 @@ import pytest
 import torch
 
 from tpu_renderer.geometry import transform as jtf
+from tpu_renderer.models import obj as jobj
 from tpu_renderer.models import primitives as jp
 from tpu_renderer.models import scenes as js
+from tpu_renderer.models import sphere as jsph
+from tpu_renderer.models import teapot as jtea
+from tpu_renderer.models import textures as jtex
 from tpu_renderer_torch.geometry import transform as ttf
+from tpu_renderer_torch.models import obj as tobj
 from tpu_renderer_torch.models import primitives as tp
 from tpu_renderer_torch.models import scenes as ts
+from tpu_renderer_torch.models import sphere as tsph
+from tpu_renderer_torch.models import teapot as ttea
+from tpu_renderer_torch.models import textures as ttex
 
 F = np.float32
 
@@ -105,3 +113,88 @@ def test_rotation_and_rotate_object(angle):
     for name in ("colors", "uvs"):
         np.testing.assert_array_equal(getattr(ot, name).numpy(),
                                       np.asarray(getattr(oj, name)))
+
+
+@pytest.mark.parametrize("steps", [24, 12, 5])
+def test_sphere_copy_equal(steps):
+    assert_mesh_equal(tsph.construct_sphere(steps),
+                      jsph.construct_sphere(steps))
+
+
+@pytest.mark.parametrize("size", [1.0, 0.7])
+def test_cube_copy_equal(size):
+    assert_mesh_equal(tp.construct_cube(size), jp.construct_cube(size))
+
+
+@pytest.mark.parametrize("kw", [{}, dict(major_steps=16, minor_steps=8),
+                                dict(major=0.5, minor=0.1)])
+def test_torus_copy_equal(kw):
+    assert_mesh_equal(tp.construct_torus(**kw), jp.construct_torus(**kw))
+
+
+OBJ_TEXT = """# fans, negative indices, missing normals and uvs
+v 0 0 0
+v 1 0 0
+v 1 1 0
+v 0 1 0
+v 0.5 0.5 1
+vt 0 0
+vt 1 0
+vt 1 1
+vn 0 0 1
+f 1/1/1 2/2/1 3/3/1 4
+f -1 -2 -3
+f 1//1 5//1 2//1
+"""
+
+
+@pytest.mark.parametrize("ramp", [False, True])
+def test_load_obj_copy_equal(ramp):
+    assert_mesh_equal(tobj.load_obj(OBJ_TEXT, color_ramp=ramp),
+                      jobj.load_obj(OBJ_TEXT, color_ramp=ramp))
+
+
+def test_teapot_copy_equal_without_the_asset():
+    """The copy generates the OBJ in memory and equals the original, which
+    reads the committed tpu_renderer/models/assets/teapot.obj."""
+    import os
+
+    text = ttea.generate_teapot_obj()
+    with open(jtea._ASSET) as f:
+        assert text == f.read()
+    mesh = ttea.construct_teapot()
+    assert_mesh_equal(mesh, jtea.construct_teapot())
+    assert mesh["vertices"].shape[0] // 3 == 5428
+    assert not hasattr(ttea, "_ASSET") and "os" not in vars(ttea)
+    assert os.path.exists(jtea._ASSET)
+
+
+def test_checkerboard_copy_equal():
+    for args in ((), (32, 64, 4), (16, 16, 2)):
+        a, b = ttex.checkerboard(*args), jtex.checkerboard(*args)
+        assert a.dtype == b.dtype == np.uint32
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("angle", [0.3, -0.3, 1.1])
+def test_rotate_y_copy_equal(angle):
+    mesh = tp.construct_torus(major_steps=8, minor_steps=4)
+    assert_mesh_equal(ts.rotate_y(mesh, angle), js.rotate_y(mesh, angle))
+
+
+@pytest.mark.parametrize("config", [1, 2, 3, 4, 5])
+def test_baseline_scene_copy_equal(config):
+    """Every config's objects, switches and textures (carried as data),
+    camera and lights equal the JAX package's."""
+    sg_t, tr_t, li_t = ts.baseline_scene(config, 96, 128)
+    sg_j, tr_j, li_j = js.baseline_scene(config, 96, 128)
+    assert tr_t == tr_j and len(sg_t) == len(sg_j)
+    for k in li_j:
+        np.testing.assert_array_equal(li_t[k], li_j[k])
+    for (ot, ct), (oj, cj) in zip(sg_t, sg_j):
+        assert sorted(ot) == sorted(oj) and sorted(ct) == sorted(cj)
+        assert ot["p"] == oj["p"]
+        assert_mesh_equal({k: ot[k] for k in ot if k != "p"},
+                          {k: oj[k] for k in oj if k != "p"})
+        for k in cj:
+            np.testing.assert_array_equal(ct[k], cj[k])

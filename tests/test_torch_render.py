@@ -5,8 +5,9 @@ Scene: construct_sphere_grid(46, 45), 4,140 triangles of dense Phong at
 128x128 with the baseline_scene(4) camera and its 2 lights, which routes
 K1 -> sorted -> 8-row tiles -> row packing 2 (asserted below). Its
 side-list variant merges a 1.2-unit quad into the object, so two large
-triangles take the side list. The JAX side runs its Pallas kernels in
-interpret mode, as its own tests do; the port runs its kernels' plain
+triangles take the side list. The JAX side renders through its jitted
+Renderer(backend="pallas"), its Pallas kernels in interpret mode as its
+own tests run them; the port runs its kernels' plain
 versions.
 
 Budgets (tests/test_parity_jax.py; XLA's CPU backend contracts FMAs,
@@ -19,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_renderer.engine.renderer import render_scene as j_render_scene
+from tpu_renderer.engine.renderer import Renderer as JRenderer
 from tpu_renderer.golden import cpu_reference as gold
 from tpu_renderer.models import scenes as js
 from tpu_renderer.ops import shading as jsh
@@ -77,9 +78,8 @@ def case(request):
     gc, gd = gold.render(sg, tr_d, li_d, H, W)
 
     scene_j, trj, lij = js.to_jax_scene(sg, tr_d, li_d)
-    jstats = {}
-    jfb = j_render_scene(None, scene_j, trj, lij, backend="pallas",
-                         frame_height=H, frame_width=W, stats=jstats)
+    jfb, jstats = JRenderer(H, W, backend="pallas").render(
+        scene_j, trj, lij, with_stats=True)
     oj, cj = scene_j[0]
     jrecs, jbbox = jsp.setup_records_fused(oj, trj, lij, cj, 0, H, W,
                                            jsp._setup_blk(oj.num_triangles))
@@ -106,7 +106,7 @@ def test_route(case):
     assert (r.strategy, r.tile_h, r.rows) == ("sorted", 8, 2)
     pre = tsp.setup_for_raster(obj, tr, li, cfg, frame_height=H,
                                frame_width=W)
-    qbins, lcounts = trp.bin_for_raster(pre, r, H, W)
+    qbins, lcounts = trp.bin_for_raster(pre.bbox, r, H, W)
     n_large = int(qbins.n_large)
     if case["variant"] == "sidelist":
         assert n_large == 2 and int(lcounts.sum()) > 0
@@ -188,20 +188,21 @@ def test_shade_and_pack_planes_vs_jax(phong):
 def test_gouraud_frame_vs_golden():
     sg, tr_d, li_d = golden_scene("sphere", phong=False)
     gc, gd = gold.render(sg, tr_d, li_d, H, W)
-    scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d)
+    scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device="cpu")
     fb = trt.Renderer(H, W, device="cpu").render(scene_t, tr, li)
     assert_frame_parity(fb.color.numpy(), fb.depth.numpy(), gc, gd)
 
 
 def test_objects_drawn_in_order_vs_golden():
-    """Two objects drawn one after another over one z-buffer: the second
-    merges with the strict '>' depth test, as in the golden."""
+    """Two objects over one z-buffer (one batched launch): the second
+    loses depth ties to the first, as the golden's strict '>' test has
+    it."""
     tr_d, li_d = ts.baseline_camera_lights(H, W)
     mesh = tp.construct_sphere_grid(46, 45)
     sg = [(dict(p=(-0.25, 0.0, 0.0), **mesh), {"phong": True}),
           (dict(p=(0.25, 0.1, -0.1), **mesh), {"phong": False})]
     gc, gd = gold.render(sg, tr_d, li_d, H, W)
-    scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d)
+    scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device="cpu")
     stats = {}
     fb = trt.render_scene(None, scene_t, tr, li, frame_height=H,
                           frame_width=W, stats=stats)
@@ -215,7 +216,7 @@ def test_subrect_origin_equals_full_frame():
     off the tile grid, holds the full frame's pixels: binning works in
     local tiles, the fragments and the shading in global pixels."""
     sg, tr_d, li_d = golden_scene("sidelist")
-    scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d)
+    scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device="cpu")
     obj, cfg = scene_t[0]
     pre = tsp.setup_for_raster(obj, tr, li, cfg, frame_height=H,
                                frame_width=W)
@@ -228,17 +229,23 @@ def test_subrect_origin_equals_full_frame():
 
 
 def test_routes_outside_the_slice_raise():
+    """Textures, zcull and the mask strategy (T <= 512) still raise; the
+    rows=1 route that used to raise here now renders (K3)."""
     tr_d, li_d = ts.baseline_camera_lights(H, W)
     mesh = tp.construct_sphere_grid(46, 45)
     sg = [(dict(p=(0.0, 0.0, 0.0), **mesh),
            {"texture": np.full((8, 8), 0xFF808080, np.uint32)})]
-    scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d)
+    scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device="cpu")
     with pytest.raises(NotImplementedError, match="textur"):
         trt.Renderer(H, W, device="cpu").render(scene_t, tr, li)
+    with pytest.raises(NotImplementedError, match="textur"):
+        trt.render_scene(None, scene_t * 2, tr, li, frame_height=H,
+                         frame_width=W)
     sg = [(dict(p=(0.0, 0.0, 0.0), **mesh), {"phong": True})]
-    scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d)
-    with pytest.raises(NotImplementedError, match="second slice"):
-        trt.Renderer(512, 512, device="cpu").render(scene_t, tr, li)
+    scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device="cpu")
+    assert trp.raster_route(4140, 512, 512).rows == 1
+    fb = trt.Renderer(512, 512, device="cpu").render(scene_t, tr, li)
+    assert int((fb.depth > -3.0e38).sum()) > 0
     obj, cfg = scene_t[0]
     pre = tsp.setup_for_raster(obj, tr, li, cfg, frame_height=H,
                                frame_width=W)
@@ -246,4 +253,21 @@ def test_routes_outside_the_slice_raise():
         trp.rasterize_shaded(pre, tr, li, True, H, W, zcull=True)
     with pytest.raises(NotImplementedError, match="mask strategy"):
         trp.raster_route(trp.AUTO_SORTED_THRESHOLD, H, W)
+    small = [(dict(p=(0.0, 0.0, 0.0), **tp.construct_cube()), {})]
+    scene_t, tr, li = ts.to_torch_scene(small, tr_d, li_d, device="cpu")
+    with pytest.raises(NotImplementedError, match="mask strategy"):
+        trt.Renderer(H, W, device="cpu").render(scene_t, tr, li)
 
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
+    """Renderer and to_torch_scene default to the card and raise without
+    one; device='cpu' runs the plain versions."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trt.Renderer(8, 8)
+    sg, tr_d, li_d = golden_scene("sphere")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ts.to_torch_scene(sg, tr_d, li_d)
+    scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device="cpu")
+    fb = trt.Renderer(8, 8, device="cpu").render(scene_t, tr, li)
+    assert fb.color.shape == (8, 8) and fb.color.device.type == "cpu"

@@ -22,16 +22,24 @@ Bars:
   of colors in [0, 1] over the row count) to an absolute 2.4e-7.
 """
 
+import dataclasses
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
+from tpu_renderer.geometry import vertex as jvx
 from tpu_renderer.golden import cpu_reference as gold
 from tpu_renderer.models import scenes as js
 from tpu_renderer.ops import binning as jbin
 from tpu_renderer.ops import setup_pallas as jsp
+from tpu_renderer_torch.geometry import vertex as tvx
 from tpu_renderer_torch.models import primitives as tp
 from tpu_renderer_torch.models import scenes as ts
+from tpu_renderer_torch.models import sphere as tsm
+from tpu_renderer_torch.ops import binning as tbin
 from tpu_renderer_torch.ops import setup as tsp
 
 H = W = 128
@@ -165,12 +173,144 @@ def test_setup_blk_policy(T):
 
 
 def test_small_objects_raise_until_their_slice():
+    """Below FUSED_SETUP_MIN triangles setup_for_raster takes the
+    small-object chain and returns the channel-major (85, T) table, as the
+    JAX package does; textured objects still raise."""
     sg, tr_d, li_d = scene_golden()
     mesh = tp.construct_sphere_grid(10, 10)  # 200 triangles
     st, trt, lit = ts.to_torch_scene(
-        [(dict(p=(0.0, 0.0, 0.0), **mesh), {"phong": True})], tr_d, li_d)
+        [(dict(p=(0.0, 0.0, 0.0), **mesh), {"phong": True})], tr_d, li_d,
+        device="cpu")
     ot, ct = st[0]
-    with pytest.raises(NotImplementedError, match="second slice"):
-        tsp.setup_for_raster(ot, trt, lit, ct, frame_height=H,
-                             frame_width=W)
+    table = tsp.setup_for_raster(ot, trt, lit, ct, gid0=7, frame_height=H,
+                                 frame_width=W)
+    assert isinstance(table, torch.Tensor) and table.shape == (85, 200)
+    np.testing.assert_array_equal(table[84].numpy(), np.arange(7, 207))
+    with pytest.raises(NotImplementedError, match="textur"):
+        tsp.setup_for_raster(ot, trt, lit, dataclasses.replace(
+            ct, textured=True), frame_height=H, frame_width=W)
 
+
+# ---------------------------------------------------------------------------
+# The small-object chain (geometry.vertex.setup_records), T < 4096
+# ---------------------------------------------------------------------------
+
+
+def small_scene(name):
+    """construct_sphere(12) (528 triangles, Phong), config 5's torus
+    (1,024, Gouraud) and config 2's teapot (5,428, Gouraud: the chain
+    itself has no lower or upper bound)."""
+    _, tr_d, li_d = js.baseline_scene(5, 384, 384)
+    if name == "sphere12":
+        mesh, cfg = tsm.construct_sphere(12), {"phong": True}
+    elif name == "torus":
+        mesh, cfg = ts.rotate_y(tp.construct_torus(), 0.3), {}
+    else:
+        mesh, cfg = ts.baseline_scene(2, 384, 384)[0][0][0], {}
+        mesh = {k: mesh[k] for k in ("vertices", "colors", "normals", "uvs")}
+    return [(dict(p=(0.1, -0.05, 0.2), **mesh), cfg)], tr_d, li_d
+
+
+@pytest.fixture(scope="module", params=["sphere12", "torus", "teapot"])
+def small(request):
+    sg, tr_d, li_d = small_scene(request.param)
+    (oj, cj), trj, lij = (lambda s: (s[0][0], s[1], s[2]))(
+        js.to_jax_scene(sg, tr_d, li_d))
+    jrec = np.asarray(jax.jit(jvx.setup_records, static_argnums=(3, 4))(
+        oj, trj, lij, cj, 3))
+    st, trt, lit = ts.to_torch_scene(sg, tr_d, li_d, device="cpu")
+    ot, ct = st[0]
+    rec = tvx.setup_records(ot, trt, lit, ct, gid0=3).numpy()
+    return dict(sg=sg, tr_d=tr_d, li_d=li_d, phong=cj.phong, jrec=jrec,
+                rec=rec, scene=(ot, ct, trt, lit), jscene=(oj, cj, trj, lij))
+
+
+def test_setup_records_bit_exact_vs_golden(small):
+    obj_d, cfg_d = small["sg"][0]
+    ge = gold.setup_edges(obj_d, small["tr_d"], small["li_d"],
+                          phong=small["phong"], textured=False)
+    rec = small["rec"]
+    assert rec.shape == (85, ge["valid"].shape[0]) and rec.dtype == np.float32
+    for e in range(3):
+        v = ge["valid"][:, e]
+        for f, name in enumerate(EDGE_FIELDS):
+            want = np.where(v, ge[name][:, e], 0).astype(np.float32)
+            np.testing.assert_array_equal(rec[e * 28 + f].view(np.uint32),
+                                          want.view(np.uint32),
+                                          err_msg=f"edge {e} {name}")
+        for name, off, c in VEC_FIELDS:
+            want = np.where(v[:, None], ge[name][:, e], 0).astype(np.float32)
+            np.testing.assert_array_equal(
+                rec[e * 28 + off:e * 28 + off + c].T.view(np.uint32),
+                want.view(np.uint32), err_msg=f"edge {e} {name}")
+    np.testing.assert_array_equal(rec[84], np.arange(rec.shape[1]) + 3)
+
+
+def test_setup_records_vs_jax(small):
+    """Against JAX's XLA chain: the lanes K1's test names (x0 rtol 1e-6,
+    xg rtol 2e-2, Gouraud col0 rtol 1e-6 / colg atol 2.4e-7, all from XLA's
+    FMA contraction, golden divergence #8) and every other lane exact."""
+    jr, tr_ = small["jrec"], small["rec"]
+    assert jr.shape == tr_.shape
+    for lane in range(85):
+        a, b = tr_[lane], jr[lane]
+        e, f = divmod(lane, 28)
+        rtol = {3: 1e-6, 4: 2e-2}.get(f)
+        if not small["phong"] and lane < 84 and 14 <= f < 22:
+            rtol = 1e-6
+        if rtol is None or lane == 84:
+            np.testing.assert_array_equal(a.view(np.uint32),
+                                          b.view(np.uint32),
+                                          err_msg=f"lane {lane}")
+        else:
+            atol = 2.4e-7 if 18 <= f < 22 else 0
+            np.testing.assert_allclose(a, b, rtol=rtol, atol=atol,
+                                       err_msg=f"lane {lane}")
+
+
+def test_setup_records_equals_k1_plain_rows(small):
+    """The chain and K1's plain version share setup_fields: the K1 table's
+    first T rows, transposed, are the chain's table."""
+    ot, ct, trt, lit = small["scene"]
+    T = ot.num_triangles
+    recs, bbox = tsp.setup_plain(
+        tvx.setup_params(ot.p, trt, lit), ot.vertices, ot.colors, ot.normals,
+        n_lights=lit.count, phong=ct.phong, gid0=3, frame_height=384,
+        frame_width=384, tp=T + 5)
+    np.testing.assert_array_equal(recs[:T, :85].t().numpy(), small["rec"])
+    want = tbin.triangle_bbox_rows(torch.from_numpy(small["rec"]), 384, 384)
+    for got, w in zip([bbox[0][:T] > 0.5] + list(bbox[1:5, :T]), want):
+        np.testing.assert_array_equal(got.numpy(), w.numpy())
+
+
+def test_vertex_helpers_vs_jax(small):
+    """project_vertices / backface_visible / gouraud_vertex_colors on the
+    (T, 3v, 3c) layout: the projection bit-exact against the NumPy
+    golden's; all three within rtol 1e-6 of JAX, or 0.5% of the culling
+    bits (XLA contracts cx + m2p * (s * x) and the unrolled dots)."""
+    ot, ct, trt, lit = small["scene"]
+    oj, cj, trj, lij = small["jscene"]
+    cam_t = (ot.vertices + ot.p[:, None, None]).permute(2, 1, 0)
+    cam_j = jnp.transpose(oj.vertices + oj.p[:, None, None], (2, 1, 0))
+    proj_t = tvx.project_vertices(cam_t, trt)
+    proj_j = jvx.project_vertices(cam_j, trj)
+    np.testing.assert_allclose(proj_t.numpy(), np.asarray(proj_j), rtol=1e-6)
+    np.testing.assert_array_equal(
+        proj_t.numpy(), gold.project_vertex(cam_t.numpy(), small["tr_d"]))
+    vis_t = tvx.backface_visible(proj_t).numpy()
+    vis_j = np.asarray(jvx.backface_visible(proj_j))
+    assert (vis_t == vis_j).mean() > 0.995
+    cols_t = ot.colors.permute(2, 1, 0)
+    nrm_t = ot.normals.permute(2, 1, 0)
+    g_t = tvx.gouraud_vertex_colors(cols_t, nrm_t, cam_t, lit, False)
+    g_j = jvx.gouraud_vertex_colors(
+        jnp.transpose(oj.colors, (2, 1, 0)),
+        jnp.transpose(oj.normals, (2, 1, 0)), cam_j, lij, False)
+    np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), rtol=1e-6,
+                               atol=1e-7)
+    tex = tvx.gouraud_vertex_colors(cols_t, nrm_t, cam_t, lit, True)
+    tex_j = jvx.gouraud_vertex_colors(
+        jnp.transpose(oj.colors, (2, 1, 0)),
+        jnp.transpose(oj.normals, (2, 1, 0)), cam_j, lij, True)
+    np.testing.assert_allclose(tex.numpy(), np.asarray(tex_j), rtol=1e-6,
+                               atol=1e-7)

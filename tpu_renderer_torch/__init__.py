@@ -6,14 +6,18 @@ the public functions. Its kernels are CUDA C++ for Hopper (``csrc/``),
 built with nvcc at first use; on CPU tensors each kernel's wrapper runs
 its plain-PyTorch version instead. It imports torch and never jax.
 
-This first slice renders the dense-Phong main path: one untextured object
-of at least 4096 triangles through K1 (setup) -> sorted binning -> K2
-(fused raster + shade). Other routes raise NotImplementedError.
+It renders the sorted strategy (more than 512 triangles per draw) of
+untextured objects, one or several per launch: K1 (setup, from 4096
+triangles) or the small-object chain + K7 (record transpose), sorted
+binning, then K2, K3 or K4 (fused raster + shade on 8-row tiles with two
+or one streams, or on 16-row tiles). The mask strategy, textures and zcull
+raise NotImplementedError.
 
-Quick start:
+Quick start (entry points run on the card and raise without one unless
+given ``device="cpu"``):
 
     from tpu_renderer_torch import Renderer, ObjectConfig, make_object, ...
-    r = Renderer(1080, 1920, device="cuda")
+    r = Renderer(1080, 1920)
     fb = r.render(scene, transform, lights)   # fb.color: (H, W) u32 ARGB
 """
 

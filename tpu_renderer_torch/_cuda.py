@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-The kernels (``csrc/*.cu``) are compiled at first use by ``nvcc`` into one
-shared library with a plain C interface, loaded with ctypes. Each C entry
+The kernels (``csrc/*.cu``) are compiled at first use by ``nvcc``, one
+process per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ctypes. Each C entry
 launches on the stream it is given and returns ``cudaGetLastError()``; the
 Python wrappers raise when that is not 0.
 
@@ -35,7 +36,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
-    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 ]
 
 _lib = None
@@ -71,7 +72,8 @@ def _digest() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the cached shared library; returns its path."""
+    """Compile csrc/*.cu (in parallel) and link them into the cached shared
+    library; returns its path."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / f"libtr_kernels_{_digest()}.so"
     log = out.with_suffix(".log")
@@ -79,15 +81,34 @@ def build() -> Path:
         build_info.update(path=str(out), seconds=0.0, cached=True,
                           log=log.read_text() if log.exists() else "")
         return out
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cus = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-I", str(CSRC), "-o", str(tmp)] + cus
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    secs = time.perf_counter() - t0
-    text = res.stdout + res.stderr
+    jobs = []
+    for cu in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{cu.stem}.o"
+        cmd = [nvcc] + NVCC_FLAGS + ["-I", str(CSRC), "-c", "-o", str(obj),
+                                     str(cu)]
+        jobs.append((obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    text, failed = "", False
+    for obj, proc in jobs:
+        out_text, _ = proc.communicate(timeout=900)
+        text += out_text
+        failed |= proc.returncode != 0
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{text}")
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp)]
+                         + [str(obj) for obj, _ in jobs],
+                         capture_output=True, text=True, timeout=900)
+    text += res.stdout + res.stderr
+    for obj, _ in jobs:
+        obj.unlink()
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{text}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{text}")
+    secs = time.perf_counter() - t0
     log.write_text(text)
     os.replace(tmp, out)
     build_info.update(path=str(out), seconds=secs, cached=False, log=text)

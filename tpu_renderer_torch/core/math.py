@@ -27,11 +27,18 @@ import torch
 F32 = torch.float32
 
 
+def scalar(x, device) -> torch.Tensor:
+    """A 0-d f32 tensor of ``x`` on ``device``, made by a fill: a Python
+    number copied to the card would make the host wait for the device."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=F32)
+    return torch.full((), float(x), dtype=F32, device=device)
+
+
 def _pair(a, b):
     """Both operands as f32 tensors on the device of the tensor one."""
     ref = a if isinstance(a, torch.Tensor) else b
-    return (torch.as_tensor(a, dtype=F32, device=ref.device),
-            torch.as_tensor(b, dtype=F32, device=ref.device))
+    return scalar(a, ref.device), scalar(b, ref.device)
 
 
 def maximum(a, b):

@@ -31,6 +31,17 @@ DEPTH_CLEAR = float(np.float32(-3.4028235e38))
 NEAR_CLIP = float(np.float32(0.2))
 
 
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for the CPU. Raises instead of falling back when no card is present."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run the kernels' plain "
+            "versions on the CPU")
+    return device
+
+
 def _f32(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
 

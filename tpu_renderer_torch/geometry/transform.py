@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.math import scalar
 from ..core.types import RenderObject
 
 F32 = torch.float32
@@ -12,7 +13,7 @@ F32 = torch.float32
 
 def rotation_y(angle, device=None) -> torch.Tensor:
     """3x3 rotation about +y, computed in f32 on ``device``."""
-    a = torch.as_tensor(angle, dtype=F32, device=device)
+    a = scalar(angle, device)
     c, s = torch.cos(a), torch.sin(a)
     one, zero = torch.ones_like(a), torch.zeros_like(a)
     return torch.stack([

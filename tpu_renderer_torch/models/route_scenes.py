@@ -1,0 +1,88 @@
+"""Small scenes, one for each of the port's routes off the headline frame,
+with their frame sizes: what the tests render against the JAX package and
+what chip_smoke.py renders on the card against the CPU.
+
+| Name | Route | Scene |
+| --- | --- | --- |
+| k3 | K1 -> K3 | config 2's teapot, 5,428 tris, Gouraud, 256x256 |
+| k4 | setup_records -> K7 -> K4 | construct_sphere(12), 528 tris, Phong, 384x384 |
+| mixed | K1 + small object via K7 -> K2 | construct_sphere_grid(46, 45) + a 0.15-unit cube, 4,152 tris, 128x128 |
+| k4multi | setup_records x 3 -> K7 -> K4 | sphere(12) Phong + torus(16, 8) + cube, 796 tris (1,024 padded), 512x512 |
+| k2multi | setup_records x 3 -> K7 -> K2 | config 5's three untextured objects, 3,244 tris (3,456 padded), 96x128 |
+
+Side-list variants: a quad merged into one object's mesh (k3, k4: 2.2
+units; mixed: 1.2 units, into the cube; k4multi: 2.2 units, into the
+sphere), or config 5's quad, untextured, as a fourth object (k2multi).
+"""
+
+from . import primitives as tp
+from . import scenes as ts
+from .sphere import construct_sphere
+
+MESH_KEYS = ("vertices", "colors", "normals", "uvs")
+ROUTE_NAMES = ("k3", "k4", "mixed", "k4multi", "k2multi")
+
+
+def mesh_only(mesh):
+    return {k: mesh[k] for k in MESH_KEYS}
+
+
+def with_quad(entry, size):
+    """A scene entry with a quad merged into its object's mesh."""
+    obj, cfg = entry
+    merged = tp.merge_meshes(mesh_only(obj), tp.construct_quad(size))
+    return dict(p=obj["p"], **merged), cfg
+
+
+def route_scene(name, variant="base"):
+    """(scene_golden, (h, w)) of a route's scene or its side-list
+    variant."""
+    side = variant == "sidelist"
+    if name == "k3":
+        hw = (256, 256)
+        sg = ts.baseline_scene(2, *hw)[0]
+        if side:
+            sg = [with_quad(sg[0], 2.2)]
+    elif name == "k4":
+        hw = (384, 384)
+        sg = [(dict(p=(0.0, 0.0, 0.0), **construct_sphere(12)),
+               {"phong": True})]
+        if side:
+            sg = [with_quad(sg[0], 2.2)]
+    elif name == "mixed":
+        hw = (128, 128)
+        sg = [(dict(p=(0.0, 0.0, 0.0), **tp.construct_sphere_grid(46, 45)),
+               {"phong": True}),
+              (dict(p=(0.5, 0.55, -0.3), **ts.rotate_y(
+                  tp.construct_cube(0.15), -0.3)), {})]
+        if side:
+            sg = [sg[0], with_quad(sg[1], 1.2)]
+    elif name == "k4multi":
+        hw = (512, 512)
+        sg = [(dict(p=(-0.45, 0.3, 0.3), **construct_sphere(12)),
+               {"phong": True}),
+              (dict(p=(0.55, -0.35, 0.0), **ts.rotate_y(
+                  tp.construct_torus(major_steps=16, minor_steps=8), 0.3)),
+               {}),
+              (dict(p=(0.5, 0.55, -0.3), **ts.rotate_y(
+                  tp.construct_cube(0.7), -0.3)), {})]
+        if side:
+            sg = [with_quad(sg[0], 2.2)] + sg[1:]
+    elif name == "k2multi":
+        hw = (96, 128)
+        sg5 = ts.baseline_scene(5, *hw)[0]
+        sg = sg5[:3]
+        if side:
+            quad = sg5[3][0]
+            sg = sg + [(dict(p=quad["p"], **mesh_only(quad)), {})]
+    else:
+        raise ValueError(name)
+    return sg, hw
+
+
+def torch_scene(name, variant, device):
+    """(scene, transform, lights, (h, w)) of a route's scene on device."""
+    sg, hw = route_scene(name, variant)
+    tr_d, li_d = ts.baseline_camera_lights(*hw)
+    scene, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device=device)
+    return scene, tr, li, hw

@@ -1,18 +1,45 @@
-"""Scene helpers copied from ``tpu_renderer.models.scenes`` (camera,
-lights) plus the conversion of a golden-form scene to the port's tensors.
+"""The five suite scene configs, copied from ``tpu_renderer.models.scenes``,
+plus the conversion of a golden-form scene to the port's tensors.
 
-``baseline_camera_lights(h, w)`` gives the camera and lights that every
-``baseline_scene`` config uses, and that the headline frame (a dense Phong
-sphere grid, bench.py) renders with.
+Configs (``baseline_scene``):
+  1. Flat-shaded rotating cube, 512x512
+  2. Gouraud-shaded OBJ mesh (the generated teapot, via the OBJ loader)
+  3. Texture-mapped cube, perspective-correct UVs, bilinear
+  4. Per-pixel Phong sphere, 2 point lights, 1080p
+  5. Multi-object scene: Phong sphere, Gouraud torus and cube, textured quad
+
+Textures are carried as data (u32 ARGB arrays in the config dicts); the
+port renders textured objects once the texturing slice lands, and raises
+NotImplementedError until then.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..core.types import ObjectConfig, make_lights, make_object, make_transform
+from ..core.types import (
+    ObjectConfig,
+    make_lights,
+    make_object,
+    make_transform,
+    resolve_device,
+)
+from .primitives import construct_cube, construct_quad, construct_torus
+from .sphere import construct_sphere
+from .teapot import construct_teapot
+from .textures import checkerboard
 
 F = np.float32
+
+
+def rotate_y(mesh: dict, angle: float) -> dict:
+    """Rotate a mesh's vertices/normals about +y (host-side, NumPy f32)."""
+    c, s = np.cos(F(angle), dtype=F), np.sin(F(angle), dtype=F)
+    rot = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], F)
+    out = dict(mesh)
+    out["vertices"] = mesh["vertices"] @ rot.T
+    out["normals"] = mesh["normals"] @ rot.T
+    return out
 
 
 def camera_for(height: int, width: int, dat: float = 3.0,
@@ -43,9 +70,49 @@ def baseline_camera_lights(height: int, width: int):
     return camera_for(height, width), default_lights()
 
 
-def to_torch_scene(scene_golden, tr_dict, lights_dict, device=None):
+def baseline_scene(config: int, height: int, width: int, angle: float = 0.3):
+    """(scene_golden, transform_dict, lights_dict) for config 1-5, where
+    scene_golden is a list of (obj_dict, cfg_dict)."""
+    tr = camera_for(height, width)
+    lights = default_lights()
+    if config == 1:  # flat cube
+        mesh = rotate_y(construct_cube(), angle)
+        scene = [(dict(p=(0.0, 0.0, 0.0), **mesh), {})]
+    elif config == 2:  # Gouraud-shaded OBJ mesh (teapot via the loader)
+        mesh = rotate_y(construct_teapot(), angle)
+        scene = [(dict(p=(0.0, 0.0, 0.0), **mesh), {})]
+    elif config == 3:  # textured mesh, perspective-correct UVs, bilinear
+        mesh = rotate_y(construct_cube(), angle)
+        scene = [
+            (dict(p=(0.0, 0.0, 0.0), **mesh),
+             {"texture": checkerboard(64, 64, 8),
+              "filter_mode": "bilinear"})
+        ]
+    elif config == 4:  # phong multi-light
+        mesh = construct_sphere()
+        scene = [(dict(p=(0.0, 0.0, 0.0), **mesh), {"phong": True})]
+    elif config == 5:  # multi-object
+        sph = construct_sphere()
+        tor = rotate_y(construct_torus(), angle)
+        cub = rotate_y(construct_cube(0.7), -angle)
+        quad = construct_quad(2.2)
+        scene = [
+            (dict(p=(-0.45, 0.3, 0.3), **sph), {"phong": True}),
+            (dict(p=(0.55, -0.35, 0.0), **tor), {}),
+            (dict(p=(0.5, 0.55, -0.3), **cub), {}),
+            (dict(p=(0.0, 0.0, -1.0), **quad),
+             {"texture": checkerboard(64, 64, 8)}),
+        ]
+    else:
+        raise ValueError(f"config must be 1-5, got {config}")
+    return scene, tr, lights
+
+
+def to_torch_scene(scene_golden, tr_dict, lights_dict, device="cuda"):
     """Golden-form scene -> (scene, transform, lights) on ``device``: the
-    same NumPy arrays that ``to_jax_scene`` feeds the JAX package."""
+    same NumPy arrays that ``to_jax_scene`` feeds the JAX package. The
+    default is the card; without one it raises unless ``device='cpu'``."""
+    device = resolve_device(device)
     transform = make_transform(
         tr_dict["distance_above_target"],
         tr_dict["focal_length"],

@@ -1,16 +1,19 @@
 """Tile binning for the sorted strategy: triangle bboxes -> per-tile entry
 streams (torch ops).
 
-PyTorch counterpart of the row-packed path of ``tpu_renderer.ops.binning``:
-``_bbox_core``, ``count_subset_per_tile``, ``_large_side_list`` (the
-searchsorted form), ``_bin_queue_rows`` and the ``row_split > 1`` branch of
+PyTorch counterpart of the sorted path of ``tpu_renderer.ops.binning``:
+``_bbox_core``, ``triangle_bbox_rows``, ``count_subset_per_tile``,
+``_large_side_list`` (the searchsorted form), ``_bin_queue_rows`` (row
+packing, two strip streams) and the single-stream branch of
 ``bin_triangles_queue``. Every array compares integer-exact with the JAX
 package's:
 
 - sort keys are int64 ``(tile << 32) | tri``, one sort per stream, which
-  orders entries exactly like the JAX package's packed u32 keys;
-- the static entry budget, the drop counts and the dead-tail ``idx % T``
-  rewrite are kept as they are;
+  orders entries exactly like the JAX package's packed u32 keys (and its
+  pair-sort fallback, which is not ported);
+- the static entry budget, the drop counts and the dead tails (the
+  strip streams' ``idx % T`` rewrite; the single stream's sentinel-key
+  triangle ids, zero past the sort) are kept as they are;
 - the work-item tables (``item_start`` / ``wi_tile``) are not built: they
   only drive the TPU's sequential grid, and the CUDA raster kernel walks
   each tile's ``starts`` / ``counts`` directly.
@@ -23,7 +26,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.math import clip, maximum, minimum, to_i32
+from ..core.math import clip, maximum, minimum, scalar, to_i32
+from ..geometry.vertex import EDGE_STRIDE
 
 F32 = torch.float32
 I32 = torch.int32
@@ -70,6 +74,18 @@ def _bbox_core(valids, ymins, ymaxs, x0s, xgs, height: int, width: int):
     ylo = clip(ylo, 0.0, float(height))
     yhi = clip(yhi, 0.0, float(height))
     return tri_valid, ylo, yhi, xlo, xhi
+
+
+def triangle_bbox_rows(rec_t, height: int, width: int):
+    """The bbox straight from the channel-major record table (85+, T)
+    (binning.py:100): lanes valid 0, ymin 1, ymax 2, x0 3, xg 4 of each
+    edge."""
+
+    def rows(j):
+        return [rec_t[e * EDGE_STRIDE + j] for e in range(3)]
+
+    return _bbox_core([r > 0.5 for r in rows(0)], rows(1), rows(2), rows(3),
+                      rows(4), height, width)
 
 
 def count_subset_per_tile(subset_ids, height: int, width: int, tile_h: int,
@@ -119,14 +135,15 @@ def _large_side_list(large, large_capacity: int):
 
 
 class QueueBins(NamedTuple):
-    """Per-parity strip streams of the sorted strategy.
+    """Entry streams of the sorted strategy, ``rs`` streams of one budget
+    each (rs = 1, or the row packing's 2).
 
-    Stream s holds the entries binned to strip s of each 8-row framebuffer
-    tile, sorted by (tile, triangle id); the streams are concatenated
-    (stream s offset by s budgets) and ``starts`` / ``counts`` are
-    interleaved at index ``2 * tile + s`` (the last tile index is the
-    empty sentinel). Triangles spanning more strips or tile columns than
-    the expansion go to the ``large_ids`` side list."""
+    Stream s holds the entries binned to strip s of each framebuffer tile
+    (the whole tile when rs = 1), sorted by (tile, triangle id); the
+    streams are concatenated (stream s offset by s budgets) and
+    ``starts`` / ``counts`` are interleaved at index ``rs * tile + s`` (the
+    last tile index is the empty sentinel). Triangles spanning more strips
+    or tiles than the expansion go to the ``large_ids`` side list."""
 
     sorted_tri: torch.Tensor  # (rs * EB,) i32 triangle id per entry
     starts: torch.Tensor  # (rs * (ntiles + 1),) i32 first entry per strip
@@ -229,7 +246,7 @@ def _bin_queue_rows(bbox, height, width, tile_h, tile_w, blk, budget_factor,
         tris_sides.append(sorted_tri)
 
     large_ids, n_large = _large_side_list(large, large_capacity)
-    eb_f = torch.tensor(float(eb), dtype=F32, device=dev)
+    eb_f = scalar(eb, dev)
     return QueueBins(
         sorted_tri=torch.cat(tris_sides).to(I32),
         starts=torch.stack(starts_sides, dim=1).reshape(-1).to(I32),
@@ -243,22 +260,91 @@ def _bin_queue_rows(bbox, height, width, tile_h, tile_w, blk, budget_factor,
     )
 
 
+def _bin_queue_single(bbox, height, width, tile_h, tile_w, blk, expansion,
+                      budget_factor, large_capacity, row0, col0) -> QueueBins:
+    """One stream (binning.py:664-867): each triangle expands to the <=
+    ``expansion`` tiles its bbox covers (slot j -> tile (ty_lo + j // wx,
+    tx_lo + j % wx)), the slots sort by (tile, tri) and the first
+    ``entry_budget`` entries are kept; triangles covering more tiles go to
+    the side list."""
+    tiles_y = -(-height // tile_h)
+    tiles_x = -(-width // tile_w)
+    ntiles = tiles_y * tiles_x
+
+    tri_valid, ylo, yhi, xlo, xhi = bbox
+    T = tri_valid.shape[0]
+    dev = tri_valid.device
+    ylo = ylo - float(row0)
+    yhi = yhi - float(row0)
+    xlo = xlo - float(col0)
+    xhi = xhi - float(col0)
+
+    ty_lo = torch.clamp(to_i32(torch.floor(ylo / float(tile_h))), 0, tiles_y)
+    ty_hi = torch.clamp(to_i32(torch.ceil(yhi / float(tile_h))), 0, tiles_y)
+    tx_lo = torch.clamp(to_i32(torch.floor(xlo / float(tile_w))), 0, tiles_x)
+    tx_hi = torch.clamp(to_i32(torch.floor(xhi / float(tile_w))) + 1, 0,
+                        tiles_x)
+    ty_lo, ty_hi, tx_lo, tx_hi = (a.to(I64) for a in (ty_lo, ty_hi, tx_lo,
+                                                      tx_hi))
+    wy = torch.clamp(ty_hi - ty_lo, min=0)
+    wx = torch.clamp(tx_hi - tx_lo, min=0)
+    n_tiles = torch.where(tri_valid, wy * wx, 0)
+
+    small = (n_tiles > 0) & (n_tiles <= expansion)
+    large = n_tiles > expansion
+
+    j = torch.arange(expansion, dtype=I64, device=dev)[:, None]
+    wx_safe = torch.clamp(wx, min=1)[None, :]
+    tile = (ty_lo[None, :] + j // wx_safe) * tiles_x + (
+        tx_lo[None, :] + j % wx_safe)
+    slot_ok = small[None, :] & (j < n_tiles[None, :])
+    entry_tile = torch.where(slot_ok, tile, ntiles).reshape(-1)
+    entry_tri = torch.arange(T, dtype=I64, device=dev)[None, :].expand(
+        expansion, T).reshape(-1)
+    eb = entry_budget(T, blk, budget_factor, expansion)
+
+    skey, _ = torch.sort((entry_tile << 32) | entry_tri)
+    bounds = torch.arange(ntiles + 1, dtype=I64, device=dev) << 32
+    starts_full = torch.searchsorted(skey, bounds, side="left")
+    sorted_tri = skey & 0xFFFFFFFF
+    total_real = starts_full[ntiles]
+    starts = torch.clamp(starts_full, max=eb)
+    keep_t = starts[1:] - starts[:-1]
+    if sorted_tri.shape[0] < eb:
+        sorted_tri = torch.nn.functional.pad(
+            sorted_tri, (0, eb - sorted_tri.shape[0]))
+    large_ids, n_large = _large_side_list(large, large_capacity)
+    eb_f = scalar(eb, dev)
+    return QueueBins(
+        sorted_tri=sorted_tri[:eb].to(I32),
+        starts=starts.to(I32),
+        counts=torch.cat([keep_t, keep_t.new_zeros(1)]).to(I32),
+        large_ids=large_ids,
+        n_large=torch.clamp(n_large, max=large_capacity).to(I32),
+        n_dropped=(torch.clamp(total_real - eb, min=0)
+                   + torch.clamp(n_large - large_capacity, min=0)).to(I32),
+        n_real=total_real.to(I32),
+        budget_util=total_real.to(F32) / eb_f,
+    )
+
+
 def bin_triangles_queue(height: int, width: int, tile_h: int, tile_w: int,
-                        blk: int, budget_factor: float = 2,
+                        blk: int, expansion: int = 8, budget_factor: float = 2,
                         large_capacity: int = 2048, row0=0, col0=0,
                         bbox=None, row_split: int = 1) -> QueueBins:
     """Sorted-strategy binning of the local (height, width) rect at origin
-    (row0, col0) from precomputed global-frame bboxes. Only the row-packed
-    form (``row_split`` > 1) is ported; ``budget_factor`` is per stream
-    (each stream expands to 2 slots per triangle)."""
-    if row_split <= 1:
-        raise NotImplementedError(
-            "single-stream sorted binning (rows_packed=1, 16-row tiles) "
-            "belongs to the second slice of the port"
-        )
+    (row0, col0) from precomputed global-frame bboxes: one stream with
+    ``expansion`` slots per triangle, or (``row_split`` > 1) the
+    per-parity strip streams, where ``budget_factor`` is per stream and
+    each stream expands to 2 slots per triangle (``expansion`` unused)."""
     if bbox is None:
         raise ValueError("bin_triangles_queue needs the setup bboxes")
-    return _bin_queue_rows(
-        bbox, height, width, tile_h, tile_w, blk, budget_factor,
-        large_capacity, row0, col0, row_split,
+    if row_split > 1:
+        return _bin_queue_rows(
+            bbox, height, width, tile_h, tile_w, blk, budget_factor,
+            large_capacity, row0, col0, row_split,
+        )
+    return _bin_queue_single(
+        bbox, height, width, tile_h, tile_w, blk, expansion, budget_factor,
+        large_capacity, row0, col0,
     )

@@ -1,33 +1,41 @@
-"""Fused raster + shade for the sorted strategy's dense route.
+"""Fused raster + shade of the sorted strategy, and the record transpose.
 
-PyTorch counterpart of ``tpu_renderer.ops.raster_pallas`` for the route the
-headline frame takes: sorted binning, 8-row tiles, the wide kernel with row
-packing 2, one untextured object. It holds kernel K2, the port of the
-Pallas ``_raster_kernel_queue_shaded`` (raster_pallas.py:2192) with
-``wide=True, rows_packed=2``.
+PyTorch counterpart of ``tpu_renderer.ops.raster_pallas`` for the sorted
+strategy (more than 512 triangles per draw), untextured objects, one or
+several per launch. It holds four kernels:
 
-``raster_kernel`` launches the CUDA kernel (``csrc/raster.cu``) on CUDA
-tensors and runs ``raster_plain``, a vectorised version over the binned
-stream, on CPU tensors. Each pixel's winner is the lexicographic best
-(z descending, gid ascending) over fragments with z > DEPTH_CLEAR: that is
-what the TPU kernel's strict '>' first-writer folds over gid-ordered
-streams plus its gid-aware side-list merge compute.
+- K2, K3 and K4: the Pallas ``_raster_kernel_queue_shaded``
+  (raster_pallas.py:2192) on its three routes -- 8-row tiles with row
+  packing 2 (K2, ``raster_kernel``), 8-row tiles with one stream (K3,
+  ``raster_rows1_kernel``), 16-row tiles with one stream (K4,
+  ``raster_narrow_kernel``) -- all launched from ``csrc/raster.cu``;
+- K7: ``finish_records`` (raster_pallas.py:449), the transpose of a
+  channel-major record table to the row-major one (``csrc/records.cu``).
 
-Routes outside the slice raise NotImplementedError: the mask strategy
-(T <= 512), 16-row tiles, rows_packed=1, textures, multi-object launches
-and zcull.
+Each wrapper launches its CUDA kernel on CUDA tensors and runs its plain
+version on CPU tensors. The raster kernels' plain version,
+``raster_plain``, is vectorised over the binned streams; each pixel's
+winner is the lexicographic best (z descending, gid ascending) over
+fragments with z > DEPTH_CLEAR, which is what the TPU kernel's strict '>'
+first-writer folds over gid-ordered streams plus its gid-aware side-list
+merge compute. Multi-object launches pick each pixel's object from the
+winner's gid (``_finalize_shade``, raster_pallas.py:1600).
+
+Routes outside the port so far raise NotImplementedError: the mask
+strategy (T <= 512), textures and zcull.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import _cuda
-from ..core.math import minimum, round_half_away, to_i32
+from ..core.math import minimum, round_half_away, scalar, to_i32
 from ..core.types import DEPTH_CLEAR, LightData, ProjectiveTransform
 from ..geometry.vertex import (
     EDGE_STRIDE,
@@ -46,7 +54,12 @@ from ..geometry.vertex import (
     GID_LANE,
     REC_LANES,
 )
-from .binning import QueueBins, bin_triangles_queue, count_subset_per_tile
+from .binning import (
+    QueueBins,
+    bin_triangles_queue,
+    count_subset_per_tile,
+    triangle_bbox_rows,
+)
 from .setup import SetupOut
 from .shading import pack_argb_planes, shade_planes
 
@@ -55,12 +68,15 @@ I32 = torch.int32
 I64 = torch.int64
 
 TILE_W = 128
-WIDE_BLK = 256  # entry-budget rounding block of the dense route
+WIDE_BLK = 256  # entry-budget rounding block of 8-row tiles
+QUEUE_BLK = 128  # entry-budget rounding block of 16-row tiles
+REC_T_BLK = 512  # finish_records pads the triangle axis to this (_PACK_T_BLK)
 _BIG = float(np.float32(3.4028235e38))  # FLT_MAX
 AUTO_SORTED_THRESHOLD = 512  # 'auto' picks the sorted strategy above this
 TILE8_PX_PER_TRI = 256  # 8-row tiles below this many frame px / triangle
 PACK_ROWS = 2
 PACK_ROWS_MAX_PX_PER_TRI = 12  # row packing at or below this px / triangle
+PACK_ROWS_STREAM_FRAC = 0.45  # multi-object per-stream budget, x 1.2
 LARGE_CAPACITY = 2048  # side-list slots (bin_triangles_queue default)
 # The f32 gid lane is exact only up to 2**24 triangles per scene.
 MAX_SCENE_TRIANGLES = 2 ** 24
@@ -68,8 +84,9 @@ MAX_SCENE_TRIANGLES = 2 ** 24
 
 def _queue_expansion(tile_h: int, num_triangles: int):
     """(expansion, budget_factor) policy of the sorted strategy's stream
-    (raster_pallas.py:160); the factor is reported as
-    stats['bins_budget_factor']."""
+    (raster_pallas.py:160): the tiles a triangle may cover before it goes
+    to the side list, and the entry budget per triangle; the factor is
+    reported as stats['bins_budget_factor']."""
     if tile_h >= 16 and num_triangles <= 16384:
         return 32, 4
     if tile_h <= 8 and num_triangles > 65536:
@@ -119,86 +136,159 @@ def shade_params(transform: ProjectiveTransform,
 
 
 class ObjSpec(NamedTuple):
-    """Per-object spec of a fused launch: the object's global-triangle-id
-    range and Phong or Gouraud (untextured objects only in this slice)."""
+    """Per-object spec of a launch: the object's global-triangle-id range
+    [gid_lo, gid_hi) in the scene's record table (gid_hi = gid_lo + T, not
+    the padded end) and Phong or Gouraud (untextured objects only)."""
 
     gid_lo: int
     gid_hi: int
     phong: bool
 
 
+def _scene_fields(objspecs) -> int:
+    """Attribute planes the scene's finalize reads (raster_pallas.py:561,
+    untextured): the 4 colour planes, plus the 3 normal planes iff any
+    object is Phong."""
+    return 7 if any(o.phong for o in objspecs) else 4
+
+
+@functools.lru_cache(maxsize=64)
+def obj_table(objspecs: tuple, device) -> torch.Tensor:
+    """The (n_obj, 3) i32 [gid_lo, gid_hi, phong] table the raster kernels
+    read in their finalize. Cached per scene layout, so every caller shares
+    one read-only tensor: copying it to the card every frame would make the
+    host wait for the device."""
+    return torch.tensor([[o.gid_lo, o.gid_hi, int(o.phong)]
+                         for o in objspecs], dtype=I32, device=device)
+
+
 class RasterRoute(NamedTuple):
-    """How a draw is binned and rasterized (raster_pallas.py:2529-2653)."""
+    """How a draw is binned and rasterized (raster_pallas.py:2529-2700)."""
 
     strategy: str
     tile_h: int
-    rows: int
+    rows: int  # streams per tile: 2 under row packing, else 1
+    expansion: int  # tiles a triangle may cover off the side list
+    blk: int  # entry-budget rounding block
     budget_factor: float  # per stream, as binning uses it
     policy_factor: float  # _queue_expansion's, reported in the stats
 
 
-def raster_route(t_policy: int, frame_height: int,
-                 frame_width: int) -> RasterRoute:
-    """The JAX package's 'auto' gates for a T-triangle draw on this frame;
-    raises NotImplementedError for routes outside the ported slice."""
+def raster_route(t_policy: int, frame_height: int, frame_width: int,
+                 n_objects: int = 1) -> RasterRoute:
+    """The JAX package's 'auto' gates for a T-triangle draw of
+    ``n_objects`` objects on this frame; raises NotImplementedError for
+    the mask strategy, which later slices port."""
     if t_policy <= AUTO_SORTED_THRESHOLD:
         raise NotImplementedError(
             f"the mask strategy (T <= {AUTO_SORTED_THRESHOLD}) "
             "belongs to a later slice of the port"
         )
     tile_h = _pick_tile_h(t_policy, frame_height, frame_width)
-    if tile_h != 8:
-        raise NotImplementedError(
-            "16-row tiles (the narrow sorted kernel) belong to the second "
-            "slice of the port"
-        )
-    if t_policy * PACK_ROWS_MAX_PX_PER_TRI < frame_height * frame_width:
-        raise NotImplementedError(
-            "rows_packed=1 (above 12 px per triangle) belongs to the "
-            "second slice of the port"
-        )
-    rows = PACK_ROWS
-    _, policy = _queue_expansion(tile_h, t_policy)
-    bf = _rows_stream_budget_factor(t_policy, frame_height, frame_width)
-    return RasterRoute("sorted", tile_h, rows, bf * (2.0 / rows), policy)
+    expansion, policy = _queue_expansion(tile_h, t_policy)
+    wide = tile_h <= 8
+    rows = 1
+    if wide and (t_policy * PACK_ROWS_MAX_PX_PER_TRI
+                 >= frame_height * frame_width):
+        rows = PACK_ROWS
+    bf = policy
+    if rows > 1 and n_objects > 1:
+        # Stacked objects defeat the density key; flat per-stream budget.
+        bf = (1.2 * PACK_ROWS_STREAM_FRAC) * (2.0 / rows)
+    elif rows > 1:
+        bf = _rows_stream_budget_factor(
+            t_policy, frame_height, frame_width) * (2.0 / rows)
+    return RasterRoute("sorted", tile_h, rows, expansion,
+                       WIDE_BLK if wide else QUEUE_BLK, bf, policy)
 
 
-def bin_for_raster(pre: SetupOut, route: RasterRoute, height: int,
-                   width: int, row0: int = 0, col0: int = 0):
+def bin_for_raster(bbox, route: RasterRoute, height: int, width: int,
+                   row0: int = 0, col0: int = 0):
     """Binning stage of the draw over the local (height, width) rect at
-    origin (row0, col0): (QueueBins, lcounts (ntiles,) i32)."""
+    origin (row0, col0) from the global-frame ``bbox``: (QueueBins,
+    lcounts (ntiles,) i32, the side-list gate per tile)."""
     qbins = bin_triangles_queue(
-        height, width, route.tile_h, TILE_W, WIDE_BLK,
-        budget_factor=route.budget_factor, large_capacity=LARGE_CAPACITY,
-        row0=row0, col0=col0, bbox=pre.bbox, row_split=route.rows,
+        height, width, route.tile_h, TILE_W, route.blk,
+        expansion=route.expansion, budget_factor=route.budget_factor,
+        large_capacity=LARGE_CAPACITY, row0=row0, col0=col0, bbox=bbox,
+        row_split=route.rows,
     )
     lcounts = count_subset_per_tile(
         qbins.large_ids, height, width, route.tile_h, TILE_W, row0, col0,
-        bbox=pre.bbox,
+        bbox=bbox,
     )
     return qbins, lcounts
 
 
-def raster_kernel(recs, qbins: QueueBins, lcounts, params, *, tiles_y: int,
-                  tiles_x: int, row0: int, col0: int, frame_width: int,
-                  phong: bool, n_lights: int):
-    """K2: (z f32, gid i32, color u32), each (tiles_y*8, tiles_x*128),
-    written for every tile.
+# ---------------------------------------------------------------------------
+# K7: record transpose
+# ---------------------------------------------------------------------------
 
-    CUDA tensors launch ``tr_raster`` (csrc/raster.cu) and count the launch
-    in ``raster_kernel.launches``; CPU tensors run ``raster_plain``."""
-    dev = recs.device
+
+def finish_records(rec_t: torch.Tensor) -> torch.Tensor:
+    """K7: channel-major (R <= 128, T) f32 record table -> row-major (Tp,
+    128), zero padded to 128 lanes and to Tp = T rounded up to REC_T_BLK
+    (raster_pallas.py:449).
+
+    CUDA tensors launch ``tr_records`` (csrc/records.cu) and count the
+    launch in ``finish_records.launches``; CPU tensors run
+    ``finish_records_plain``."""
+    R, T = rec_t.shape
+    tp = T + (-T % REC_T_BLK)
+    dev = rec_t.device
     if dev.type == "cpu":
-        return raster_plain(recs, qbins, lcounts, params, tiles_y=tiles_y,
-                            tiles_x=tiles_x, row0=row0, col0=col0,
-                            frame_width=frame_width, phong=phong,
-                            n_lights=n_lights)
+        return finish_records_plain(rec_t)
     if dev.type != "cuda":
-        raise ValueError(f"K2 runs on CUDA or CPU tensors, not {dev}")
+        raise ValueError(f"K7 runs on CUDA or CPU tensors, not {dev}")
+    _cuda.check_tensor("rec_t", rec_t, dev, F32, (R, T))
+    if not (0 < R <= REC_LANES and T > 0 and tp < 2 ** 24):
+        raise ValueError(f"bad record table shape {(R, T)}")
+    out = torch.empty((tp, REC_LANES), dtype=F32, device=dev)
+    rc = _cuda.library().tr_records(rec_t.data_ptr(), R, T, tp,
+                                    out.data_ptr(), _cuda.stream(dev))
+    _cuda.check_launch("tr_records", rc)
+    finish_records.launches += 1
+    return out
+
+
+finish_records.launches = 0
+_cuda.declare("tr_records", [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+
+
+def finish_records_plain(rec_t: torch.Tensor) -> torch.Tensor:
+    """Plain K7: pad, then ``t().contiguous()``."""
+    R, T = rec_t.shape
+    padded = torch.nn.functional.pad(
+        rec_t, (0, -T % REC_T_BLK, 0, REC_LANES - R))
+    return padded.t().contiguous()
+
+
+# ---------------------------------------------------------------------------
+# K2 / K3 / K4: raster + shade
+# ---------------------------------------------------------------------------
+
+
+def _raster(wrapper, entry: str, tile_h: int, streams: int, recs,
+            qbins: QueueBins, lcounts, params, objs, *, tiles_y: int,
+            tiles_x: int, row0: int, col0: int, frame_width: int,
+            any_phong: bool, n_lights: int):
+    """Check the operands, launch ``entry`` and count it on ``wrapper``;
+    CPU tensors run ``raster_plain``."""
+    dev = recs.device
+    kw = dict(tile_h=tile_h, tiles_y=tiles_y, tiles_x=tiles_x, row0=row0,
+              col0=col0, frame_width=frame_width, any_phong=any_phong,
+              n_lights=n_lights)
     nfb = tiles_y * tiles_x
     nst = qbins.starts.shape[0]
-    if nst != PACK_ROWS * (nfb + 1):
-        raise ValueError(f"starts has {nst} entries for {nfb} tiles")
+    if nst != streams * (nfb + 1):
+        raise ValueError(f"starts has {nst} entries for {nfb} tiles and "
+                         f"{streams} streams")
+    if dev.type == "cpu":
+        return raster_plain(recs, qbins, lcounts, params, objs, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"{entry} runs on CUDA or CPU tensors, not {dev}")
+    n_obj = objs.shape[0]
     for name, t, dtype, shape in (
         ("recs", recs, F32, (recs.shape[0], REC_LANES)),
         ("sorted_tri", qbins.sorted_tri, I32, qbins.sorted_tri.shape),
@@ -208,29 +298,60 @@ def raster_kernel(recs, qbins: QueueBins, lcounts, params, *, tiles_y: int,
         ("n_large", qbins.n_large, I32, ()),
         ("lcounts", lcounts, I32, (nfb,)),
         ("params", params, F32, (9 + 7 * n_lights,)),
+        ("objs", objs, I32, (max(n_obj, 1), 3)),
     ):
         _cuda.check_tensor(name, t, dev, dtype, shape)
-    hp, wp = tiles_y * 8, tiles_x * TILE_W
+    hp, wp = tiles_y * tile_h, tiles_x * TILE_W
     z = torch.empty((hp, wp), dtype=F32, device=dev)
     gid = torch.empty((hp, wp), dtype=I32, device=dev)
     color = torch.empty((hp, wp), dtype=I32, device=dev)
-    lib = _cuda.library()
-    rc = lib.tr_raster(
+    rc = getattr(_cuda.library(), entry)(
         recs.data_ptr(), qbins.sorted_tri.data_ptr(), qbins.starts.data_ptr(),
         qbins.counts.data_ptr(), qbins.large_ids.data_ptr(),
         qbins.n_large.data_ptr(), lcounts.data_ptr(), params.data_ptr(),
-        n_lights, int(bool(phong)), tiles_y, tiles_x, row0, col0,
-        frame_width, z.data_ptr(), gid.data_ptr(), color.data_ptr(),
-        _cuda.stream(dev),
+        objs.data_ptr(), n_obj, n_lights, int(bool(any_phong)), tiles_y,
+        tiles_x, row0, col0, frame_width, z.data_ptr(), gid.data_ptr(),
+        color.data_ptr(), _cuda.stream(dev),
     )
-    _cuda.check_launch("tr_raster", rc)
-    raster_kernel.launches += 1
+    _cuda.check_launch(entry, rc)
+    wrapper.launches += 1
     return z, gid, color.view(torch.uint32)
 
 
-raster_kernel.launches = 0
-_cuda.declare("tr_raster", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-              + [ctypes.c_void_p] * 4)
+def raster_kernel(recs, qbins, lcounts, params, objs, **kw):
+    """K2 (8-row tiles, two strip streams): (z f32, gid i32, color u32),
+    each (tiles_y * 8, tiles_x * 128), written for every tile. CUDA tensors
+    launch ``tr_raster`` and count ``raster_kernel.launches``."""
+    return _raster(raster_kernel, "tr_raster", 8, PACK_ROWS, recs, qbins,
+                   lcounts, params, objs, **kw)
+
+
+def raster_rows1_kernel(recs, qbins, lcounts, params, objs, **kw):
+    """K3 (8-row tiles, one stream): as K2; ``tr_raster_rows1``, counted
+    in ``raster_rows1_kernel.launches``."""
+    return _raster(raster_rows1_kernel, "tr_raster_rows1", 8, 1, recs,
+                   qbins, lcounts, params, objs, **kw)
+
+
+def raster_narrow_kernel(recs, qbins, lcounts, params, objs, **kw):
+    """K4 (16-row tiles, one stream): outputs (tiles_y * 16, tiles_x *
+    128); ``tr_raster_narrow``, counted in
+    ``raster_narrow_kernel.launches``."""
+    return _raster(raster_narrow_kernel, "tr_raster_narrow", 16, 1, recs,
+                   qbins, lcounts, params, objs, **kw)
+
+
+for _fn in (raster_kernel, raster_rows1_kernel, raster_narrow_kernel):
+    _fn.launches = 0
+for _entry in ("tr_raster", "tr_raster_rows1", "tr_raster_narrow"):
+    _cuda.declare(_entry, [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+                  + [ctypes.c_void_p] * 4)
+
+RASTER_KERNELS = {  # (tile_h, rows) -> wrapper
+    (8, 2): raster_kernel,
+    (8, 1): raster_rows1_kernel,
+    (16, 1): raster_narrow_kernel,
+}
 
 
 def _span_setup(rec, yf, w_f, n_fields):
@@ -305,14 +426,16 @@ def _span_setup(rec, yf, w_f, n_fields):
     return minx, maxx, xoff, zl, zinc, attrs, gid
 
 
-def _stream_pairs(qbins: QueueBins, nfb: int, dev):
-    """(tile, triangle, tile row) of every (entry, row) pair of the two
-    strip streams: stream h's entries cover tile rows [4h, 4h + 4)."""
-    strip_h = 8 // PACK_ROWS
+def _stream_pairs(qbins: QueueBins, nfb: int, tile_h: int, dev):
+    """(tile, triangle, tile row) of every (entry, row) pair of the
+    streams: with rs streams, stream h's entries cover tile rows
+    [h * strip_h, (h + 1) * strip_h), strip_h = tile_h / rs."""
+    rs = qbins.starts.shape[0] // (nfb + 1)
+    strip_h = tile_h // rs
     tiles, tris, rows = [], [], []
-    for h in range(PACK_ROWS):
-        st = qbins.starts[h:PACK_ROWS * nfb:PACK_ROWS].to(I64)
-        cn = qbins.counts[h:PACK_ROWS * nfb:PACK_ROWS].to(I64)
+    for h in range(rs):
+        st = qbins.starts[h:rs * nfb:rs].to(I64)
+        cn = qbins.counts[h:rs * nfb:rs].to(I64)
         tile = torch.repeat_interleave(torch.arange(nfb, device=dev), cn)
         first = torch.cumsum(cn, 0) - cn
         pos = st[tile] + torch.arange(tile.shape[0], device=dev) - first[tile]
@@ -324,42 +447,69 @@ def _stream_pairs(qbins: QueueBins, nfb: int, dev):
     return torch.cat(tiles), torch.cat(tris), torch.cat(rows)
 
 
-def _side_pairs(qbins: QueueBins, lcounts, dev):
+def _side_pairs(qbins: QueueBins, lcounts, tile_h: int, dev):
     """(tile, triangle, tile row) of the side list: every listed triangle
     on every row of every tile whose lcounts gate is open."""
     nl = int(qbins.n_large)
     ltiles = torch.nonzero(lcounts > 0).reshape(-1)
     ids = qbins.large_ids[:nl].to(I64)
-    tile = ltiles.repeat_interleave(nl * 8)
-    tri = ids.repeat_interleave(8).repeat(ltiles.shape[0])
-    rows = torch.arange(8, device=dev).repeat(nl * ltiles.shape[0])
+    tile = ltiles.repeat_interleave(nl * tile_h)
+    tri = ids.repeat_interleave(tile_h).repeat(ltiles.shape[0])
+    rows = torch.arange(tile_h, device=dev).repeat(nl * ltiles.shape[0])
     return tile, tri, rows
 
 
-def raster_plain(recs, qbins: QueueBins, lcounts, params, *, tiles_y: int,
-                 tiles_x: int, row0: int, col0: int, frame_width: int,
-                 phong: bool, n_lights: int):
-    """Plain-PyTorch K2, vectorised over the binned stream:
+def _phong_mask(gid, objs):
+    """Pixels whose winner belongs to a Phong object: _finalize_shade's
+    per-object masks (raster_pallas.py:1630-1639; an endpoint shared with
+    a neighbour, or the scene's ends, is not compared) OR-ed over the Phong
+    objects (:1714-1719)."""
+    specs = objs.tolist()
+    multi = len(specs) > 1
+    last_hi = specs[-1][1]
+    covered = gid >= 0
+    pm = torch.zeros_like(covered)
+    for lo, hi, phong in specs:
+        m = covered
+        if multi and lo > 0:
+            m = m & (gid >= lo)
+        if multi and hi < last_hi:
+            m = m & (gid < hi)
+        if phong:
+            pm = pm | m
+    return pm
 
-    1. each stream entry -> its 4 strip rows; each side-list triangle ->
-       all 8 rows of every tile with lcounts > 0;
-    2. stage A per (entry, row), then the in-span fragments (the span
-       clipped to the tile's 128 columns);
-    3. per pixel, amax of z over fragments with z > DEPTH_CLEAR, then amin
-       of gid among the fragments at that z;
-    4. the winner's attributes (al + k * inc), shade_planes and
-       pack_argb_planes."""
+
+class Fragments(NamedTuple):
+    """The fragments of one raster launch (``raster_fragments``)."""
+
+    pair_tri: torch.Tensor  # (P,) triangle of each (entry, row) pair
+    pix: torch.Tensor  # (F,) i64 pixel of each fragment with z > clear
+    z: torch.Tensor  # (F,) f32
+    gid: torch.Tensor  # (F,) i64 triangle id
+    k: torch.Tensor  # (F,) f32 interpolation step from the span's left end
+    pair: torch.Tensor  # (F,) i64 index of the fragment's pair
+    attrs: list  # [(al, inc) (P,) f32] per attribute plane
+
+
+def raster_fragments(recs, qbins: QueueBins, lcounts, *, tile_h: int,
+                     tiles_y: int, tiles_x: int, row0: int, col0: int,
+                     frame_width: int, n_fields: int) -> Fragments:
+    """Steps 1-2 of ``raster_plain``: each stream entry -> its strip's
+    rows (all tile_h rows with one stream), each side-list triangle ->
+    every row of every tile with lcounts > 0; stage A per (entry, row);
+    then the in-span fragments (the span clipped to the tile's 128
+    columns) with z > DEPTH_CLEAR, at pixels of the padded local frame."""
     dev = recs.device
     nfb = tiles_y * tiles_x
-    hp, wp = tiles_y * 8, tiles_x * TILE_W
-    n_fields = 7 if phong else 4
-
-    pairs = [_stream_pairs(qbins, nfb, dev), _side_pairs(qbins, lcounts, dev)]
+    wp = tiles_x * TILE_W
+    pairs = [_stream_pairs(qbins, nfb, tile_h, dev),
+             _side_pairs(qbins, lcounts, tile_h, dev)]
     tile, tri, row = (torch.cat(parts) for parts in zip(*pairs))
     ty, tx = tile // tiles_x, tile % tiles_x
-    prow = ty * 8 + row  # row in the padded local frame
+    prow = ty * tile_h + row  # row in the padded local frame
     yf = (prow + row0).to(F32)
-    w_f = torch.tensor(float(frame_width), dtype=F32, device=dev)
+    w_f = scalar(frame_width, dev)
     minx, maxx, xoff, zl, zinc, attrs, gid = _span_setup(
         recs[tri], yf, w_f, n_fields)
 
@@ -378,8 +528,31 @@ def raster_plain(recs, qbins: QueueBins, lcounts, params, *, tiles_y: int,
     z = zl[fp] + k * zinc[fp]
     pix = prow[fp] * wp + (xc.to(I64) - col0)
     live = z > DEPTH_CLEAR
-    fp, k, z, pix = fp[live], k[live], z[live], pix[live]
-    g = gid[fp].to(I64)
+    fp = fp[live]
+    return Fragments(tri, pix[live], z[live], gid[fp].to(I64), k[live], fp,
+                     attrs)
+
+
+def raster_plain(recs, qbins: QueueBins, lcounts, params, objs, *,
+                 tile_h: int, tiles_y: int, tiles_x: int, row0: int,
+                 col0: int, frame_width: int, any_phong: bool,
+                 n_lights: int):
+    """Plain-PyTorch K2 / K3 / K4, vectorised over the binned streams:
+
+    1. ``raster_fragments``: stage A per (entry, row) of the streams and
+       the side list, and the in-span fragments with z > DEPTH_CLEAR;
+    2. per pixel, amax of z over the fragments, then amin of gid among the
+       fragments at that z;
+    3. the winner's attributes (al + k * inc), shade_planes where the
+       winner's object is Phong, and pack_argb_planes."""
+    dev = recs.device
+    hp, wp = tiles_y * tile_h, tiles_x * TILE_W
+    n_fields = 7 if any_phong else 4
+    frags = raster_fragments(
+        recs, qbins, lcounts, tile_h=tile_h, tiles_y=tiles_y,
+        tiles_x=tiles_x, row0=row0, col0=col0, frame_width=frame_width,
+        n_fields=n_fields)
+    pix, z, g, k, fp = frags.pix, frags.z, frags.gid, frags.k, frags.pair
 
     # Winner per pixel: (z descending, gid ascending).
     bz = torch.full((hp * wp,), DEPTH_CLEAR, dtype=F32, device=dev)
@@ -393,13 +566,13 @@ def raster_plain(recs, qbins: QueueBins, lcounts, params, *, tiles_y: int,
     wpix, wfp, wk = pix[win], fp[win], k[win]
     covered = bg != none
     planes = []
-    for al, inc in attrs:
+    for al, inc in frags.attrs:
         plane = torch.zeros((hp * wp,), dtype=F32, device=dev)
         plane[wpix] = al[wfp] + wk * inc[wfp]
         planes.append(plane.reshape(hp, wp))
 
     zimg = bz.reshape(hp, wp)
-    cov = covered.reshape(hp, wp)
+    gid_img = torch.where(covered, bg, -1).to(I32).reshape(hp, wp)
     col = planes[:4]
     px = (torch.arange(wp, device=dev) + col0).to(F32)[None, :].expand(hp, wp)
     py = (torch.arange(hp, device=dev) + row0).to(F32)[:, None].expand(hp, wp)
@@ -410,72 +583,122 @@ def raster_plain(recs, qbins: QueueBins, lcounts, params, *, tiles_y: int,
     light_i = [tuple(params[9 + 7 * k + 3 + c] for c in range(4))
                for k in range(n_lights)]
     rgba = shade_planes(zimg, col, planes[4:], px, py, cam, ambient,
-                        light_p, light_i, phong, n_lights)
-    if phong:
-        rgba = [torch.where(cov, rgba[c], col[c]) for c in range(4)]
+                        light_p, light_i, any_phong, n_lights)
+    if any_phong:
+        pm = _phong_mask(gid_img, objs)
+        rgba = [torch.where(pm, rgba[c], col[c]) for c in range(4)]
     color = pack_argb_planes(*rgba)
-    gid_img = torch.where(covered, bg, -1).to(I32).reshape(hp, wp)
     return zimg, gid_img, color
 
 
-def rasterize_scene_shaded(pre: SetupOut, objspecs: tuple,
-                           transform: ProjectiveTransform, lights: LightData,
-                           height: int, width: int,
-                           frame_height: int | None = None,
-                           frame_width: int | None = None, row0: int = 0,
-                           col0: int = 0, zcull: bool = False):
-    """Fused raster + interpolate + shade + ARGB pack of a setup table ->
-    (covered, z (H, W), color u32 (H, W), stats) (raster_pallas.py:2467).
+class RasterLaunch(NamedTuple):
+    """One raster launch, ready to run: its route, the wrapper of the
+    route's kernel (K2, K3 or K4) and the wrapper's operands and options."""
 
-    ``pre`` is the SetupOut of ``ops.setup.setup_for_raster``. stats holds
-    bins_dropped, bins_real_entries, bins_budget_utilization (0-d tensors)
-    and bins_budget_factor (the policy factor). ``zcull=True`` raises until
-    its slice is ported."""
-    if len(objspecs) != 1:
-        raise NotImplementedError(
-            "multi-object launches (_render_scene_batched) belong to the "
-            "second slice of the port"
-        )
-    if zcull:
-        raise NotImplementedError("zcull belongs to a later slice")
-    T = int(pre.recs.shape[0])
+    route: RasterRoute
+    kernel: object
+    operands: tuple  # recs, qbins, lcounts, params, objs
+    options: dict  # tiles_y, tiles_x, row0, col0, frame_width, ...
+
+    @property
+    def qbins(self) -> QueueBins:
+        return self.operands[1]
+
+    def run(self):
+        """(z, gid, color) of every tile from the route's kernel (its plain
+        version on CPU tensors)."""
+        return self.kernel(*self.operands, **self.options)
+
+    def run_plain(self):
+        """The same outputs from ``raster_plain``, on any device."""
+        return raster_plain(*self.operands, tile_h=self.route.tile_h,
+                            **self.options)
+
+
+def prepare_raster(table, objspecs: tuple, transform: ProjectiveTransform,
+                   lights: LightData, height: int, width: int,
+                   frame_height: int | None = None,
+                   frame_width: int | None = None, row0: int = 0,
+                   col0: int = 0) -> RasterLaunch:
+    """Everything before the raster kernel (raster_pallas.py:2501-2723):
+    the row-major table and bboxes, the route, the binning and the side-list
+    gate, for the local (height, width) rect at origin (row0, col0).
+
+    ``table`` is a SetupOut (the K1 kernel's row-major table and bboxes)
+    or the channel-major (85, T) table of ``setup_records``, whose bboxes
+    come from ``triangle_bbox_rows`` and whose row-major form from
+    ``finish_records`` (K7). ``objspecs`` holds one ObjSpec per object."""
+    if frame_height is None:
+        frame_height = height
+    if frame_width is None:
+        frame_width = width
+    if isinstance(table, SetupOut):
+        recs, bbox = table.recs, table.bbox
+        T, t_policy = int(recs.shape[0]), table.num_triangles
+    else:
+        T = t_policy = int(table.shape[1])
+        bbox = triangle_bbox_rows(table, frame_height, frame_width)
+        recs = finish_records(table)
     assert objspecs[-1].gid_hi <= T, "objspecs beyond the record table"
     assert T <= MAX_SCENE_TRIANGLES, (
         f"scene has {T} triangles; the f32 gid lane is exact only to "
         f"{MAX_SCENE_TRIANGLES}"
     )
-    if frame_height is None:
-        frame_height = height
-    if frame_width is None:
-        frame_width = width
-    route = raster_route(pre.num_triangles, frame_height, frame_width)
-    qbins, lcounts = bin_for_raster(pre, route, height, width, row0, col0)
-    tiles_y = -(-height // route.tile_h)
-    tiles_x = -(-width // TILE_W)
-    z, gid, color = raster_kernel(
-        pre.recs, qbins, lcounts, shade_params(transform, lights),
-        tiles_y=tiles_y, tiles_x=tiles_x, row0=row0, col0=col0,
-        frame_width=frame_width, phong=objspecs[0].phong,
-        n_lights=lights.count,
+    route = raster_route(t_policy, frame_height, frame_width, len(objspecs))
+    qbins, lcounts = bin_for_raster(bbox, route, height, width, row0, col0)
+    return RasterLaunch(
+        route, RASTER_KERNELS[(route.tile_h, route.rows)],
+        (recs, qbins, lcounts, shade_params(transform, lights),
+         obj_table(objspecs, recs.device)),
+        dict(tiles_y=-(-height // route.tile_h), tiles_x=-(-width // TILE_W),
+             row0=row0, col0=col0, frame_width=frame_width,
+             any_phong=_scene_fields(objspecs) == 7, n_lights=lights.count),
     )
-    z, gid, color = (a[:height, :width] for a in (z, gid, color))
+
+
+def rasterize_scene_shaded(table, objspecs: tuple,
+                           transform: ProjectiveTransform, lights: LightData,
+                           height: int, width: int,
+                           frame_height: int | None = None,
+                           frame_width: int | None = None, row0: int = 0,
+                           col0: int = 0, zcull: bool = False):
+    """Fused raster + interpolate + shade + ARGB pack of a scene's record
+    table (see ``prepare_raster``) -> (covered, z (H, W), color u32 (H, W),
+    stats) (raster_pallas.py:2467). stats holds bins_dropped,
+    bins_real_entries, bins_budget_utilization (0-d tensors) and
+    bins_budget_factor (the policy factor). ``zcull=True`` raises until its
+    slice is ported."""
+    if zcull:
+        raise NotImplementedError("zcull belongs to a later slice")
+    return run_shaded(prepare_raster(table, objspecs, transform, lights,
+                                     height, width, frame_height,
+                                     frame_width, row0, col0),
+                      height, width)
+
+
+def run_shaded(launch: RasterLaunch, height: int, width: int):
+    """Run a prepared launch and crop its tiles to (height, width) ->
+    (covered, z, color u32, stats), as ``rasterize_scene_shaded``."""
+    z, gid, color = (a[:height, :width] for a in launch.run())
+    qbins = launch.qbins
     stats = {
         "bins_dropped": qbins.n_dropped,
         "bins_real_entries": qbins.n_real,
         "bins_budget_utilization": qbins.budget_util,
-        "bins_budget_factor": route.policy_factor,
+        "bins_budget_factor": launch.route.policy_factor,
     }
     return gid >= 0, z, color, stats
 
 
-def rasterize_shaded(pre: SetupOut, transform: ProjectiveTransform,
+def rasterize_shaded(table, transform: ProjectiveTransform,
                      lights: LightData, phong: bool, height: int,
                      width: int, frame_height: int | None = None,
                      frame_width: int | None = None, row0: int = 0,
                      col0: int = 0, zcull: bool = False):
     """Single-object entry point (raster_pallas.rasterize_pallas_shaded)."""
-    objspecs = (ObjSpec(0, pre.num_triangles, bool(phong)),)
+    T = (table.num_triangles if isinstance(table, SetupOut)
+         else int(table.shape[1]))
     return rasterize_scene_shaded(
-        pre, objspecs, transform, lights, height, width, frame_height,
-        frame_width, row0, col0, zcull,
+        table, (ObjSpec(0, T, bool(phong)),), transform, lights, height,
+        width, frame_height, frame_width, row0, col0, zcull,
     )

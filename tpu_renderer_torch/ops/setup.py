@@ -21,22 +21,32 @@ import ctypes
 import torch
 
 from .. import _cuda
-from ..core.math import clamp01, maximum, round_half_away
 from ..core.types import (
-    NEAR_CLIP,
     LightData,
     ObjectConfig,
     ProjectiveTransform,
     RenderObject,
 )
-from ..geometry.vertex import EDGE_STRIDE, GID_LANE, REC_LANES, _norm3
+from ..geometry.vertex import (
+    EDGE_STRIDE,
+    GID_LANE,
+    F_X0,
+    F_XG,
+    F_YMAX,
+    F_YMIN,
+    REC_LANES,
+    setup_fields,
+    setup_params,
+    setup_records,
+)
 from .binning import _bbox_core
 
 F32 = torch.float32
 
 SETUP_BLK = 1024  # triangles per block of the padded table
-# Below this triangle count the JAX package runs the XLA setup chain
-# (setup_records) instead of the fused kernel; that path is not ported yet.
+# Below this triangle count the vertex stage runs the small-object chain
+# (geometry.vertex.setup_records, torch ops) instead of the K1 kernel, as
+# the JAX package runs its XLA chain there.
 FUSED_SETUP_MIN = 4096
 
 
@@ -66,39 +76,18 @@ def _setup_blk(T: int) -> int:
 def setup_for_raster(obj: RenderObject, transform: ProjectiveTransform,
                      lights: LightData, cfg: ObjectConfig, gid0: int = 0,
                      frame_height: int | None = None,
-                     frame_width: int | None = None) -> SetupOut:
-    """Vertex stage for the raster path: the K1 kernel from
-    FUSED_SETUP_MIN triangles up."""
+                     frame_width: int | None = None):
+    """Vertex stage for the raster path (setup_pallas.py:116): the K1
+    kernel from FUSED_SETUP_MIN triangles up (a SetupOut), the small-object
+    chain below it (the channel-major (85, T) table of setup_records)."""
     T = obj.num_triangles
     if T < FUSED_SETUP_MIN or frame_height is None:
-        raise NotImplementedError(
-            f"objects below {FUSED_SETUP_MIN} triangles take the XLA "
-            "setup chain (setup_records), which belongs to the second "
-            "slice of the port"
-        )
+        return setup_records(obj, transform, lights, cfg, gid0)
     recs, bbox = setup_records_fused(
         obj, transform, lights, cfg, gid0, frame_height, frame_width,
         _setup_blk(T),
     )
     return SetupOut(recs, bbox, T)
-
-
-def setup_params(obj_p, transform: ProjectiveTransform,
-                 lights: LightData) -> torch.Tensor:
-    """Flat f32 vector: [dat, fl, m2p, cx, cy, p xyz, ambient rgba,
-    (light_p xyz, light_I rgba) per light]."""
-    parts = [
-        transform.distance_above_target.reshape(1),
-        transform.focal_length.reshape(1),
-        transform.meters_to_pixels.reshape(1),
-        transform.screen_center.reshape(2),
-        obj_p.reshape(3),
-        lights.ambient.reshape(4),
-    ]
-    for k in range(lights.count):
-        parts.append(lights.light_p[k].reshape(3))
-        parts.append(lights.light_intensity[k].reshape(4))
-    return torch.cat([p.to(F32) for p in parts])
 
 
 def setup_records_fused(obj: RenderObject, transform: ProjectiveTransform,
@@ -172,112 +161,17 @@ _cuda.declare("tr_setup", [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
 
 def setup_plain(params, verts, cols, nrms, *, n_lights: int, phong: bool,
                 gid0: int, frame_height: int, frame_width: int, tp: int):
-    """Plain-PyTorch K1: the _setup_kernel math (setup_pallas.py:196-383)
-    on (3, Tp) rows, same f32 op order. Runs on any device."""
+    """Plain-PyTorch K1: the _setup_kernel math (setup_pallas.py:196-383),
+    which is geometry.vertex.setup_fields on the (3, Tp) rows padded with
+    zeros (invalid records), packed row-major with the bbox rows. Runs on
+    any device."""
     T = verts.shape[2]
 
     def padt(a):
         return torch.nn.functional.pad(a, (0, tp - T))
 
-    verts, cols, nrms = padt(verts), padt(cols), padt(nrms)
-    dat, fl, m2p, cx, cy = (params[i] for i in range(5))
-    p = (params[5], params[6], params[7])
-    amb = tuple(params[8 + c] for c in range(4))
-    lp = [tuple(params[12 + 7 * k + i] for i in range(3))
-          for k in range(n_lights)]
-    li = [tuple(params[12 + 7 * k + 3 + c] for c in range(4))
-          for k in range(n_lights)]
-
-    cam = [verts[c] + p[c] for c in range(3)]  # (3v, Tp) each component
-
-    # ProjectVertex (projekt.cpp:74-93).
-    dz = dat - cam[2]
-    s = (1.0 / dz) * fl
-    x = cx + m2p * (s * cam[0])
-    y = cy + m2p * (s * cam[1])
-    good = dz > NEAR_CLIP
-    px = torch.where(good, x, 0.0)
-    py = torch.where(good, y, 0.0)
-    pz = torch.where(good, dz, 0.0)
-
-    # Screen-space backface cull (projekt.cpp:3926-3943).
-    e1 = _norm3(px[1] - px[0], py[1] - py[0], pz[1] - pz[0])
-    e2 = _norm3(px[2] - px[0], py[2] - py[0], pz[2] - pz[0])
-    visible = -(e1[0] * e2[1] - e1[1] * e2[0]) > 0.0  # (Tp,)
-
-    colors = [cols[c] for c in range(4)]
-    normals = [nrms[c] for c in range(3)]
-
-    # Per-vertex colors: raw under Phong, Gouraud-baked otherwise
-    # (projekt.cpp:4022-4063).
-    if phong or n_lights == 0:
-        gcol = colors  # n_lights == 0: divergence #6, raw passthrough
-    else:
-        out = [colors[c] * amb[c] for c in range(4)]
-        for k in range(n_lights):
-            tl = _norm3(lp[k][0] - cam[0], lp[k][1] - cam[1],
-                        lp[k][2] - cam[2])
-            d = tl[0] * normals[0]
-            d = d + tl[1] * normals[1]
-            d = d + tl[2] * normals[2]
-            d = clamp01(d)  # (3v, Tp)
-            out = [clamp01(out[c] + d * (colors[c] * li[k][c]))
-                   for c in range(4)]
-        gcol = out
-
-    # Edge e = (vertex e, vertex (e+1)%3), endpoints ordered by y.
-    y_lo = py
-    swap = y_lo > torch.roll(py, -1, 0)  # (3e, Tp)
-
-    def sel(arr):
-        hi = torch.roll(arr, -1, 0)
-        return torch.where(swap, hi, arr), torch.where(swap, arr, hi)
-
-    minv_x, maxv_x = sel(px)
-    minv_y, maxv_y = sel(py)
-    camz_mn, camz_mx = sel(cam[2])
-
-    keep = (
-        visible[None]
-        & (maxv_y > 0.0)  # offscreen-top reject cpp:3968
-        & (minv_y - maxv_y != 0.0)  # horizontal cpp:4066
-    )  # (3e, Tp)
-
-    ymax = round_half_away(maxv_y)  # cpp:3988
-    ymin = maximum(0.0, round_half_away(minv_y))  # cpp:3999
-    neg = minv_y < 0.0
-    clipped_y = torch.where(neg, -minv_y, 0.0)
-    tt = torch.where(neg, (-minv_y) / (maxv_y - minv_y), 0.0)
-
-    ydiff = ymax - ymin
-    xg = (maxv_x - minv_x) / (maxv_y - minv_y)  # cpp:4073
-    zg = (camz_mx - camz_mn) / ydiff  # cpp:4072
-    x0 = minv_x + clipped_y * xg  # cpp:4075
-    z0 = camz_mn + clipped_y * zg  # cpp:4076
-    zero = torch.zeros_like(ydiff)  # untextured: u/v/1-z fields are 0
-
-    left = torch.where(ymin == round_half_away(y_lo), 1.0, 0.0)  # cpp:4093
-
-    # Top-clip color lerp (cpp:4091); normals are NOT lerped (quirk).
-    col0, colg = [], []
-    for c in range(4):
-        mn, mx = sel(gcol[c])
-        c0 = (1.0 - tt) * mn + tt * mx
-        col0.append(c0)
-        colg.append((mx - c0) / ydiff)
-    if phong:
-        n0, ng = [], []
-        for c in range(3):
-            mn, mx = sel(normals[c])
-            n0.append(mn)
-            ng.append((mx - mn) / ydiff)
-    else:
-        n0 = ng = [zero] * 3
-
-    fields = ([keep.to(F32), ymin, ymax, x0, xg, z0, zg]
-              + [zero] * 6 + [left] + col0 + colg + n0 + ng)
-    assert len(fields) == EDGE_STRIDE
-    fields = torch.stack([torch.where(keep, f, 0.0) for f in fields])
+    fields, keep = setup_fields(params, padt(verts), padt(cols), padt(nrms),
+                                n_lights, phong)
     rec = fields.permute(1, 0, 2).reshape(3 * EDGE_STRIDE, tp)
     gid_row = (torch.arange(tp, dtype=torch.int32, device=verts.device)
                + gid0).to(F32)[None]
@@ -285,9 +179,10 @@ def setup_plain(params, verts, cols, nrms, *, n_lights: int, phong: bool,
     recs = torch.cat([rec, gid_row, pad]).t().contiguous()
 
     tri_valid, ylo, yhi, xlo, xhi = _bbox_core(
-        [keep[e] for e in range(3)], [ymin[e] for e in range(3)],
-        [ymax[e] for e in range(3)], [x0[e] for e in range(3)],
-        [xg[e] for e in range(3)], frame_height, frame_width,
+        [keep[e] for e in range(3)],
+        *[[fields[f, e] for e in range(3)]
+          for f in (F_YMIN, F_YMAX, F_X0, F_XG)],
+        frame_height, frame_width,
     )
     bbox = torch.cat([
         torch.stack([tri_valid.to(F32), ylo, yhi, xlo, xhi]),
