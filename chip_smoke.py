@@ -16,17 +16,23 @@ Phases (any failure raises and the script exits nonzero):
    bit-equal outputs required, with the route of every launch asserted:
    - K1 (setup) and K2 (raster + shade, 8-row tiles, row packing 2) on a
      51,200-triangle sphere grid at 512x512, with and without a merged
-     large quad (side list non-empty);
+     large quad (side list non-empty), and textured (K1's u/z, v/z, 1/z
+     fields; K5, the texture fetch in the finalize, bilinear);
    - K1 and K3 (8-row tiles, one stream) on config 2's teapot at 512x512,
-     with and without a merged large quad;
+     with and without a merged large quad, and textured (K5 bilinear);
    - K7 (record transpose) on config 4's channel-major table, and K4
-     (16-row tiles) on config 4's sphere at 1920x1080 and on config 5's
-     three untextured objects at 1920x1080 in one launch;
+     (16-row tiles) on config 4's sphere at 1920x1080, and on config 5's
+     objects at 1920x1080 in one launch: the three untextured ones, and
+     all four (K5 nearest on the quad);
    - K2 on config 5's three untextured objects at 96x128 (several objects
      under row packing);
+   - K6 (the mask strategy) on config 1 (16-row tiles), config 3 (K5
+     bilinear) at 512x512, and a 2-object scene on 8-row tiles at 128x128,
+     untextured and with two quads, nearest and bilinear;
 4. card against CPU: each route's small scene (models/route_scenes.py,
-   with and without side-list triangles) and a 4,140-triangle sphere grid,
-   rendered on the card and by the plain versions on the CPU: bit-equal;
+   with and without side-list triangles, textured, and the mask routes)
+   and a 4,140-triangle sphere grid, rendered on the card and by the plain
+   versions on the CPU: bit-equal;
 5. paths, each through Renderer(device="cuda") for 3 warm-up and 20 timed
    frames, every object rotated about y each frame, the launch counts set
    to 0 just before the path and read just after:
@@ -39,16 +45,29 @@ Phases (any failure raises and the script exits nonzero):
      K7 and K4;
    - config 5 untextured: sphere + torus + cube, 3,244 triangles, at
      1920x1080 in one launch: K7 and K4, once per frame each;
+   - textured 250k: a 250,632-triangle Gouraud sphere
+     (construct_sphere_grid(354, 354)) sampling a 128x128 checkerboard
+     bilinearly, at 1920x1080 (bench.py's textured scale point): K1 and K2
+     (with K5), K1 and K2 first held bit-equal to their plain versions at
+     that shape;
+   - config 1 and config 3: the 12-triangle cube at 512x512, flat and
+     bilinear-textured: K7 and K6;
+   - config 5: sphere, torus, cube and the textured quad (nearest), 3,246
+     triangles (3,584 padded), at 1920x1080 in one launch: K7 and K4;
    every frame must drop no entry and cover pixels, and the first frame
-   of each new path must equal the CPU plain run of it bit for bit;
+   of each path since config 2 must equal the CPU plain run of it bit for
+   bit;
 6. timings: median ms per frame (CUDA events) of each path, the headline's
    setup / binning / raster split (each stage alone between syncs), and
-   each kernel at its path's shapes (the headline for K1 and K2), first
-   held bit-equal to its plain version on those inputs, then timed beside
-   its plain version's
-   (K7 also beside ``t().contiguous()``, the one PyTorch call that
-   transposes), with the least time the card could take for the same
-   work (bytes at 3.35 TB/s against f32 operations at 67 TFLOP/s);
+   each kernel at its path's shapes (the headline for K1 and K2, the
+   textured 250k point for K1 textured, config 3 for K6), first held
+   bit-equal to its plain version on those inputs, then timed beside its
+   plain version's (K7 also beside ``t().contiguous()``, the one PyTorch
+   call that transposes); K5, which has no launch of its own, as K2's time
+   on the textured 250k path beside K2's on the same mesh untextured, with
+   ``grid_sample`` (bilinear, border) on the textured pixels as the library
+   call; each with the least time the card could take for the same work
+   (bytes at 3.35 TB/s against f32 operations at 67 TFLOP/s);
 7. with --profile only: host enqueue time, device time, top kernels and
    device idle share of 10 frames of each path, from a torch.profiler
    trace.
@@ -76,12 +95,22 @@ SETUP_OPS = 250  # per triangle: projection, cull, 3 edges' fields
 SETUP_LIGHT_OPS = 40  # per vertex and light, Gouraud only
 STAGE_A_OPS, STAGE_A_FIELD_OPS = 110, 12  # per (entry, row) pair
 FRAG_OPS, FRAG_FIELD_OPS = 8, 2  # per in-span fragment
+SETUP_TEX_OPS = 40  # per triangle: the u/z, v/z, 1/z fields
 PACK_OPS = 24  # per covered pixel
 PHONG_OPS, PHONG_LIGHT_OPS = 40, 70  # per Phong-shaded pixel
+# Per textured pixel: u/z, v/z, 1/z from the span (~12 each), 1/z's
+# reciprocal and two products, index math (~12), 4 texels unpacked (~16)
+# and the bilinear lerp (24); nearest does a quarter of the fetch and no
+# lerp, so this counts every textured pixel as bilinear (an upper count).
+TEX_OPS = 90
 KERNELS = {
     "K1 setup": dict(
         source="tpu_renderer_torch/csrc/setup.cu",
         replaces="tpu_renderer/ops/setup_pallas.py:174", path="headline"),
+    "K1 setup textured": dict(
+        source="tpu_renderer_torch/csrc/setup.cu",
+        replaces="tpu_renderer/ops/setup_pallas.py:278",
+        path="textured 250k"),
     "K2 raster+shade": dict(
         source="tpu_renderer_torch/csrc/raster.cu",
         replaces="tpu_renderer/ops/raster_pallas.py:2192", path="headline"),
@@ -91,10 +120,21 @@ KERNELS = {
     "K4 raster+shade 16-row": dict(
         source="tpu_renderer_torch/csrc/raster.cu",
         replaces="tpu_renderer/ops/raster_pallas.py:2372", path="config 4"),
+    "K5 texture sampling": dict(
+        source="tpu_renderer_torch/csrc/raster.cu",
+        replaces="tpu_renderer/ops/raster_pallas.py:863",
+        path="textured 250k"),
+    "K6 raster+shade mask": dict(
+        source="tpu_renderer_torch/csrc/raster.cu",
+        replaces="tpu_renderer/ops/raster_pallas.py:2121", path="config 3"),
     "K7 record transpose": dict(
         source="tpu_renderer_torch/csrc/records.cu",
         replaces="tpu_renderer/ops/raster_pallas.py:469", path="config 4"),
 }
+# The wrapper whose launch counter a KERNELS entry reads: K1 textured is
+# K1's wrapper with uvs; K5 runs inside K2's launches on its path.
+COUNTER = {"K1 setup textured": "K1 setup", "K5 texture sampling":
+           "K2 raster+shade"}
 
 
 def log(*args):
@@ -164,43 +204,70 @@ def bound(nbytes, ops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def setup_work(T, tp, phong, n_lights):
+def setup_work(T, tp, phong, n_lights, textured=False):
     """(bytes, f32 operations) of K1 on T triangles padded to tp: vertex,
-    colour and normal planes in, the record table and bbox rows out."""
-    nbytes = T * 3 * (3 + 4 + 3) * 4 + tp * 128 * 4 + 8 * tp * 4
-    ops = T * SETUP_OPS + (0 if phong else T * 3 * n_lights * SETUP_LIGHT_OPS)
+    colour, normal (and uv) planes in, the record table and bbox rows
+    out."""
+    chans = 3 + 4 + 3 + (2 if textured else 0)
+    nbytes = T * 3 * chans * 4 + tp * 128 * 4 + 8 * tp * 4
+    ops = (T * SETUP_OPS + (T * SETUP_TEX_OPS if textured else 0)
+           + (0 if phong else T * 3 * n_lights * SETUP_LIGHT_OPS))
     return nbytes, ops
+
+
+def textured_pixels(launch, gid_out):
+    """Covered pixels whose object samples a texture."""
+    import torch
+    from tpu_renderer_torch.ops import raster
+
+    specs, tspecs = launch.objs.tolist(), launch.texs.tolist()
+    n = torch.zeros_like(gid_out >= 0)
+    for m, t in zip(raster._object_masks(gid_out, specs), tspecs):
+        if t[1] > 0:
+            n = n | m
+    return n
 
 
 def raster_work(launch, gid_out):
     """(bytes, f32 operations) this raster launch's data needs: the 88
-    record lanes of every distinct triangle it reads, its kept stream
-    entries, tile tables and side list, 12 bytes per output pixel; stage A
-    per (entry, row) pair, the fold per in-span fragment and the finalize
-    per covered pixel."""
+    record lanes of every distinct triangle it reads, its kept entries,
+    tile tables and side list, the texture atlas, 12 bytes per output
+    pixel; stage A per (entry, row) pair, the fold per in-span fragment,
+    and the finalize per covered pixel (the texture fetch per textured
+    pixel, Phong per Phong pixel)."""
     import torch
     from tpu_renderer_torch.ops import raster
 
-    recs, qbins, lcounts, params, objs = launch.operands
+    recs, params = launch.operands[0], launch.operands[-4]
+    objs, atlas = launch.objs, launch.operands[-1]
+    qbins = launch.qbins
     o = launch.options
-    nf = 7 if o["any_phong"] else 4
+    nfb = o["tiles_y"] * o["tiles_x"]
+    lcounts = (launch.operands[2] if launch.route.strategy == "sorted"
+               else torch.zeros(nfb, dtype=torch.int32, device=recs.device))
+    fields, _, nrm_off, _ = raster.launch_fields(objs, launch.texs)
+    nf = len(fields)
     frags = raster.raster_fragments(
         recs, qbins, lcounts, tile_h=launch.route.tile_h,
         tiles_y=o["tiles_y"], tiles_x=o["tiles_x"], row0=o["row0"],
-        col0=o["col0"], frame_width=o["frame_width"], n_fields=nf)
+        col0=o["col0"], frame_width=o["frame_width"], fields=fields)
     n_tris = int(torch.unique(frags.pair_tri).numel())
     n_pairs = int(frags.pair_tri.numel())
     n_frag = int(frags.z.numel())
     covered = gid_out >= 0
     n_cov = int(covered.sum())
-    n_phong = int(raster._phong_mask(gid_out, objs).sum()) if nf == 7 else 0
+    n_phong = (int(raster._phong_mask(gid_out, objs).sum())
+               if nrm_off is not None else 0)
+    n_tex = int(textured_pixels(launch, gid_out).sum())
     nbytes = (n_tris * 88 * 4 + int(qbins.counts.sum()) * 4
               + (qbins.starts.numel() + qbins.counts.numel()
                  + int(qbins.n_large) + lcounts.numel()) * 4
-              + params.numel() * 4 + objs.numel() * 4 + gid_out.numel() * 12)
+              + params.numel() * 4 + objs.shape[0] * 7 * 4
+              + (0 if atlas is None else atlas.numel() * 4)
+              + gid_out.numel() * 12)
     ops = (n_pairs * (STAGE_A_OPS + STAGE_A_FIELD_OPS * nf)
            + n_frag * (FRAG_OPS + FRAG_FIELD_OPS * nf)
-           + n_cov * PACK_OPS
+           + n_cov * PACK_OPS + n_tex * TEX_OPS
            + n_phong * (PHONG_OPS + PHONG_LIGHT_OPS * o["n_lights"]))
     return nbytes, ops
 
@@ -282,10 +349,10 @@ def k1_call(obj, cfg, tr, li, h, w):
     args = (setup.setup_params(obj.p, tr, li), obj.vertices, obj.colors,
             obj.normals)
     kw = dict(n_lights=li.count, phong=cfg.phong, gid0=0, frame_height=h,
-              frame_width=w, tp=tp)
+              frame_width=w, tp=tp, uvs=obj.uvs if cfg.textured else None)
     return (lambda: setup.setup_kernel(*args, **kw),
             lambda: setup.setup_plain(*args, **kw),
-            setup_work(T, tp, cfg.phong, li.count))
+            setup_work(T, tp, cfg.phong, li.count, cfg.textured))
 
 
 def rotated(scene, angle, device):
@@ -312,11 +379,18 @@ def main():
     sys.path.insert(0, ROOT)
     import tpu_renderer_torch as trt
     from tpu_renderer_torch import _cuda
+    from tpu_renderer_torch.core.math import unpack_argb
     from tpu_renderer_torch.engine.renderer import prepare_scene
     from tpu_renderer_torch.geometry.vertex import setup_records
     from tpu_renderer_torch.models import primitives as prim
     from tpu_renderer_torch.models import scenes
-    from tpu_renderer_torch.models.route_scenes import ROUTE_NAMES, route_scene
+    from tpu_renderer_torch.models.route_scenes import (
+        MASK_NAMES,
+        ROUTE_NAMES,
+        TEXTURED_NAMES,
+        route_scene,
+    )
+    from tpu_renderer_torch.models.textures import checkerboard
     from tpu_renderer_torch.ops import raster, setup
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -327,6 +401,7 @@ def main():
         "K2 raster+shade": raster.raster_kernel,
         "K3 raster+shade rows 1": raster.raster_rows1_kernel,
         "K4 raster+shade 16-row": raster.raster_narrow_kernel,
+        "K6 raster+shade mask": raster.raster_mask_kernel,
         "K7 record transpose": raster.finish_records,
     }
 
@@ -355,45 +430,60 @@ def main():
     # 3. Each kernel against its plain version on the card.
     max_err = {name: 0.0 for name in KERNELS}
 
-    def check_launch(name, label, launch, want_route, n_obj):
+    def check_launch(name, label, launch, want_route, n_obj, n_tex=0):
         r = launch.route
+        textured = int((launch.texs[:, 1] > 0).sum())
         if (r.tile_h, r.rows) != want_route or launch.kernel is not \
-                wrappers[name] or launch.operands[4].shape[0] != n_obj:
+                wrappers[name] or launch.objs.shape[0] != n_obj or \
+                textured != n_tex:
             raise AssertionError(f"{label} took route {r} on "
-                                 f"{launch.kernel.__name__}")
+                                 f"{launch.kernel.__name__}, {textured} "
+                                 "textured object(s)")
         err = assert_equal(f"{name} on {label}", launch.run(),
                            launch.run_plain())
         max_err[name] = max(max_err[name], err)
+        if textured:
+            key = "K5 texture sampling"
+            max_err[key] = max(max_err[key], err)
         log(f"# {name} == plain on {label} (tile_h {r.tile_h}, rows "
-            f"{r.rows}, {n_obj} object(s), n_large "
+            f"{r.rows}, {n_obj} object(s), {textured} textured, n_large "
             f"{int(launch.qbins.n_large)}): bit-equal")
         return int(launch.qbins.n_large)
 
     def check_k1(label, obj, cfg, tr, li, h, w):
         fn, plain, _ = k1_call(obj, cfg, tr, li, h, w)
-        max_err["K1 setup"] = max(max_err["K1 setup"], assert_equal(
-            f"K1 on {label}", fn(), plain()))
+        key = "K1 setup textured" if cfg.textured else "K1 setup"
+        max_err[key] = max(max_err[key], assert_equal(
+            f"{key} on {label}", fn(), plain()))
 
     grid = prim.construct_sphere_grid(160, 160)
     teapot = {k: v for k, v in scenes.baseline_scene(2, 512, 512)[0][0][
         0].items() if k != "p"}
-    for label, mesh, kname, want, hw, quad in (
+    tex128 = checkerboard(128, 128, 16)
+    for label, mesh, kname, want, hw, quad, tex in (
             ("51,200-tri sphere", grid, "K2 raster+shade", (8, 2), 512,
-             None),
+             None, False),
             ("sphere + large quad", grid, "K2 raster+shade", (8, 2), 512,
-             1.2),
+             1.2, False),
+            ("textured 51,200-tri sphere", grid, "K2 raster+shade", (8, 2),
+             512, None, True),
             ("config 2 teapot", teapot, "K3 raster+shade rows 1", (8, 1),
-             512, None),
+             512, None, False),
             ("teapot + large quad", teapot, "K3 raster+shade rows 1",
-             (8, 1), 512, 2.2)):
+             (8, 1), 512, 2.2, False),
+            ("textured teapot", teapot, "K3 raster+shade rows 1", (8, 1),
+             512, None, True)):
         if quad is not None:
             mesh = prim.merge_meshes(mesh, prim.construct_quad(quad))
         cfg_d = {"phong": True} if kname.startswith("K2") else {}
+        if tex:
+            cfg_d = dict(cfg_d, texture=tex128, filter_mode="bilinear")
         sg = [(dict(p=(0.0, 0.0, 0.0), **mesh), cfg_d)]
         scene, tr, li = torch_scene(sg, hw, hw, dev)
         check_k1(label, *scene[0], tr, li, hw, hw)
         n_large = check_launch(kname, f"{label} at {hw}x{hw}",
-                               prepare_scene(scene, tr, li, hw, hw), want, 1)
+                               prepare_scene(scene, tr, li, hw, hw), want, 1,
+                               int(tex))
         if (quad is not None) != (n_large > 0):
             raise AssertionError(f"{label}: n_large {n_large}")
 
@@ -408,15 +498,33 @@ def main():
         "bit-equal")
     check_launch("K4 raster+shade 16-row", "config 4 at 1920x1080",
                  prepare_scene(scene4, tr4, li4, H, W), (16, 1), 1)
-    sg5 = scenes.baseline_scene(5, H, W)[0][:3]
+    sg5full = scenes.baseline_scene(5, H, W)[0]
+    sg5 = sg5full[:3]
     scene5, tr5, li5 = torch_scene(sg5, H, W, dev)
     check_launch("K4 raster+shade 16-row",
                  "config 5 untextured at 1920x1080",
                  prepare_scene(scene5, tr5, li5, H, W), (16, 1), 3)
+    scene5f, tr5f, li5f = torch_scene(sg5full, H, W, dev)
+    check_launch("K4 raster+shade 16-row", "config 5 at 1920x1080",
+                 prepare_scene(scene5f, tr5f, li5f, H, W), (16, 1), 4, 1)
     sg, (h, w) = route_scene("k2multi")
     scene, tr, li = torch_scene(sg, h, w, dev)
     check_launch("K2 raster+shade", f"config 5 untextured at {w}x{h}",
                  prepare_scene(scene, tr, li, h, w), (8, 2), 3)
+    sg1 = scenes.baseline_scene(1, 512, 512)[0]
+    sg3 = scenes.baseline_scene(3, 512, 512)[0]
+    scene1, tr1, li1 = torch_scene(sg1, 512, 512, dev)
+    scene3, tr3, li3 = torch_scene(sg3, 512, 512, dev)
+    check_launch("K6 raster+shade mask", "config 1 at 512x512",
+                 prepare_scene(scene1, tr1, li1, 512, 512), (16, 1), 1)
+    check_launch("K6 raster+shade mask", "config 3 at 512x512",
+                 prepare_scene(scene3, tr3, li3, 512, 512), (16, 1), 1, 1)
+    for variant, n_tex in (("base", 0), ("textured", 2)):
+        sg, (h, w) = route_scene("k6multi", variant)
+        scene, tr, li = torch_scene(sg, h, w, dev)
+        check_launch("K6 raster+shade mask",
+                     f"2-object {variant} scene at {w}x{h}",
+                     prepare_scene(scene, tr, li, h, w), (8, 1), 2, n_tex)
 
     # 4. Small scenes on the card against the plain versions on the CPU
     # (the CPU runs are what the tests hold to the JAX package and golden).
@@ -444,10 +552,12 @@ def main():
                       128, 128)
     if cov != 2174:
         raise AssertionError(f"4,140-tri frame covers {cov} px, not 2174")
-    for name in ROUTE_NAMES:
-        for variant in ("base", "sidelist"):
-            sg, (h, w) = route_scene(name, variant)
-            card_vs_cpu(f"route {name} ({variant})", sg, h, w, 100)
+    for name, variant in ([(n, v) for n in ROUTE_NAMES
+                           for v in ("base", "sidelist")]
+                          + [(n, "base") for n in MASK_NAMES]
+                          + [(n, "textured") for n in TEXTURED_NAMES]):
+        sg, (h, w) = route_scene(name, variant)
+        card_vs_cpu(f"route {name} ({variant})", sg, h, w, 100)
 
     # 5. Paths.
     def drive(path, scene, tr, li, h, w, n_frames, kernels):
@@ -470,7 +580,7 @@ def main():
             events.append((e0, e1))
             frame_stats.append((st["bins_dropped"],
                                 (fb.depth > -3.0e38).sum(),
-                                st["bins_real_entries"]))
+                                st.get("bins_real_entries", -1)))
         torch.cuda.synchronize()
         launches = {n: wr.launches for n, wr in wrappers.items()}
         want = {n: (n_frames if n in kernels else 0) for n in wrappers}
@@ -482,10 +592,12 @@ def main():
         if any(drops) or min(covered) <= 0:
             raise AssertionError(f"{path}: drops {drops}, covered {covered}")
         ms = [e0.elapsed_time(e1) for e0, e1 in events[WARMUP:]]
+        entries = int(frame_stats[-1][2])
         log(f"# path {path}: {sum(o.num_triangles for o, _ in scene)} "
             f"tris in {len(scene)} object(s), {w}x{h}, {n_frames} frames "
             f"({WARMUP} warm-up), drops 0, covered {covered[-1]} px, real "
-            f"entries {int(frame_stats[-1][2])}, launches {launches}")
+            f"entries {entries if entries >= 0 else 'none (mask)'}, "
+            f"launches {launches}")
         log(f"# path {path} ms/frame (CUDA events, median of "
             f"{len(ms)}): {statistics.median(ms):.4f} (min {min(ms):.4f}, "
             f"max {max(ms):.4f})")
@@ -527,21 +639,58 @@ def main():
         raise AssertionError(f"headline frame fails its checks: {checks}")
     log(f"# headline frame checks: {json.dumps(checks)}")
 
+    # The CPU runs first, so that no timed frame shares the host with
+    # them.
     sg2 = scenes.baseline_scene(2, 512, 512)[0]
     scene2, tr2, li2 = torch_scene(sg2, 512, 512, dev)
-    first_frame_vs_cpu("config 2", sg2, 512, 512)
+    for path, sg_, h, w in (("config 2", sg2, 512, 512),
+                            ("config 4", sg4, H, W),
+                            ("config 5 untextured", sg5, H, W),
+                            ("config 1", sg1, 512, 512),
+                            ("config 3", sg3, 512, 512),
+                            ("config 5", sg5full, H, W)):
+        first_frame_vs_cpu(path, sg_, h, w)
     path_ms["config 2"], _, path_launches["config 2"] = drive(
         "config 2", scene2, tr2, li2, 512, 512, n_frames,
         ("K1 setup", "K3 raster+shade rows 1"))
-    first_frame_vs_cpu("config 4", sg4, H, W)
     path_ms["config 4"], _, path_launches["config 4"] = drive(
         "config 4", scene4, tr4, li4, H, W, n_frames,
         ("K7 record transpose", "K4 raster+shade 16-row"))
-    first_frame_vs_cpu("config 5 untextured", sg5, H, W)
     path_ms["config 5 untextured"], _, path_launches[
         "config 5 untextured"] = drive(
         "config 5 untextured", scene5, tr5, li5, H, W, n_frames,
         ("K7 record transpose", "K4 raster+shade 16-row"))
+
+    # The textured 250k point: K1 and K2 held to their plain versions at
+    # full shape, then driven.
+    mesh250 = prim.construct_sphere_grid(354, 354)
+    sg250 = [(dict(p=(0.0, 0.0, 0.0), **mesh250),
+              {"texture": tex128, "filter_mode": "bilinear"})]
+    scene250, tr250, li250 = torch_scene(sg250, H, W, dev)
+    T250 = scene250[0][0].num_triangles
+    assert T250 == 250_632, T250
+    check_k1(f"textured {T250} tris", *scene250[0], tr250, li250, H, W)
+    log(f"# K1 setup textured == plain at {T250} tris {W}x{H}: bit-equal")
+    launch250 = prepare_scene(scene250, tr250, li250, H, W)
+    check_launch("K2 raster+shade", f"textured {T250} tris {W}x{H}",
+                 launch250, (8, 2), 1, 1)
+    path_ms["textured 250k"], fb250, path_launches["textured 250k"] = drive(
+        "textured 250k", scene250, tr250, li250, H, W, n_frames,
+        ("K1 setup", "K2 raster+shade"))
+    c250 = fb250.color.view(torch.int32)[fb250.depth > -3.0e38]
+    n_colors = int(torch.unique(c250).numel())
+    if n_colors < 100 or not bool(((c250 >> 24) & 0xFF).eq(255).all()):
+        raise AssertionError(f"textured 250k frame: {n_colors} colours")
+    log(f"# textured 250k frame checks: {n_colors} distinct colours, "
+        "opaque")
+    for path, sc_, tr_, li_, h, w, kern in (
+            ("config 1", scene1, tr1, li1, 512, 512, "K6 raster+shade mask"),
+            ("config 3", scene3, tr3, li3, 512, 512, "K6 raster+shade mask"),
+            ("config 5", scene5f, tr5f, li5f, H, W,
+             "K4 raster+shade 16-row")):
+        path_ms[path], _, path_launches[path] = drive(
+            path, sc_, tr_, li_, h, w, n_frames,
+            ("K7 record transpose", kern))
 
     # 6a. Split of the headline frame: rotate / setup / binning / raster.
     # Each stage runs alone between two syncs, so its CUDA-event time is
@@ -561,6 +710,7 @@ def main():
         return out
 
     route = raster.raster_route(T, H, W)
+    specs = (raster.ObjSpec(0, T, True),)
     for a in [0.06 * i for i in range(10)]:
         spun = timed("rotate", lambda: rotated(head_scene, a, dev)[0][0])
         pre = timed("setup", lambda: setup.setup_for_raster(
@@ -569,9 +719,9 @@ def main():
             pre.bbox, route, H, W))
         timed("raster", lambda: raster.raster_kernel(
             pre.recs, qbins, lcounts, raster.shade_params(head_tr, head_li),
-            raster.obj_table((raster.ObjSpec(0, T, True),), dev),
+            raster.obj_table(specs, dev), raster.tex_table(specs, dev), None,
             tiles_y=H // 8, tiles_x=W // 128, row0=0, col0=0,
-            frame_width=W, any_phong=True, n_lights=head_li.count))
+            frame_width=W, n_lights=head_li.count))
     split_med = {k: round(statistics.median(v), 4) for k, v in split.items()}
     log("# headline split (ms, each stage alone between syncs, host "
         f"enqueue included, median of 10): {json.dumps(split_med)}")
@@ -592,16 +742,22 @@ def main():
         timing.setdefault(name, (kms, pms, bms, by, None))
         log(f"# {name} at {label}: kernel {kms:.4f} ms, plain {pms:.4f} "
             f"ms, bound {bms:.4f} ms ({by})")
+        return kms, pms, gid
 
-    fn, plain, work = k1_call(obj, cfg, head_tr, head_li, H, W)
-    max_err["K1 setup"] = max(max_err["K1 setup"], assert_equal(
-        f"K1 at headline {T} tris", fn(), plain()))
-    log(f"# K1 setup == plain at headline {T} tris {W}x{H}: bit-equal")
-    kms, pms = in_turns(fn, plain)
-    bms, by = bound(*work)
-    timing["K1 setup"] = (kms, pms, bms, by, None)
-    log(f"# K1 setup at {T} tris {W}x{H}: kernel {kms:.4f} ms, plain "
-        f"{pms:.4f} ms, bound {bms:.4f} ms ({by})")
+    def time_k1(name, obj_, cfg_, tr_, li_):
+        fn, plain, work = k1_call(obj_, cfg_, tr_, li_, H, W)
+        n = obj_.num_triangles
+        max_err[name] = max(max_err[name], assert_equal(
+            f"{name} at {n} tris", fn(), plain()))
+        log(f"# {name} == plain at {n} tris {W}x{H}: bit-equal")
+        kms, pms = in_turns(fn, plain)
+        bms, by = bound(*work)
+        timing[name] = (kms, pms, bms, by, None)
+        log(f"# {name} at {n} tris {W}x{H}: kernel {kms:.4f} ms, plain "
+            f"{pms:.4f} ms, bound {bms:.4f} ms ({by})")
+
+    time_k1("K1 setup", obj, cfg, head_tr, head_li)
+    time_k1("K1 setup textured", *scene250[0], tr250, li250)
     head_launch = prepare_scene(head_scene, head_tr, head_li, H, W)
     per_tile = head_launch.qbins.counts[:-2].reshape(-1, 2).sum(dim=1)
     log(f"# K2 load: {int((per_tile > 0).sum())} of {per_tile.numel()} "
@@ -613,8 +769,44 @@ def main():
     time_launch("K4 raster+shade 16-row", "config 4 2,208 tris 1920x1080",
                 prepare_scene(scene4, tr4, li4, H, W))
     time_launch("K4 raster+shade 16-row (config 5)",
-                "config 5 untextured 3,244 tris 1920x1080",
-                prepare_scene(scene5, tr5, li5, H, W))
+                "config 5 3,246 tris 1920x1080",
+                prepare_scene(scene5f, tr5f, li5f, H, W))
+    time_launch("K6 raster+shade mask", "config 3 12 tris 512x512",
+                prepare_scene(scene3, tr3, li3, 512, 512))
+    time_launch("K6 raster+shade mask (config 1)",
+                "config 1 12 tris 512x512",
+                prepare_scene(scene1, tr1, li1, 512, 512))
+
+    # K5: K2 on the textured 250k mesh beside K2 on the same mesh
+    # untextured. The library call: grid_sample (bilinear, border, corners
+    # aligned: u * (tw - 1), as K5) of the texture's four channels at as
+    # many (u, v) points as the frame has textured pixels (spread over the
+    # texture; grid_sample is not bit-equal to K5, and its time is not
+    # used by the port).
+    k5_ms, k5_plain, gid250 = time_launch(
+        "K2 raster+shade (textured 250k)", f"textured {T250} tris {W}x{H}",
+        launch250)
+    sg250u = [(sg250[0][0], {})]
+    sc_u, tr_u, li_u = torch_scene(sg250u, H, W, dev)
+    k2u_ms, _, _ = time_launch("K2 raster+shade (untextured 250k)",
+                               f"untextured {T250} tris {W}x{H}",
+                               prepare_scene(sc_u, tr_u, li_u, H, W))
+    tmask = textured_pixels(launch250, gid250)
+    n_texpx = int(tmask.sum())
+    grid_uv = torch.rand((1, 1, n_texpx, 2), device=dev,
+                         generator=torch.Generator(dev).manual_seed(0))
+    grid_uv = grid_uv * 2.0 - 1.0
+    tex_f = torch.stack(unpack_argb(launch250.operands[-1]))[None]
+    lib_ms = statistics.median([event_ms(
+        lambda: torch.nn.functional.grid_sample(
+            tex_f, grid_uv, mode="bilinear", padding_mode="border",
+            align_corners=True), 20) for _ in range(2)])
+    bms5, by5 = bound(128 * 128 * 4, n_texpx * TEX_OPS)
+    timing["K5 texture sampling"] = (k5_ms, k5_plain, bms5, by5, lib_ms)
+    log(f"# K5 texture sampling ({n_texpx} textured px): K2 textured "
+        f"{k5_ms:.4f} ms against K2 untextured {k2u_ms:.4f} ms on the same "
+        f"mesh, grid_sample {lib_ms:.4f} ms, bound {bms5:.6f} ms ({by5})")
+
     R, T4 = table4.shape
     tp4 = T4 + (-T4 % raster.REC_T_BLK)
     padded = torch.nn.functional.pad(table4, (0, tp4 - T4, 0, 128 - R))
@@ -633,7 +825,11 @@ def main():
                 ("headline", (head_scene, head_tr, head_li, H, W)),
                 ("config 2", (scene2, tr2, li2, 512, 512)),
                 ("config 4", (scene4, tr4, li4, H, W)),
-                ("config 5 untextured", (scene5, tr5, li5, H, W))):
+                ("config 5 untextured", (scene5, tr5, li5, H, W)),
+                ("textured 250k", (scene250, tr250, li250, H, W)),
+                ("config 1", (scene1, tr1, li1, 512, 512)),
+                ("config 3", (scene3, tr3, li3, 512, 512)),
+                ("config 5", (scene5f, tr5f, li5f, H, W))):
             renderer = trt.Renderer(h, w, device=dev)
             profile_frames(
                 path, lambda a: renderer.render(rotated(sc, a, dev), tr_,
@@ -643,13 +839,16 @@ def main():
     kernels = []
     for name, meta in KERNELS.items():
         kms, pms, bms, by, lms = timing[name]
-        kernels.append(dict(
+        entry = dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], path=meta["path"],
-            launches=path_launches[meta["path"]][name],
+            launches=path_launches[meta["path"]][COUNTER.get(name, name)],
             max_abs_err=max_err[name], ms=round(kms, 4),
             plain_ms=round(pms, 4), bound_ms=round(bms, 6), bound_by=by,
-            library_ms=None if lms is None else round(lms, 4)))
+            library_ms=None if lms is None else round(lms, 4))
+        if name == "K5 texture sampling":
+            entry["untextured_k2_ms"] = round(k2u_ms, 4)
+        kernels.append(entry)
     log("# frames: " + json.dumps({
         "ms_per_frame": {k: round(v, 4) for k, v in path_ms.items()},
         "headline_split_ms": split_med, "card": smi_line}))

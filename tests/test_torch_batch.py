@@ -19,6 +19,8 @@ renders through its jitted Renderer(backend="pallas"), its Pallas
 kernels in interpret mode as its own tests run them.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -37,6 +39,13 @@ from tpu_renderer_torch.models.route_scenes import route_scene
 
 
 def port_case(route, variant):
+    """The port's frame of a scene; each rendered once per process (the
+    golden and JAX fixtures share it)."""
+    return dict(_port_case(route, variant))
+
+
+@functools.lru_cache(maxsize=None)
+def _port_case(route, variant):
     sg, (h, w) = route_scene(route + "multi", variant)
     tr_d, li_d = ts.baseline_camera_lights(h, w)
     scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device="cpu")

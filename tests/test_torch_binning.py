@@ -16,11 +16,11 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_render import jax_setup, mesh_for
 from tpu_renderer.geometry import vertex as jvx
 from tpu_renderer.models import scenes as js
 from tpu_renderer.ops import binning as jb
 from tpu_renderer.ops import raster_pallas as jrp
-from tpu_renderer.ops import setup_pallas as jsp
 from tpu_renderer_torch.models import primitives as tp
 from tpu_renderer_torch.models import scenes as ts
 from tpu_renderer_torch.models.sphere import construct_sphere
@@ -31,21 +31,12 @@ H = W = 128
 F = np.float32
 
 
-def jax_bbox(mesh):
-    tr_d, li_d = ts.baseline_camera_lights(H, W)
-    sg = [(dict(p=(0.0, 0.0, 0.0), **mesh), {"phong": True})]
-    (o, c), tr, li = (lambda s: (s[0][0], s[1], s[2]))(
-        js.to_jax_scene(sg, tr_d, li_d))
-    _, bbox = jsp.setup_records_fused(o, tr, li, c, 0, H, W,
-                                      jsp._setup_blk(o.num_triangles))
-    return o.num_triangles, [np.asarray(a) for a in bbox]
-
-
 @pytest.fixture(scope="module")
 def bboxes():
-    sphere = tp.construct_sphere_grid(46, 45)
-    side = tp.merge_meshes(sphere, tp.construct_quad(1.2))
-    return {"sphere": jax_bbox(sphere), "sidelist": jax_bbox(side)}
+    """JAX's fused-setup bboxes of the sphere grid and its side-list
+    variant (test_torch_render.jax_setup, computed once per process)."""
+    return {v: (len(mesh_for(v)["vertices"]) // 3, list(jax_setup(v)[1]))
+            for v in ("sphere", "sidelist")}
 
 
 def both_bins(bbox, budget_factor, large_capacity=2048):
@@ -155,7 +146,8 @@ def test_route_policy_helpers(T, hw):
     2690): sorted above 512 triangles, 8- or 16-row tiles, row packing 2
     on 8-row tiles at or below 12 px/triangle, the expansion and budget
     block of the route, and the flat per-stream budget for several
-    objects under row packing. Only the mask strategy still raises."""
+    objects under row packing; the mask strategy at or below 512, with the
+    same tile height."""
     h, w = hw
     assert trp._pick_tile_h(T, h, w) == jrp._pick_tile_h(T, h, w)
     for th in (8, 16):
@@ -163,8 +155,8 @@ def test_route_policy_helpers(T, hw):
     assert (trp._rows_stream_budget_factor(T, h, w)
             == jrp._rows_stream_budget_factor(T, h, w))
     if T <= jrp.AUTO_SORTED_THRESHOLD:
-        with pytest.raises(NotImplementedError):
-            trp.raster_route(T, h, w)
+        r = trp.raster_route(T, h, w)
+        assert (r.strategy, r.tile_h) == ("mask", jrp._pick_tile_h(T, h, w))
         return
     tile_h = jrp._pick_tile_h(T, h, w)
     exp, bf = jrp._queue_expansion(tile_h, T)

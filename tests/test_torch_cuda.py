@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain-PyTorch versions on the card:
-K1 (setup), K2 / K3 / K4 (raster + shade, single and multi-object) and K7
-(record transpose), and whole frames on the card against the CPU run.
+K1 (setup, untextured and textured), K2 / K3 / K4 (raster + shade of the
+sorted strategy, single and multi-object), K6 (the mask strategy), K5
+(texture sampling, inside each route's finalize) and K7 (record
+transpose), and whole frames on the card against the CPU run.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports no JAX, so it also runs on a machine that has only torch; there,
@@ -21,7 +23,13 @@ from tpu_renderer_torch.models import primitives as tp
 from tpu_renderer_torch.models import scenes as ts
 from tpu_renderer_torch.ops import raster as trp
 from tpu_renderer_torch.ops import setup as tsp
-from tpu_renderer_torch.models.route_scenes import ROUTE_NAMES, torch_scene
+from tpu_renderer_torch.models.route_scenes import (
+    MASK_NAMES,
+    ROUTE_NAMES,
+    TEXTURED_NAMES,
+    torch_scene,
+)
+from tpu_renderer_torch.models.textures import checkerboard
 
 pytestmark = pytest.mark.cuda
 
@@ -147,15 +155,20 @@ def route_launch(name, variant, device):
 
 ROUTE_KERNEL = {"k3": "raster_rows1_kernel", "k4": "raster_narrow_kernel",
                 "mixed": "raster_kernel", "k4multi": "raster_narrow_kernel",
-                "k2multi": "raster_kernel"}
+                "k2multi": "raster_kernel", "k6": "raster_mask_kernel",
+                "k6multi": "raster_mask_kernel"}
 
 
-@pytest.mark.parametrize("variant", ["base", "sidelist"])
-@pytest.mark.parametrize("name", ROUTE_NAMES)
+@pytest.mark.parametrize("name, variant", [
+    (n, v) for n in ROUTE_NAMES for v in ("base", "sidelist")]
+    + [(n, "base") for n in MASK_NAMES]
+    + [(n, "textured") for n in TEXTURED_NAMES])
 def test_route_kernel_equals_plain(cuda, name, variant):
-    """K2 / K3 / K4 on each route's launch, single and multi-object, with
-    and without side-list triangles: bit-equal to raster_plain on the same
-    card tensors, one launch counted on the route's own wrapper."""
+    """K2 / K3 / K4 / K6 on each route's launch, single and multi-object,
+    with and without side-list triangles, and with K5 sampling textures
+    (nearest, bilinear, both in one atlas): bit-equal to the plain version
+    on the same card tensors, one launch counted on the route's own
+    wrapper."""
     launch = route_launch(name, variant, cuda)
     wrapper = getattr(trp, ROUTE_KERNEL[name])
     assert launch.kernel is wrapper
@@ -169,6 +182,71 @@ def test_route_kernel_equals_plain(cuda, name, variant):
     assert int((out_k[1] >= 0).sum()) > 1000
     if variant == "sidelist":
         assert int(launch.qbins.n_large) > 0
+    if variant == "textured":
+        assert int((launch.texs[:, 1] > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("phong", [True, False])
+def test_textured_k1_equals_plain(cuda, phong):
+    """K1 with the textured fields (u/z, v/z, 1/z, the white Gouraud
+    base): bit-equal to setup_plain, one launch counted."""
+    h = w = 128
+    tr_d, li_d = ts.baseline_camera_lights(h, w)
+    sg = [(dict(p=(0.0, 0.0, 0.0), **tp.construct_sphere_grid(46, 45)),
+           {"phong": phong, "texture": checkerboard(16, 16, 2)})]
+    sc, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device=cuda)
+    obj, cfg = sc[0]
+    kw = dict(n_lights=li.count, phong=phong, gid0=0, frame_height=h,
+              frame_width=w, tp=4608, uvs=obj.uvs)
+    args = (tsp.setup_params(obj.p, tr, li), obj.vertices, obj.colors,
+            obj.normals)
+    n0 = tsp.setup_kernel.launches
+    got = tsp.setup_kernel(*args, **kw)
+    assert tsp.setup_kernel.launches == n0 + 1
+    want = tsp.setup_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(bits(a), bits(b))
+    assert bool((got[0][:, 7] != 0).any())  # the 1/z lane is written
+
+
+@pytest.mark.parametrize("name", TEXTURED_NAMES)
+def test_textured_route_frame_on_card_equals_cpu(cuda, name):
+    """Each route's textured frame through Renderer on the card equals the
+    CPU run."""
+    fbs = []
+    for dev in ("cpu", cuda):
+        scene, tr, li, (h, w) = torch_scene(name, "textured", dev)
+        fbs.append(trt.Renderer(h, w, device=dev).render(scene, tr, li))
+    torch.cuda.synchronize()
+    cpu, gpu = fbs
+    np.testing.assert_array_equal(gpu.depth.cpu().numpy(), cpu.depth.numpy())
+    np.testing.assert_array_equal(gpu.color.view(torch.int32).cpu().numpy(),
+                                  cpu.color.view(torch.int32).numpy())
+
+
+def test_mask_subrect_origin_on_card(cuda):
+    """K6's row0 / col0 offsets: a sub-rectangle off the tile grid equals
+    the plain version on the same card tensors and the full frame."""
+    scene, tr, li, (h, w) = torch_scene("k6", "textured", cuda)
+    from tpu_renderer_torch.engine.renderer import prepare_scene
+
+    full = prepare_scene(scene, tr, li, h, w)
+    obj, cfg = scene[0]
+    table = tsp.setup_for_raster(obj, tr, li, cfg, frame_height=h,
+                                 frame_width=w)
+    spec = trp.ObjSpec(0, obj.num_triangles, cfg.phong,
+                       (0, 64, 64, "bilinear"))
+    launch = trp.prepare_raster(table, (spec,), tr, li, 60, 100, h, w, 37,
+                                21, atlas=full.operands[-1])
+    assert launch.kernel is trp.raster_mask_kernel
+    out_k, out_p = launch.run(), launch.run_plain()
+    torch.cuda.synchronize()
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(bits(a), bits(b))
+    z, _, color = full.run()
+    assert torch.equal(bits(out_k[0][:60, :100]), bits(z[37:97, 21:121]))
+    assert torch.equal(bits(out_k[2][:60, :100]), bits(color[37:97, 21:121]))
 
 
 @pytest.mark.parametrize("shape", [(85, 1), (85, 528), (85, 3456),

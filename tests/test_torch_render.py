@@ -15,6 +15,8 @@ golden divergence #8): coverage exact, color mismatch <= 0.2%, depth
 within rtol 1e-6 on >= 99.5% of pixels; equal bins_dropped.
 """
 
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -71,6 +73,20 @@ def golden_scene(variant, phong=True):
              {"phong": phong})], tr_d, li_d
 
 
+@functools.lru_cache(maxsize=None)
+def jax_setup(variant):
+    """JAX's fused setup kernel (jitted, interpret mode) on the scene of
+    ``variant``: (recs, bbox 5-tuple) as NumPy arrays. Computed once per
+    process and shared with tests/test_torch_binning.py."""
+    sg, tr_d, li_d = golden_scene(variant)
+    (oj, cj), trj, lij = (lambda s: (s[0][0], s[1], s[2]))(
+        js.to_jax_scene(sg, tr_d, li_d))
+    recs, bbox = jax.jit(jsp.setup_records_fused,
+                         static_argnums=(3, 4, 5, 6, 7))(
+        oj, trj, lij, cj, 0, H, W, jsp._setup_blk(oj.num_triangles))
+    return np.asarray(recs), tuple(np.asarray(a) for a in bbox)
+
+
 @pytest.fixture(scope="module", params=["sphere", "sidelist"])
 def case(request):
     variant = request.param
@@ -80,9 +96,7 @@ def case(request):
     scene_j, trj, lij = js.to_jax_scene(sg, tr_d, li_d)
     jfb, jstats = JRenderer(H, W, backend="pallas").render(
         scene_j, trj, lij, with_stats=True)
-    oj, cj = scene_j[0]
-    jrecs, jbbox = jsp.setup_records_fused(oj, trj, lij, cj, 0, H, W,
-                                           jsp._setup_blk(oj.num_triangles))
+    jrecs, jbbox = jax_setup(variant)
 
     scene_t, trt_, lit = ts.to_torch_scene(sg, tr_d, li_d, device="cpu")
     fb, stats = trt.Renderer(H, W, device="cpu").render(
@@ -91,7 +105,7 @@ def case(request):
         variant=variant, gold=(gc, gd),
         jax=(np.asarray(jfb.color), np.asarray(jfb.depth)),
         jstats={k: np.asarray(v) for k, v in jstats.items()},
-        jsetup=(np.asarray(jrecs), [np.asarray(a) for a in jbbox]),
+        jsetup=(jrecs, list(jbbox)),
         port=(fb.color.numpy(), fb.depth.numpy()), stats=stats,
         scene=(scene_t, trt_, lit),
     )
@@ -229,18 +243,27 @@ def test_subrect_origin_equals_full_frame():
 
 
 def test_routes_outside_the_slice_raise():
-    """Textures, zcull and the mask strategy (T <= 512) still raise; the
-    rows=1 route that used to raise here now renders (K3)."""
+    """Textured objects the fused path cannot take ('avx' addressing, a
+    texture over the atlas limits: the G-buffer path) and zcull still
+    raise; the routes that used to raise here now render: rows 1 (K3),
+    textures (K5) and the mask strategy (K6, T <= 512)."""
     tr_d, li_d = ts.baseline_camera_lights(H, W)
     mesh = tp.construct_sphere_grid(46, 45)
-    sg = [(dict(p=(0.0, 0.0, 0.0), **mesh),
-           {"texture": np.full((8, 8), 0xFF808080, np.uint32)})]
+    tex = np.full((8, 8), 0xFF808080, np.uint32)
+    for cfg_d in ({"texture": tex, "uv_mode": "avx"},
+                  {"texture": np.zeros((8, 600), np.uint32)},
+                  {"texture": tex, "filter_mode": "trilinear"}):
+        sg = [(dict(p=(0.0, 0.0, 0.0), **mesh), cfg_d)]
+        scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device="cpu")
+        with pytest.raises(NotImplementedError, match="G-buffer"):
+            trt.Renderer(H, W, device="cpu").render(scene_t, tr, li)
+        with pytest.raises(NotImplementedError, match="G-buffer"):
+            trt.render_scene(None, scene_t * 2, tr, li, frame_height=H,
+                             frame_width=W)
+    sg = [(dict(p=(0.0, 0.0, 0.0), **mesh), {"texture": tex})]
     scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device="cpu")
-    with pytest.raises(NotImplementedError, match="textur"):
-        trt.Renderer(H, W, device="cpu").render(scene_t, tr, li)
-    with pytest.raises(NotImplementedError, match="textur"):
-        trt.render_scene(None, scene_t * 2, tr, li, frame_height=H,
-                         frame_width=W)
+    fb = trt.Renderer(H, W, device="cpu").render(scene_t, tr, li)
+    assert int((fb.depth > -3.0e38).sum()) > 0
     sg = [(dict(p=(0.0, 0.0, 0.0), **mesh), {"phong": True})]
     scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device="cpu")
     assert trp.raster_route(4140, 512, 512).rows == 1
@@ -251,12 +274,12 @@ def test_routes_outside_the_slice_raise():
                                frame_width=W)
     with pytest.raises(NotImplementedError, match="zcull"):
         trp.rasterize_shaded(pre, tr, li, True, H, W, zcull=True)
-    with pytest.raises(NotImplementedError, match="mask strategy"):
-        trp.raster_route(trp.AUTO_SORTED_THRESHOLD, H, W)
+    assert trp.raster_route(trp.AUTO_SORTED_THRESHOLD, H, W).strategy == (
+        "mask")
     small = [(dict(p=(0.0, 0.0, 0.0), **tp.construct_cube()), {})]
     scene_t, tr, li = ts.to_torch_scene(small, tr_d, li_d, device="cpu")
-    with pytest.raises(NotImplementedError, match="mask strategy"):
-        trt.Renderer(H, W, device="cpu").render(scene_t, tr, li)
+    fb = trt.Renderer(H, W, device="cpu").render(scene_t, tr, li)
+    assert int((fb.depth > -3.0e38).sum()) > 0
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):

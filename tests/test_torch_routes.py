@@ -18,6 +18,8 @@ exact, colour mismatch <= 0.2%, depth within rtol 1e-6 on >= 99.5% of
 pixels; bins_dropped equal.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -34,6 +36,13 @@ from tpu_renderer_torch.models.route_scenes import route_scene
 
 
 def port_case(route, variant):
+    """The port's frame of a scene; each rendered once per process (the
+    golden and JAX fixtures share it)."""
+    return dict(_port_case(route, variant))
+
+
+@functools.lru_cache(maxsize=None)
+def _port_case(route, variant):
     sg, (h, w) = route_scene(route, variant)
     tr_d, li_d = ts.baseline_camera_lights(h, w)
     scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device="cpu")

@@ -175,7 +175,8 @@ def test_setup_blk_policy(T):
 def test_small_objects_raise_until_their_slice():
     """Below FUSED_SETUP_MIN triangles setup_for_raster takes the
     small-object chain and returns the channel-major (85, T) table, as the
-    JAX package does; textured objects still raise."""
+    JAX package does, textured objects too (their u/z, v/z and 1/z lanes
+    written, which untextured ones leave 0)."""
     sg, tr_d, li_d = scene_golden()
     mesh = tp.construct_sphere_grid(10, 10)  # 200 triangles
     st, trt, lit = ts.to_torch_scene(
@@ -186,9 +187,10 @@ def test_small_objects_raise_until_their_slice():
                                  frame_width=W)
     assert isinstance(table, torch.Tensor) and table.shape == (85, 200)
     np.testing.assert_array_equal(table[84].numpy(), np.arange(7, 207))
-    with pytest.raises(NotImplementedError, match="textur"):
-        tsp.setup_for_raster(ot, trt, lit, dataclasses.replace(
-            ct, textured=True), frame_height=H, frame_width=W)
+    assert not table[7:13].any()
+    tex = tsp.setup_for_raster(ot, trt, lit, dataclasses.replace(
+        ct, textured=True), frame_height=H, frame_width=W)
+    assert tex.shape == (85, 200) and bool(tex[7].any())
 
 
 # ---------------------------------------------------------------------------

@@ -6,12 +6,15 @@ the public functions. Its kernels are CUDA C++ for Hopper (``csrc/``),
 built with nvcc at first use; on CPU tensors each kernel's wrapper runs
 its plain-PyTorch version instead. It imports torch and never jax.
 
-It renders the sorted strategy (more than 512 triangles per draw) of
-untextured objects, one or several per launch: K1 (setup, from 4096
-triangles) or the small-object chain + K7 (record transpose), sorted
-binning, then K2, K3 or K4 (fused raster + shade on 8-row tiles with two
-or one streams, or on 16-row tiles). The mask strategy, textures and zcull
-raise NotImplementedError.
+It renders the fused path, one or several objects per launch, textured
+('scalar' addressing, nearest or bilinear, within the fused atlas limits)
+or not: K1 (setup, from 4096 triangles) or the small-object chain + K7
+(record transpose); then the mask strategy's per-tile lists and K6 up to
+512 triangles, or the sorted binning and K2, K3 or K4 (fused raster +
+shade on 8-row tiles with two or one streams, or on 16-row tiles) above;
+K5 samples textures in the raster kernels' finalize. The G-buffer path
+(``uv_mode='avx'``, textures over the atlas limits) and zcull raise
+NotImplementedError.
 
 Quick start (entry points run on the card and raise without one unless
 given ``device="cpu"``):

@@ -13,8 +13,10 @@ because the libraries disagree and the kernels must match:
 - ``round_half_away`` is sign(x) * floor(|x| + 0.5) with jnp.sign's
   semantics (sign(-0) = -0, sign(NaN) = NaN), which is NOT C ``roundf``:
   the two differ at 0.49999997;
-- ``to_i32`` converts f32 -> int32 as XLA does for in-range values, with
-  NaN -> 0 (torch's CPU cast gives INT_MIN for NaN);
+- ``to_i32`` converts f32 -> int32 as XLA's convert does: truncation,
+  saturation at the int32 limits (infinities included) and NaN -> 0
+  (torch's CPU cast gives INT_MIN for NaN and for everything out of
+  range; CUDA's ``__float2int_rz`` saturates like XLA);
 - ``sqrt`` is correctly rounded: torch's vectorised f32 sqrt on the CPU
   is not (about 0.6% of results 1 ulp off), so it takes the square root
   in f64 and rounds once to f32, which is exact for sqrt.
@@ -22,6 +24,7 @@ because the libraries disagree and the kernels must match:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 F32 = torch.float32
@@ -76,9 +79,16 @@ def round_half_away(x):
     return sign(x) * torch.floor(torch.abs(x) + 0.5)
 
 
+_I32_LIMIT = 2147483648.0  # 2**31, exact in f32
+
+
 def to_i32(x):
-    """f32 -> int32 for in-range values, NaN -> 0 (XLA's convert)."""
-    return torch.where(torch.isnan(x), 0.0, x).to(torch.int32)
+    """f32 -> int32 as XLA's convert: truncate, saturate, NaN -> 0."""
+    hi = x >= _I32_LIMIT
+    safe = torch.where(torch.isnan(x) | hi, 0.0,
+                       torch.where(x < -_I32_LIMIT, -_I32_LIMIT, x))
+    return torch.where(hi, torch.iinfo(torch.int32).max,
+                       safe.to(torch.int32))
 
 
 def clamp01(x):
@@ -125,3 +135,14 @@ def pack_argb(color_rgba):
     into u32 ARGB."""
     return pack_channels(color_rgba[..., 0], color_rgba[..., 1],
                          color_rgba[..., 2], color_rgba[..., 3])
+
+
+INV255 = float(np.float32(1.0) / np.float32(255.0))  # f32(1) / f32(255)
+
+
+def unpack_argb(pixel):
+    """u32 ARGB (any int32 / uint32 tensor) -> 4 f32 planes (r, g, b, a)
+    in [0, 1]: each 8-bit channel as f32 times the f32 1/255
+    (projekt.cpp:440-443). Shifts run on int64, which every device has."""
+    p = pixel.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return [((p >> s) & 0xFF).to(F32) * INV255 for s in (16, 8, 0, 24)]

@@ -137,8 +137,9 @@ class ObjectConfig:
     """Per-object rendering switches (see tpu_renderer.core.types).
 
     phong: per-pixel Blinn-Phong; False => Gouraud baked at the vertex
-    stage. textured / uv_mode / filter_mode: texture sampling, which this
-    port does not run yet (the renderer raises NotImplementedError)."""
+    stage. textured / uv_mode / filter_mode: texture sampling; the port
+    runs 'scalar' addressing with 'nearest' or 'bilinear' filtering and
+    raises NotImplementedError for 'avx' (the G-buffer path)."""
 
     phong: bool = False
     textured: bool = False

@@ -22,7 +22,8 @@ constexpr int kRecLanes = 128;
 
 // Per-edge field lanes of a packed record.
 constexpr int F_VALID = 0, F_YMIN = 1, F_YMAX = 2, F_X0 = 3, F_XG = 4;
-constexpr int F_Z0 = 5, F_ZG = 6, F_LEFT = 13;
+constexpr int F_Z0 = 5, F_ZG = 6, F_OZ0 = 7, F_OZG = 8, F_U0 = 9, F_UG = 10;
+constexpr int F_V0 = 11, F_VG = 12, F_LEFT = 13;
 constexpr int F_COL0 = 14, F_COLG = 18, F_N0 = 22, F_NG = 25;
 
 __device__ __forceinline__ bool is_nan(float x) { return x != x; }
@@ -56,10 +57,9 @@ __device__ __forceinline__ float round_half_away(float x) {
   return sign_of(x) * floorf(fabsf(x) + 0.5f);
 }
 
-// f32 -> int32 as XLA converts in-range values; NaN -> 0.
-__device__ __forceinline__ int to_i32(float x) {
-  return is_nan(x) ? 0 : static_cast<int>(x);
-}
+// f32 -> int32 as XLA's convert: truncate, saturate at the int32 limits,
+// NaN -> 0 (cvt.rzi.s32.f32).
+__device__ __forceinline__ int to_i32(float x) { return __float2int_rz(x); }
 
 // jnp.nan_to_num(x, nan=, posinf=, neginf=).
 __device__ __forceinline__ float nan_to_num(float x, float nan, float posinf,

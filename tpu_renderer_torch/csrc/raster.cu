@@ -1,83 +1,109 @@
-// K2, K3, K4: fused raster + shade for the sorted strategy.
+// K2, K3, K4, K6: fused raster + shade, and K5, the texture sampler of
+// their finalize.
 //
-// Replaces the Pallas kernel _raster_kernel_queue_shaded
+// Replaces the Pallas kernels _raster_kernel_queue_shaded
 // (tpu_renderer/ops/raster_pallas.py:2192, launched at :2777) on its three
-// untextured routes, one C entry each:
-//   tr_raster         K2: 8-row tiles, row packing 2 (wide=True,
+// routes and _raster_kernel_tilelist_shaded (:2121, launched at :2598), one
+// C entry each:
+//   tr_raster         K2: sorted, 8-row tiles, row packing 2 (wide=True,
 //                     rows_packed=2; two strip streams per tile);
-//   tr_raster_rows1   K3: 8-row tiles, one stream (wide=True,
+//   tr_raster_rows1   K3: sorted, 8-row tiles, one stream (wide=True,
 //                     rows_packed=1, :2355-2371);
-//   tr_raster_narrow  K4: 16-row tiles, one stream (the narrow form,
-//                     :2372-2380, _chunk_best :910 per CHUNK_T chunk).
+//   tr_raster_narrow  K4: sorted, 16-row tiles, one stream (the narrow
+//                     form, :2372-2380, _chunk_best :910 per CHUNK_T chunk);
+//   tr_raster_mask    K6: mask strategy, 8- or 16-row tiles, each tile's
+//                     padded triangle list (bin_triangles), no side list.
 // Each runs stage-A span setup (_stage_a_fill :1120, which has the same
 // span formulas in the same op order as the narrow _chunk_best: the narrow
 // form masks entries through span_ok in the coverage test, the wide one
 // through maxx = -BIG, and both reject the same pixels), the fold
-// (_fold_chunk :1029, _merge_chunk_shaded :1489), the side-list fold
-// (_chunk_best, _merge_chunk_shaded_bygid :1498) on tiles with lcounts > 0,
-// and the finalize (_write_tile_color :1543, _finalize_shade :1600):
-// per-pixel object selection by the winner's gid against the scene's
-// [gid_lo, gid_hi) ranges, Blinn-Phong shade_planes where that object is
-// Phong, the interpolated colour elsewhere, and pack_argb_planes.
+// (_fold_chunk :1029, _merge_chunk_shaded :1489), on the sorted routes the
+// side-list fold (_chunk_best, _merge_chunk_shaded_bygid :1498) on tiles
+// with lcounts > 0, and the finalize (_write_tile_color :1543,
+// _finalize_shade :1600): per-pixel object selection by the winner's gid
+// against the scene's [gid_lo, gid_hi) ranges; for a textured object the
+// perspective-correct u, v and K5, the atlas fetch (nearest
+// _sample_texture_atlas :755, bilinear _sample_texture_atlas_bilinear
+// :863), as its base colour; Blinn-Phong shade_planes where the object is
+// Phong, the base colour elsewhere; pack_argb_planes.
 //
 // Bound on the H100: the busiest tile. Device-memory traffic is small (one
 // 352 B record read per entry, 12 B written per pixel); the work is the
-// per-(entry, row) span setup (~120 f32 operations with IEEE divisions) and
+// per-(entry, row) span setup (~60 f32 operations with IEEE divisions) and
 // the per-pixel fold, and one block walks a tile's entries in series. Dense
 // meshes concentrate entries: on the 1M-triangle 1080p sphere 215 of 2,025
 // tiles hold entries, one of them 7,165, and that tile sets the kernel's
-// time while most SMs idle. Sparse scenes (K3, K4) launch few tiles with
-// entries and are bound by launch latency and the finalize of the covered
-// tiles. Splitting a tile's entries over several blocks merged by the
-// (z, gid) key is the next step.
+// time while most SMs idle. Splitting a tile's entries over several blocks
+// merged by the (z, gid) key is the next step.
 //
 // Design: the TPU ran a sequential grid of (tile, record block) work items
 // that carried each tile's z / gid / attribute scratch from one item to the
 // next. Here one block of 128 threads owns one TILE_H x 128 framebuffer tile
 // and loops over all of its entries itself, so nothing crosses blocks and
-// no work-item table (wi_tile / item_start) or stream gather is needed: the
-// block reads recs[sorted_tri[i]] directly for each of the tile's STREAMS
-// streams (starts / counts at STREAMS * tile + stream). Entries go in
-// batches of 128 (entry, row) pairs:
+// no work-item table or record gather is needed: the block reads
+// recs[ids[i]] directly, from the sorted streams (starts / counts at
+// STREAMS * tile + stream) or the mask strategy's per-tile list (ids at
+// tile * capacity, counts[tile]). Entries go in batches of 128 (entry, row)
+// pairs:
 //   1. the block stages the batch's record rows in shared memory with
 //      16-byte loads;
-//   2. thread p runs stage A for pair p (span bounds, z and attribute left
-//      values and per-pixel increments) into shared memory;
+//   2. thread p runs stage A's depth part for pair p (span bounds, z left
+//      value and per-pixel increment) into shared memory;
 //   3. thread x, owning column x of the tile, folds every pair of the batch
-//      into its TILE_H per-row winners held in registers.
+//      into its TILE_H per-row winners: (z, gid, k), k the step from the
+//      span's left end.
 // The winner rule is the lexicographic best (z descending, gid ascending)
 // over fragments with z > DEPTH_CLEAR, which is what the TPU's strict '>'
-// first-writer folds plus the gid-aware side-list merge compute; any order
-// that keeps that key is exact. Every tile is written, so empty tiles need
-// no masking afterwards. Tensor cores, TMA and a persistent schedule are
-// left for later work.
+// first-writer folds over gid-ordered lists plus the gid-aware side-list
+// merge compute; any order that keeps that key is exact. The winners carry
+// no attributes: the finalize recomputes the winner's stage A from its
+// record (row gid of the table) for only the planes that pixel's object
+// reads (colour, normal, u/z v/z 1/z), with the same f32 operations, so
+// the value al + k * inc is the one the fold would have kept. Registers
+// stay at 3 * TILE_H winner values whatever the scene's planes (config 5
+// needs 10), and one template serves every field set. Every tile is
+// written, so empty tiles need no masking afterwards. Tensor cores, TMA and
+// a persistent schedule are left for later work.
 
 #include "common.cuh"
 
 namespace tr {
 
 constexpr int kTileW = 128;
-constexpr int kThreads = 128;   // one thread per tile column
-constexpr int kMaxBatch = 32;   // entries per batch at 4 rows per entry
-constexpr int kRecStride = 132; // shared row stride: 16 B aligned, banks spread
-constexpr int kRecLoad = 88;    // lanes 0..87 hold every field and the gid
-constexpr int kMaxFields = 7;   // rgba + normal xyz
-// Span quantities of one (entry, row) pair.
+constexpr int kThreads = 128;    // one thread per tile column
+constexpr int kMaxBatch = 32;    // entries per batch at 4 rows per entry
+constexpr int kRecLoad = 88;     // lanes 0..87 hold every field and the gid
+constexpr int kRecStride = 92;   // shared row stride: 16 B aligned
+// Depth part of stage A for one (entry, row) pair.
 constexpr int Q_MINX = 0, Q_MAXX = 1, Q_XOFF = 2, Q_ZL = 3, Q_ZINC = 4;
-constexpr int Q_ATTR = 5;  // al, inc per field
-constexpr int kNumQ = Q_ATTR + 2 * kMaxFields;
+constexpr int kNumQ = 5;
 
-template <int NF, int TILE_H>
+template <int TILE_H>
 struct Winners {
   float z[TILE_H];
   int g[TILE_H];
-  float a[TILE_H][NF];
+  float k[TILE_H];
 };
 
 struct Shared {
   float rec[kMaxBatch][kRecStride];
   float span[kNumQ][kThreads];
   int gid[kThreads];
+};
+
+// Everything the finalize reads besides the winners.
+struct Finalize {
+  const float* recs;     // (Tp, 128): record of gid g is row g
+  const float* params;   // shade_params
+  const int* objs;       // (n_obj, 3) [gid_lo, gid_hi, phong]
+  const int* texs;       // (n_obj, 4) [v_off, th, tw, bilinear], th 0 = none
+  const unsigned* atlas; // (AH, aw) u32 ARGB, or null
+  int aw, n_obj, n_lights;
+  int tiles_x, row0, col0, out_w;
+  float w_f;
+  float* z_out;
+  int* gid_out;
+  unsigned* color_out;
 };
 
 // Active-edge order (projekt.cpp:212-216): lexicographic (x, xg, left, e).
@@ -93,83 +119,100 @@ __device__ __forceinline__ float pick(const int* rank, const float* v, int r) {
   return rank[0] == r ? v[0] : (rank[1] == r ? v[1] : v[2]);
 }
 
-// Stage A of one (entry, row) pair: _stage_a_fill's formulas, same f32 op
-// order, written to column p of the span table.
-template <int NF>
-__device__ __forceinline__ void stage_a(const float* rec, float yf, float w_f,
-                                        Shared& sh, int p) {
-  float dy[3], xs[3], kx[3], kg[3], kl[3];
-  bool act[3];
+// One record's edges on one row: the active edges' order, their row
+// offsets, the span's ends and its rounded width (_stage_a_fill's first
+// half, same f32 op order).
+struct RowSpan {
+  float dy[3];
+  int rank[3];
+  float xl, xr, xd;
+  int nact;
+};
+
+__device__ __forceinline__ void row_span(const float* rec, float yf,
+                                         RowSpan& s) {
+  float xs[3], kx[3], kg[3], kl[3];
+  s.nact = 0;
 #pragma unroll
   for (int e = 0; e < 3; ++e) {
     const float* r = rec + e * kEdgeStride;
     const bool valid = r[F_VALID] > 0.5f;
     const float ymin = r[F_YMIN], ymax = r[F_YMAX];
-    dy[e] = yf - ymin;
-    act[e] = valid && (ymin <= yf) && (yf < ymax);
-    xs[e] = r[F_X0] + dy[e] * r[F_XG];
-    kx[e] = act[e] ? xs[e] : kBig;
-    kg[e] = act[e] ? r[F_XG] : kBig;
-    kl[e] = act[e] ? r[F_LEFT] : kBig;
+    s.dy[e] = yf - ymin;
+    const bool act = valid && (ymin <= yf) && (yf < ymax);
+    xs[e] = r[F_X0] + s.dy[e] * r[F_XG];
+    kx[e] = act ? xs[e] : kBig;
+    kg[e] = act ? r[F_XG] : kBig;
+    kl[e] = act ? r[F_LEFT] : kBig;
+    s.nact += act ? 1 : 0;
   }
-  int rank[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     int cnt = 0;
 #pragma unroll
     for (int j = 0; j < 3; ++j)
       if (j != i) cnt += edge_less(kx, kg, kl, j, i) ? 1 : 0;
-    rank[i] = cnt;
+    s.rank[i] = cnt;
   }
-  const float xl = pick(rank, xs, 0), xr = pick(rank, xs, 1);
-  const int nact = (act[0] ? 1 : 0) + (act[1] ? 1 : 0) + (act[2] ? 1 : 0);
+  s.xl = pick(s.rank, xs, 0);
+  s.xr = pick(s.rank, xs, 1);
+  s.xd = round_half_away(s.xr - s.xl);
+}
 
+// Left value and per-pixel increment of the attribute at lanes (j0, jg).
+__device__ __forceinline__ void attr_span(const float* rec, const RowSpan& s,
+                                          int j0, int jg, float& al,
+                                          float& inc) {
+  float v[3];
+#pragma unroll
+  for (int e = 0; e < 3; ++e)
+    v[e] = rec[e * kEdgeStride + j0] + s.dy[e] * rec[e * kEdgeStride + jg];
+  al = pick(s.rank, v, 0);
+  const float ar = pick(s.rank, v, 1);
+  inc = s.xd != 0.0f ? (ar - al) / s.xd : 0.0f;
+}
+
+// The attribute's value k pixels from the span's left end.
+__device__ __forceinline__ float attr_at(const float* rec, const RowSpan& s,
+                                         int j0, int jg, float k) {
+  float al, inc;
+  attr_span(rec, s, j0, jg, al, inc);
+  return al + k * inc;
+}
+
+// Stage A's depth part for one (entry, row) pair, written to column p of
+// the span table (the attribute planes are recomputed at the finalize).
+__device__ __forceinline__ void stage_a(const float* rec, float yf, float w_f,
+                                        Shared& sh, int p) {
+  RowSpan s;
+  row_span(rec, yf, s);
   // Span setup (projekt.cpp:306-421, closed form).
-  const float xd = round_half_away(xr - xl);
-  const bool nz = xd != 0.0f;
+  const float xl = s.xl, xr = s.xr;
   const float xoff = xl < 0.0f ? -xl : 0.0f;
   const float w1 = w_f - 1.0f;
   const float lx = xl < 0.0f ? 0.0f : (xl >= w_f ? w1 : xl);
   const float rx = xr < 0.0f ? 0.0f : (xr >= w_f ? w1 : xr);
   const float minx = min_ieee(round_half_away(lx), w1);
   const float maxx = min_ieee(round_half_away(rx), w1);
-
-  auto attr_lr = [&](int j0, int jg, float& al, float& ar) {
-    float v[3];
-#pragma unroll
-    for (int e = 0; e < 3; ++e)
-      v[e] = rec[e * kEdgeStride + j0] + dy[e] * rec[e * kEdgeStride + jg];
-    al = pick(rank, v, 0);
-    ar = pick(rank, v, 1);
-  };
-  float zl, zr;
-  attr_lr(F_Z0, F_ZG, zl, zr);
+  float zl, zinc;
+  attr_span(rec, s, F_Z0, F_ZG, zl, zinc);
   sh.span[Q_MINX][p] = minx;
-  sh.span[Q_MAXX][p] = nact >= 2 ? maxx : -kBig;  // coverage gate
+  sh.span[Q_MAXX][p] = s.nact >= 2 ? maxx : -kBig;  // coverage gate
   sh.span[Q_XOFF][p] = xoff;
   sh.span[Q_ZL][p] = zl;
-  sh.span[Q_ZINC][p] = nz ? (zr - zl) / xd : 0.0f;
-#pragma unroll
-  for (int i = 0; i < NF; ++i) {
-    const int j0 = i < 4 ? F_COL0 + i : F_N0 + (i - 4);
-    const int jg = i < 4 ? F_COLG + i : F_NG + (i - 4);
-    float al, ar;
-    attr_lr(j0, jg, al, ar);
-    sh.span[Q_ATTR + 2 * i][p] = al;
-    sh.span[Q_ATTR + 2 * i + 1][p] = nz ? (ar - al) / xd : 0.0f;
-  }
+  sh.span[Q_ZINC][p] = zinc;
   sh.gid[p] = to_i32(rec[kGidLane]);
 }
 
 // Stage the records ids[0..ne), run stage A on their (entry, row) pairs for
 // tile rows [row_lo, row_lo + NROWS), and fold the pairs into the winners
 // of this thread's column. ne * NROWS <= kThreads.
-template <int NF, int TILE_H, int NROWS>
+template <int TILE_H, int NROWS>
 __device__ __forceinline__ void fold_batch(const float* __restrict__ recs,
                                            const int* __restrict__ ids, int ne,
                                            int row_lo, int row_base, float w_f,
                                            float xc, Shared& sh,
-                                           Winners<NF, TILE_H>& win) {
+                                           Winners<TILE_H>& win) {
   static_assert(kThreads / NROWS <= kMaxBatch, "batch exceeds shared rows");
   constexpr int kPer = kRecLoad / 4;
   __syncthreads();  // the previous batch has been folded
@@ -183,8 +226,8 @@ __device__ __forceinline__ void fold_batch(const float* __restrict__ recs,
   {
     const int p = threadIdx.x, e = p / NROWS, rr = p - e * NROWS;
     if (e < ne) {
-      stage_a<NF>(sh.rec[e], static_cast<float>(row_base + row_lo + rr), w_f,
-                  sh, p);
+      stage_a(sh.rec[e], static_cast<float>(row_base + row_lo + rr), w_f, sh,
+              p);
     } else {
       sh.span[Q_MINX][p] = 0.0f;
       sh.span[Q_MAXX][p] = -kBig;
@@ -204,10 +247,7 @@ __device__ __forceinline__ void fold_batch(const float* __restrict__ recs,
       if (z > win.z[r] || (z == win.z[r] && g < win.g[r])) {
         win.z[r] = z;
         win.g[r] = g;
-#pragma unroll
-        for (int i = 0; i < NF; ++i)
-          win.a[r][i] =
-              sh.span[Q_ATTR + 2 * i][p] + k * sh.span[Q_ATTR + 2 * i + 1][p];
+        win.k[r] = k;
       }
     }
   }
@@ -216,7 +256,8 @@ __device__ __forceinline__ void fold_batch(const float* __restrict__ recs,
 // shade_planes' Phong branch for one pixel (ops/shading.py): unproject,
 // per-light Blinn-Phong, clamp. prm = [dat, fl, m2p, cx, cy, ambient rgba,
 // (light_p xyz, light_I rgba) per light].
-__device__ __forceinline__ void shade_phong(float z, const float* a, float px,
+__device__ __forceinline__ void shade_phong(float z, const float* col,
+                                            const float* nrm, float px,
                                             float py,
                                             const float* __restrict__ prm,
                                             int n_lights, float* out) {
@@ -229,14 +270,14 @@ __device__ __forceinline__ void shade_phong(float z, const float* a, float px,
   const float s = dz / fl;
   const float pos0 = s * ax, pos1 = s * ay, pos2 = z;
   float n0, n1, n2, v0, v1, v2;
-  norm3(a[4], a[5], a[6], n0, n1, n2);  // divergence #3: single normalize
+  norm3(nrm[0], nrm[1], nrm[2], n0, n1, n2);  // divergence #3
   norm3(-pos0, -pos1, -pos2, v0, v1, v2);
   float fin[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   for (int k = 0; k < n_lights; ++k) {
     const float* l = prm + 9 + 7 * k;
     if (k == 0) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) fin[c] = a[c] * prm[5 + c];
+      for (int c = 0; c < 4; ++c) fin[c] = col[c] * prm[5 + c];
     }
     float t0, t1, t2, h0, h1, h2;
     norm3(l[0] - pos0, l[1] - pos1, l[2] - pos2, t0, t1, t2);
@@ -245,7 +286,7 @@ __device__ __forceinline__ void shade_phong(float z, const float* a, float px,
     const float spec = pow16(clamp01(inner3(n0, n1, n2, h0, h1, h2)));
 #pragma unroll
     for (int c = 0; c < 4; ++c)
-      fin[c] = fin[c] + cosi * (a[c] * l[3 + c]) + spec * (1.0f * l[3 + c]);
+      fin[c] = fin[c] + cosi * (col[c] * l[3 + c]) + spec * (1.0f * l[3 + c]);
   }
 #pragma unroll
   for (int c = 0; c < 4; ++c) out[c] = clamp01(fin[c]);
@@ -259,52 +300,174 @@ __device__ __forceinline__ unsigned pack_argb(const float* rgba) {
   return (ch[3] << 24) | (ch[0] << 16) | (ch[1] << 8) | ch[2];
 }
 
+// ---------------------------------------------------------------------------
+// K5: one texel fetch per pixel from the scene's atlas (row-major u32 ARGB,
+// aw texels per row; the object's texture is rows [v_off, v_off + th),
+// columns [0, tw)). Replaces the TPU's one-hot MXU contractions
+// (_row_texels :788, _col_pick :848): the H100 gathers texels directly,
+// through L1 (the largest fused atlas, 128 x 128 texels, is 64 KB).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int clamp_i(int x, int lo, int hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// unpack_argb: each 8-bit channel as f32 times the f32 1/255.
+__device__ __forceinline__ void texel_rgba(const unsigned* __restrict__ atlas,
+                                           int aw, int row, int col,
+                                           float* c) {
+  const unsigned t = __ldg(atlas + (size_t)row * aw + col);
+  constexpr float inv255 = 1.0f / 255.0f;
+  c[0] = static_cast<float>((t >> 16) & 0xFFu) * inv255;
+  c[1] = static_cast<float>((t >> 8) & 0xFFu) * inv255;
+  c[2] = static_cast<float>(t & 0xFFu) * inv255;
+  c[3] = static_cast<float>((t >> 24) & 0xFFu) * inv255;
+}
+
+// sample_texture's 'scalar' addressing (projekt.cpp:429-445) in the TPU
+// finalize's op order (raster_pallas.py:1662-1689): nearest rounds
+// u * (tw - 1) half away from zero; bilinear takes the fraction from the
+// unclipped floor, clips the indices after, the second index min(i + 1,
+// t - 1), then lerps top, bottom, out. A nearest object in a scene that
+// also holds bilinear ones rides the TPU's bilinear sampler as a zero-t
+// lerp, which returns c00 exactly, so it takes the nearest fetch here.
+__device__ __forceinline__ void sample_texture(
+    const unsigned* __restrict__ atlas, int aw, float u, float v, int v_off,
+    int th, int tw, bool bilinear, float* out) {
+  if (bilinear) {
+    const float tu = u * static_cast<float>(tw - 1);
+    const float tv = v * static_cast<float>(th - 1);
+    const float x0 = floorf(tu), y0 = floorf(tv);
+    const float fx = tu - x0, fy = tv - y0;
+    const int xi = clamp_i(to_i32(x0), 0, tw - 1);
+    const int yi = clamp_i(to_i32(y0), 0, th - 1);
+    const int xi1 = min(xi + 1, tw - 1), yi1 = min(yi + 1, th - 1);
+    float c00[4], c10[4], c01[4], c11[4];
+    texel_rgba(atlas, aw, yi + v_off, xi, c00);
+    texel_rgba(atlas, aw, yi + v_off, xi1, c10);
+    texel_rgba(atlas, aw, yi1 + v_off, xi, c01);
+    texel_rgba(atlas, aw, yi1 + v_off, xi1, c11);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float top = c00[c] + fx * (c10[c] - c00[c]);
+      const float bot = c01[c] + fx * (c11[c] - c01[c]);
+      out[c] = top + fy * (bot - top);
+    }
+  } else {
+    const int tx = clamp_i(
+        to_i32(round_half_away(u * static_cast<float>(tw - 1))), 0, tw - 1);
+    const int ty = clamp_i(
+        to_i32(round_half_away(v * static_cast<float>(th - 1))), 0, th - 1);
+    texel_rgba(atlas, aw, ty + v_off, tx, out);
+  }
+}
+
 // _finalize_shade's per-object masks (raster_pallas.py:1630-1639) for a
-// covered pixel won by triangle g, OR-ed over the Phong objects: is the
-// pixel shaded? objs holds [gid_lo, gid_hi, phong] per object; with
-// several objects a range end is compared only where a neighbour lies
-// beyond it.
-__device__ __forceinline__ bool pixel_is_phong(int g,
-                                               const int* __restrict__ objs,
-                                               int n_obj) {
-  const bool multi = n_obj > 1;
-  const int last_hi = __ldg(objs + 3 * (n_obj - 1) + 1);
-  bool pm = false;
-  for (int o = 0; o < n_obj; ++o) {
-    const int lo = __ldg(objs + 3 * o), hi = __ldg(objs + 3 * o + 1);
+// covered pixel won by triangle g: is it Phong (OR over the Phong objects'
+// masks), and which textured object's texture does it sample (the last
+// textured object whose mask holds it, as the TPU merges the indices; -1
+// for none)? With several objects a range end is compared only where a
+// neighbour lies beyond it.
+__device__ __forceinline__ void pixel_object(int g, const Finalize& f,
+                                             bool& phong, int& tex) {
+  const bool multi = f.n_obj > 1;
+  const int last_hi = __ldg(f.objs + 3 * (f.n_obj - 1) + 1);
+  phong = false;
+  tex = -1;
+  for (int o = 0; o < f.n_obj; ++o) {
+    const int lo = __ldg(f.objs + 3 * o), hi = __ldg(f.objs + 3 * o + 1);
     bool m = true;
     if (multi && lo > 0) m = m && g >= lo;
     if (multi && hi < last_hi) m = m && g < hi;
-    if (m && __ldg(objs + 3 * o + 2) != 0) pm = true;
+    if (!m) continue;
+    if (__ldg(f.objs + 3 * o + 2) != 0) phong = true;
+    if (__ldg(f.texs + 4 * o + 1) > 0) tex = o;
   }
-  return pm;
 }
 
-template <int TILE_H, int STREAMS, bool ANY_PHONG>
-__global__ void __launch_bounds__(kThreads) raster_kernel(
-    const float* __restrict__ recs, const int* __restrict__ sorted_tri,
-    const int* __restrict__ starts, const int* __restrict__ counts,
-    const int* __restrict__ large_ids, const int* __restrict__ n_large,
-    const int* __restrict__ lcounts, const float* __restrict__ params,
-    const int* __restrict__ objs, int n_obj, int n_lights, int tiles_x,
-    int row0, int col0, float w_f, int out_w, float* __restrict__ z_out,
-    int* __restrict__ gid_out, unsigned* __restrict__ color_out) {
-  constexpr int NF = ANY_PHONG ? 7 : 4;
-  constexpr int kStrip = TILE_H / STREAMS;  // rows each stream covers
-  __shared__ __align__(16) Shared sh;
-  const int tile = blockIdx.x;
-  const int ty = tile / tiles_x, tx = tile - ty * tiles_x;
-  const int row_base = row0 + ty * TILE_H;
-  const float xc = static_cast<float>(col0 + tx * kTileW + threadIdx.x);
+// Colour of one covered pixel: the winner's record re-run through stage A
+// on this row for the planes its object reads, then texture, shading and
+// packing in _finalize_shade's order.
+__device__ __forceinline__ unsigned shade_pixel(const Finalize& f, int g,
+                                                float z, float k, float px,
+                                                float py) {
+  bool phong;
+  int tex;
+  pixel_object(g, f, phong, tex);
+  const float* rec = f.recs + (size_t)g * kRecLanes;
+  RowSpan s;
+  row_span(rec, py, s);
+  float col[4], rgba[4];
+  if (tex >= 0) {
+    const float uoz = attr_at(rec, s, F_U0, F_UG, k);
+    const float voz = attr_at(rec, s, F_V0, F_VG, k);
+    const float oz = attr_at(rec, s, F_OZ0, F_OZG, k);
+    const float inv_oz = 1.0f / oz;
+    const int* t = f.texs + 4 * tex;
+    sample_texture(f.atlas, f.aw, inv_oz * uoz, inv_oz * voz, __ldg(t),
+                   __ldg(t + 1), __ldg(t + 2), __ldg(t + 3) != 0, col);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      col[c] = attr_at(rec, s, F_COL0 + c, F_COLG + c, k);
+  }
+  if (phong) {
+    float nrm[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      nrm[c] = attr_at(rec, s, F_N0 + c, F_NG + c, k);
+    shade_phong(z, col, nrm, px, py, f.params, f.n_lights, rgba);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) rgba[c] = col[c];
+  }
+  return pack_argb(rgba);
+}
 
-  Winners<NF, TILE_H> win;
+// Write the tile's z, gid and colour; uncovered pixels pack the zero base.
+template <int TILE_H>
+__device__ __forceinline__ void finalize_tile(const Finalize& f,
+                                              const Winners<TILE_H>& win,
+                                              int ty, int tx, int row_base,
+                                              float xc) {
+#pragma unroll
+  for (int r = 0; r < TILE_H; ++r) {
+    const size_t o =
+        (size_t)(ty * TILE_H + r) * f.out_w + tx * kTileW + threadIdx.x;
+    f.z_out[o] = win.z[r];
+    f.gid_out[o] = win.g[r];
+    f.color_out[o] =
+        win.g[r] >= 0 ? shade_pixel(f, win.g[r], win.z[r], win.k[r], xc,
+                                    static_cast<float>(row_base + r))
+                      : 0u;
+  }
+}
+
+template <int TILE_H>
+__device__ __forceinline__ void init_winners(Winners<TILE_H>& win) {
 #pragma unroll
   for (int r = 0; r < TILE_H; ++r) {
     win.z[r] = kDepthClear;
     win.g[r] = -1;
-#pragma unroll
-    for (int i = 0; i < NF; ++i) win.a[r][i] = 0.0f;
+    win.k[r] = 0.0f;
   }
+}
+
+// K2 / K3 / K4: the sorted strategy's streams and side list.
+template <int TILE_H, int STREAMS>
+__global__ void __launch_bounds__(kThreads) raster_kernel(
+    const int* __restrict__ sorted_tri, const int* __restrict__ starts,
+    const int* __restrict__ counts, const int* __restrict__ large_ids,
+    const int* __restrict__ n_large, const int* __restrict__ lcounts,
+    Finalize f) {
+  constexpr int kStrip = TILE_H / STREAMS;  // rows each stream covers
+  __shared__ __align__(16) Shared sh;
+  const int tile = blockIdx.x;
+  const int ty = tile / f.tiles_x, tx = tile - ty * f.tiles_x;
+  const int row_base = f.row0 + ty * TILE_H;
+  const float xc = static_cast<float>(f.col0 + tx * kTileW + threadIdx.x);
+  Winners<TILE_H> win;
+  init_winners(win);
 
   // The tile's streams: stream h covers rows [h * kStrip, (h + 1) * kStrip).
 #pragma unroll
@@ -312,67 +475,66 @@ __global__ void __launch_bounds__(kThreads) raster_kernel(
     constexpr int kBatch = kThreads / kStrip;
     const int s = starts[STREAMS * tile + h], n = counts[STREAMS * tile + h];
     for (int b0 = 0; b0 < n; b0 += kBatch)
-      fold_batch<NF, TILE_H, kStrip>(recs, sorted_tri + s + b0,
-                                     min(kBatch, n - b0), h * kStrip,
-                                     row_base, w_f, xc, sh, win);
+      fold_batch<TILE_H, kStrip>(f.recs, sorted_tri + s + b0,
+                                 min(kBatch, n - b0), h * kStrip, row_base,
+                                 f.w_f, xc, sh, win);
   }
   // The large-triangle side list, over all rows, where its bboxes reach.
   if (lcounts[tile] > 0) {
     constexpr int kSide = kThreads / TILE_H;
     const int nl = *n_large;
     for (int b0 = 0; b0 < nl; b0 += kSide)
-      fold_batch<NF, TILE_H, TILE_H>(recs, large_ids + b0,
-                                     min(kSide, nl - b0), 0, row_base, w_f,
-                                     xc, sh, win);
+      fold_batch<TILE_H, TILE_H>(f.recs, large_ids + b0, min(kSide, nl - b0),
+                                 0, row_base, f.w_f, xc, sh, win);
   }
-
-#pragma unroll
-  for (int r = 0; r < TILE_H; ++r) {
-    const size_t o =
-        (size_t)(ty * TILE_H + r) * out_w + tx * kTileW + threadIdx.x;
-    z_out[o] = win.z[r];
-    gid_out[o] = win.g[r];
-    unsigned color = 0u;  // uncovered pixels pack the zero base color
-    if (win.g[r] >= 0) {
-      float rgba[4];
-      bool shaded = false;
-      if constexpr (ANY_PHONG) shaded = pixel_is_phong(win.g[r], objs, n_obj);
-      if (shaded) {
-        shade_phong(win.z[r], win.a[r], xc,
-                    static_cast<float>(row_base + r), params, n_lights, rgba);
-      } else {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) rgba[c] = win.a[r][c];
-      }
-      color = pack_argb(rgba);
-    }
-    color_out[o] = color;
-  }
+  finalize_tile(f, win, ty, tx, row_base, xc);
 }
 
-template <int TILE_H, int STREAMS>
-int launch_raster(const float* recs, const int* sorted_tri, const int* starts,
-                  const int* counts, const int* large_ids, const int* n_large,
-                  const int* lcounts, const float* params, const int* objs,
-                  int n_obj, int n_lights, int any_phong, int tiles_y,
-                  int tiles_x, int row0, int col0, int frame_w, float* z,
-                  int* gid, unsigned* color, void* stream) {
-  if (n_obj < 1 || tiles_y < 1 || tiles_x < 1) return 1;  // invalid value
-  const dim3 grid(tiles_y * tiles_x);
-  const dim3 block(kThreads);
-  const int out_w = tiles_x * kTileW;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (any_phong)
-    raster_kernel<TILE_H, STREAMS, true><<<grid, block, 0, s>>>(
-        recs, sorted_tri, starts, counts, large_ids, n_large, lcounts, params,
-        objs, n_obj, n_lights, tiles_x, row0, col0, (float)frame_w, out_w, z,
-        gid, color);
-  else
-    raster_kernel<TILE_H, STREAMS, false><<<grid, block, 0, s>>>(
-        recs, sorted_tri, starts, counts, large_ids, n_large, lcounts, params,
-        objs, n_obj, n_lights, tiles_x, row0, col0, (float)frame_w, out_w, z,
-        gid, color);
-  return static_cast<int>(cudaGetLastError());
+// K6: the mask strategy. Tile t's triangles are ids[t * capacity + i] for
+// i < counts[t], in submission order; each covers all of the tile's rows.
+template <int TILE_H>
+__global__ void __launch_bounds__(kThreads) mask_kernel(
+    const int* __restrict__ ids, const int* __restrict__ counts, int capacity,
+    Finalize f) {
+  __shared__ __align__(16) Shared sh;
+  const int tile = blockIdx.x;
+  const int ty = tile / f.tiles_x, tx = tile - ty * f.tiles_x;
+  const int row_base = f.row0 + ty * TILE_H;
+  const float xc = static_cast<float>(f.col0 + tx * kTileW + threadIdx.x);
+  Winners<TILE_H> win;
+  init_winners(win);
+  constexpr int kBatch = kThreads / TILE_H;
+  const int* list = ids + (size_t)tile * capacity;
+  const int n = counts[tile];
+  for (int b0 = 0; b0 < n; b0 += kBatch)
+    fold_batch<TILE_H, TILE_H>(f.recs, list + b0, min(kBatch, n - b0), 0,
+                               row_base, f.w_f, xc, sh, win);
+  finalize_tile(f, win, ty, tx, row_base, xc);
+}
+
+Finalize make_finalize(const float* recs, const float* params, const int* objs,
+                       const int* texs, const unsigned* atlas, int aw,
+                       int n_obj, int n_lights, int tiles_x, int row0,
+                       int col0, int frame_w, float* z, int* gid,
+                       unsigned* color) {
+  Finalize f;
+  f.recs = recs;
+  f.params = params;
+  f.objs = objs;
+  f.texs = texs;
+  f.atlas = atlas;
+  f.aw = aw;
+  f.n_obj = n_obj;
+  f.n_lights = n_lights;
+  f.tiles_x = tiles_x;
+  f.row0 = row0;
+  f.col0 = col0;
+  f.out_w = tiles_x * kTileW;
+  f.w_f = static_cast<float>(frame_w);
+  f.z_out = z;
+  f.gid_out = gid;
+  f.color_out = color;
+  return f;
 }
 
 }  // namespace tr
@@ -382,16 +544,47 @@ int launch_raster(const float* recs, const int* sorted_tri, const int* starts,
                       const int* starts, const int* counts,                    \
                       const int* large_ids, const int* n_large,                \
                       const int* lcounts, const float* params,                 \
-                      const int* objs, int n_obj, int n_lights, int any_phong, \
+                      const int* objs, const int* texs,                        \
+                      const unsigned* atlas, int n_obj, int n_lights, int aw,  \
                       int tiles_y, int tiles_x, int row0, int col0,            \
                       int frame_w, float* z, int* gid, unsigned* color,        \
                       void* stream) {                                          \
-    return tr::launch_raster<TILE_H, STREAMS>(                                 \
-        recs, sorted_tri, starts, counts, large_ids, n_large, lcounts, params, \
-        objs, n_obj, n_lights, any_phong, tiles_y, tiles_x, row0, col0,        \
-        frame_w, z, gid, color, stream);                                       \
+    if (n_obj < 1 || tiles_y < 1 || tiles_x < 1) return 1;                     \
+    tr::raster_kernel<TILE_H, STREAMS>                                         \
+        <<<tiles_y * tiles_x, tr::kThreads, 0,                                 \
+           static_cast<cudaStream_t>(stream)>>>(                               \
+            sorted_tri, starts, counts, large_ids, n_large, lcounts,           \
+            tr::make_finalize(recs, params, objs, texs, atlas, aw, n_obj,      \
+                              n_lights, tiles_x, row0, col0, frame_w, z, gid,  \
+                              color));                                         \
+    return static_cast<int>(cudaGetLastError());                               \
   }
 
 TR_RASTER_ENTRY(tr_raster, 8, 2)         // K2
 TR_RASTER_ENTRY(tr_raster_rows1, 8, 1)   // K3
 TR_RASTER_ENTRY(tr_raster_narrow, 16, 1) // K4
+
+// K6, 8- or 16-row tiles.
+extern "C" int tr_raster_mask(const float* recs, const int* ids,
+                              const int* counts, const float* params,
+                              const int* objs, const int* texs,
+                              const unsigned* atlas, int capacity, int tile_h,
+                              int n_obj, int n_lights, int aw, int tiles_y,
+                              int tiles_x, int row0, int col0, int frame_w,
+                              float* z, int* gid, unsigned* color,
+                              void* stream) {
+  if (n_obj < 1 || tiles_y < 1 || tiles_x < 1 || capacity < 1) return 1;
+  const tr::Finalize f =
+      tr::make_finalize(recs, params, objs, texs, atlas, aw, n_obj, n_lights,
+                        tiles_x, row0, col0, frame_w, z, gid, color);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int grid = tiles_y * tiles_x;
+  if (tile_h == 8)
+    tr::mask_kernel<8><<<grid, tr::kThreads, 0, s>>>(ids, counts, capacity, f);
+  else if (tile_h == 16)
+    tr::mask_kernel<16><<<grid, tr::kThreads, 0, s>>>(ids, counts, capacity,
+                                                      f);
+  else
+    return 1;  // invalid value
+  return static_cast<int>(cudaGetLastError());
+}

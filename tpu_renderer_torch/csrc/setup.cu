@@ -11,6 +11,10 @@
 // because each thread stores its own row, so one warp store touches 32
 // rows.
 //
+// Textured objects (TEXTURED) also read the (2, 3, T) uvs and write the
+// perspective-correct u/z, v/z and 1/z fields with their gradients and the
+// top-clip advance (setup_pallas.py:278-292); their Gouraud base is white.
+//
 // Design: one thread per triangle runs the whole setup in registers, in the
 // same f32 op order as the Pallas kernel and as setup_plain
 // (ops/setup.py), and writes its record row with 16-byte stores and its
@@ -24,11 +28,12 @@
 
 namespace tr {
 
-template <bool PHONG>
+template <bool PHONG, bool TEXTURED>
 __global__ void __launch_bounds__(128) setup_kernel(
     const float* __restrict__ params, int n_lights,
     const float* __restrict__ verts, const float* __restrict__ cols,
-    const float* __restrict__ nrms, int T, int Tp, int gid0, float frame_h,
+    const float* __restrict__ nrms, const float* __restrict__ uvs, int T,
+    int Tp, int gid0, float frame_h,
     float frame_w, float* __restrict__ recs, float* __restrict__ bbox) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= Tp) return;
@@ -74,12 +79,14 @@ __global__ void __launch_bounds__(128) setup_kernel(
     for (int v = 0; v < 3; ++v) nrm[c][v] = ld(nrms, c, v);
 
   // Per-vertex colors: raw under Phong, Gouraud-baked otherwise
-  // (projekt.cpp:4022-4063; 0 lights = raw passthrough, divergence #6).
+  // (projekt.cpp:4022-4063; textured => white base; 0 lights = the base
+  // passed through, divergence #6).
   float gcol[4][3];
 #pragma unroll
   for (int c = 0; c < 4; ++c)
 #pragma unroll
-    for (int v = 0; v < 3; ++v) gcol[c][v] = ld(cols, c, v);
+    for (int v = 0; v < 3; ++v)
+      gcol[c][v] = (TEXTURED && !PHONG) ? 1.0f : ld(cols, c, v);
   if (!PHONG && n_lights > 0) {
     float base[4][3];
 #pragma unroll
@@ -120,6 +127,7 @@ __global__ void __launch_bounds__(128) setup_kernel(
     const float minv_x = mn_of(px), maxv_x = mx_of(px);
     const float minv_y = mn_of(py), maxv_y = mx_of(py);
     const float camz_mn = mn_of(cam[2]), camz_mx = mx_of(cam[2]);
+    const float minv_z = mn_of(pz), maxv_z = mx_of(pz);
 
     keep[e] = visible && (maxv_y > 0.0f) && (minv_y - maxv_y != 0.0f);
     const float ymax = round_half_away(maxv_y);
@@ -146,8 +154,35 @@ __global__ void __launch_bounds__(128) setup_kernel(
     f[F_XG] = xg;
     f[F_Z0] = z0;
     f[F_ZG] = zg;
+    if (TEXTURED) {  // cpp:4078-4089
+      float u[3], vv[3];
 #pragma unroll
-    for (int j = 7; j < F_LEFT; ++j) f[j] = 0.0f;  // untextured u/v/1-z
+      for (int v = 0; v < 3; ++v) {
+        u[v] = ld(uvs, 0, v);
+        vv[v] = ld(uvs, 1, v);
+      }
+      float oz0 = 1.0f / minv_z;  // cpp:4004 (inf when degenerate)
+      float u0 = mn_of(u) / minv_z;
+      float v0 = mn_of(vv) / minv_z;
+      const float ozmax = 1.0f / maxv_z;
+      const float u1 = mx_of(u) * ozmax;
+      const float v1 = mx_of(vv) * ozmax;
+      const float ug = (u1 - u0) / ydiff;
+      const float vg = (v1 - v0) / ydiff;
+      const float ozg = (ozmax - oz0) / ydiff;
+      u0 = u0 + clipped_y * ug;
+      v0 = v0 + clipped_y * vg;
+      oz0 = oz0 + clipped_y * ozg;
+      f[F_OZ0] = oz0;
+      f[F_OZG] = ozg;
+      f[F_U0] = u0;
+      f[F_UG] = ug;
+      f[F_V0] = v0;
+      f[F_VG] = vg;
+    } else {
+#pragma unroll
+      for (int j = F_OZ0; j < F_LEFT; ++j) f[j] = 0.0f;  // divergence #5
+    }
     f[F_LEFT] = left;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
@@ -220,21 +255,32 @@ __global__ void __launch_bounds__(128) setup_kernel(
 
 }  // namespace tr
 
+namespace tr {
+
+template <bool PHONG, bool TEXTURED>
+void launch_setup(const float* params, int n_lights, const float* verts,
+                  const float* cols, const float* nrms, const float* uvs,
+                  int T, int Tp, int gid0, int frame_h, int frame_w,
+                  float* recs, float* bbox, cudaStream_t s) {
+  setup_kernel<PHONG, TEXTURED><<<(Tp + 127) / 128, 128, 0, s>>>(
+      params, n_lights, verts, cols, nrms, uvs, T, Tp, gid0, (float)frame_h,
+      (float)frame_w, recs, bbox);
+}
+
+}  // namespace tr
+
+// uvs is null for an untextured object.
 extern "C" int tr_setup(const float* params, int n_lights, int phong,
                         const float* verts, const float* cols,
-                        const float* nrms, int T, int Tp, int gid0,
-                        int frame_h, int frame_w, float* recs, float* bbox,
-                        void* stream) {
-  const dim3 block(128);
-  const dim3 grid((Tp + 127) / 128);
+                        const float* nrms, const float* uvs, int T, int Tp,
+                        int gid0, int frame_h, int frame_w, float* recs,
+                        float* bbox, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (phong)
-    tr::setup_kernel<true><<<grid, block, 0, s>>>(
-        params, n_lights, verts, cols, nrms, T, Tp, gid0, (float)frame_h,
-        (float)frame_w, recs, bbox);
-  else
-    tr::setup_kernel<false><<<grid, block, 0, s>>>(
-        params, n_lights, verts, cols, nrms, T, Tp, gid0, (float)frame_h,
-        (float)frame_w, recs, bbox);
+  auto launch = phong ? (uvs ? tr::launch_setup<true, true>
+                             : tr::launch_setup<true, false>)
+                      : (uvs ? tr::launch_setup<false, true>
+                             : tr::launch_setup<false, false>);
+  launch(params, n_lights, verts, cols, nrms, uvs, T, Tp, gid0, frame_h,
+         frame_w, recs, bbox, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,11 +2,17 @@
 
 PyTorch counterpart of ``tpu_renderer.engine.renderer``'s fused branch.
 One object: the vertex stage writes its record table (the K1 kernel from
-4096 triangles up, the small-object chain below), the sorted binning runs
-as torch ops, and one raster kernel (K2, K3 or K4 by route) rasterizes,
-shades and packs ARGB. Several objects render in ONE raster launch
-(``prepare_scene``): their tables concatenate with global triangle
-ids and the kernel picks each pixel's object from the winner's id. The
+4096 triangles up, the small-object chain below), the binning runs as
+torch ops (the mask strategy's per-tile lists up to 512 triangles, the
+sorted streams above), and one raster kernel (K6, or K2, K3 or K4 by
+route) rasterizes, samples the texture (K5, 'scalar' addressing, nearest
+or bilinear, within the fused atlas limits), shades and packs ARGB.
+Several objects render in ONE raster launch (``prepare_scene``): their
+tables concatenate with global triangle ids, their textures stack into
+one atlas, and the kernel picks each pixel's object from the winner's id.
+Textured objects the fused path cannot take (``uv_mode='avx'``, textures
+over the atlas limits) belong to the G-buffer path (K8-K10), which is not
+ported: they raise NotImplementedError. The
 device of the scene's tensors picks the implementation: CUDA tensors
 launch the kernels, CPU tensors run their plain versions. PyTorch runs
 eagerly, so nothing is compiled per scene signature.
@@ -33,8 +39,10 @@ from ..ops.raster import (
     ObjSpec,
     RasterLaunch,
     finish_records,
+    pack_texture_atlas,
     prepare_raster,
     run_shaded,
+    texture_fits_fused,
 )
 from ..ops.setup import FUSED_SETUP_MIN, SetupOut, setup_for_raster
 
@@ -55,27 +63,84 @@ def _merge_into(framebuffer: Framebuffer | None, covered, z, packed):
 
 
 def _merge_stats(stats: dict | None, rstats: dict) -> None:
-    """Accumulate one draw's raster stats: counters sum, budget utilization
-    and the policy factor take the max over draws."""
+    """Accumulate one draw's raster stats (renderer.py:39): drops and real
+    entries sum; budget utilization takes the max; 'bins_budget_factor'
+    keeps the max policy factor over the draws and
+    'bins_budget_factor_min' the min. Mask-strategy draws have no stream
+    and add only their drops."""
     if stats is None:
         return
-    if not stats:
-        stats.update(rstats)
+    stats["bins_dropped"] = (stats.get("bins_dropped", 0)
+                             + rstats["bins_dropped"])
+    if "bins_real_entries" not in rstats:  # mask strategy: no stream
         return
-    for key in ("bins_dropped", "bins_real_entries"):
-        stats[key] = stats[key] + rstats[key]
-    stats["bins_budget_utilization"] = torch.maximum(
-        stats["bins_budget_utilization"], rstats["bins_budget_utilization"])
-    stats["bins_budget_factor"] = max(stats["bins_budget_factor"],
-                                      rstats["bins_budget_factor"])
+    stats["bins_real_entries"] = (stats.get("bins_real_entries", 0)
+                                  + rstats["bins_real_entries"])
+    util = rstats["bins_budget_utilization"]
+    factor = rstats["bins_budget_factor"]
+    if "bins_budget_utilization" not in stats:
+        stats["bins_budget_utilization"] = util
+        stats["bins_budget_factor"] = factor
+        stats["bins_budget_factor_min"] = factor
+    else:
+        stats["bins_budget_utilization"] = torch.maximum(
+            stats["bins_budget_utilization"], util)
+        stats["bins_budget_factor"] = max(stats["bins_budget_factor"],
+                                          factor)
+        stats["bins_budget_factor_min"] = min(
+            stats["bins_budget_factor_min"], factor)
+
+
+def _obj_fusable(obj: RenderObject, cfg: ObjectConfig) -> bool:
+    """Eligible for the fused path (renderer.py:201): untextured, or
+    textured with 'scalar' addressing, nearest or bilinear filtering and a
+    texture within the atlas limits."""
+    if not cfg.textured:
+        return True
+    return (cfg.uv_mode == "scalar"
+            and cfg.filter_mode in ("nearest", "bilinear")
+            and obj.texture is not None
+            and texture_fits_fused(*obj.texture.shape))
+
+
+def _require_fusable(obj: RenderObject, cfg: ObjectConfig) -> None:
+    if not _obj_fusable(obj, cfg):
+        raise NotImplementedError(
+            "this textured object needs the G-buffer path (uv_mode='avx', "
+            "a texture over the fused atlas limits, or another filter), "
+            "which belongs to a later slice of the port (ROADMAP Queue 1 "
+            "item 10)")
+
+
+def _scene_batchable(scene) -> bool:
+    """Whole-scene single-launch eligibility (renderer.py:213): every
+    object fusable AND the scene atlas within the fused limits."""
+    if not all(_obj_fusable(obj, cfg) for obj, cfg in scene):
+        return False
+    seen, ah, aw = set(), 0, 0
+    for obj, cfg in scene:
+        if cfg.textured and id(obj.texture) not in seen:
+            seen.add(id(obj.texture))
+            ah += int(obj.texture.shape[0])
+            aw = max(aw, int(obj.texture.shape[1]))
+    return texture_fits_fused(ah, aw)
+
+
+def _tex_spec(slot_off: int, obj: RenderObject, cfg: ObjectConfig):
+    """ObjSpec.tex of a textured object whose texture starts at atlas row
+    ``slot_off``."""
+    th, tw = int(obj.texture.shape[0]), int(obj.texture.shape[1])
+    return (slot_off, th, tw) + (
+        ("bilinear",) if cfg.filter_mode == "bilinear" else ())
 
 
 def _scene_table(scene, transform: ProjectiveTransform, lights: LightData,
                  frame_height: int, frame_width: int):
-    """(table, objspecs) of several untextured objects in ONE launch
+    """(table, objspecs, atlas) of several objects in ONE launch
     (renderer.py:229): their record tables concatenate into a scene-global
-    table whose gid lanes carry the submission order, and the kernel shades
-    each pixel by its winner's object (static gid ranges).
+    table whose gid lanes carry the submission order, their textures
+    (each distinct tensor once) stack into one atlas, and the kernel
+    shades each pixel by its winner's object (static gid ranges).
 
     One setup form for the whole scene: from FUSED_SETUP_MIN triangles in
     all, each object goes through setup_for_raster (K1 for large objects;
@@ -85,7 +150,8 @@ def _scene_table(scene, transform: ProjectiveTransform, lights: LightData,
     stage. Pad rows are invalid records that never win; the next object's
     gids start after them (gid += T + pad)."""
     fused_setup = sum(o.num_triangles for o, _ in scene) >= FUSED_SETUP_MIN
-    tables, bboxes, objspecs = [], [], []
+    tables, bboxes, raw = [], [], []
+    textures, tex_slot = [], {}
     gid = true_t = 0
     for obj, cfg in scene:
         T = obj.num_triangles
@@ -108,16 +174,27 @@ def _scene_table(scene, transform: ProjectiveTransform, lights: LightData,
                 setup_records(obj, transform, lights, cfg, gid0=gid),
                 (0, pad))
         tables.append(rt)
-        objspecs.append(ObjSpec(gid, gid + T, cfg.phong))
+        slot = None
+        if cfg.textured:
+            slot = tex_slot.setdefault(id(obj.texture), len(textures))
+            if slot == len(textures):
+                textures.append(obj.texture)
+        raw.append((obj, cfg, gid, slot))
         gid += T + pad
         true_t += T
+    atlas, offs = (pack_texture_atlas(textures) if textures
+                   else (None, []))
+    objspecs = tuple(
+        ObjSpec(lo, lo + obj.num_triangles, cfg.phong,
+                None if slot is None else _tex_spec(offs[slot], obj, cfg))
+        for obj, cfg, lo, slot in raw)
     if fused_setup:
         table = SetupOut(torch.cat(tables),
                          [torch.cat(parts) for parts in zip(*bboxes)],
                          true_t)
     else:
         table = torch.cat(tables, dim=1)
-    return table, tuple(objspecs)
+    return table, objspecs, atlas
 
 
 def prepare_scene(scene: Sequence[Tuple[RenderObject, ObjectConfig]],
@@ -128,11 +205,12 @@ def prepare_scene(scene: Sequence[Tuple[RenderObject, ObjectConfig]],
     rect of a (frame_height, frame_width) frame: its route, kernel and
     operands, with the setup already run (FillEdgeTable, SURVEY.md §1.1).
     One object takes setup_for_raster (K1 from 4096 triangles, else the
-    channel-major table of setup_records); several untextured objects take
-    one scene-global table (``_scene_table``)."""
-    if any(cfg.textured for _, cfg in scene):
-        raise NotImplementedError(
-            "textured objects belong to the texturing slice of the port")
+    channel-major table of setup_records) and its texture as the atlas;
+    several objects take one scene-global table and atlas
+    (``_scene_table``). Raises NotImplementedError for a textured object
+    the fused path cannot take."""
+    for obj, cfg in scene:
+        _require_fusable(obj, cfg)
     frame_height = height if frame_height is None else frame_height
     frame_width = width if frame_width is None else frame_width
     if len(scene) == 1:
@@ -140,12 +218,16 @@ def prepare_scene(scene: Sequence[Tuple[RenderObject, ObjectConfig]],
         table = setup_for_raster(obj, transform, lights, cfg,
                                  frame_height=frame_height,
                                  frame_width=frame_width)
-        objspecs = (ObjSpec(0, obj.num_triangles, cfg.phong),)
+        atlas, tex = None, None
+        if cfg.textured:
+            atlas, _ = pack_texture_atlas([obj.texture])
+            tex = _tex_spec(0, obj, cfg)
+        objspecs = (ObjSpec(0, obj.num_triangles, cfg.phong, tex),)
     else:
-        table, objspecs = _scene_table(scene, transform, lights,
-                                       frame_height, frame_width)
+        table, objspecs, atlas = _scene_table(scene, transform, lights,
+                                              frame_height, frame_width)
     return prepare_raster(table, objspecs, transform, lights, height, width,
-                          frame_height, frame_width)
+                          frame_height, frame_width, atlas=atlas)
 
 
 def _draw(framebuffer: Framebuffer | None, scene,
@@ -183,12 +265,6 @@ def render_object(framebuffer: Framebuffer | None, obj: RenderObject,
                  frame_width, stats)
 
 
-def _scene_batchable(scene) -> bool:
-    """Whole-scene single-launch eligibility (renderer.py:213): every
-    object untextured (textured objects raise until the texturing slice)."""
-    return not any(cfg.textured for _, cfg in scene)
-
-
 def render_scene(framebuffer: Framebuffer | None,
                  scene: Sequence[Tuple[RenderObject, ObjectConfig]],
                  transform: ProjectiveTransform, lights: LightData,
@@ -196,10 +272,10 @@ def render_scene(framebuffer: Framebuffer | None,
                  frame_width: int | None = None,
                  stats: dict | None = None) -> Framebuffer:
     """Draw a list of objects in submission order over one z-buffer
-    (renderer.py:351): a scene of several untextured objects renders in one
-    raster launch (prepare_scene), otherwise objects draw one after
-    another; both give the same frame. ``framebuffer=None`` is a fresh
-    (frame_height, frame_width) frame."""
+    (renderer.py:351): a scene of several fusable objects whose atlas fits
+    renders in one raster launch (prepare_scene), otherwise objects draw
+    one after another; both give the same frame. ``framebuffer=None`` is a
+    fresh (frame_height, frame_width) frame."""
     if framebuffer is None and (frame_height is None or frame_width is None):
         raise ValueError("render_scene(framebuffer=None) needs frame dims")
     if len(scene) > 1 and _scene_batchable(scene):

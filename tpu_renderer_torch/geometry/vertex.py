@@ -114,13 +114,16 @@ def setup_params(obj_p, transform: ProjectiveTransform,
     return torch.cat([p.to(F32) for p in parts])
 
 
-def setup_fields(params, verts, cols, nrms, n_lights: int, phong: bool):
-    """FillEdgeTable of untextured triangles, channel-major: the JAX
-    package's ``_setup_fields`` (geometry/vertex.py:169) on (3, T) rows.
+def setup_fields(params, verts, cols, nrms, n_lights: int, phong: bool,
+                 uvs=None):
+    """FillEdgeTable, channel-major: the JAX package's ``_setup_fields``
+    (geometry/vertex.py:169) on (3, T) rows.
 
-    params: ``setup_params``; verts / nrms (3, 3, T), cols (4, 3, T).
-    Returns (fields (EDGE_STRIDE, 3, T) f32, every lane 0 outside keep;
-    keep (3, T) bool per-edge validity)."""
+    params: ``setup_params``; verts / nrms (3, 3, T), cols (4, 3, T);
+    uvs (2, 3, T) for a textured object (its u/z, v/z and 1/z fields and
+    the white Gouraud base), None for an untextured one (those six lanes
+    0, divergence #5). Returns (fields (EDGE_STRIDE, 3, T) f32, every lane
+    0 outside keep; keep (3, T) bool per-edge validity)."""
     dat, fl, m2p, cx, cy = (params[i] for i in range(5))
     p = (params[5], params[6], params[7])
     amb = tuple(params[8 + c] for c in range(4))
@@ -150,11 +153,15 @@ def setup_fields(params, verts, cols, nrms, n_lights: int, phong: bool):
     normals = [nrms[c] for c in range(3)]
 
     # Per-vertex colors: raw under Phong, Gouraud-baked otherwise
-    # (projekt.cpp:4022-4063).
-    if phong or n_lights == 0:
-        gcol = colors  # n_lights == 0: divergence #6, raw passthrough
+    # (projekt.cpp:4022-4063; textured => white base).
+    textured = uvs is not None
+    base = [torch.ones_like(colors[0])] * 4 if textured else colors
+    if phong:
+        gcol = colors
+    elif n_lights == 0:
+        gcol = base  # divergence #6: raw passthrough
     else:
-        out = [colors[c] * amb[c] for c in range(4)]
+        out = [base[c] * amb[c] for c in range(4)]
         for k in range(n_lights):
             tl = _norm3(lp[k][0] - cam[0], lp[k][1] - cam[1],
                         lp[k][2] - cam[2])
@@ -162,7 +169,7 @@ def setup_fields(params, verts, cols, nrms, n_lights: int, phong: bool):
             d = d + tl[1] * normals[1]
             d = d + tl[2] * normals[2]
             d = clamp01(d)  # (3v, T)
-            out = [clamp01(out[c] + d * (colors[c] * li[k][c]))
+            out = [clamp01(out[c] + d * (base[c] * li[k][c]))
                    for c in range(4)]
         gcol = out
 
@@ -195,7 +202,26 @@ def setup_fields(params, verts, cols, nrms, n_lights: int, phong: bool):
     zg = (camz_mx - camz_mn) / ydiff  # cpp:4072
     x0 = minv_x + clipped_y * xg  # cpp:4075
     z0 = camz_mn + clipped_y * zg  # cpp:4076
-    zero = torch.zeros_like(ydiff)  # untextured: u/v/1-z fields are 0
+    zero = torch.zeros_like(ydiff)
+    if textured:  # cpp:4078-4089
+        minv_z, maxv_z = sel(pz)
+        uvu_mn, uvu_mx = sel(uvs[0])
+        uvv_mn, uvv_mx = sel(uvs[1])
+        oz0 = 1.0 / minv_z  # cpp:4004 (inf when degenerate)
+        u0 = uvu_mn / minv_z
+        v0 = uvv_mn / minv_z
+        ozmax = 1.0 / maxv_z
+        u1 = uvu_mx * ozmax
+        v1 = uvv_mx * ozmax
+        ug = (u1 - u0) / ydiff
+        vg = (v1 - v0) / ydiff
+        ozg = (ozmax - oz0) / ydiff
+        u0 = u0 + clipped_y * ug
+        v0 = v0 + clipped_y * vg
+        oz0 = oz0 + clipped_y * ozg
+        uv_fields = [oz0, ozg, u0, ug, v0, vg]
+    else:
+        uv_fields = [zero] * 6  # divergence #5: untextured lanes are 0
 
     left = torch.where(ymin == round_half_away(y_lo), 1.0, 0.0)  # cpp:4093
 
@@ -216,7 +242,7 @@ def setup_fields(params, verts, cols, nrms, n_lights: int, phong: bool):
         n0 = ng = [zero] * 3
 
     fields = ([keep.to(F32), ymin, ymax, x0, xg, z0, zg]
-              + [zero] * 6 + [left] + col0 + colg + n0 + ng)
+              + uv_fields + [left] + col0 + colg + n0 + ng)
     assert len(fields) == EDGE_STRIDE
     return torch.where(keep[None], torch.stack(fields), 0.0), keep
 
@@ -224,18 +250,15 @@ def setup_fields(params, verts, cols, nrms, n_lights: int, phong: bool):
 def setup_records(obj: RenderObject, transform: ProjectiveTransform,
                   lights: LightData, cfg: ObjectConfig,
                   gid0: int = 0) -> torch.Tensor:
-    """Channel-major packed record table (85, T) f32 of an untextured
-    object (geometry/vertex.py:320): row r < 84 is record lane r, row 84
-    the global triangle id ``gid0 + arange(T)``. ``ops.raster``'s
+    """Channel-major packed record table (85, T) f32 of one object
+    (geometry/vertex.py:320): row r < 84 is record lane r, row 84 the
+    global triangle id ``gid0 + arange(T)``. ``ops.raster``'s
     ``finish_records`` pads and transposes it to the row-major table."""
-    if cfg.textured:
-        raise NotImplementedError(
-            "textured setup (u/z, v/z, 1/z fields) belongs to the texturing "
-            "slice of the port")
     T = obj.num_triangles
     fields, _ = setup_fields(setup_params(obj.p, transform, lights),
                              obj.vertices, obj.colors, obj.normals,
-                             lights.count, cfg.phong)
+                             lights.count, cfg.phong,
+                             obj.uvs if cfg.textured else None)
     rec = fields.permute(1, 0, 2).reshape(3 * EDGE_STRIDE, T)
     gid = (torch.arange(T, dtype=torch.int32, device=rec.device)
            + int(gid0)).to(F32)

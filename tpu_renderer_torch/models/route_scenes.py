@@ -9,18 +9,30 @@ what chip_smoke.py renders on the card against the CPU.
 | mixed | K1 + small object via K7 -> K2 | construct_sphere_grid(46, 45) + a 0.15-unit cube, 4,152 tris, 128x128 |
 | k4multi | setup_records x 3 -> K7 -> K4 | sphere(12) Phong + torus(16, 8) + cube, 796 tris (1,024 padded), 512x512 |
 | k2multi | setup_records x 3 -> K7 -> K2 | config 5's three untextured objects, 3,244 tris (3,456 padded), 96x128 |
+| k6 | setup_records -> K7 -> K6, 16-row tiles | config 1's cube, 12 tris, 128x128 |
+| k6multi | setup_records x 2 -> K7 -> K6, 8-row tiles | torus(8, 6) Phong + cube, 108 tris (256 padded), 128x128 |
 
-Side-list variants: a quad merged into one object's mesh (k3, k4: 2.2
-units; mixed: 1.2 units, into the cube; k4multi: 2.2 units, into the
-sphere), or config 5's quad, untextured, as a fourth object (k2multi).
+Side-list variants (sorted routes): a quad merged into one object's mesh
+(k3, k4: 2.2 units; mixed: 1.2 units, into the cube; k4multi: 2.2 units,
+into the sphere), or config 5's quad, untextured, as a fourth object
+(k2multi). Textured variants, so that every route's finalize runs K5:
+k3 the teapot bilinear (32x32 checkerboard, Gouraud: unlit texture); k4
+the sphere nearest (16x16, Phong: the texel lit); mixed the sphere grid
+bilinear (16x16) and the cube nearest (8x32), two widths in one atlas;
+k2multi config 5 in full (its quad nearest, 64x64); k6 config 3 (bilinear
+64x64); k6multi two quads sharing one 32x32 texture, nearest and bilinear
+(tests/test_pallas.py:257).
 """
 
 from . import primitives as tp
 from . import scenes as ts
 from .sphere import construct_sphere
+from .textures import checkerboard
 
 MESH_KEYS = ("vertices", "colors", "normals", "uvs")
-ROUTE_NAMES = ("k3", "k4", "mixed", "k4multi", "k2multi")
+ROUTE_NAMES = ("k3", "k4", "mixed", "k4multi", "k2multi")  # sorted routes
+MASK_NAMES = ("k6", "k6multi")
+TEXTURED_NAMES = ("k3", "k4", "mixed", "k2multi", "k6", "k6multi")
 
 
 def mesh_only(mesh):
@@ -34,21 +46,32 @@ def with_quad(entry, size):
     return dict(p=obj["p"], **merged), cfg
 
 
+def textured(entry, texture, filter_mode="nearest"):
+    """A scene entry with a texture and filter mode added."""
+    obj, cfg = entry
+    return obj, dict(cfg, texture=texture, filter_mode=filter_mode)
+
+
 def route_scene(name, variant="base"):
-    """(scene_golden, (h, w)) of a route's scene or its side-list
-    variant."""
+    """(scene_golden, (h, w)) of a route's scene, its side-list variant
+    (sorted routes) or its textured variant (TEXTURED_NAMES)."""
     side = variant == "sidelist"
+    tex = variant == "textured"
     if name == "k3":
         hw = (256, 256)
         sg = ts.baseline_scene(2, *hw)[0]
         if side:
             sg = [with_quad(sg[0], 2.2)]
+        if tex:
+            sg = [textured(sg[0], checkerboard(32, 32, 4), "bilinear")]
     elif name == "k4":
         hw = (384, 384)
         sg = [(dict(p=(0.0, 0.0, 0.0), **construct_sphere(12)),
                {"phong": True})]
         if side:
             sg = [with_quad(sg[0], 2.2)]
+        if tex:
+            sg = [textured(sg[0], checkerboard(16, 16, 2))]
     elif name == "mixed":
         hw = (128, 128)
         sg = [(dict(p=(0.0, 0.0, 0.0), **tp.construct_sphere_grid(46, 45)),
@@ -57,6 +80,9 @@ def route_scene(name, variant="base"):
                   tp.construct_cube(0.15), -0.3)), {})]
         if side:
             sg = [sg[0], with_quad(sg[1], 1.2)]
+        if tex:
+            sg = [textured(sg[0], checkerboard(16, 16, 2), "bilinear"),
+                  textured(sg[1], checkerboard(8, 32, 4))]
     elif name == "k4multi":
         hw = (512, 512)
         sg = [(dict(p=(-0.45, 0.3, 0.3), **construct_sphere(12)),
@@ -75,6 +101,25 @@ def route_scene(name, variant="base"):
         if side:
             quad = sg5[3][0]
             sg = sg + [(dict(p=quad["p"], **mesh_only(quad)), {})]
+        if tex:
+            sg = sg5
+    elif name == "k6":
+        hw = (128, 128)
+        sg = ts.baseline_scene(3 if tex else 1, *hw)[0]
+    elif name == "k6multi":
+        hw = (128, 128)
+        if tex:
+            check = checkerboard(32, 32, 4)
+            quad = tp.construct_quad(1.2)
+            sg = [(dict(p=(-0.35, 0.0, 0.0), **quad), {"texture": check}),
+                  (dict(p=(0.45, 0.2, 0.3), **quad),
+                   {"texture": check, "filter_mode": "bilinear"})]
+        else:
+            sg = [(dict(p=(-0.3, 0.1, 0.2), **ts.rotate_y(
+                      tp.construct_torus(major_steps=8, minor_steps=6),
+                      0.3)), {"phong": True}),
+                  (dict(p=(0.35, -0.2, 0.0), **ts.rotate_y(
+                      tp.construct_cube(0.6), -0.3)), {})]
     else:
         raise ValueError(name)
     return sg, hw

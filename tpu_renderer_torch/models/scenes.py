@@ -8,9 +8,8 @@ Configs (``baseline_scene``):
   4. Per-pixel Phong sphere, 2 point lights, 1080p
   5. Multi-object scene: Phong sphere, Gouraud torus and cube, textured quad
 
-Textures are carried as data (u32 ARGB arrays in the config dicts); the
-port renders textured objects once the texturing slice lands, and raises
-NotImplementedError until then.
+Textures are carried as data (u32 ARGB arrays in the config dicts) and
+sampled in the raster kernels' finalize.
 """
 
 from __future__ import annotations

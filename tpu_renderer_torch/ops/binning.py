@@ -1,8 +1,10 @@
-"""Tile binning for the sorted strategy: triangle bboxes -> per-tile entry
-streams (torch ops).
+"""Tile binning: triangle bboxes -> per-tile triangle lists (the mask
+strategy) or per-tile entry streams (the sorted strategy), as torch ops.
 
-PyTorch counterpart of the sorted path of ``tpu_renderer.ops.binning``:
-``_bbox_core``, ``triangle_bbox_rows``, ``count_subset_per_tile``,
+PyTorch counterpart of ``tpu_renderer.ops.binning``: ``_bbox_core``,
+``triangle_bbox_rows``, ``_bin_from_bbox`` / ``bin_triangles`` (the mask
+strategy's fixed-capacity lists, submission order kept, overflow counted
+in ``n_dropped``), ``count_subset_per_tile``,
 ``_large_side_list`` (the searchsorted form), ``_bin_queue_rows`` (row
 packing, two strip streams) and the single-stream branch of
 ``bin_triangles_queue``. Every array compares integer-exact with the JAX
@@ -116,6 +118,75 @@ def count_subset_per_tile(subset_ids, height: int, width: int, tile_h: int,
     in_x = (tx_ids[None, :] >= tx_lo[:, None]) & (tx_ids[None, :] < tx_hi[:, None])
     mask = valid[:, None, None] & in_y[:, :, None] & in_x[:, None, :]
     return mask.to(I32).sum(dim=0, dtype=I32).reshape(-1)
+
+
+class TileBins(NamedTuple):
+    """Per-tile triangle lists of the mask strategy."""
+
+    ids: torch.Tensor  # (tiles_y, tiles_x, K) i32 triangle ids, -1 = empty
+    counts: torch.Tensor  # (tiles_y, tiles_x) i32 kept triangles per tile
+    n_dropped: torch.Tensor  # () i32 triangles past the capacity, all tiles
+
+
+def _bin_from_bbox(tri_valid, ylo, yhi, xlo, xhi, tri_ids, tiles_y: int,
+                   tiles_x: int, tile_h: int, tile_w: int, capacity: int,
+                   row0=0, col0=0) -> TileBins:
+    """Dense-mask binning over global-frame bboxes (binning.py:120): each
+    tile lists the ``tri_ids`` of the triangles whose bbox overlaps it, in
+    submission order (an exclusive cumsum gives each its slot), the first
+    ``capacity`` kept and the rest counted in n_dropped."""
+    T = tri_valid.shape[0]
+    dev = tri_valid.device
+    ntiles = tiles_y * tiles_x
+    th_f, tw_f = scalar(tile_h, dev), scalar(tile_w, dev)
+    ylo = ylo - float(row0)
+    yhi = yhi - float(row0)
+    xlo = xlo - float(col0)
+    xhi = xhi - float(col0)
+    ty_lo = to_i32(torch.floor(ylo / th_f))
+    ty_hi = to_i32(torch.ceil(yhi / th_f))  # exclusive
+    tx_lo = to_i32(torch.floor(xlo / tw_f))
+    tx_hi = to_i32(torch.floor(xhi / tw_f)) + 1  # exclusive
+
+    ty_ids = torch.arange(tiles_y, dtype=I32, device=dev)
+    tx_ids = torch.arange(tiles_x, dtype=I32, device=dev)
+    in_y = (ty_ids[None, :] >= ty_lo[:, None]) & (ty_ids[None, :] < ty_hi[:, None])
+    in_x = (tx_ids[None, :] >= tx_lo[:, None]) & (tx_ids[None, :] < tx_hi[:, None])
+    mask = (tri_valid[:, None, None] & in_y[:, :, None]
+            & in_x[:, None, :]).reshape(T, ntiles)
+
+    pos = torch.cumsum(mask.to(I32), dim=0, dtype=I32) - 1  # (T, tiles)
+    total = torch.where(mask.any(dim=0), pos[-1] + 1, 0)
+    n_dropped = torch.clamp(total - capacity, min=0).sum(dtype=I32)
+    # Slot `capacity` of each tile's row is the discard slot.
+    slot = torch.where(mask & (pos < capacity), pos, capacity).to(I64)
+    flat = torch.arange(ntiles, dtype=I64, device=dev)[None, :] * (
+        capacity + 1) + slot
+    ids = torch.full((ntiles * (capacity + 1),), -1, dtype=I32, device=dev)
+    ids.scatter_(0, flat.reshape(-1),
+                 tri_ids.to(I32)[:, None].expand(T, ntiles).reshape(-1))
+    ids = ids.reshape(ntiles, capacity + 1)[:, :capacity]
+    return TileBins(
+        ids=ids.reshape(tiles_y, tiles_x, capacity).contiguous(),
+        counts=torch.clamp(total, max=capacity).to(I32).reshape(tiles_y,
+                                                                tiles_x),
+        n_dropped=n_dropped,
+    )
+
+
+def bin_triangles(height: int, width: int, tile_h: int, tile_w: int,
+                  capacity: int, row0=0, col0=0, bbox=None) -> TileBins:
+    """The mask strategy's per-tile triangle lists (binning.py:173) over
+    the local (height, width) rect at origin (row0, col0), from the
+    global-frame bboxes (``triangle_bbox_rows`` or K1's)."""
+    if bbox is None:
+        raise ValueError("bin_triangles needs the setup bboxes")
+    tri_valid = bbox[0]
+    T = tri_valid.shape[0]
+    return _bin_from_bbox(
+        *bbox, torch.arange(T, dtype=I32, device=tri_valid.device),
+        -(-height // tile_h), -(-width // tile_w), tile_h, tile_w, capacity,
+        row0, col0)
 
 
 def _large_side_list(large, large_capacity: int):

@@ -1,28 +1,36 @@
-"""Fused raster + shade of the sorted strategy, and the record transpose.
+"""Fused raster + shade, the texture atlas, and the record transpose.
 
-PyTorch counterpart of ``tpu_renderer.ops.raster_pallas`` for the sorted
-strategy (more than 512 triangles per draw), untextured objects, one or
-several per launch. It holds four kernels:
+PyTorch counterpart of ``tpu_renderer.ops.raster_pallas``'s fused path,
+one or several objects per launch, textured ('scalar' addressing, nearest
+or bilinear, within the fused atlas limits) or not. It holds five kernels:
 
 - K2, K3 and K4: the Pallas ``_raster_kernel_queue_shaded``
-  (raster_pallas.py:2192) on its three routes -- 8-row tiles with row
-  packing 2 (K2, ``raster_kernel``), 8-row tiles with one stream (K3,
-  ``raster_rows1_kernel``), 16-row tiles with one stream (K4,
-  ``raster_narrow_kernel``) -- all launched from ``csrc/raster.cu``;
+  (raster_pallas.py:2192) on the sorted strategy's three routes -- 8-row
+  tiles with row packing 2 (K2, ``raster_kernel``), 8-row tiles with one
+  stream (K3, ``raster_rows1_kernel``), 16-row tiles with one stream (K4,
+  ``raster_narrow_kernel``);
+- K6: the Pallas ``_raster_kernel_tilelist_shaded`` (raster_pallas.py:2121),
+  the mask strategy of draws of at most 512 triangles
+  (``raster_mask_kernel``), 8- or 16-row tiles;
+- K5: the texture fetch of their finalize (``_sample_texture_atlas`` :755,
+  ``_sample_texture_atlas_bilinear`` :863), a device function of
+  ``csrc/raster.cu`` with no launch of its own; its plain version is
+  ``ops.shading.sample_atlas``;
 - K7: ``finish_records`` (raster_pallas.py:449), the transpose of a
   channel-major record table to the row-major one (``csrc/records.cu``).
 
 Each wrapper launches its CUDA kernel on CUDA tensors and runs its plain
 version on CPU tensors. The raster kernels' plain version,
-``raster_plain``, is vectorised over the binned streams; each pixel's
-winner is the lexicographic best (z descending, gid ascending) over
-fragments with z > DEPTH_CLEAR, which is what the TPU kernel's strict '>'
-first-writer folds over gid-ordered streams plus its gid-aware side-list
-merge compute. Multi-object launches pick each pixel's object from the
-winner's gid (``_finalize_shade``, raster_pallas.py:1600).
+``raster_plain``, is vectorised over the binned entries (the mask
+strategy's lists go in as one stream, ``mask_plain``); each pixel's winner
+is the lexicographic best (z descending, gid ascending) over fragments
+with z > DEPTH_CLEAR, which is what the TPU kernels' strict '>'
+first-writer folds over gid-ordered lists plus the sorted strategy's
+gid-aware side-list merge compute. Multi-object launches pick each
+pixel's object from the winner's gid (``_finalize_shade``,
+raster_pallas.py:1600).
 
-Routes outside the port so far raise NotImplementedError: the mask
-strategy (T <= 512), textures and zcull.
+zcull still raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -44,7 +52,13 @@ from ..geometry.vertex import (
     F_LEFT,
     F_N0,
     F_NG,
+    F_OZ0,
+    F_OZG,
+    F_U0,
+    F_UG,
+    F_V0,
     F_VALID,
+    F_VG,
     F_X0,
     F_XG,
     F_YMAX,
@@ -56,12 +70,14 @@ from ..geometry.vertex import (
 )
 from .binning import (
     QueueBins,
+    TileBins,
+    bin_triangles,
     bin_triangles_queue,
     count_subset_per_tile,
     triangle_bbox_rows,
 )
 from .setup import SetupOut
-from .shading import pack_argb_planes, shade_planes
+from .shading import pack_argb_planes, sample_atlas, shade_planes
 
 F32 = torch.float32
 I32 = torch.int32
@@ -78,8 +94,19 @@ PACK_ROWS = 2
 PACK_ROWS_MAX_PX_PER_TRI = 12  # row packing at or below this px / triangle
 PACK_ROWS_STREAM_FRAC = 0.45  # multi-object per-stream budget, x 1.2
 LARGE_CAPACITY = 2048  # side-list slots (bin_triangles_queue default)
+CHUNK_T = 8  # the mask strategy's list capacity rounds up to this
+MASK_MAX_CAPACITY = 4096
+_MASK_BLOCK_BYTES_CAP = 4 * 1024 * 1024  # one tile's list of records
+_MASK_TOTAL_BYTES_CAP = 512 * 1024 * 1024  # all tiles' lists of records
 # The f32 gid lane is exact only up to 2**24 triangles per scene.
 MAX_SCENE_TRIANGLES = 2 ** 24
+# Fused texturing limits of the whole scene atlas (raster_pallas.py:535).
+MAX_FUSED_TEX_DIM = 512
+MAX_FUSED_TEX_PIXELS = 128 * 128
+
+COL_FIELDS = tuple((F_COL0 + c, F_COLG + c) for c in range(4))
+NRM_FIELDS = tuple((F_N0 + c, F_NG + c) for c in range(3))
+UV_FIELDS = ((F_U0, F_UG), (F_V0, F_VG), (F_OZ0, F_OZG))  # u/z, v/z, 1/z
 
 
 def _queue_expansion(tile_h: int, num_triangles: int):
@@ -138,18 +165,72 @@ def shade_params(transform: ProjectiveTransform,
 class ObjSpec(NamedTuple):
     """Per-object spec of a launch: the object's global-triangle-id range
     [gid_lo, gid_hi) in the scene's record table (gid_hi = gid_lo + T, not
-    the padded end) and Phong or Gouraud (untextured objects only)."""
+    the padded end), Phong or Gouraud, and ``tex``: None, or the object's
+    texture in the scene atlas as (v_off, th, tw) (nearest) or (v_off, th,
+    tw, 'bilinear')."""
 
     gid_lo: int
     gid_hi: int
     phong: bool
+    tex: tuple | None = None
+
+    @property
+    def bilinear(self) -> bool:
+        return self.tex is not None and len(self.tex) > 3 and (
+            self.tex[3] == "bilinear")
 
 
-def _scene_fields(objspecs) -> int:
-    """Attribute planes the scene's finalize reads (raster_pallas.py:561,
-    untextured): the 4 colour planes, plus the 3 normal planes iff any
-    object is Phong."""
-    return 7 if any(o.phong for o in objspecs) else 4
+def _scene_fields(objspecs):
+    """The planes the scene's finalize reads (raster_pallas.py:561):
+    (fields, col_off, nrm_off, uv_off), the (j0, jg) lane pairs of the
+    planes and each group's first plane (None when absent). The colour
+    unless EVERY object is textured (texture replaces the base colour),
+    the normal iff any object is Phong, u/z v/z 1/z iff any is
+    textured."""
+    fields: tuple = ()
+    col_off = nrm_off = uv_off = None
+    if any(o.tex is None for o in objspecs):
+        col_off = 0
+        fields += COL_FIELDS
+    if any(o.phong for o in objspecs):
+        nrm_off = len(fields)
+        fields += NRM_FIELDS
+    if any(o.tex is not None for o in objspecs):
+        uv_off = len(fields)
+        fields += UV_FIELDS
+    return fields, col_off, nrm_off, uv_off
+
+
+def _atlas_dims(objspecs):
+    """(rows, max width) of the scene texture atlas."""
+    ah = max(o.tex[0] + o.tex[1] for o in objspecs if o.tex is not None)
+    aw = max(o.tex[2] for o in objspecs if o.tex is not None)
+    return ah, aw
+
+
+def texture_fits_fused(th: int, tw: int) -> bool:
+    """Within the fused path's atlas limits (renderer.py:77)."""
+    return max(th, tw) <= MAX_FUSED_TEX_DIM and th * tw <= MAX_FUSED_TEX_PIXELS
+
+
+def pack_texture_atlas(textures):
+    """Stack (th, tw) u32 ARGB textures row-wise into one scene atlas
+    (raster_pallas.py:605): (atlas (AH, AW) int32 holding the u32 texels,
+    each texture zero padded to the widest; row offset per texture). The
+    offsets and dimensions are the JAX package's; its atlas holds the same
+    texels as bf16 channel blocks [r|g|b|a] for the TPU's one-hot matrix
+    product, which the H100 does not need."""
+    aw = max(int(t.shape[1]) for t in textures)
+    rows, offs, off = [], [], 0
+    for t in textures:
+        t = t.view(I32)
+        if t.shape[1] < aw:
+            t = torch.nn.functional.pad(t, (0, aw - t.shape[1]))
+        rows.append(t)
+        offs.append(off)
+        off += int(t.shape[0])
+    atlas = rows[0] if len(rows) == 1 else torch.cat(rows)
+    return atlas.contiguous(), offs
 
 
 @functools.lru_cache(maxsize=64)
@@ -162,10 +243,20 @@ def obj_table(objspecs: tuple, device) -> torch.Tensor:
                          for o in objspecs], dtype=I32, device=device)
 
 
+@functools.lru_cache(maxsize=64)
+def tex_table(objspecs: tuple, device) -> torch.Tensor:
+    """The (n_obj, 4) i32 [v_off, th, tw, bilinear] table of the objects'
+    textures in the scene atlas (th = 0: untextured), cached like
+    ``obj_table``."""
+    return torch.tensor([list(o.tex[:3]) + [int(o.bilinear)]
+                         if o.tex is not None else [0, 0, 0, 0]
+                         for o in objspecs], dtype=I32, device=device)
+
+
 class RasterRoute(NamedTuple):
     """How a draw is binned and rasterized (raster_pallas.py:2529-2700)."""
 
-    strategy: str
+    strategy: str  # 'mask' or 'sorted'
     tile_h: int
     rows: int  # streams per tile: 2 under row packing, else 1
     expansion: int  # tiles a triangle may cover off the side list
@@ -177,14 +268,12 @@ class RasterRoute(NamedTuple):
 def raster_route(t_policy: int, frame_height: int, frame_width: int,
                  n_objects: int = 1) -> RasterRoute:
     """The JAX package's 'auto' gates for a T-triangle draw of
-    ``n_objects`` objects on this frame; raises NotImplementedError for
-    the mask strategy, which later slices port."""
-    if t_policy <= AUTO_SORTED_THRESHOLD:
-        raise NotImplementedError(
-            f"the mask strategy (T <= {AUTO_SORTED_THRESHOLD}) "
-            "belongs to a later slice of the port"
-        )
+    ``n_objects`` objects on this frame: the mask strategy up to
+    AUTO_SORTED_THRESHOLD triangles (no stream: expansion, blk and the
+    budget factors are 0), the sorted strategy above it."""
     tile_h = _pick_tile_h(t_policy, frame_height, frame_width)
+    if t_policy <= AUTO_SORTED_THRESHOLD:
+        return RasterRoute("mask", tile_h, 1, 0, 0, 0.0, 0.0)
     expansion, policy = _queue_expansion(tile_h, t_policy)
     wide = tile_h <= 8
     rows = 1
@@ -202,10 +291,32 @@ def raster_route(t_policy: int, frame_height: int, frame_width: int,
                        WIDE_BLK if wide else QUEUE_BLK, bf, policy)
 
 
+def mask_capacity(T: int) -> int:
+    """The mask strategy's default list capacity for a T-row table
+    (raster_pallas.py:2564)."""
+    return min(max(CHUNK_T, -(-T // CHUNK_T) * CHUNK_T), MASK_MAX_CAPACITY)
+
+
+def _mask_guard(capacity: int, tiles_y: int, tiles_x: int,
+                lanes: int = REC_LANES) -> None:
+    """Refuse a mask launch whose per-tile record lists would be too large
+    (raster_pallas.py:1779): the same limits and message as the JAX
+    package, though K6 reads the records in place."""
+    block_bytes = capacity * lanes * 4
+    total_bytes = tiles_y * tiles_x * block_bytes
+    if block_bytes > _MASK_BLOCK_BYTES_CAP or (
+            total_bytes > _MASK_TOTAL_BYTES_CAP):
+        raise ValueError(
+            f"mask strategy would materialize {total_bytes / 2**20:.0f} MB "
+            f"of per-tile records ({block_bytes / 2**20:.1f} MB per tile "
+            "block); use strategy='sorted' for this triangle count"
+        )
+
+
 def bin_for_raster(bbox, route: RasterRoute, height: int, width: int,
                    row0: int = 0, col0: int = 0):
-    """Binning stage of the draw over the local (height, width) rect at
-    origin (row0, col0) from the global-frame ``bbox``: (QueueBins,
+    """Binning stage of a sorted draw over the local (height, width) rect
+    at origin (row0, col0) from the global-frame ``bbox``: (QueueBins,
     lcounts (ntiles,) i32, the side-list gate per tile)."""
     qbins = bin_triangles_queue(
         height, width, route.tile_h, TILE_W, route.blk,
@@ -265,100 +376,164 @@ def finish_records_plain(rec_t: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K2 / K3 / K4: raster + shade
+# K2 / K3 / K4 / K6: raster + shade (with K5 in the finalize)
 # ---------------------------------------------------------------------------
 
 
+def _check_finalize(dev, recs, params, objs, texs, atlas, n_lights):
+    """Check the operands every raster kernel's finalize reads; returns
+    (n_obj, atlas pointer or None, atlas width)."""
+    n_obj = objs.shape[0]
+    checks = [("recs", recs, F32, (recs.shape[0], REC_LANES)),
+              ("params", params, F32, (9 + 7 * n_lights,)),
+              ("objs", objs, I32, (max(n_obj, 1), 3)),
+              ("texs", texs, I32, (max(n_obj, 1), 4))]
+    if atlas is not None:
+        checks.append(("atlas", atlas, I32, atlas.shape))
+    for name, t, dtype, shape in checks:
+        _cuda.check_tensor(name, t, dev, dtype, shape)
+    if atlas is None:
+        return n_obj, None, 0
+    return n_obj, atlas.data_ptr(), int(atlas.shape[1])
+
+
+def _outputs(tiles_y: int, tile_h: int, tiles_x: int, dev):
+    hp, wp = tiles_y * tile_h, tiles_x * TILE_W
+    return (torch.empty((hp, wp), dtype=F32, device=dev),
+            torch.empty((hp, wp), dtype=I32, device=dev),
+            torch.empty((hp, wp), dtype=I32, device=dev))
+
+
 def _raster(wrapper, entry: str, tile_h: int, streams: int, recs,
-            qbins: QueueBins, lcounts, params, objs, *, tiles_y: int,
-            tiles_x: int, row0: int, col0: int, frame_width: int,
-            any_phong: bool, n_lights: int):
+            qbins: QueueBins, lcounts, params, objs, texs, atlas, *,
+            tiles_y: int, tiles_x: int, row0: int, col0: int,
+            frame_width: int, n_lights: int):
     """Check the operands, launch ``entry`` and count it on ``wrapper``;
     CPU tensors run ``raster_plain``."""
     dev = recs.device
     kw = dict(tile_h=tile_h, tiles_y=tiles_y, tiles_x=tiles_x, row0=row0,
-              col0=col0, frame_width=frame_width, any_phong=any_phong,
-              n_lights=n_lights)
+              col0=col0, frame_width=frame_width, n_lights=n_lights)
     nfb = tiles_y * tiles_x
     nst = qbins.starts.shape[0]
     if nst != streams * (nfb + 1):
         raise ValueError(f"starts has {nst} entries for {nfb} tiles and "
                          f"{streams} streams")
     if dev.type == "cpu":
-        return raster_plain(recs, qbins, lcounts, params, objs, **kw)
+        return raster_plain(recs, qbins, lcounts, params, objs, texs, atlas,
+                            **kw)
     if dev.type != "cuda":
         raise ValueError(f"{entry} runs on CUDA or CPU tensors, not {dev}")
-    n_obj = objs.shape[0]
-    for name, t, dtype, shape in (
-        ("recs", recs, F32, (recs.shape[0], REC_LANES)),
-        ("sorted_tri", qbins.sorted_tri, I32, qbins.sorted_tri.shape),
-        ("starts", qbins.starts, I32, (nst,)),
-        ("counts", qbins.counts, I32, (nst,)),
-        ("large_ids", qbins.large_ids, I32, (LARGE_CAPACITY,)),
-        ("n_large", qbins.n_large, I32, ()),
-        ("lcounts", lcounts, I32, (nfb,)),
-        ("params", params, F32, (9 + 7 * n_lights,)),
-        ("objs", objs, I32, (max(n_obj, 1), 3)),
+    for name, t, shape in (
+        ("sorted_tri", qbins.sorted_tri, qbins.sorted_tri.shape),
+        ("starts", qbins.starts, (nst,)),
+        ("counts", qbins.counts, (nst,)),
+        ("large_ids", qbins.large_ids, (LARGE_CAPACITY,)),
+        ("n_large", qbins.n_large, ()),
+        ("lcounts", lcounts, (nfb,)),
     ):
-        _cuda.check_tensor(name, t, dev, dtype, shape)
-    hp, wp = tiles_y * tile_h, tiles_x * TILE_W
-    z = torch.empty((hp, wp), dtype=F32, device=dev)
-    gid = torch.empty((hp, wp), dtype=I32, device=dev)
-    color = torch.empty((hp, wp), dtype=I32, device=dev)
+        _cuda.check_tensor(name, t, dev, I32, shape)
+    n_obj, atlas_ptr, aw = _check_finalize(dev, recs, params, objs, texs,
+                                           atlas, n_lights)
+    z, gid, color = _outputs(tiles_y, tile_h, tiles_x, dev)
     rc = getattr(_cuda.library(), entry)(
         recs.data_ptr(), qbins.sorted_tri.data_ptr(), qbins.starts.data_ptr(),
         qbins.counts.data_ptr(), qbins.large_ids.data_ptr(),
         qbins.n_large.data_ptr(), lcounts.data_ptr(), params.data_ptr(),
-        objs.data_ptr(), n_obj, n_lights, int(bool(any_phong)), tiles_y,
-        tiles_x, row0, col0, frame_width, z.data_ptr(), gid.data_ptr(),
-        color.data_ptr(), _cuda.stream(dev),
+        objs.data_ptr(), texs.data_ptr(), atlas_ptr, n_obj, n_lights, aw,
+        tiles_y, tiles_x, row0, col0, frame_width, z.data_ptr(),
+        gid.data_ptr(), color.data_ptr(), _cuda.stream(dev),
     )
     _cuda.check_launch(entry, rc)
     wrapper.launches += 1
     return z, gid, color.view(torch.uint32)
 
 
-def raster_kernel(recs, qbins, lcounts, params, objs, **kw):
+def raster_kernel(recs, qbins, lcounts, params, objs, texs, atlas, **kw):
     """K2 (8-row tiles, two strip streams): (z f32, gid i32, color u32),
     each (tiles_y * 8, tiles_x * 128), written for every tile. CUDA tensors
     launch ``tr_raster`` and count ``raster_kernel.launches``."""
     return _raster(raster_kernel, "tr_raster", 8, PACK_ROWS, recs, qbins,
-                   lcounts, params, objs, **kw)
+                   lcounts, params, objs, texs, atlas, **kw)
 
 
-def raster_rows1_kernel(recs, qbins, lcounts, params, objs, **kw):
+def raster_rows1_kernel(recs, qbins, lcounts, params, objs, texs, atlas,
+                        **kw):
     """K3 (8-row tiles, one stream): as K2; ``tr_raster_rows1``, counted
     in ``raster_rows1_kernel.launches``."""
     return _raster(raster_rows1_kernel, "tr_raster_rows1", 8, 1, recs,
-                   qbins, lcounts, params, objs, **kw)
+                   qbins, lcounts, params, objs, texs, atlas, **kw)
 
 
-def raster_narrow_kernel(recs, qbins, lcounts, params, objs, **kw):
+def raster_narrow_kernel(recs, qbins, lcounts, params, objs, texs, atlas,
+                         **kw):
     """K4 (16-row tiles, one stream): outputs (tiles_y * 16, tiles_x *
     128); ``tr_raster_narrow``, counted in
     ``raster_narrow_kernel.launches``."""
     return _raster(raster_narrow_kernel, "tr_raster_narrow", 16, 1, recs,
-                   qbins, lcounts, params, objs, **kw)
+                   qbins, lcounts, params, objs, texs, atlas, **kw)
 
 
-for _fn in (raster_kernel, raster_rows1_kernel, raster_narrow_kernel):
+def raster_mask_kernel(recs, bins: TileBins, params, objs, texs, atlas, *,
+                       tile_h: int, tiles_y: int, tiles_x: int, row0: int,
+                       col0: int, frame_width: int, n_lights: int):
+    """K6, the mask strategy (8- or 16-row tiles): each tile folds its
+    list ``bins.ids`` (submission order, ``bins.counts`` entries) over all
+    of its rows, reading the records in place; outputs as K2's. CUDA
+    tensors launch ``tr_raster_mask`` and count
+    ``raster_mask_kernel.launches``; CPU tensors run ``mask_plain``."""
+    dev = recs.device
+    kw = dict(tile_h=tile_h, tiles_y=tiles_y, tiles_x=tiles_x, row0=row0,
+              col0=col0, frame_width=frame_width, n_lights=n_lights)
+    if tuple(bins.counts.shape) != (tiles_y, tiles_x):
+        raise ValueError(f"bins for {tuple(bins.counts.shape)} tiles, "
+                         f"launch of {(tiles_y, tiles_x)}")
+    if dev.type == "cpu":
+        return mask_plain(recs, bins, params, objs, texs, atlas, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"K6 runs on CUDA or CPU tensors, not {dev}")
+    if tile_h not in (8, 16):
+        raise ValueError(f"K6 runs 8- or 16-row tiles, not {tile_h}")
+    capacity = bins.ids.shape[2]
+    _cuda.check_tensor("ids", bins.ids, dev, I32,
+                       (tiles_y, tiles_x, capacity))
+    _cuda.check_tensor("counts", bins.counts, dev, I32, (tiles_y, tiles_x))
+    n_obj, atlas_ptr, aw = _check_finalize(dev, recs, params, objs, texs,
+                                           atlas, n_lights)
+    z, gid, color = _outputs(tiles_y, tile_h, tiles_x, dev)
+    rc = _cuda.library().tr_raster_mask(
+        recs.data_ptr(), bins.ids.data_ptr(), bins.counts.data_ptr(),
+        params.data_ptr(), objs.data_ptr(), texs.data_ptr(), atlas_ptr,
+        capacity, tile_h, n_obj, n_lights, aw, tiles_y, tiles_x, row0, col0,
+        frame_width, z.data_ptr(), gid.data_ptr(), color.data_ptr(),
+        _cuda.stream(dev),
+    )
+    _cuda.check_launch("tr_raster_mask", rc)
+    raster_mask_kernel.launches += 1
+    return z, gid, color.view(torch.uint32)
+
+
+for _fn in (raster_kernel, raster_rows1_kernel, raster_narrow_kernel,
+            raster_mask_kernel):
     _fn.launches = 0
 for _entry in ("tr_raster", "tr_raster_rows1", "tr_raster_narrow"):
-    _cuda.declare(_entry, [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+    _cuda.declare(_entry, [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
                   + [ctypes.c_void_p] * 4)
+_cuda.declare("tr_raster_mask", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+              + [ctypes.c_void_p] * 4)
 
-RASTER_KERNELS = {  # (tile_h, rows) -> wrapper
+RASTER_KERNELS = {  # (tile_h, rows) -> wrapper of the sorted strategy
     (8, 2): raster_kernel,
     (8, 1): raster_rows1_kernel,
     (16, 1): raster_narrow_kernel,
 }
 
 
-def _span_setup(rec, yf, w_f, n_fields):
+def _span_setup(rec, yf, w_f, fields):
     """Stage A (_stage_a_fill, raster_pallas.py:1179-1271) for a batch of
-    (entry, row) pairs: rec (P, 128) records, yf (P,) global rows.
+    (entry, row) pairs: rec (P, 128) records, yf (P,) global rows, fields
+    the (j0, jg) lane pairs of the attribute planes.
 
-    Returns (minx, maxx, xoff, zl, zinc, [(al, inc)] * n_fields, gid);
+    Returns (minx, maxx, xoff, zl, zinc, [(al, inc)] per field, gid);
     maxx is -BIG where the row has no span."""
 
     def field(e, j):
@@ -417,9 +592,7 @@ def _span_setup(rec, yf, w_f, n_fields):
     zl, zr = attr_lr(F_Z0, F_ZG)
     zinc = torch.where(nz, (zr - zl) / xd, 0.0)
     attrs = []
-    fields = [(F_COL0 + c, F_COLG + c) for c in range(4)]
-    fields += [(F_N0 + c, F_NG + c) for c in range(3)]
-    for j0, jg in fields[:n_fields]:
+    for j0, jg in fields:
         al, ar = attr_lr(j0, jg)
         attrs.append((al, torch.where(nz, (ar - al) / xd, 0.0)))
     gid = to_i32(rec[:, GID_LANE])
@@ -459,25 +632,42 @@ def _side_pairs(qbins: QueueBins, lcounts, tile_h: int, dev):
     return tile, tri, rows
 
 
-def _phong_mask(gid, objs):
-    """Pixels whose winner belongs to a Phong object: _finalize_shade's
-    per-object masks (raster_pallas.py:1630-1639; an endpoint shared with
-    a neighbour, or the scene's ends, is not compared) OR-ed over the Phong
-    objects (:1714-1719)."""
-    specs = objs.tolist()
+def _object_masks(gid, specs):
+    """_finalize_shade's per-object pixel masks (raster_pallas.py:1630-1639)
+    for the [gid_lo, gid_hi, ...] rows of ``specs``: covered pixels whose
+    winner lies in the object's range, a range end compared only where a
+    neighbour, or the scene's end, lies beyond it."""
     multi = len(specs) > 1
     last_hi = specs[-1][1]
     covered = gid >= 0
-    pm = torch.zeros_like(covered)
-    for lo, hi, phong in specs:
+    masks = []
+    for lo, hi, *_ in specs:
         m = covered
         if multi and lo > 0:
             m = m & (gid >= lo)
         if multi and hi < last_hi:
             m = m & (gid < hi)
+        masks.append(m)
+    return masks
+
+
+def _phong_mask(gid, objs):
+    """Pixels whose winner belongs to a Phong object: the object masks
+    OR-ed over the Phong objects (raster_pallas.py:1714-1719)."""
+    specs = objs.tolist()
+    pm = torch.zeros_like(gid >= 0)
+    for m, (_, _, phong) in zip(_object_masks(gid, specs), specs):
         if phong:
             pm = pm | m
     return pm
+
+
+def launch_fields(objs, texs):
+    """``_scene_fields`` of a launch, from its object and texture
+    tables."""
+    return _scene_fields([
+        ObjSpec(lo, hi, bool(phong), tuple(t[:3]) if t[1] > 0 else None)
+        for (lo, hi, phong), t in zip(objs.tolist(), texs.tolist())])
 
 
 class Fragments(NamedTuple):
@@ -494,12 +684,13 @@ class Fragments(NamedTuple):
 
 def raster_fragments(recs, qbins: QueueBins, lcounts, *, tile_h: int,
                      tiles_y: int, tiles_x: int, row0: int, col0: int,
-                     frame_width: int, n_fields: int) -> Fragments:
+                     frame_width: int, fields) -> Fragments:
     """Steps 1-2 of ``raster_plain``: each stream entry -> its strip's
     rows (all tile_h rows with one stream), each side-list triangle ->
-    every row of every tile with lcounts > 0; stage A per (entry, row);
-    then the in-span fragments (the span clipped to the tile's 128
-    columns) with z > DEPTH_CLEAR, at pixels of the padded local frame."""
+    every row of every tile with lcounts > 0; stage A per (entry, row)
+    with the ``fields`` planes; then the in-span fragments (the span
+    clipped to the tile's 128 columns) with z > DEPTH_CLEAR, at pixels of
+    the padded local frame."""
     dev = recs.device
     nfb = tiles_y * tiles_x
     wp = tiles_x * TILE_W
@@ -511,7 +702,7 @@ def raster_fragments(recs, qbins: QueueBins, lcounts, *, tile_h: int,
     yf = (prow + row0).to(F32)
     w_f = scalar(frame_width, dev)
     minx, maxx, xoff, zl, zinc, attrs, gid = _span_setup(
-        recs[tri], yf, w_f, n_fields)
+        recs[tri], yf, w_f, fields)
 
     # In-span fragments: columns [max(minx, x0), min(maxx, x0 + 127)] of
     # the pair's tile (minx/maxx are whole numbers, NaN or -BIG).
@@ -533,25 +724,63 @@ def raster_fragments(recs, qbins: QueueBins, lcounts, *, tile_h: int,
                      attrs)
 
 
-def raster_plain(recs, qbins: QueueBins, lcounts, params, objs, *,
-                 tile_h: int, tiles_y: int, tiles_x: int, row0: int,
-                 col0: int, frame_width: int, any_phong: bool,
-                 n_lights: int):
+def _finalize_plain(z, gid, planes, params, objs, texs, atlas, px, py,
+                    n_lights: int, offs):
+    """_finalize_shade (raster_pallas.py:1600) on whole planes: per-object
+    masks, the textured objects' perspective u, v and texel fetch
+    (``sample_atlas``, plain K5) as their base colour, Blinn-Phong where
+    the object is Phong, ARGB pack."""
+    _, col_off, nrm_off, uv_off = offs
+    masks = _object_masks(gid, objs.tolist())
+    if col_off is not None:
+        col = list(planes[col_off:col_off + 4])
+    else:
+        col = [torch.zeros_like(z) for _ in range(4)]
+    if uv_off is not None:
+        tex_objs = [(t, m) for t, m in zip(texs.tolist(), masks) if t[1] > 0]
+        tex_mask = tex_objs[0][1]
+        for _, m in tex_objs[1:]:
+            tex_mask = tex_mask | m
+        inv_oz = 1.0 / planes[uv_off + 2]
+        u = torch.where(tex_mask, inv_oz * planes[uv_off], 0.0)
+        v = torch.where(tex_mask, inv_oz * planes[uv_off + 1], 0.0)
+        for (v_off, th, tw, bil), m in tex_objs:
+            rgba = sample_atlas(atlas, u, v, v_off, th, tw, bool(bil))
+            col = [torch.where(m, rgba[c], col[c]) for c in range(4)]
+    any_phong = nrm_off is not None
+    nrm = planes[nrm_off:nrm_off + 3] if any_phong else None
+    cam = tuple(params[i] for i in range(5))
+    ambient = tuple(params[5 + c] for c in range(4))
+    light_p = [tuple(params[9 + 7 * k + i] for i in range(3))
+               for k in range(n_lights)]
+    light_i = [tuple(params[9 + 7 * k + 3 + c] for c in range(4))
+               for k in range(n_lights)]
+    rgba = shade_planes(z, col, nrm, px, py, cam, ambient, light_p, light_i,
+                        any_phong, n_lights)
+    if any_phong:
+        pm = _phong_mask(gid, objs)
+        rgba = [torch.where(pm, rgba[c], col[c]) for c in range(4)]
+    return pack_argb_planes(*rgba)
+
+
+def raster_plain(recs, qbins: QueueBins, lcounts, params, objs, texs, atlas,
+                 *, tile_h: int, tiles_y: int, tiles_x: int, row0: int,
+                 col0: int, frame_width: int, n_lights: int):
     """Plain-PyTorch K2 / K3 / K4, vectorised over the binned streams:
 
     1. ``raster_fragments``: stage A per (entry, row) of the streams and
        the side list, and the in-span fragments with z > DEPTH_CLEAR;
     2. per pixel, amax of z over the fragments, then amin of gid among the
        fragments at that z;
-    3. the winner's attributes (al + k * inc), shade_planes where the
-       winner's object is Phong, and pack_argb_planes."""
+    3. the winner's attribute planes (al + k * inc) that the scene's
+       objects read, and ``_finalize_plain``."""
     dev = recs.device
     hp, wp = tiles_y * tile_h, tiles_x * TILE_W
-    n_fields = 7 if any_phong else 4
+    offs = launch_fields(objs, texs)
     frags = raster_fragments(
         recs, qbins, lcounts, tile_h=tile_h, tiles_y=tiles_y,
         tiles_x=tiles_x, row0=row0, col0=col0, frame_width=frame_width,
-        n_fields=n_fields)
+        fields=offs[0])
     pix, z, g, k, fp = frags.pix, frags.z, frags.gid, frags.k, frags.pair
 
     # Winner per pixel: (z descending, gid ascending).
@@ -573,36 +802,69 @@ def raster_plain(recs, qbins: QueueBins, lcounts, params, objs, *,
 
     zimg = bz.reshape(hp, wp)
     gid_img = torch.where(covered, bg, -1).to(I32).reshape(hp, wp)
-    col = planes[:4]
     px = (torch.arange(wp, device=dev) + col0).to(F32)[None, :].expand(hp, wp)
     py = (torch.arange(hp, device=dev) + row0).to(F32)[:, None].expand(hp, wp)
-    cam = tuple(params[i] for i in range(5))
-    ambient = tuple(params[5 + c] for c in range(4))
-    light_p = [tuple(params[9 + 7 * k + i] for i in range(3))
-               for k in range(n_lights)]
-    light_i = [tuple(params[9 + 7 * k + 3 + c] for c in range(4))
-               for k in range(n_lights)]
-    rgba = shade_planes(zimg, col, planes[4:], px, py, cam, ambient,
-                        light_p, light_i, any_phong, n_lights)
-    if any_phong:
-        pm = _phong_mask(gid_img, objs)
-        rgba = [torch.where(pm, rgba[c], col[c]) for c in range(4)]
-    color = pack_argb_planes(*rgba)
+    color = _finalize_plain(zimg, gid_img, planes, params, objs, texs, atlas,
+                            px, py, n_lights, offs)
     return zimg, gid_img, color
+
+
+def mask_stream(bins: TileBins) -> QueueBins:
+    """The mask strategy's per-tile lists as one sorted-strategy stream
+    (tile t's entries at t * capacity, counts[t] of them) with an empty
+    side list, for ``raster_plain``."""
+    tiles_y, tiles_x, cap = bins.ids.shape
+    nfb = tiles_y * tiles_x
+    dev = bins.ids.device
+    zero = torch.zeros((), dtype=I32, device=dev)
+    counts = bins.counts.reshape(-1)
+    return QueueBins(
+        sorted_tri=torch.clamp(bins.ids.reshape(-1), min=0),
+        starts=torch.arange(nfb + 1, dtype=I32, device=dev) * cap,
+        counts=torch.cat([counts, zero[None]]),
+        large_ids=torch.full((LARGE_CAPACITY,), -1, dtype=I32, device=dev),
+        n_large=zero, n_dropped=bins.n_dropped,
+        n_real=counts.sum(dtype=I32), budget_util=zero.to(F32))
+
+
+def mask_plain(recs, bins: TileBins, params, objs, texs, atlas, *,
+               tile_h: int, tiles_y: int, tiles_x: int, **kw):
+    """Plain-PyTorch K6: ``raster_plain`` over ``mask_stream`` (each listed
+    triangle on all of its tile's rows, no side list)."""
+    lcounts = torch.zeros((tiles_y * tiles_x,), dtype=I32,
+                          device=recs.device)
+    return raster_plain(recs, mask_stream(bins), lcounts, params, objs,
+                        texs, atlas, tile_h=tile_h, tiles_y=tiles_y,
+                        tiles_x=tiles_x, **kw)
 
 
 class RasterLaunch(NamedTuple):
     """One raster launch, ready to run: its route, the wrapper of the
-    route's kernel (K2, K3 or K4) and the wrapper's operands and options."""
+    route's kernel (K2, K3, K4 or K6) and the wrapper's operands and
+    options. Operands: (recs, qbins, lcounts, params, objs, texs, atlas)
+    on the sorted routes, (recs, bins, params, objs, texs, atlas) on the
+    mask route."""
 
     route: RasterRoute
     kernel: object
-    operands: tuple  # recs, qbins, lcounts, params, objs
+    operands: tuple
     options: dict  # tiles_y, tiles_x, row0, col0, frame_width, ...
 
     @property
     def qbins(self) -> QueueBins:
+        """The sorted route's streams (``mask_stream`` on the mask
+        route)."""
+        if self.route.strategy == "mask":
+            return mask_stream(self.operands[1])
         return self.operands[1]
+
+    @property
+    def objs(self) -> torch.Tensor:
+        return self.operands[-3]
+
+    @property
+    def texs(self) -> torch.Tensor:
+        return self.operands[-2]
 
     def run(self):
         """(z, gid, color) of every tile from the route's kernel (its plain
@@ -610,24 +872,44 @@ class RasterLaunch(NamedTuple):
         return self.kernel(*self.operands, **self.options)
 
     def run_plain(self):
-        """The same outputs from ``raster_plain``, on any device."""
+        """The same outputs from the plain version, on any device."""
+        if self.route.strategy == "mask":
+            return mask_plain(*self.operands, **self.options)
         return raster_plain(*self.operands, tile_h=self.route.tile_h,
                             **self.options)
+
+    def stats(self) -> dict:
+        """The draw's binning stats: bins_dropped on the mask route;
+        bins_dropped, bins_real_entries, bins_budget_utilization (0-d
+        tensors) and bins_budget_factor (the policy factor) on the sorted
+        routes."""
+        if self.route.strategy == "mask":
+            return {"bins_dropped": self.operands[1].n_dropped}
+        qbins = self.operands[1]
+        return {
+            "bins_dropped": qbins.n_dropped,
+            "bins_real_entries": qbins.n_real,
+            "bins_budget_utilization": qbins.budget_util,
+            "bins_budget_factor": self.route.policy_factor,
+        }
 
 
 def prepare_raster(table, objspecs: tuple, transform: ProjectiveTransform,
                    lights: LightData, height: int, width: int,
                    frame_height: int | None = None,
                    frame_width: int | None = None, row0: int = 0,
-                   col0: int = 0) -> RasterLaunch:
+                   col0: int = 0, atlas=None) -> RasterLaunch:
     """Everything before the raster kernel (raster_pallas.py:2501-2723):
-    the row-major table and bboxes, the route, the binning and the side-list
-    gate, for the local (height, width) rect at origin (row0, col0).
+    the row-major table and bboxes, the route, the binning (and on the
+    sorted routes the side-list gate), for the local (height, width) rect
+    at origin (row0, col0).
 
     ``table`` is a SetupOut (the K1 kernel's row-major table and bboxes)
     or the channel-major (85, T) table of ``setup_records``, whose bboxes
     come from ``triangle_bbox_rows`` and whose row-major form from
-    ``finish_records`` (K7). ``objspecs`` holds one ObjSpec per object."""
+    ``finish_records`` (K7); either way the record of gid g is row g.
+    ``objspecs`` holds one ObjSpec per object; ``atlas`` is the scene's
+    ``pack_texture_atlas`` when any object is textured."""
     if frame_height is None:
         frame_height = height
     if frame_width is None:
@@ -644,16 +926,31 @@ def prepare_raster(table, objspecs: tuple, transform: ProjectiveTransform,
         f"scene has {T} triangles; the f32 gid lane is exact only to "
         f"{MAX_SCENE_TRIANGLES}"
     )
+    if any(o.tex is not None for o in objspecs):
+        assert atlas is not None, "textured objects need the scene atlas"
+        assert texture_fits_fused(*_atlas_dims(objspecs)), (
+            "texture atlas too large for the fused path")
+    else:
+        atlas = None
     route = raster_route(t_policy, frame_height, frame_width, len(objspecs))
+    tiles_y = -(-height // route.tile_h)
+    tiles_x = -(-width // TILE_W)
+    finalize = (shade_params(transform, lights),
+                obj_table(objspecs, recs.device),
+                tex_table(objspecs, recs.device), atlas)
+    options = dict(tiles_y=tiles_y, tiles_x=tiles_x, row0=row0, col0=col0,
+                   frame_width=frame_width, n_lights=lights.count)
+    if route.strategy == "mask":
+        capacity = mask_capacity(T)
+        _mask_guard(capacity, tiles_y, tiles_x)
+        bins = bin_triangles(height, width, route.tile_h, TILE_W, capacity,
+                             row0, col0, bbox)
+        return RasterLaunch(route, raster_mask_kernel,
+                            (recs, bins) + finalize,
+                            dict(tile_h=route.tile_h, **options))
     qbins, lcounts = bin_for_raster(bbox, route, height, width, row0, col0)
-    return RasterLaunch(
-        route, RASTER_KERNELS[(route.tile_h, route.rows)],
-        (recs, qbins, lcounts, shade_params(transform, lights),
-         obj_table(objspecs, recs.device)),
-        dict(tiles_y=-(-height // route.tile_h), tiles_x=-(-width // TILE_W),
-             row0=row0, col0=col0, frame_width=frame_width,
-             any_phong=_scene_fields(objspecs) == 7, n_lights=lights.count),
-    )
+    return RasterLaunch(route, RASTER_KERNELS[(route.tile_h, route.rows)],
+                        (recs, qbins, lcounts) + finalize, options)
 
 
 def rasterize_scene_shaded(table, objspecs: tuple,
@@ -661,18 +958,17 @@ def rasterize_scene_shaded(table, objspecs: tuple,
                            height: int, width: int,
                            frame_height: int | None = None,
                            frame_width: int | None = None, row0: int = 0,
-                           col0: int = 0, zcull: bool = False):
-    """Fused raster + interpolate + shade + ARGB pack of a scene's record
-    table (see ``prepare_raster``) -> (covered, z (H, W), color u32 (H, W),
-    stats) (raster_pallas.py:2467). stats holds bins_dropped,
-    bins_real_entries, bins_budget_utilization (0-d tensors) and
-    bins_budget_factor (the policy factor). ``zcull=True`` raises until its
-    slice is ported."""
+                           col0: int = 0, zcull: bool = False, atlas=None):
+    """Fused raster + interpolate + texture + shade + ARGB pack of a
+    scene's record table (see ``prepare_raster``) -> (covered, z (H, W),
+    color u32 (H, W), stats) (raster_pallas.py:2467); see
+    ``RasterLaunch.stats``. ``zcull=True`` raises until its slice is
+    ported."""
     if zcull:
         raise NotImplementedError("zcull belongs to a later slice")
     return run_shaded(prepare_raster(table, objspecs, transform, lights,
                                      height, width, frame_height,
-                                     frame_width, row0, col0),
+                                     frame_width, row0, col0, atlas),
                       height, width)
 
 
@@ -680,25 +976,26 @@ def run_shaded(launch: RasterLaunch, height: int, width: int):
     """Run a prepared launch and crop its tiles to (height, width) ->
     (covered, z, color u32, stats), as ``rasterize_scene_shaded``."""
     z, gid, color = (a[:height, :width] for a in launch.run())
-    qbins = launch.qbins
-    stats = {
-        "bins_dropped": qbins.n_dropped,
-        "bins_real_entries": qbins.n_real,
-        "bins_budget_utilization": qbins.budget_util,
-        "bins_budget_factor": launch.route.policy_factor,
-    }
-    return gid >= 0, z, color, stats
+    return gid >= 0, z, color, launch.stats()
 
 
 def rasterize_shaded(table, transform: ProjectiveTransform,
                      lights: LightData, phong: bool, height: int,
                      width: int, frame_height: int | None = None,
                      frame_width: int | None = None, row0: int = 0,
-                     col0: int = 0, zcull: bool = False):
-    """Single-object entry point (raster_pallas.rasterize_pallas_shaded)."""
+                     col0: int = 0, zcull: bool = False, texture=None,
+                     filter_mode: str = "nearest"):
+    """Single-object entry point (raster_pallas.rasterize_pallas_shaded);
+    ``texture`` (th, tw) u32 ARGB samples in the finalize, nearest or
+    bilinear per ``filter_mode``."""
     T = (table.num_triangles if isinstance(table, SetupOut)
          else int(table.shape[1]))
+    atlas, tex = None, None
+    if texture is not None:
+        atlas, _ = pack_texture_atlas([texture])
+        tex = (0, int(texture.shape[0]), int(texture.shape[1])) + (
+            ("bilinear",) if filter_mode == "bilinear" else ())
     return rasterize_scene_shaded(
-        table, (ObjSpec(0, T, bool(phong)),), transform, lights, height,
-        width, frame_height, frame_width, row0, col0, zcull,
+        table, (ObjSpec(0, T, bool(phong), tex),), transform, lights,
+        height, width, frame_height, frame_width, row0, col0, zcull, atlas,
     )

@@ -4,7 +4,8 @@ PyTorch counterpart of ``tpu_renderer.ops.setup_pallas``. It holds kernel
 K1, the port of the Pallas ``_setup_kernel`` (setup_pallas.py:174):
 FillEdgeTable (projekt.cpp:3882-4121) per triangle -- projection, backface
 cull, Gouraud bake, per-edge y-range / x / z / color / normal left values
-and gradients -- written straight into
+and gradients, and for textured objects the u/z, v/z and 1/z fields with
+the white Gouraud base -- written straight into
 
 - the row-major (Tp, 128) f32 record table (gid at lane 84, then zeros),
 - the (8, Tp) f32 bbox rows (valid, ylo, yhi, xlo, xhi, 3 zero rows).
@@ -101,11 +102,6 @@ def setup_records_fused(obj: RenderObject, transform: ProjectiveTransform,
     zero inputs fail the backface test) and bbox-invalid."""
     if frame_height is None or frame_width is None:
         raise ValueError("setup_records_fused needs the global frame dims")
-    if cfg.textured:
-        raise NotImplementedError(
-            "textured setup (u/z, v/z, 1/z fields) belongs to the texturing "
-            "slice of the port"
-        )
     T = obj.num_triangles
     tp = -(-max(T, 1) // blk) * blk
     params = setup_params(obj.p, transform, lights)
@@ -113,27 +109,33 @@ def setup_records_fused(obj: RenderObject, transform: ProjectiveTransform,
         params, obj.vertices, obj.colors, obj.normals,
         n_lights=lights.count, phong=cfg.phong, gid0=int(gid0),
         frame_height=frame_height, frame_width=frame_width, tp=tp,
+        uvs=obj.uvs if cfg.textured else None,
     )
     return recs, (bbox[0] > 0.5, bbox[1], bbox[2], bbox[3], bbox[4])
 
 
 def setup_kernel(params, verts, cols, nrms, *, n_lights: int, phong: bool,
-                 gid0: int, frame_height: int, frame_width: int, tp: int):
-    """K1: (recs (tp, 128) f32, bbox (8, tp) f32).
+                 gid0: int, frame_height: int, frame_width: int, tp: int,
+                 uvs=None):
+    """K1: (recs (tp, 128) f32, bbox (8, tp) f32); ``uvs`` (2, 3, T) for a
+    textured object, None for an untextured one.
 
     CUDA tensors launch ``tr_setup`` (csrc/setup.cu) and count the launch
     in ``setup_kernel.launches``; CPU tensors run ``setup_plain``."""
     T = verts.shape[2]
+    kw = dict(n_lights=n_lights, phong=phong, gid0=gid0,
+              frame_height=frame_height, frame_width=frame_width, tp=tp,
+              uvs=uvs)
     if verts.device.type == "cpu":
-        return setup_plain(params, verts, cols, nrms, n_lights=n_lights,
-                           phong=phong, gid0=gid0, frame_height=frame_height,
-                           frame_width=frame_width, tp=tp)
+        return setup_plain(params, verts, cols, nrms, **kw)
     if verts.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or CPU tensors, not {verts.device}")
-    for name, t, shape in (("params", params, (12 + 7 * n_lights,)),
-                           ("verts", verts, (3, 3, T)),
-                           ("cols", cols, (4, 3, T)),
-                           ("nrms", nrms, (3, 3, T))):
+    inputs = [("params", params, (12 + 7 * n_lights,)),
+              ("verts", verts, (3, 3, T)), ("cols", cols, (4, 3, T)),
+              ("nrms", nrms, (3, 3, T))]
+    if uvs is not None:
+        inputs.append(("uvs", uvs, (2, 3, T)))
+    for name, t, shape in inputs:
         _cuda.check_tensor(name, t, verts.device, F32, shape)
     if not T <= tp < 2 ** 24:
         raise ValueError(f"bad padded length {tp} for {T} triangles")
@@ -142,7 +144,8 @@ def setup_kernel(params, verts, cols, nrms, *, n_lights: int, phong: bool,
     lib = _cuda.library()
     rc = lib.tr_setup(
         params.data_ptr(), n_lights, int(bool(phong)),
-        verts.data_ptr(), cols.data_ptr(), nrms.data_ptr(), T, tp,
+        verts.data_ptr(), cols.data_ptr(), nrms.data_ptr(),
+        None if uvs is None else uvs.data_ptr(), T, tp,
         int(gid0), int(frame_height), int(frame_width),
         recs.data_ptr(), bbox.data_ptr(), _cuda.stream(verts.device),
     )
@@ -154,13 +157,14 @@ def setup_kernel(params, verts, cols, nrms, *, n_lights: int, phong: bool,
 setup_kernel.launches = 0
 _cuda.declare("tr_setup", [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                            ctypes.c_void_p, ctypes.c_void_p])
 
 
 def setup_plain(params, verts, cols, nrms, *, n_lights: int, phong: bool,
-                gid0: int, frame_height: int, frame_width: int, tp: int):
+                gid0: int, frame_height: int, frame_width: int, tp: int,
+                uvs=None):
     """Plain-PyTorch K1: the _setup_kernel math (setup_pallas.py:196-383),
     which is geometry.vertex.setup_fields on the (3, Tp) rows padded with
     zeros (invalid records), packed row-major with the bbox rows. Runs on
@@ -171,7 +175,8 @@ def setup_plain(params, verts, cols, nrms, *, n_lights: int, phong: bool,
         return torch.nn.functional.pad(a, (0, tp - T))
 
     fields, keep = setup_fields(params, padt(verts), padt(cols), padt(nrms),
-                                n_lights, phong)
+                                n_lights, phong,
+                                None if uvs is None else padt(uvs))
     rec = fields.permute(1, 0, 2).reshape(3 * EDGE_STRIDE, tp)
     gid_row = (torch.arange(tp, dtype=torch.int32, device=verts.device)
                + gid0).to(F32)[None]
