@@ -29,9 +29,16 @@ Phases (any failure raises and the script exits nonzero):
    - K6 (the mask strategy) on config 1 (16-row tiles), config 3 (K5
      bilinear) at 512x512, and a 2-object scene on 8-row tiles at 128x128,
      untextured and with two quads, nearest and bilinear;
+   - the G-buffer kernels, gid and all 11 planes: K9 (sorted, one
+     stream) on the 51,200-triangle sphere grid at 512x512 (8-row tiles),
+     with and without the merged large quad (K10, the side-list fold, runs
+     inside K9's launch with it), and on config 4's sphere at 1920x1080
+     (16-row tiles); K8 (mask) on config 3 with 'avx' addressing and on
+     config 1 at 512x512;
 4. card against CPU: each route's small scene (models/route_scenes.py,
-   with and without side-list triangles, textured, and the mask routes)
-   and a 4,140-triangle sphere grid, rendered on the card and by the plain
+   with and without side-list triangles, textured, the mask routes and
+   the G-buffer routes, whose G-buffers are compared too) and a
+   4,140-triangle sphere grid, rendered on the card and by the plain
    versions on the CPU: bit-equal;
 5. paths, each through Renderer(device="cuda") for 3 warm-up and 20 timed
    frames, every object rotated about y each frame, the launch counts set
@@ -54,9 +61,17 @@ Phases (any failure raises and the script exits nonzero):
      bilinear-textured: K7 and K6;
    - config 5: sphere, torus, cube and the textured quad (nearest), 3,246
      triangles (3,584 padded), at 1920x1080 in one launch: K7 and K4;
+   - deferred 1M: the headline sphere with a 2.2-unit quad 0.6 behind it
+     merged in, 1,001,114 triangles, Phong, a 1024x1024 checkerboard
+     sampled bilinearly, over the fused limits, at 1920x1080: K1 and K9
+     (the quad's two triangles on the side list, K10) into a G-buffer,
+     then the deferred shade; K9 held bit-equal to its plain version at
+     that shape first, the last frame held to the scene's depth range,
+     colours and alpha;
+   - config 3 avx: config 3 with 'avx' addressing at 512x512: K7 and K8;
    every frame must drop no entry and cover pixels, and the first frame
-   of each path since config 2 must equal the CPU plain run of it bit for
-   bit;
+   of each path since config 2 (but deferred 1M) must equal the CPU plain
+   run of it bit for bit;
 6. timings: median ms per frame (CUDA events) of each path, the headline's
    setup / binning / raster split (each stage alone between syncs), and
    each kernel at its path's shapes (the headline for K1 and K2, the
@@ -66,7 +81,12 @@ Phases (any failure raises and the script exits nonzero):
    call that transposes); K5, which has no launch of its own, as K2's time
    on the textured 250k path beside K2's on the same mesh untextured, with
    ``grid_sample`` (bilinear, border) on the textured pixels as the library
-   call; each with the least time the card could take for the same work
+   call; K8 on config 3 avx, K9 on deferred 1M, and K10 as K9's time on
+   deferred 1M beside K9's on the same sphere without the quad; the
+   deferred shade's time on deferred 1M's frame, and the fused-against-
+   deferred A/B: ms per frame of the textured 250k scene through the fused
+   route (K2 with K5) and through the G-buffer path (K9, shade); each
+   kernel with the least time the card could take for the same work
    (bytes at 3.35 TB/s against f32 operations at 67 TFLOP/s);
 7. with --profile only: host enqueue time, device time, top kernels and
    device idle share of 10 frames of each path, from a torch.profiler
@@ -130,11 +150,25 @@ KERNELS = {
     "K7 record transpose": dict(
         source="tpu_renderer_torch/csrc/records.cu",
         replaces="tpu_renderer/ops/raster_pallas.py:469", path="config 4"),
+    "K8 G-buffer mask": dict(
+        source="tpu_renderer_torch/csrc/raster.cu",
+        replaces="tpu_renderer/ops/raster_pallas.py:1756",
+        path="config 3 avx"),
+    "K9 G-buffer sorted": dict(
+        source="tpu_renderer_torch/csrc/raster.cu",
+        replaces="tpu_renderer/ops/raster_pallas.py:1853",
+        path="deferred 1M"),
+    "K10 G-buffer side list": dict(
+        source="tpu_renderer_torch/csrc/raster.cu",
+        replaces="tpu_renderer/ops/raster_pallas.py:2018",
+        path="deferred 1M"),
 }
 # The wrapper whose launch counter a KERNELS entry reads: K1 textured is
-# K1's wrapper with uvs; K5 runs inside K2's launches on its path.
+# K1's wrapper with uvs; K5 runs inside K2's launches on its path, K10
+# inside K9's.
 COUNTER = {"K1 setup textured": "K1 setup", "K5 texture sampling":
-           "K2 raster+shade"}
+           "K2 raster+shade", "K10 G-buffer side list": "K9 G-buffer sorted"}
+GBUF_BYTES_PER_PX = 48  # gid and 11 f32 planes
 
 
 def log(*args):
@@ -229,47 +263,74 @@ def textured_pixels(launch, gid_out):
 
 
 def raster_work(launch, gid_out):
-    """(bytes, f32 operations) this raster launch's data needs: the 88
-    record lanes of every distinct triangle it reads, its kept entries,
-    tile tables and side list, the texture atlas, 12 bytes per output
-    pixel; stage A per (entry, row) pair, the fold per in-span fragment,
-    and the finalize per covered pixel (the texture fetch per textured
-    pixel, Phong per Phong pixel)."""
-    import torch
+    """(bytes, f32 operations) this shaded raster launch's data needs:
+    ``fold_work`` with the planes its objects read and 12 bytes per output
+    pixel, the shading tables and texture atlas, and the finalize per
+    covered pixel (the texture fetch per textured pixel, Phong per Phong
+    pixel)."""
     from tpu_renderer_torch.ops import raster
 
-    recs, params = launch.operands[0], launch.operands[-4]
-    objs, atlas = launch.objs, launch.operands[-1]
-    qbins = launch.qbins
-    o = launch.options
-    nfb = o["tiles_y"] * o["tiles_x"]
-    lcounts = (launch.operands[2] if launch.route.strategy == "sorted"
-               else torch.zeros(nfb, dtype=torch.int32, device=recs.device))
+    params, objs, atlas = launch.operands[-4], launch.objs, launch.operands[-1]
     fields, _, nrm_off, _ = raster.launch_fields(objs, launch.texs)
-    nf = len(fields)
-    frags = raster.raster_fragments(
-        recs, qbins, lcounts, tile_h=launch.route.tile_h,
-        tiles_y=o["tiles_y"], tiles_x=o["tiles_x"], row0=o["row0"],
-        col0=o["col0"], frame_width=o["frame_width"], fields=fields)
-    n_tris = int(torch.unique(frags.pair_tri).numel())
-    n_pairs = int(frags.pair_tri.numel())
-    n_frag = int(frags.z.numel())
-    covered = gid_out >= 0
-    n_cov = int(covered.sum())
+    nbytes, ops = fold_work(launch, len(fields), 12)
+    n_cov = int((gid_out >= 0).sum())
     n_phong = (int(raster._phong_mask(gid_out, objs).sum())
                if nrm_off is not None else 0)
     n_tex = int(textured_pixels(launch, gid_out).sum())
+    nbytes += (params.numel() * 4 + objs.shape[0] * 7 * 4
+               + (0 if atlas is None else atlas.numel() * 4))
+    ops += (n_cov * PACK_OPS + n_tex * TEX_OPS
+            + n_phong * (PHONG_OPS + PHONG_LIGHT_OPS
+                         * launch.options["n_lights"]))
+    return nbytes, ops
+
+
+def gbuffer_work(launch):
+    """(bytes, f32 operations) of a G-buffer launch on this run's data:
+    the fold's work over all 10 attribute planes, 48 bytes per output
+    pixel (gid and 11 f32 planes), no shading."""
+    from tpu_renderer_torch.ops import gbuffer
+
+    return fold_work(launch, len(gbuffer.ATTR_FIELDS), GBUF_BYTES_PER_PX)
+
+
+def fold_work(launch, n_fields, px_bytes):
+    """(bytes, f32 operations) that every raster launch's data needs: the
+    88 record lanes of every distinct triangle it reads, its kept entries,
+    tile tables and side list, ``px_bytes`` per output pixel; stage A per
+    (entry, row) pair and the fold per in-span fragment, with
+    ``n_fields`` attribute planes."""
+    import torch
+    from tpu_renderer_torch.ops import raster
+
+    recs, qbins, o = launch.operands[0], launch.qbins, launch.options
+    nfb = o["tiles_y"] * o["tiles_x"]
+    lcounts = (launch.operands[2] if launch.route.strategy == "sorted"
+               else torch.zeros(nfb, dtype=torch.int32, device=recs.device))
+    frags = raster.raster_fragments(
+        recs, qbins, lcounts, tile_h=launch.route.tile_h,
+        tiles_y=o["tiles_y"], tiles_x=o["tiles_x"], row0=o["row0"],
+        col0=o["col0"], frame_width=o["frame_width"], fields=())
+    n_tris = int(torch.unique(frags.pair_tri).numel())
+    n_px = nfb * launch.route.tile_h * raster.TILE_W
     nbytes = (n_tris * 88 * 4 + int(qbins.counts.sum()) * 4
               + (qbins.starts.numel() + qbins.counts.numel()
                  + int(qbins.n_large) + lcounts.numel()) * 4
-              + params.numel() * 4 + objs.shape[0] * 7 * 4
-              + (0 if atlas is None else atlas.numel() * 4)
-              + gid_out.numel() * 12)
-    ops = (n_pairs * (STAGE_A_OPS + STAGE_A_FIELD_OPS * nf)
-           + n_frag * (FRAG_OPS + FRAG_FIELD_OPS * nf)
-           + n_cov * PACK_OPS + n_tex * TEX_OPS
-           + n_phong * (PHONG_OPS + PHONG_LIGHT_OPS * o["n_lights"]))
+              + n_px * px_bytes)
+    ops = (frags.pair_tri.numel() * (STAGE_A_OPS + STAGE_A_FIELD_OPS
+                                     * n_fields)
+           + frags.z.numel() * (FRAG_OPS + FRAG_FIELD_OPS * n_fields))
     return nbytes, ops
+
+
+def deferred_1m_mesh():
+    """The headline sphere grid with a 2.2-unit quad moved to z = -0.6
+    behind it as a backdrop, merged into one mesh (1,001,114 triangles)."""
+    from tpu_renderer_torch.models import primitives as prim
+
+    quad = prim.construct_quad(2.2)
+    quad["vertices"][:, 2] -= 0.6
+    return prim.merge_meshes(prim.construct_sphere_grid(708, 707), quad)
 
 
 def profile_frames(label, frame, angles, frame_ms):
@@ -379,19 +440,25 @@ def main():
     sys.path.insert(0, ROOT)
     import tpu_renderer_torch as trt
     from tpu_renderer_torch import _cuda
-    from tpu_renderer_torch.core.math import unpack_argb
-    from tpu_renderer_torch.engine.renderer import prepare_scene
+    from tpu_renderer_torch.core.math import pack_argb, unpack_argb
+    from tpu_renderer_torch.engine.renderer import (
+        _draw_deferred,
+        _obj_fusable,
+        prepare_scene,
+    )
     from tpu_renderer_torch.geometry.vertex import setup_records
     from tpu_renderer_torch.models import primitives as prim
     from tpu_renderer_torch.models import scenes
     from tpu_renderer_torch.models.route_scenes import (
+        GBUFFER_NAMES,
         MASK_NAMES,
         ROUTE_NAMES,
         TEXTURED_NAMES,
         route_scene,
     )
     from tpu_renderer_torch.models.textures import checkerboard
-    from tpu_renderer_torch.ops import raster, setup
+    from tpu_renderer_torch.ops import gbuffer, raster, setup
+    from tpu_renderer_torch.ops.shading import shade
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -403,6 +470,8 @@ def main():
         "K4 raster+shade 16-row": raster.raster_narrow_kernel,
         "K6 raster+shade mask": raster.raster_mask_kernel,
         "K7 record transpose": raster.finish_records,
+        "K8 G-buffer mask": gbuffer.raster_pass,
+        "K9 G-buffer sorted": gbuffer.raster_pass_queue,
     }
 
     # 1. Device.
@@ -526,6 +595,52 @@ def main():
                      f"2-object {variant} scene at {w}x{h}",
                      prepare_scene(scene, tr, li, h, w), (8, 1), 2, n_tex)
 
+    def check_gbuffer(name, label, launch, want_route):
+        """A G-buffer launch on its route's kernel, gid and 11 planes
+        bit-equal to the plain version; K10's error where the side list is
+        not empty. Returns n_large."""
+        r = launch.route
+        if (r.strategy, r.tile_h) != want_route or \
+                launch.kernel is not wrappers[name]:
+            raise AssertionError(f"{label} took route {r} on "
+                                 f"{launch.kernel.__name__}")
+        err = assert_equal(f"{name} on {label}", launch.run(),
+                           launch.run_plain())
+        max_err[name] = max(max_err[name], err)
+        n_large = int(launch.qbins.n_large)
+        if n_large:
+            key = "K10 G-buffer side list"
+            max_err[key] = max(max_err[key], err)
+        log(f"# {name} == plain on {label} ({r.strategy}, tile_h "
+            f"{r.tile_h}, n_large {n_large}): bit-equal, gid and 11 planes")
+        return n_large
+
+    def gbuffer_launch(obj, cfg, tr, li, h, w):
+        table = setup.setup_for_raster(obj, tr, li, cfg, frame_height=h,
+                                       frame_width=w)
+        return gbuffer.prepare_gbuffer(table, h, w)
+
+    for label, quad in (("51,200-tri sphere", None),
+                        ("sphere + large quad", 1.2)):
+        mesh = grid if quad is None else prim.merge_meshes(
+            grid, prim.construct_quad(quad))
+        scene, tr, li = torch_scene(phong_mesh_scene(mesh), 512, 512, dev)
+        n_large = check_gbuffer(
+            "K9 G-buffer sorted", f"{label} at 512x512",
+            gbuffer_launch(*scene[0], tr, li, 512, 512), ("sorted", 8))
+        if (quad is not None) != (n_large > 0):
+            raise AssertionError(f"{label}: n_large {n_large}")
+    check_gbuffer("K9 G-buffer sorted", "config 4 at 1920x1080",
+                  gbuffer.prepare_gbuffer(table4, H, W), ("sorted", 16))
+    sg3avx = [(sg3[0][0], dict(sg3[0][1], uv_mode="avx"))]
+    scene3avx, _, _ = torch_scene(sg3avx, 512, 512, dev)
+    for label, (obj_, cfg_), tr_, li_ in (
+            ("config 3 avx", scene3avx[0], tr3, li3),
+            ("config 1", scene1[0], tr1, li1)):
+        check_gbuffer("K8 G-buffer mask", f"{label} at 512x512",
+                      gbuffer_launch(obj_, cfg_, tr_, li_, 512, 512),
+                      ("mask", 16))
+
     # 4. Small scenes on the card against the plain versions on the CPU
     # (the CPU runs are what the tests hold to the JAX package and golden).
     def card_vs_cpu(label, sg, h, w, min_cov=1):
@@ -555,9 +670,26 @@ def main():
     for name, variant in ([(n, v) for n in ROUTE_NAMES
                            for v in ("base", "sidelist")]
                           + [(n, "base") for n in MASK_NAMES]
-                          + [(n, "textured") for n in TEXTURED_NAMES]):
+                          + [(n, "textured") for n in TEXTURED_NAMES]
+                          + [(n, "gbuffer") for n in GBUFFER_NAMES]):
         sg, (h, w) = route_scene(name, variant)
         card_vs_cpu(f"route {name} ({variant})", sg, h, w, 100)
+
+    # The G-buffers of the G-buffer route scenes, card against CPU.
+    for name in GBUFFER_NAMES:
+        sg, (h, w) = route_scene(name, "gbuffer")
+        outs = []
+        for d in ("cpu", dev):
+            sc, tr_, li_ = torch_scene(sg, h, w, d)
+            obj_, cfg_ = sc[0]
+            assert not _obj_fusable(obj_, cfg_), name
+            table = setup.setup_for_raster(obj_, tr_, li_, cfg_,
+                                           frame_height=h, frame_width=w)
+            outs.append(gbuffer.rasterize_gbuffer(table, h, w)[:2])
+        assert_equal(f"route {name} G-buffer, card against CPU", outs[1],
+                     outs[0])
+        log(f"# route {name} (gbuffer) {w}x{h}: G-buffer card == CPU "
+            f"plain, bit-equal, {int(outs[0][0].sum())} px covered")
 
     # 5. Paths.
     def drive(path, scene, tr, li, h, w, n_frames, kernels):
@@ -648,7 +780,8 @@ def main():
                             ("config 5 untextured", sg5, H, W),
                             ("config 1", sg1, 512, 512),
                             ("config 3", sg3, 512, 512),
-                            ("config 5", sg5full, H, W)):
+                            ("config 5", sg5full, H, W),
+                            ("config 3 avx", sg3avx, 512, 512)):
         first_frame_vs_cpu(path, sg_, h, w)
     path_ms["config 2"], _, path_launches["config 2"] = drive(
         "config 2", scene2, tr2, li2, 512, 512, n_frames,
@@ -691,6 +824,55 @@ def main():
         path_ms[path], _, path_launches[path] = drive(
             path, sc_, tr_, li_, h, w, n_frames,
             ("K7 record transpose", kern))
+
+    # The G-buffer paths: config 3 avx (K7, K8) and deferred 1M (K1, K9
+    # with K10), K9 first held bit-equal to its plain version at that
+    # shape.
+    path_ms["config 3 avx"], _, path_launches["config 3 avx"] = drive(
+        "config 3 avx", scene3avx, tr3, li3, 512, 512, n_frames,
+        ("K7 record transpose", "K8 G-buffer mask"))
+    tex1024 = checkerboard(1024, 1024, 64)
+    sg_def = [(dict(p=(0.0, 0.0, 0.0), **deferred_1m_mesh()),
+               {"phong": True, "texture": tex1024,
+                "filter_mode": "bilinear"})]
+    scene_def, tr_def, li_def = torch_scene(sg_def, H, W, dev)
+    obj_def, cfg_def = scene_def[0]
+    T_def = obj_def.num_triangles
+    assert T_def == 1_001_114, T_def
+    assert not _obj_fusable(obj_def, cfg_def)
+    launch_def = gbuffer_launch(obj_def, cfg_def, tr_def, li_def, H, W)
+    n_large = check_gbuffer("K9 G-buffer sorted",
+                            f"deferred 1M {T_def} tris {W}x{H}", launch_def,
+                            ("sorted", 8))
+    if n_large != 2:
+        raise AssertionError(f"deferred 1M: n_large {n_large}, not 2")
+    path_ms["deferred 1M"], fb_def, path_launches["deferred 1M"] = drive(
+        "deferred 1M", scene_def, tr_def, li_def, H, W, n_frames,
+        ("K1 setup", "K9 G-buffer sorted"))
+    # The last frame (0.6 rad): the sphere within [-0.5, 0.5], the quad's
+    # plane 0.6 behind the centre, its corners at -0.6 cos 0.6 +- 1.1 sin
+    # 0.6, so z within [-1.2, 0.5]; opaque texels, Phong-lit.
+    cov_def = fb_def.depth > -3.0e38
+    z_def = fb_def.depth[cov_def]
+    c_def = fb_def.color.view(torch.int32)[cov_def]
+    checks_def = {
+        "covered": int(cov_def.sum()), "z_min": float(z_def.min()),
+        "z_max": float(z_def.max()),
+        "distinct_colours": int(torch.unique(c_def).numel()),
+        "alpha_255_frac": float(((c_def >> 24) & 0xFF).eq(255).double()
+                                .mean()),
+        "n_large_last_frame": int(gbuffer_launch(
+            *rotated(scene_def, 0.6, dev)[0], tr_def, li_def, H,
+            W).qbins.n_large),
+    }
+    if not (-1.2 - 1e-3 <= checks_def["z_min"] <= checks_def["z_max"]
+            <= 0.5 + 1e-3 and checks_def["distinct_colours"] >= 100
+            and checks_def["alpha_255_frac"] == 1.0
+            and checks_def["n_large_last_frame"] == 2
+            and bool(torch.isfinite(z_def).all())):
+        raise AssertionError(f"deferred 1M frame fails its checks: "
+                             f"{checks_def}")
+    log(f"# deferred 1M frame checks: {json.dumps(checks_def)}")
 
     # 6a. Split of the headline frame: rotate / setup / binning / raster.
     # Each stage runs alone between two syncs, so its CUDA-event time is
@@ -807,6 +989,79 @@ def main():
         f"{k5_ms:.4f} ms against K2 untextured {k2u_ms:.4f} ms on the same "
         f"mesh, grid_sample {lib_ms:.4f} ms, bound {bms5:.6f} ms ({by5})")
 
+    # K8, K9 and K10: each held bit-equal to its plain version, then timed
+    # beside it, with its bound. K10 is K9's time on deferred 1M beside
+    # K9's on the same sphere without the quad, its bound the difference
+    # of the two launches' work. Library: none (no PyTorch call
+    # rasterizes).
+    def time_gbuffer(name, label, launch):
+        max_err[name] = max(max_err[name], assert_equal(
+            f"{name} at {label}", launch.run(), launch.run_plain()))
+        kms, pms = in_turns(launch.run, launch.run_plain)
+        work = gbuffer_work(launch)
+        bms, by = bound(*work)
+        log(f"# {name} at {label}: kernel {kms:.4f} ms, plain {pms:.4f} "
+            f"ms, bound {bms:.4f} ms ({by}), bit-equal")
+        return kms, pms, work
+
+    per_tile = launch_def.qbins.counts[:-1]
+    log(f"# K9 load: {int((per_tile > 0).sum())} of {per_tile.numel()} "
+        f"tiles hold entries, {int(per_tile.sum())} entries, max "
+        f"{int(per_tile.max())} in one tile")
+    c3_launch = gbuffer_launch(*scene3avx[0], tr3, li3, 512, 512)
+    kms, pms, work = time_gbuffer("K8 G-buffer mask",
+                                  "config 3 avx 12 tris 512x512", c3_launch)
+    timing["K8 G-buffer mask"] = (kms, pms) + bound(*work) + (None,)
+    k9_ms, k9_plain, work_q = time_gbuffer(
+        "K9 G-buffer sorted", f"deferred 1M {T_def} tris {W}x{H}",
+        launch_def)
+    timing["K9 G-buffer sorted"] = (k9_ms, k9_plain) + bound(*work_q) + (
+        None,)
+    sphere_only = [(dict(p=(0.0, 0.0, 0.0), **mesh), sg_def[0][1])]
+    sc_s, tr_s, li_s = torch_scene(sphere_only, H, W, dev)
+    launch_s = gbuffer_launch(*sc_s[0], tr_s, li_s, H, W)
+    k9s_ms, _, work_s = time_gbuffer(
+        "K9 G-buffer sorted", f"the sphere alone {T} tris {W}x{H}",
+        launch_s)
+    work_side = tuple(max(a - b, 0) for a, b in zip(work_q, work_s))
+    bms10, by10 = bound(*work_side)
+    timing["K10 G-buffer side list"] = (k9_ms, k9_plain, bms10, by10, None)
+    log(f"# K10 G-buffer side list ({n_large} triangles): K9 with it "
+        f"{k9_ms:.4f} ms against K9 on the sphere alone {k9s_ms:.4f} ms, "
+        f"bound {bms10:.6f} ms ({by10})")
+
+    # The deferred shade of deferred 1M's frame (torch ops, no kernel).
+    gid_q, gbuf_q = launch_def.run()
+    cov_q, gbuf_q = gid_q[:H, :W] >= 0, gbuf_q[:, :H, :W]
+    shade_ms = statistics.median([event_ms(lambda: pack_argb(shade(
+        cov_q, gbuf_q, tr_def, li_def, cfg_def, obj_def.texture)[0]), 20)
+        for _ in range(2)])
+    log(f"# deferred shade + pack on deferred 1M's frame: {shade_ms:.4f} "
+        "ms (torch ops)")
+
+    # Fused against deferred on the textured 250k scene: whole frames
+    # (rotate, setup, binning, raster, and for the G-buffer path shade
+    # and merge), in turns fused, deferred, deferred, fused.
+    obj250, cfg250 = scene250[0]
+    r250 = trt.Renderer(H, W, device=dev)
+    ab_angles = iter([0.03 * i for i in range(1000)])
+
+    def fused_frame():
+        return r250.render(rotated(scene250, next(ab_angles), dev), tr250,
+                           li250)
+
+    def deferred_frame():
+        (o, c), = rotated(scene250, next(ab_angles), dev)
+        return _draw_deferred(None, o, tr250, li250, c, H, W, None)
+
+    for fn in (fused_frame, deferred_frame):
+        for _ in range(WARMUP):
+            fn()
+    def_ms, fused_ms = in_turns(deferred_frame, fused_frame, FRAMES, FRAMES)
+    log(f"# fused against deferred, textured 250k {W}x{H} (ms/frame, CUDA "
+        f"events, median of two runs of {FRAMES}): fused (K1, K2 with K5) "
+        f"{fused_ms:.4f}, deferred (K1, K9, shade) {def_ms:.4f}")
+
     R, T4 = table4.shape
     tp4 = T4 + (-T4 % raster.REC_T_BLK)
     padded = torch.nn.functional.pad(table4, (0, tp4 - T4, 0, 128 - R))
@@ -829,7 +1084,9 @@ def main():
                 ("textured 250k", (scene250, tr250, li250, H, W)),
                 ("config 1", (scene1, tr1, li1, 512, 512)),
                 ("config 3", (scene3, tr3, li3, 512, 512)),
-                ("config 5", (scene5f, tr5f, li5f, H, W))):
+                ("config 5", (scene5f, tr5f, li5f, H, W)),
+                ("config 3 avx", (scene3avx, tr3, li3, 512, 512)),
+                ("deferred 1M", (scene_def, tr_def, li_def, H, W))):
             renderer = trt.Renderer(h, w, device=dev)
             profile_frames(
                 path, lambda a: renderer.render(rotated(sc, a, dev), tr_,
@@ -848,10 +1105,16 @@ def main():
             library_ms=None if lms is None else round(lms, 4))
         if name == "K5 texture sampling":
             entry["untextured_k2_ms"] = round(k2u_ms, 4)
+        if name == "K10 G-buffer side list":
+            entry["k9_without_side_list_ms"] = round(k9s_ms, 4)
         kernels.append(entry)
     log("# frames: " + json.dumps({
         "ms_per_frame": {k: round(v, 4) for k, v in path_ms.items()},
-        "headline_split_ms": split_med, "card": smi_line}))
+        "headline_split_ms": split_med,
+        "deferred_shade_ms": round(shade_ms, 4),
+        "textured_250k_fused_vs_deferred_ms": [round(fused_ms, 4),
+                                               round(def_ms, 4)],
+        "card": smi_line}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

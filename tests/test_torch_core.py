@@ -138,13 +138,13 @@ def test_make_object_channel_major_layout():
         "uvs": rng.uniform(size=(3 * T, 2)).astype(F),
     }
     jo = jt.make_object((0.1, 0.2, 0.3), **arrs)
-    to = tt.make_object((0.1, 0.2, 0.3), **arrs)
+    to = tt.make_object((0.1, 0.2, 0.3), **arrs, device="cpu")
     assert to.num_triangles == jo.num_triangles == T
     for name in ("p", "vertices", "colors", "normals", "uvs"):
         assert_bits_equal(getattr(to, name).numpy(), np.asarray(getattr(jo, name)))
     assert tt.DEPTH_CLEAR == float(jt.DEPTH_CLEAR)
     assert tt.NEAR_CLIP == float(jt.NEAR_CLIP)
-    fb = tt.make_framebuffer(4, 5, clear_color=0xFF102030)
+    fb = tt.make_framebuffer(4, 5, clear_color=0xFF102030, device="cpu")
     jfb = jt.make_framebuffer(4, 5, clear_color=0xFF102030)
     np.testing.assert_array_equal(fb.color.numpy(), np.asarray(jfb.color))
     np.testing.assert_array_equal(fb.depth.numpy(), np.asarray(jfb.depth))

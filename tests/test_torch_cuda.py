@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain-PyTorch versions on the card:
 K1 (setup, untextured and textured), K2 / K3 / K4 (raster + shade of the
 sorted strategy, single and multi-object), K6 (the mask strategy), K5
-(texture sampling, inside each route's finalize) and K7 (record
-transpose), and whole frames on the card against the CPU run.
+(texture sampling, inside each route's finalize), K7 (record
+transpose), K8 / K9 / K10 (raster into a G-buffer: mask, sorted, side
+list), and whole frames on the card against the CPU run.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports no JAX, so it also runs on a machine that has only torch; there,
@@ -21,9 +22,11 @@ import torch
 import tpu_renderer_torch as trt
 from tpu_renderer_torch.models import primitives as tp
 from tpu_renderer_torch.models import scenes as ts
+from tpu_renderer_torch.ops import gbuffer as tgb
 from tpu_renderer_torch.ops import raster as trp
 from tpu_renderer_torch.ops import setup as tsp
 from tpu_renderer_torch.models.route_scenes import (
+    GBUFFER_NAMES,
     MASK_NAMES,
     ROUTE_NAMES,
     TEXTURED_NAMES,
@@ -300,3 +303,74 @@ def test_route_subrect_origin_on_card(cuda, name):
     torch.cuda.synchronize()
     for a, b in zip(out_k, out_p):
         assert torch.equal(bits(a), bits(b))
+
+
+def gbuffer_launch(name, variant, device, **kw):
+    """The G-buffer launch of the first object of a route's scene, its
+    setup (K1 or setup_records) run on ``device``."""
+    scene, tr, li, (h, w) = torch_scene(name, variant, device)
+    obj, cfg = scene[0]
+    table = tsp.setup_for_raster(obj, tr, li, cfg, frame_height=h,
+                                 frame_width=w)
+    return tgb.prepare_gbuffer(table, h, w, **kw)
+
+
+@pytest.mark.parametrize("name, variant, route", [
+    ("k3", "base", ("sorted", 8)), ("k3", "sidelist", ("sorted", 8)),
+    ("k4", "base", ("sorted", 16)), ("k4", "sidelist", ("sorted", 16)),
+    ("k6", "base", ("mask", 16)), ("k6", "gbuffer", ("mask", 16)),
+    ("k6multi", "base", ("mask", 8))])
+def test_gbuffer_kernel_equals_plain(cuda, name, variant, route):
+    """K8 (mask) and K9 with the side-list fold K10 (sorted): gid and the
+    11 planes bit-equal to the plain version on the same card tensors, one
+    launch counted on the route's own wrapper."""
+    launch = gbuffer_launch(name, variant, cuda)
+    assert (launch.route.strategy, launch.route.tile_h) == route
+    wrapper = tgb.raster_pass if route[0] == "mask" else tgb.raster_pass_queue
+    assert launch.kernel is wrapper
+    n0 = wrapper.launches
+    out_k = launch.run()
+    assert wrapper.launches == n0 + 1
+    out_p = launch.run_plain()
+    torch.cuda.synchronize()
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(bits(a), bits(b))
+    assert int((out_k[0] >= 0).sum()) > 1000
+    assert (int(launch.qbins.n_large) > 0) == (variant == "sidelist")
+
+
+def test_gbuffer_subrect_and_tile_height_on_card(cuda):
+    """K9's row0 / col0 offsets: a sub-rectangle off the tile grid equals
+    the plain version and the full frame's crop; tile_h 32, which the
+    'auto' route never picks, raises on CUDA tensors."""
+    scene, tr, li, (h, w) = torch_scene("k4", "sidelist", cuda)
+    obj, cfg = scene[0]
+    table = tsp.setup_for_raster(obj, tr, li, cfg, frame_height=h,
+                                 frame_width=w)
+    _, full, _ = tgb.rasterize_gbuffer(table, h, w)
+    launch = tgb.prepare_gbuffer(table, 300, 300, None, h, w, 37, 21)
+    out_k, out_p = launch.run(), launch.run_plain()
+    torch.cuda.synchronize()
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(bits(a), bits(b))
+    assert torch.equal(bits(out_k[1][:, :300, :300]),
+                       bits(full[:, 37:337, 21:321]))
+    with pytest.raises(ValueError, match="8- or 16-row"):
+        tgb.rasterize_gbuffer(table, h, w, tile_h=32)
+
+
+@pytest.mark.parametrize("name", GBUFFER_NAMES)
+def test_gbuffer_frame_on_card_equals_cpu(cuda, name):
+    """Each G-buffer route scene's frame through Renderer on the card
+    (K8 / K9 / K10 and the deferred shade on the card) equals the CPU
+    run."""
+    fbs = []
+    for dev in ("cpu", cuda):
+        scene, tr, li, (h, w) = torch_scene(name, "gbuffer", dev)
+        fbs.append(trt.Renderer(h, w, device=dev).render(scene, tr, li))
+    torch.cuda.synchronize()
+    cpu, gpu = fbs
+    np.testing.assert_array_equal(gpu.depth.cpu().numpy(), cpu.depth.numpy())
+    np.testing.assert_array_equal(gpu.color.view(torch.int32).cpu().numpy(),
+                                  cpu.color.view(torch.int32).numpy())
+    assert int((cpu.depth > -3.0e38).sum()) > 1000

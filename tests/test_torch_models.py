@@ -100,7 +100,8 @@ def test_rotation_and_rotate_object(angle):
     from tpu_renderer_torch.core.types import make_object as tmake
 
     oj = jtf.rotate_object(jmake((0, 0, 0), **arrs), jnp.asarray(rj))
-    ot = ttf.rotate_object(tmake((0, 0, 0), **arrs), torch.tensor(rj))
+    ot = ttf.rotate_object(tmake((0, 0, 0), **arrs, device="cpu"),
+                            torch.tensor(rj))
     for name in ("vertices", "normals"):
         np.testing.assert_allclose(getattr(ot, name).numpy(),
                                    np.asarray(getattr(oj, name)),

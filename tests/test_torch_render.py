@@ -28,6 +28,8 @@ from tpu_renderer.models import scenes as js
 from tpu_renderer.ops import shading as jsh
 from tpu_renderer.ops import setup_pallas as jsp
 import tpu_renderer_torch as trt
+from tpu_renderer_torch.core import types as tt
+from tpu_renderer_torch.engine import renderer as tre
 from tpu_renderer_torch.models import primitives as tp
 from tpu_renderer_torch.models import scenes as ts
 from tpu_renderer_torch.ops import raster as trp
@@ -243,23 +245,30 @@ def test_subrect_origin_equals_full_frame():
 
 
 def test_routes_outside_the_slice_raise():
-    """Textured objects the fused path cannot take ('avx' addressing, a
-    texture over the atlas limits: the G-buffer path) and zcull still
-    raise; the routes that used to raise here now render: rows 1 (K3),
-    textures (K5) and the mask strategy (K6, T <= 512)."""
+    """Only zcull still raises. Textured objects the fused path cannot
+    take ('avx' addressing, a texture over the atlas limits) render
+    through the G-buffer path, alone and two at a time (object by
+    object); an unknown filter raises ValueError in the deferred shade,
+    as in the JAX package; rows 1 (K3), textures (K5) and the mask
+    strategy (K6, T <= 512) render."""
     tr_d, li_d = ts.baseline_camera_lights(H, W)
     mesh = tp.construct_sphere_grid(46, 45)
     tex = np.full((8, 8), 0xFF808080, np.uint32)
     for cfg_d in ({"texture": tex, "uv_mode": "avx"},
-                  {"texture": np.zeros((8, 600), np.uint32)},
-                  {"texture": tex, "filter_mode": "trilinear"}):
+                  {"texture": np.full((8, 600), 0xFF808080, np.uint32)}):
         sg = [(dict(p=(0.0, 0.0, 0.0), **mesh), cfg_d)]
         scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device="cpu")
-        with pytest.raises(NotImplementedError, match="G-buffer"):
-            trt.Renderer(H, W, device="cpu").render(scene_t, tr, li)
-        with pytest.raises(NotImplementedError, match="G-buffer"):
-            trt.render_scene(None, scene_t * 2, tr, li, frame_height=H,
-                             frame_width=W)
+        assert not tre._obj_fusable(*scene_t[0])
+        fb = trt.Renderer(H, W, device="cpu").render(scene_t, tr, li)
+        assert int((fb.depth > -3.0e38).sum()) > 2000
+        fb2 = trt.render_scene(None, scene_t * 2, tr, li, frame_height=H,
+                               frame_width=W)
+        np.testing.assert_array_equal(fb2.color.numpy(), fb.color.numpy())
+    sg = [(dict(p=(0.0, 0.0, 0.0), **mesh),
+           {"texture": tex, "filter_mode": "trilinear"})]
+    scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device="cpu")
+    with pytest.raises(ValueError, match="unknown filter_mode"):
+        trt.Renderer(H, W, device="cpu").render(scene_t, tr, li)
     sg = [(dict(p=(0.0, 0.0, 0.0), **mesh), {"texture": tex})]
     scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device="cpu")
     fb = trt.Renderer(H, W, device="cpu").render(scene_t, tr, li)
@@ -294,3 +303,24 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
     scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device="cpu")
     fb = trt.Renderer(8, 8, device="cpu").render(scene_t, tr, li)
     assert fb.color.shape == (8, 8) and fb.color.device.type == "cpu"
+
+
+@pytest.mark.parametrize("make", [
+    lambda **kw: tt.make_transform(3.0, 1.0, 300.0, (4.0, 4.0), **kw),
+    lambda **kw: tt.make_lights((0.3,) * 4, [(2.0, 2.0, 1.0)],
+                                [(0.8,) * 4], **kw),
+    lambda **kw: tt.make_object((0.0, 0.0, 0.0),
+                                **tp.construct_quad(1.0), **kw),
+    lambda **kw: tt.make_framebuffer(8, 8, **kw),
+], ids=["make_transform", "make_lights", "make_object", "make_framebuffer"])
+def test_constructors_need_a_card_unless_asked_for_the_cpu(monkeypatch,
+                                                           make):
+    """The public constructors default to the card as the entry points
+    do: without one they raise unless given device='cpu', and a scene
+    built from their defaults never renders on the CPU unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    leaves = [t for t in torch.utils._pytree.tree_leaves(make(device="cpu"))
+              if isinstance(t, torch.Tensor)]
+    assert leaves and all(t.device.type == "cpu" for t in leaves)

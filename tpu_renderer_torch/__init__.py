@@ -12,8 +12,11 @@ or not: K1 (setup, from 4096 triangles) or the small-object chain + K7
 (record transpose); then the mask strategy's per-tile lists and K6 up to
 512 triangles, or the sorted binning and K2, K3 or K4 (fused raster +
 shade on 8-row tiles with two or one streams, or on 16-row tiles) above;
-K5 samples textures in the raster kernels' finalize. The G-buffer path
-(``uv_mode='avx'``, textures over the atlas limits) and zcull raise
+K5 samples textures in the raster kernels' finalize. Textured objects the
+fused path cannot take (``uv_mode='avx'``, textures over the atlas limits)
+take the G-buffer path: K8 (mask) or K9 with the side-list fold K10
+(sorted) rasterize into an (11, H, W) G-buffer, and the deferred
+``shade`` samples, lights and packs it. Only zcull (K11) raises
 NotImplementedError.
 
 Quick start (entry points run on the card and raise without one unless

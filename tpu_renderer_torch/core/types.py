@@ -10,7 +10,8 @@ JAX package's, so the two compare like with like:
 
 Every leaf is a float32 tensor on one explicit ``device``; scalars are 0-d
 tensors on that device, so kernels and plain versions read them without a
-host round trip.
+host round trip. The constructors put them on the card unless given
+``device="cpu"``, and raise without a card (``resolve_device``).
 """
 
 from __future__ import annotations
@@ -56,7 +57,8 @@ class ProjectiveTransform(NamedTuple):
 
 
 def make_transform(distance_above_target, focal_length, meters_to_pixels,
-                   screen_center, device=None) -> ProjectiveTransform:
+                   screen_center, device="cuda") -> ProjectiveTransform:
+    device = resolve_device(device)
     return ProjectiveTransform(
         distance_above_target=_f32(distance_above_target, device).reshape(()),
         focal_length=_f32(focal_length, device).reshape(()),
@@ -77,7 +79,9 @@ class LightData(NamedTuple):
         return self.light_p.shape[0]
 
 
-def make_lights(ambient, positions, intensities, device=None) -> LightData:
+def make_lights(ambient, positions, intensities,
+                device="cuda") -> LightData:
+    device = resolve_device(device)
     positions = _f32(positions, device).reshape(-1, 3)
     intensities = _f32(intensities, device).reshape(-1, 4)
     assert positions.shape[0] == intensities.shape[0]
@@ -115,8 +119,9 @@ def _to_channel_major(arr, channels: int, device=None) -> torch.Tensor:
 
 
 def make_object(p, vertices, colors, normals, uvs, texture=None,
-                device=None) -> RenderObject:
+                device="cuda") -> RenderObject:
     """Build a RenderObject from classic (V, C) triangle-soup arrays."""
+    device = resolve_device(device)
     tex = None
     if texture is not None:
         tex = torch.as_tensor(
@@ -137,9 +142,11 @@ class ObjectConfig:
     """Per-object rendering switches (see tpu_renderer.core.types).
 
     phong: per-pixel Blinn-Phong; False => Gouraud baked at the vertex
-    stage. textured / uv_mode / filter_mode: texture sampling; the port
-    runs 'scalar' addressing with 'nearest' or 'bilinear' filtering and
-    raises NotImplementedError for 'avx' (the G-buffer path)."""
+    stage. textured / uv_mode / filter_mode: texture sampling, 'scalar' or
+    'avx' addressing, 'nearest' or 'bilinear' filtering. 'scalar' objects
+    whose texture fits the fused atlas limits sample in the raster kernel's
+    finalize; 'avx' ones and larger textures take the G-buffer path and the
+    deferred ``shade``."""
 
     phong: bool = False
     textured: bool = False
@@ -163,7 +170,8 @@ class Framebuffer(NamedTuple):
 
 
 def make_framebuffer(height: int, width: int, clear_color: int = 0,
-                     device=None) -> Framebuffer:
+                     device="cuda") -> Framebuffer:
+    device = resolve_device(device)
     color = torch.full(
         (height, width), np.int32(np.uint32(clear_color).view(np.int32)),
         dtype=torch.int32, device=device,

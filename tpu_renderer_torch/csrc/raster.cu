@@ -1,10 +1,11 @@
 // K2, K3, K4, K6: fused raster + shade, and K5, the texture sampler of
-// their finalize.
+// their finalize; K8, K9, K10: raster into a G-buffer.
 //
 // Replaces the Pallas kernels _raster_kernel_queue_shaded
 // (tpu_renderer/ops/raster_pallas.py:2192, launched at :2777) on its three
-// routes and _raster_kernel_tilelist_shaded (:2121, launched at :2598), one
-// C entry each:
+// routes, _raster_kernel_tilelist_shaded (:2121, launched at :2598) and the
+// G-buffer family (_raster_kernel_tilelist :1756, _raster_kernel_queue
+// :1853, _raster_kernel_bcast :2018), one C entry each:
 //   tr_raster         K2: sorted, 8-row tiles, row packing 2 (wide=True,
 //                     rows_packed=2; two strip streams per tile);
 //   tr_raster_rows1   K3: sorted, 8-row tiles, one stream (wide=True,
@@ -12,7 +13,14 @@
 //   tr_raster_narrow  K4: sorted, 16-row tiles, one stream (the narrow
 //                     form, :2372-2380, _chunk_best :910 per CHUNK_T chunk);
 //   tr_raster_mask    K6: mask strategy, 8- or 16-row tiles, each tile's
-//                     padded triangle list (bin_triangles), no side list.
+//                     padded triangle list (bin_triangles), no side list;
+//   tr_gbuffer_mask   K8: K6's fold, the G-buffer finalize (gbuffer_tile);
+//   tr_gbuffer_queue  K9 + K10: one sorted stream, 8- or 16-row tiles, the
+//                     side list (K10) folded by the tile's own block, the
+//                     G-buffer finalize. The TPU ran K10 as a second grid
+//                     and merged the two G-buffers by (z desc, gid asc); the
+//                     fold applies that rule itself, so neither the second
+//                     (11, H, W) buffer nor the merge pass exists here.
 // Each runs stage-A span setup (_stage_a_fill :1120, which has the same
 // span formulas in the same op order as the narrow _chunk_best: the narrow
 // form masks entries through span_ok in the coverage test, the wide one
@@ -28,7 +36,8 @@
 // Phong, the base colour elsewhere; pack_argb_planes.
 //
 // Bound on the H100: the busiest tile. Device-memory traffic is small (one
-// 352 B record read per entry, 12 B written per pixel); the work is the
+// 352 B record read per entry, 12 B written per pixel, 48 B for a G-buffer
+// pixel); the work is the
 // per-(entry, row) span setup (~60 f32 operations with IEEE divisions) and
 // the per-pixel fold, and one block walks a tile's entries in series. Dense
 // meshes concentrate entries: on the 1M-triangle 1080p sphere 215 of 2,025
@@ -91,7 +100,8 @@ struct Shared {
   int gid[kThreads];
 };
 
-// Everything the finalize reads besides the winners.
+// Everything the finalize reads besides the winners. The shaded kernels
+// write z, gid and colour; the G-buffer kernels gid and the 11 planes.
 struct Finalize {
   const float* recs;     // (Tp, 128): record of gid g is row g
   const float* params;   // shade_params
@@ -104,6 +114,8 @@ struct Finalize {
   float* z_out;
   int* gid_out;
   unsigned* color_out;
+  float* gbuf_out;  // (11, out_h, out_w)
+  size_t plane;     // out_h * out_w
 };
 
 // Active-edge order (projekt.cpp:212-216): lexicographic (x, xg, left, e).
@@ -443,6 +455,66 @@ __device__ __forceinline__ void finalize_tile(const Finalize& f,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K8 / K9 / K10: the G-buffer finalize. Replaces _init_gbuf_tile
+// (raster_pallas.py:1728) and _merge_chunk_gbuf (:1478): covered pixels
+// get z and the 10 attribute planes of the winner, re-run from its record
+// at the winner's k like shade_pixel's planes; uncovered ones DEPTH_CLEAR,
+// zeros and gid -1. Thread x writes column x of every plane: coalesced.
+// ---------------------------------------------------------------------------
+
+constexpr int kAttrPlanes = 10;
+
+// Lanes (left value, gradient) of G-buffer channel 1 + c, in channel order:
+// rgba, normal xyz, u/z, v/z, 1/z.
+__device__ __forceinline__ void attr_lanes(int c, int& j0, int& jg) {
+  if (c < 4) {
+    j0 = F_COL0 + c;
+    jg = F_COLG + c;
+  } else if (c < 7) {
+    j0 = F_N0 + c - 4;
+    jg = F_NG + c - 4;
+  } else if (c == 7) {
+    j0 = F_U0;
+    jg = F_UG;
+  } else if (c == 8) {
+    j0 = F_V0;
+    jg = F_VG;
+  } else {
+    j0 = F_OZ0;
+    jg = F_OZG;
+  }
+}
+
+template <int TILE_H>
+__device__ __forceinline__ void gbuffer_tile(const Finalize& f,
+                                             const Winners<TILE_H>& win,
+                                             int ty, int tx, int row_base) {
+#pragma unroll
+  for (int r = 0; r < TILE_H; ++r) {
+    const size_t o =
+        (size_t)(ty * TILE_H + r) * f.out_w + tx * kTileW + threadIdx.x;
+    const int g = win.g[r];
+    f.gid_out[o] = g;
+    float* px = f.gbuf_out + o;
+    px[0] = win.z[r];
+    if (g >= 0) {
+      const float* rec = f.recs + (size_t)g * kRecLanes;
+      RowSpan s;
+      row_span(rec, static_cast<float>(row_base + r), s);
+#pragma unroll
+      for (int c = 0; c < kAttrPlanes; ++c) {
+        int j0, jg;
+        attr_lanes(c, j0, jg);
+        px[(c + 1) * f.plane] = attr_at(rec, s, j0, jg, win.k[r]);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < kAttrPlanes; ++c) px[(c + 1) * f.plane] = 0.0f;
+    }
+  }
+}
+
 template <int TILE_H>
 __device__ __forceinline__ void init_winners(Winners<TILE_H>& win) {
 #pragma unroll
@@ -453,8 +525,23 @@ __device__ __forceinline__ void init_winners(Winners<TILE_H>& win) {
   }
 }
 
-// K2 / K3 / K4: the sorted strategy's streams and side list.
-template <int TILE_H, int STREAMS>
+// The tile's outputs: the G-buffer (GBUF) or z, gid and colour.
+template <int TILE_H, bool GBUF>
+__device__ __forceinline__ void write_tile(const Finalize& f,
+                                           const Winners<TILE_H>& win, int ty,
+                                           int tx, int row_base, float xc) {
+  if constexpr (GBUF)
+    gbuffer_tile(f, win, ty, tx, row_base);
+  else
+    finalize_tile(f, win, ty, tx, row_base, xc);
+}
+
+// K2 / K3 / K4 (shaded) and K9 (G-buffer, STREAMS 1): the sorted
+// strategy's streams and side list. The side-list fold is K10: on the TPU
+// a second kernel over every tile plus an XLA merge by (z desc, gid asc)
+// (_merge_gbuf_by_gid, :2954); here the block that owns the tile folds the
+// list into the same winners under that rule.
+template <int TILE_H, int STREAMS, bool GBUF>
 __global__ void __launch_bounds__(kThreads) raster_kernel(
     const int* __restrict__ sorted_tri, const int* __restrict__ starts,
     const int* __restrict__ counts, const int* __restrict__ large_ids,
@@ -487,12 +574,13 @@ __global__ void __launch_bounds__(kThreads) raster_kernel(
       fold_batch<TILE_H, TILE_H>(f.recs, large_ids + b0, min(kSide, nl - b0),
                                  0, row_base, f.w_f, xc, sh, win);
   }
-  finalize_tile(f, win, ty, tx, row_base, xc);
+  write_tile<TILE_H, GBUF>(f, win, ty, tx, row_base, xc);
 }
 
-// K6: the mask strategy. Tile t's triangles are ids[t * capacity + i] for
-// i < counts[t], in submission order; each covers all of the tile's rows.
-template <int TILE_H>
+// K6 (shaded) and K8 (G-buffer): the mask strategy. Tile t's triangles are
+// ids[t * capacity + i] for i < counts[t], in submission order; each covers
+// all of the tile's rows.
+template <int TILE_H, bool GBUF>
 __global__ void __launch_bounds__(kThreads) mask_kernel(
     const int* __restrict__ ids, const int* __restrict__ counts, int capacity,
     Finalize f) {
@@ -509,7 +597,7 @@ __global__ void __launch_bounds__(kThreads) mask_kernel(
   for (int b0 = 0; b0 < n; b0 += kBatch)
     fold_batch<TILE_H, TILE_H>(f.recs, list + b0, min(kBatch, n - b0), 0,
                                row_base, f.w_f, xc, sh, win);
-  finalize_tile(f, win, ty, tx, row_base, xc);
+  write_tile<TILE_H, GBUF>(f, win, ty, tx, row_base, xc);
 }
 
 Finalize make_finalize(const float* recs, const float* params, const int* objs,
@@ -534,6 +622,20 @@ Finalize make_finalize(const float* recs, const float* params, const int* objs,
   f.z_out = z;
   f.gid_out = gid;
   f.color_out = color;
+  f.gbuf_out = nullptr;
+  f.plane = 0;
+  return f;
+}
+
+// The G-buffer kernels' operands: no shading inputs, gid and the planes of
+// a (tiles_y * tile_h, tiles_x * 128) frame out.
+Finalize make_gbuffer(const float* recs, int tile_h, int tiles_y, int tiles_x,
+                      int row0, int col0, int frame_w, int* gid, float* gbuf) {
+  Finalize f = make_finalize(recs, nullptr, nullptr, nullptr, nullptr, 0, 0,
+                             0, tiles_x, row0, col0, frame_w, nullptr, gid,
+                             nullptr);
+  f.gbuf_out = gbuf;
+  f.plane = (size_t)tiles_y * tile_h * f.out_w;
   return f;
 }
 
@@ -550,7 +652,7 @@ Finalize make_finalize(const float* recs, const float* params, const int* objs,
                       int frame_w, float* z, int* gid, unsigned* color,        \
                       void* stream) {                                          \
     if (n_obj < 1 || tiles_y < 1 || tiles_x < 1) return 1;                     \
-    tr::raster_kernel<TILE_H, STREAMS>                                         \
+    tr::raster_kernel<TILE_H, STREAMS, false>                                  \
         <<<tiles_y * tiles_x, tr::kThreads, 0,                                 \
            static_cast<cudaStream_t>(stream)>>>(                               \
             sorted_tri, starts, counts, large_ids, n_large, lcounts,           \
@@ -580,10 +682,58 @@ extern "C" int tr_raster_mask(const float* recs, const int* ids,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int grid = tiles_y * tiles_x;
   if (tile_h == 8)
-    tr::mask_kernel<8><<<grid, tr::kThreads, 0, s>>>(ids, counts, capacity, f);
+    tr::mask_kernel<8, false><<<grid, tr::kThreads, 0, s>>>(ids, counts,
+                                                            capacity, f);
   else if (tile_h == 16)
-    tr::mask_kernel<16><<<grid, tr::kThreads, 0, s>>>(ids, counts, capacity,
-                                                      f);
+    tr::mask_kernel<16, false><<<grid, tr::kThreads, 0, s>>>(ids, counts,
+                                                             capacity, f);
+  else
+    return 1;  // invalid value
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8: the mask strategy into a G-buffer, 8- or 16-row tiles; gid (out_h,
+// out_w) i32 and gbuf (11, out_h, out_w) f32, out_h = tiles_y * tile_h.
+extern "C" int tr_gbuffer_mask(const float* recs, const int* ids,
+                               const int* counts, int capacity, int tile_h,
+                               int tiles_y, int tiles_x, int row0, int col0,
+                               int frame_w, int* gid, float* gbuf,
+                               void* stream) {
+  if (tiles_y < 1 || tiles_x < 1 || capacity < 1) return 1;
+  const tr::Finalize f = tr::make_gbuffer(recs, tile_h, tiles_y, tiles_x,
+                                          row0, col0, frame_w, gid, gbuf);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int grid = tiles_y * tiles_x;
+  if (tile_h == 8)
+    tr::mask_kernel<8, true><<<grid, tr::kThreads, 0, s>>>(ids, counts,
+                                                           capacity, f);
+  else if (tile_h == 16)
+    tr::mask_kernel<16, true><<<grid, tr::kThreads, 0, s>>>(ids, counts,
+                                                            capacity, f);
+  else
+    return 1;  // invalid value
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K9 + K10: the sorted strategy's single stream into a G-buffer, with the
+// large-triangle side list folded on tiles whose lcounts gate is open.
+extern "C" int tr_gbuffer_queue(const float* recs, const int* sorted_tri,
+                                const int* starts, const int* counts,
+                                const int* large_ids, const int* n_large,
+                                const int* lcounts, int tile_h, int tiles_y,
+                                int tiles_x, int row0, int col0, int frame_w,
+                                int* gid, float* gbuf, void* stream) {
+  if (tiles_y < 1 || tiles_x < 1) return 1;
+  const tr::Finalize f = tr::make_gbuffer(recs, tile_h, tiles_y, tiles_x,
+                                          row0, col0, frame_w, gid, gbuf);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int grid = tiles_y * tiles_x;
+  if (tile_h == 8)
+    tr::raster_kernel<8, 1, true><<<grid, tr::kThreads, 0, s>>>(
+        sorted_tri, starts, counts, large_ids, n_large, lcounts, f);
+  else if (tile_h == 16)
+    tr::raster_kernel<16, 1, true><<<grid, tr::kThreads, 0, s>>>(
+        sorted_tri, starts, counts, large_ids, n_large, lcounts, f);
   else
     return 1;  // invalid value
   return static_cast<int>(cudaGetLastError());

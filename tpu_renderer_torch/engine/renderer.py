@@ -1,19 +1,25 @@
 """Frame orchestration: the public ``Renderer`` API of the port.
 
-PyTorch counterpart of ``tpu_renderer.engine.renderer``'s fused branch.
-One object: the vertex stage writes its record table (the K1 kernel from
-4096 triangles up, the small-object chain below), the binning runs as
-torch ops (the mask strategy's per-tile lists up to 512 triangles, the
-sorted streams above), and one raster kernel (K6, or K2, K3 or K4 by
-route) rasterizes, samples the texture (K5, 'scalar' addressing, nearest
-or bilinear, within the fused atlas limits), shades and packs ARGB.
-Several objects render in ONE raster launch (``prepare_scene``): their
-tables concatenate with global triangle ids, their textures stack into
-one atlas, and the kernel picks each pixel's object from the winner's id.
-Textured objects the fused path cannot take (``uv_mode='avx'``, textures
-over the atlas limits) belong to the G-buffer path (K8-K10), which is not
-ported: they raise NotImplementedError. The
-device of the scene's tensors picks the implementation: CUDA tensors
+PyTorch counterpart of ``tpu_renderer.engine.renderer``, both branches of
+``render_object``:
+
+- fused: the vertex stage writes the object's record table (the K1
+  kernel from 4096 triangles up, the small-object chain below), the
+  binning runs as torch ops (the mask strategy's per-tile lists up to 512
+  triangles, the sorted streams above), and one raster kernel (K6, or K2,
+  K3 or K4 by route) rasterizes, samples the texture (K5, 'scalar'
+  addressing, nearest or bilinear, within the fused atlas limits), shades
+  and packs ARGB. Several such objects render in ONE raster launch
+  (``prepare_scene``): their tables concatenate with global triangle ids,
+  their textures stack into one atlas, and the kernel picks each pixel's
+  object from the winner's id;
+- G-buffer: a textured object the fused path cannot take (``uv_mode=
+  'avx'``, a texture over the atlas limits) rasterizes into a G-buffer
+  (``ops.gbuffer``: K8, or K9 with K10), then ``ops.shading.shade``
+  samples, shades and packs it, and the strict '>' merge lays it over the
+  frame. A scene that holds such an object draws object by object.
+
+The device of the scene's tensors picks the implementation: CUDA tensors
 launch the kernels, CPU tensors run their plain versions. PyTorch runs
 eagerly, so nothing is compiled per scene signature.
 """
@@ -33,8 +39,10 @@ from ..core.types import (
     make_framebuffer,
     resolve_device,
 )
+from ..core.math import pack_argb
 from ..geometry.vertex import setup_records
 from ..ops.binning import triangle_bbox_rows
+from ..ops.gbuffer import rasterize_gbuffer
 from ..ops.raster import (
     ObjSpec,
     RasterLaunch,
@@ -45,6 +53,7 @@ from ..ops.raster import (
     texture_fits_fused,
 )
 from ..ops.setup import FUSED_SETUP_MIN, SetupOut, setup_for_raster
+from ..ops.shading import shade
 
 _OBJ_PAD = 128  # each object's table pads its triangle axis to this
 
@@ -101,15 +110,6 @@ def _obj_fusable(obj: RenderObject, cfg: ObjectConfig) -> bool:
             and cfg.filter_mode in ("nearest", "bilinear")
             and obj.texture is not None
             and texture_fits_fused(*obj.texture.shape))
-
-
-def _require_fusable(obj: RenderObject, cfg: ObjectConfig) -> None:
-    if not _obj_fusable(obj, cfg):
-        raise NotImplementedError(
-            "this textured object needs the G-buffer path (uv_mode='avx', "
-            "a texture over the fused atlas limits, or another filter), "
-            "which belongs to a later slice of the port (ROADMAP Queue 1 "
-            "item 10)")
 
 
 def _scene_batchable(scene) -> bool:
@@ -207,10 +207,11 @@ def prepare_scene(scene: Sequence[Tuple[RenderObject, ObjectConfig]],
     One object takes setup_for_raster (K1 from 4096 triangles, else the
     channel-major table of setup_records) and its texture as the atlas;
     several objects take one scene-global table and atlas
-    (``_scene_table``). Raises NotImplementedError for a textured object
-    the fused path cannot take."""
-    for obj, cfg in scene:
-        _require_fusable(obj, cfg)
+    (``_scene_table``). Every object must be fusable (``_obj_fusable``);
+    the others take the G-buffer path of ``render_object``."""
+    assert all(_obj_fusable(obj, cfg) for obj, cfg in scene), (
+        "prepare_scene is the fused launch; this scene holds an object "
+        "for the G-buffer path")
     frame_height = height if frame_height is None else frame_height
     frame_width = width if frame_width is None else frame_width
     if len(scene) == 1:
@@ -237,9 +238,6 @@ def _draw(framebuffer: Framebuffer | None, scene,
     """Draw the scene in one raster launch (``prepare_scene``), as a fresh
     frame or merged over ``framebuffer``."""
     if framebuffer is None:
-        if frame_height is None or frame_width is None:
-            raise ValueError("a fresh frame (framebuffer=None) needs frame "
-                             "dims")
         height, width = frame_height, frame_width
     else:
         height, width = framebuffer.height, framebuffer.width
@@ -250,17 +248,52 @@ def _draw(framebuffer: Framebuffer | None, scene,
     return _merge_into(framebuffer, covered, z, packed)
 
 
+def _draw_deferred(framebuffer: Framebuffer | None, obj: RenderObject,
+                   transform: ProjectiveTransform, lights: LightData,
+                   cfg: ObjectConfig, frame_height: int | None,
+                   frame_width: int | None,
+                   stats: dict | None) -> Framebuffer:
+    """render_object's G-buffer branch (renderer.py:167-198): setup,
+    ``rasterize_gbuffer``, ``shade``, ``pack_argb``, then the strict '>'
+    merge of the covered pixels over ``framebuffer`` (a fresh zero-cleared
+    frame on the object's device when None: 'avx' narrows the coverage
+    after shading, so the G-buffer cannot stand for the frame)."""
+    if framebuffer is None:
+        framebuffer = make_framebuffer(frame_height, frame_width,
+                                       device=obj.vertices.device)
+    height, width = framebuffer.height, framebuffer.width
+    frame_height = height if frame_height is None else frame_height
+    frame_width = width if frame_width is None else frame_width
+    table = setup_for_raster(obj, transform, lights, cfg,
+                             frame_height=frame_height,
+                             frame_width=frame_width)
+    covered, gbuf, rstats = rasterize_gbuffer(
+        table, height, width, frame_height=frame_height,
+        frame_width=frame_width)
+    _merge_stats(stats, rstats)
+    rgba, covered = shade(covered, gbuf, transform, lights, cfg, obj.texture)
+    return _merge_into(framebuffer, covered, gbuf[0], pack_argb(rgba))
+
+
 def render_object(framebuffer: Framebuffer | None, obj: RenderObject,
                   transform: ProjectiveTransform, lights: LightData,
                   cfg: ObjectConfig, frame_height: int | None = None,
                   frame_width: int | None = None,
                   stats: dict | None = None) -> Framebuffer:
-    """Draw one object (FillEdgeTable + DrawModel, SURVEY.md §1.1).
+    """Draw one object (FillEdgeTable + DrawModel, SURVEY.md §1.1): the
+    fused launch when the object is fusable, else the G-buffer path
+    (``_draw_deferred``).
 
     ``framebuffer=None`` is a fresh zero-cleared frame of (frame_height,
-    frame_width): the raster outputs already carry the clear values on
-    uncovered pixels and are returned as they are. Otherwise the object
-    merges over the framebuffer with the strict '>' depth test."""
+    frame_width): on the fused path the raster outputs already carry the
+    clear values on uncovered pixels and are returned as they are.
+    Otherwise the object merges over the framebuffer with the strict '>'
+    depth test."""
+    if framebuffer is None and (frame_height is None or frame_width is None):
+        raise ValueError("a fresh frame (framebuffer=None) needs frame dims")
+    if not _obj_fusable(obj, cfg):
+        return _draw_deferred(framebuffer, obj, transform, lights, cfg,
+                              frame_height, frame_width, stats)
     return _draw(framebuffer, [(obj, cfg)], transform, lights, frame_height,
                  frame_width, stats)
 
@@ -274,8 +307,8 @@ def render_scene(framebuffer: Framebuffer | None,
     """Draw a list of objects in submission order over one z-buffer
     (renderer.py:351): a scene of several fusable objects whose atlas fits
     renders in one raster launch (prepare_scene), otherwise objects draw
-    one after another; both give the same frame. ``framebuffer=None`` is a
-    fresh (frame_height, frame_width) frame."""
+    one after another (fused or G-buffer each); both give the same frame.
+    ``framebuffer=None`` is a fresh (frame_height, frame_width) frame."""
     if framebuffer is None and (frame_height is None or frame_width is None):
         raise ValueError("render_scene(framebuffer=None) needs frame dims")
     if len(scene) > 1 and _scene_batchable(scene):

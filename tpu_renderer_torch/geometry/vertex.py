@@ -73,6 +73,20 @@ def project_vertices(cam: torch.Tensor, transform: ProjectiveTransform):
     return torch.where((dz > NEAR_CLIP)[..., None], out, 0.0)
 
 
+def unproject_vertices(px, py, z, transform: ProjectiveTransform):
+    """Inverse projection (UnprojectVertex, projekt.cpp:147-160) of pixel
+    coordinates px, py at camera-space z -> (..., 3) camera-space points,
+    in geometry/vertex.py:116's op order. The camera's scalars are 0-d
+    tensors on the planes' device, so both divisions are IEEE tensor
+    divisions."""
+    dz = transform.distance_above_target - z
+    inv_m2p = 1.0 / transform.meters_to_pixels
+    ax = (px - transform.screen_center[0]) * inv_m2p
+    ay = (py - transform.screen_center[1]) * inv_m2p
+    s = dz / transform.focal_length
+    return torch.stack([s * ax, s * ay, z], dim=-1)
+
+
 def backface_visible(proj: torch.Tensor):
     """Screen-space cull (projekt.cpp:3926-3943) of (T, 3, 3) projected
     triangles: visible iff dot((0,0,-1), cross(n(p1-p0), n(p2-p0))) > 0."""

@@ -22,6 +22,14 @@ bilinear (16x16) and the cube nearest (8x32), two widths in one atlas;
 k2multi config 5 in full (its quad nearest, 64x64); k6 config 3 (bilinear
 64x64); k6multi two quads sharing one 32x32 texture, nearest and bilinear
 (tests/test_pallas.py:257).
+
+G-buffer variants, textured objects the fused kernels cannot take: k3 the
+teapot with 'avx' nearest (32x32; K1 -> K9, 8-row tiles); k4 the
+side-list scene with a 16x600 nearest texture, over the fused width limit
+(K7 -> K9, 16-row tiles, with the side list, K10); mixed the sphere grid
+Phong with a 256x256 bilinear texture (K1 -> K9, 8-row tiles) and the
+cube nearest (8x32, fused: K7 -> K6), drawn object by object; k6 config 3
+with 'avx' addressing (K7 -> K8, 16-row tiles).
 """
 
 from . import primitives as tp
@@ -33,6 +41,7 @@ MESH_KEYS = ("vertices", "colors", "normals", "uvs")
 ROUTE_NAMES = ("k3", "k4", "mixed", "k4multi", "k2multi")  # sorted routes
 MASK_NAMES = ("k6", "k6multi")
 TEXTURED_NAMES = ("k3", "k4", "mixed", "k2multi", "k6", "k6multi")
+GBUFFER_NAMES = ("k3", "k4", "mixed", "k6")
 
 
 def mesh_only(mesh):
@@ -46,17 +55,20 @@ def with_quad(entry, size):
     return dict(p=obj["p"], **merged), cfg
 
 
-def textured(entry, texture, filter_mode="nearest"):
-    """A scene entry with a texture and filter mode added."""
+def textured(entry, texture, filter_mode="nearest", uv_mode="scalar"):
+    """A scene entry with a texture, filter mode and addressing added."""
     obj, cfg = entry
-    return obj, dict(cfg, texture=texture, filter_mode=filter_mode)
+    return obj, dict(cfg, texture=texture, filter_mode=filter_mode,
+                     uv_mode=uv_mode)
 
 
 def route_scene(name, variant="base"):
     """(scene_golden, (h, w)) of a route's scene, its side-list variant
-    (sorted routes) or its textured variant (TEXTURED_NAMES)."""
+    (sorted routes), its textured variant (TEXTURED_NAMES) or its G-buffer
+    variant (GBUFFER_NAMES)."""
     side = variant == "sidelist"
     tex = variant == "textured"
+    gbuf = variant == "gbuffer"
     if name == "k3":
         hw = (256, 256)
         sg = ts.baseline_scene(2, *hw)[0]
@@ -64,14 +76,18 @@ def route_scene(name, variant="base"):
             sg = [with_quad(sg[0], 2.2)]
         if tex:
             sg = [textured(sg[0], checkerboard(32, 32, 4), "bilinear")]
+        if gbuf:
+            sg = [textured(sg[0], checkerboard(32, 32, 4), uv_mode="avx")]
     elif name == "k4":
         hw = (384, 384)
         sg = [(dict(p=(0.0, 0.0, 0.0), **construct_sphere(12)),
                {"phong": True})]
-        if side:
+        if side or gbuf:
             sg = [with_quad(sg[0], 2.2)]
         if tex:
             sg = [textured(sg[0], checkerboard(16, 16, 2))]
+        if gbuf:
+            sg = [textured(sg[0], checkerboard(16, 600, 4))]
     elif name == "mixed":
         hw = (128, 128)
         sg = [(dict(p=(0.0, 0.0, 0.0), **tp.construct_sphere_grid(46, 45)),
@@ -82,6 +98,9 @@ def route_scene(name, variant="base"):
             sg = [sg[0], with_quad(sg[1], 1.2)]
         if tex:
             sg = [textured(sg[0], checkerboard(16, 16, 2), "bilinear"),
+                  textured(sg[1], checkerboard(8, 32, 4))]
+        if gbuf:
+            sg = [textured(sg[0], checkerboard(256, 256, 32), "bilinear"),
                   textured(sg[1], checkerboard(8, 32, 4))]
     elif name == "k4multi":
         hw = (512, 512)
@@ -105,7 +124,9 @@ def route_scene(name, variant="base"):
             sg = sg5
     elif name == "k6":
         hw = (128, 128)
-        sg = ts.baseline_scene(3 if tex else 1, *hw)[0]
+        sg = ts.baseline_scene(3 if tex or gbuf else 1, *hw)[0]
+        if gbuf:
+            sg = [(sg[0][0], dict(sg[0][1], uv_mode="avx"))]
     elif name == "k6multi":
         hw = (128, 128)
         if tex:

@@ -30,7 +30,9 @@ gid-aware side-list merge compute. Multi-object launches pick each
 pixel's object from the winner's gid (``_finalize_shade``,
 raster_pallas.py:1600).
 
-zcull still raises NotImplementedError.
+The G-buffer kernels K8, K9 and K10 (``ops.gbuffer``) share these
+kernels' fold, binning and plain fragments. zcull still raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -724,6 +726,34 @@ def raster_fragments(recs, qbins: QueueBins, lcounts, *, tile_h: int,
                      attrs)
 
 
+def resolve_winners(frags: Fragments, hp: int, wp: int):
+    """Each pixel's winner among a launch's fragments over the padded
+    (hp, wp) frame, by (z descending, gid ascending): amax of z, then amin
+    of gid among the fragments at that z. Returns (z (hp, wp), DEPTH_CLEAR
+    where uncovered; gid (hp, wp) i32, -1 where uncovered; the winner's
+    al + k * inc of each of ``frags.attrs`` as (hp, wp) planes, 0 where
+    uncovered). The one copy of the tie rule of every plain raster
+    version, shaded (``raster_plain``) or G-buffer (``gbuffer_plain``)."""
+    pix, z, g, k, fp = frags.pix, frags.z, frags.gid, frags.k, frags.pair
+    dev = z.device
+    bz = torch.full((hp * wp,), DEPTH_CLEAR, dtype=F32, device=dev)
+    bz = bz.scatter_reduce(0, pix, z, "amax", include_self=True)
+    at_max = z == bz[pix]
+    none = torch.iinfo(I64).max
+    bg = torch.full((hp * wp,), none, dtype=I64, device=dev)
+    bg = bg.scatter_reduce(0, pix[at_max], g[at_max], "amin",
+                           include_self=True)
+    win = at_max & (g == bg[pix])
+    wpix, wfp, wk = pix[win], fp[win], k[win]
+    planes = []
+    for al, inc in frags.attrs:
+        plane = torch.zeros((hp * wp,), dtype=F32, device=dev)
+        plane[wpix] = al[wfp] + wk * inc[wfp]
+        planes.append(plane.reshape(hp, wp))
+    gid = torch.where(bg != none, bg, -1).to(I32).reshape(hp, wp)
+    return bz.reshape(hp, wp), gid, planes
+
+
 def _finalize_plain(z, gid, planes, params, objs, texs, atlas, px, py,
                     n_lights: int, offs):
     """_finalize_shade (raster_pallas.py:1600) on whole planes: per-object
@@ -770,10 +800,9 @@ def raster_plain(recs, qbins: QueueBins, lcounts, params, objs, texs, atlas,
 
     1. ``raster_fragments``: stage A per (entry, row) of the streams and
        the side list, and the in-span fragments with z > DEPTH_CLEAR;
-    2. per pixel, amax of z over the fragments, then amin of gid among the
-       fragments at that z;
-    3. the winner's attribute planes (al + k * inc) that the scene's
-       objects read, and ``_finalize_plain``."""
+    2. ``resolve_winners``: per pixel, the (z, gid) winner and its
+       attribute planes (al + k * inc) that the scene's objects read;
+    3. ``_finalize_plain``."""
     dev = recs.device
     hp, wp = tiles_y * tile_h, tiles_x * TILE_W
     offs = launch_fields(objs, texs)
@@ -781,27 +810,7 @@ def raster_plain(recs, qbins: QueueBins, lcounts, params, objs, texs, atlas,
         recs, qbins, lcounts, tile_h=tile_h, tiles_y=tiles_y,
         tiles_x=tiles_x, row0=row0, col0=col0, frame_width=frame_width,
         fields=offs[0])
-    pix, z, g, k, fp = frags.pix, frags.z, frags.gid, frags.k, frags.pair
-
-    # Winner per pixel: (z descending, gid ascending).
-    bz = torch.full((hp * wp,), DEPTH_CLEAR, dtype=F32, device=dev)
-    bz = bz.scatter_reduce(0, pix, z, "amax", include_self=True)
-    at_max = z == bz[pix]
-    none = torch.iinfo(I64).max
-    bg = torch.full((hp * wp,), none, dtype=I64, device=dev)
-    bg = bg.scatter_reduce(0, pix[at_max], g[at_max], "amin",
-                           include_self=True)
-    win = at_max & (g == bg[pix])
-    wpix, wfp, wk = pix[win], fp[win], k[win]
-    covered = bg != none
-    planes = []
-    for al, inc in frags.attrs:
-        plane = torch.zeros((hp * wp,), dtype=F32, device=dev)
-        plane[wpix] = al[wfp] + wk * inc[wfp]
-        planes.append(plane.reshape(hp, wp))
-
-    zimg = bz.reshape(hp, wp)
-    gid_img = torch.where(covered, bg, -1).to(I32).reshape(hp, wp)
+    zimg, gid_img, planes = resolve_winners(frags, hp, wp)
     px = (torch.arange(wp, device=dev) + col0).to(F32)[None, :].expand(hp, wp)
     py = (torch.arange(hp, device=dev) + row0).to(F32)[:, None].expand(hp, wp)
     color = _finalize_plain(zimg, gid_img, planes, params, objs, texs, atlas,
@@ -879,19 +888,22 @@ class RasterLaunch(NamedTuple):
                             **self.options)
 
     def stats(self) -> dict:
-        """The draw's binning stats: bins_dropped on the mask route;
-        bins_dropped, bins_real_entries, bins_budget_utilization (0-d
-        tensors) and bins_budget_factor (the policy factor) on the sorted
-        routes."""
-        if self.route.strategy == "mask":
-            return {"bins_dropped": self.operands[1].n_dropped}
-        qbins = self.operands[1]
-        return {
-            "bins_dropped": qbins.n_dropped,
-            "bins_real_entries": qbins.n_real,
-            "bins_budget_utilization": qbins.budget_util,
-            "bins_budget_factor": self.route.policy_factor,
-        }
+        return bin_stats(self.route, self.operands[1])
+
+
+def bin_stats(route: RasterRoute, bins) -> dict:
+    """A draw's binning stats: bins_dropped on the mask route (``bins`` a
+    TileBins); bins_dropped, bins_real_entries, bins_budget_utilization
+    (0-d tensors) and bins_budget_factor (the policy factor) on the
+    sorted routes (``bins`` a QueueBins)."""
+    if route.strategy == "mask":
+        return {"bins_dropped": bins.n_dropped}
+    return {
+        "bins_dropped": bins.n_dropped,
+        "bins_real_entries": bins.n_real,
+        "bins_budget_utilization": bins.budget_util,
+        "bins_budget_factor": route.policy_factor,
+    }
 
 
 def prepare_raster(table, objspecs: tuple, transform: ProjectiveTransform,

@@ -1,11 +1,17 @@
-"""Texture sampling, plane-wise Blinn-Phong shading and ARGB packing.
+"""Texture sampling, Blinn-Phong shading and ARGB packing.
 
-PyTorch counterpart of ``sample_texture`` ('scalar' addressing, nearest
-and bilinear), ``shade_planes`` and ``pack_argb_planes`` of
-``tpu_renderer.ops.shading``: the channel axis unrolled into separate
-planes, same f32 op order. The raster kernels' finalize
-(``csrc/raster.cu``) is the same computation per pixel; ``sample_atlas``
-is the plain version of its texel fetch, K5.
+PyTorch counterpart of ``tpu_renderer.ops.shading``, same f32 op order:
+
+- ``sample_texture`` ('scalar' and 'avx' addressing, nearest and
+  bilinear), ``phong_shade`` and ``shade``, the deferred shading of a
+  channel-first (11, H, W) G-buffer that the G-buffer path of
+  ``engine.renderer.render_object`` runs after ``ops.gbuffer``;
+- ``shade_planes`` and ``pack_argb_planes``, the same shading with the
+  channel axis unrolled into planes, which the fused raster kernels'
+  finalize (``csrc/raster.cu``) computes per pixel; ``sample_atlas`` is
+  the plain version of its texel fetch, K5.
+
+These are torch ops, as the JAX package's are XLA ops: no kernel here.
 """
 
 from __future__ import annotations
@@ -14,6 +20,8 @@ import torch
 
 from ..core.math import (
     clamp01,
+    inner,
+    normalize,
     pack_channels,
     pow16,
     round_half_away,
@@ -21,7 +29,10 @@ from ..core.math import (
     to_i32,
     unpack_argb,
 )
+from ..core.types import LightData, ObjectConfig, ProjectiveTransform
+from ..geometry.vertex import unproject_vertices
 
+F32 = torch.float32
 I64 = torch.int64
 
 
@@ -66,14 +77,92 @@ def sample_atlas(atlas, u, v, v_off: int, th: int, tw: int,
     return fetch(ty, tx)
 
 
-def sample_texture(texture, u, v, filter_mode: str = "nearest"):
-    """sample_texture (ops/shading.py:29) in 'scalar' addressing: a
-    (th, tw) u32 ARGB texture at u, v planes -> 4 rgba planes in [0, 1].
-    'avx' addressing belongs to the G-buffer path, not ported."""
-    if filter_mode not in ("nearest", "bilinear"):
-        raise ValueError(f"unknown filter_mode: {filter_mode}")
+def sample_texture(texture, u, v, uv_mode: str = "scalar",
+                   filter_mode: str = "nearest"):
+    """ARGB texture fetch (ops/shading.py:29) of a (th, tw) u32 texture
+    (int32 or uint32 storage) at u, v planes -> (rgba (..., 4) in [0, 1],
+    mask). 'scalar' nearest rounds u * (tw - 1) with clamped indices;
+    'avx' nearest truncates u * tw, clipped, and masks u, v outside [0, 1];
+    bilinear lerps 4 texels on the scalar convention (``sample_atlas``),
+    with the [0, 1] mask under 'avx'. Raises ValueError for an unknown
+    mode, as the JAX package does."""
     th, tw = texture.shape
-    return sample_atlas(texture, u, v, 0, th, tw, filter_mode == "bilinear")
+    tex = texture.view(torch.int32)
+    if filter_mode == "bilinear":
+        rgba = torch.stack(sample_atlas(tex, u, v, 0, th, tw, True), -1)
+        if uv_mode == "avx":
+            return rgba, _in_unit_square(u, v)
+        return rgba, torch.ones_like(u, dtype=torch.bool)
+    if filter_mode != "nearest":
+        raise ValueError(f"unknown filter_mode: {filter_mode}")
+    if uv_mode == "scalar":
+        rgba = sample_atlas(tex, u, v, 0, th, tw, False)
+        return torch.stack(rgba, -1), torch.ones_like(u, dtype=torch.bool)
+    if uv_mode != "avx":
+        raise ValueError(f"unknown uv_mode: {uv_mode}")
+    tx = torch.clamp(to_i32(torch.trunc(u * float(tw))), 0, tw - 1)
+    ty = torch.clamp(to_i32(torch.trunc(v * float(th))), 0, th - 1)
+    texel = tex.reshape(-1)[ty.to(I64) * tw + tx.to(I64)]
+    return torch.stack(unpack_argb(texel), -1), _in_unit_square(u, v)
+
+
+def _in_unit_square(u, v):
+    return (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (v <= 1.0)
+
+
+def phong_shade(pos, nrm, base, lights: LightData):
+    """Blinn-Phong on (..., 3) positions and unit normals and (..., 4)
+    base colours (ops/shading.py:83): ambient * base from the first light
+    on, per-light diffuse plus white specular^16, clamped at the end; no
+    lights give black."""
+    white = torch.ones((4,), dtype=F32, device=base.device)
+    final = torch.zeros_like(base)
+    view = normalize(-pos)
+    for k in range(lights.count):
+        if k == 0:
+            final = base * lights.ambient
+        to_light = normalize(lights.light_p[k] - pos)
+        cosi = clamp01(inner(nrm, to_light))
+        half = normalize(to_light + view)
+        spec = pow16(clamp01(inner(nrm, half)))
+        final = (final + cosi[..., None] * (base * lights.light_intensity[k])
+                 + spec[..., None] * (white * lights.light_intensity[k]))
+    return clamp01(final)
+
+
+def shade(covered, gbuf, transform: ProjectiveTransform, lights: LightData,
+          cfg: ObjectConfig, texture=None, row0: int = 0, col0: int = 0):
+    """Deferred shading of a channel-first (11, H, W) G-buffer [z, rgba,
+    normal xyz, u/z, v/z, 1/z] (ops/shading.py:182) -> (rgba (H, W, 4),
+    covered). The texture replaces the interpolated colour on covered
+    pixels ('avx' also drops the pixels whose u or v leaves [0, 1] from
+    ``covered``); Phong shades the textured or vertex colour at the
+    unprojection of the global pixel coordinates (row0, col0: the local
+    rect's origin). Every division is of tensors on the G-buffer's
+    device."""
+    height, width = covered.shape
+    dev = gbuf.device
+    col = gbuf[1:5].permute(1, 2, 0)
+    if cfg.textured:
+        assert texture is not None, "a textured object needs its texture"
+        inv_oz = 1.0 / gbuf[10]
+        u = torch.where(covered, inv_oz * gbuf[8], 0.0)
+        v = torch.where(covered, inv_oz * gbuf[9], 0.0)
+        tex_rgba, tmask = sample_texture(texture, u, v, cfg.uv_mode,
+                                         cfg.filter_mode)
+        col = torch.where(covered[..., None], tex_rgba, col)
+        if cfg.uv_mode == "avx":
+            covered = covered & tmask
+    if not cfg.phong:
+        return col, covered
+    px = (torch.arange(width, dtype=F32, device=dev) + float(col0))[
+        None, :].expand(height, width)
+    py = (torch.arange(height, dtype=F32, device=dev) + float(row0))[
+        :, None].expand(height, width)
+    pos = unproject_vertices(px, py, gbuf[0], transform)
+    nrm = normalize(gbuf[5:8].permute(1, 2, 0))  # divergence #3
+    final = phong_shade(pos, nrm, col, lights)
+    return torch.where(covered[..., None], final, col), covered
 
 
 def _inner3_planes(a, b):
