@@ -35,11 +35,20 @@ Phases (any failure raises and the script exits nonzero):
      inside K9's launch with it), and on config 4's sphere at 1920x1080
      (16-row tiles); K8 (mask) on config 3 with 'avx' addressing and on
      config 1 at 512x512;
+   - K11 (the occlusion skip) on K3's and K2's routes, on the stacks of
+     models/route_scenes.py ZCULL_STACKS (six sphere layers at 640x640,
+     innermost first), bit-equal to its plain version and to the
+     non-culling K3 / K2 on the same operands, with as many batches
+     skipped as the plain replay of its decisions (``zcull_skips_plain``)
+     and more than none;
 4. card against CPU: each route's small scene (models/route_scenes.py,
    with and without side-list triangles, textured, the mask routes and
    the G-buffer routes, whose G-buffers are compared too) and a
    4,140-triangle sphere grid, rendered on the card and by the plain
-   versions on the CPU: bit-equal;
+   versions on the CPU: bit-equal; the Renderer's knobs the same way:
+   clear_color != 0 on the 51,200-triangle sphere at 512x512 (K1, K2),
+   Renderer.calibrate on the 4,140-triangle sphere (the same factor
+   applied), and backend="reference" on config 1 at 512x512;
 5. paths, each through Renderer(device="cuda") for 3 warm-up and 20 timed
    frames, every object rotated about y each frame, the launch counts set
    to 0 just before the path and read just after:
@@ -69,9 +78,16 @@ Phases (any failure raises and the script exits nonzero):
      that shape first, the last frame held to the scene's depth range,
      colours and alpha;
    - config 3 avx: config 3 with 'avx' addressing at 512x512: K7 and K8;
+   - stack6 zcull: bench.py's 2,007,372-triangle stack
+     (stack_scene(409, 409, 6)), innermost layer first, at 1920x1080
+     through Renderer(zcull=True): six K1 launches and one K11 per frame,
+     no K2; its first frame bit-equal to the same frame without zcull,
+     and K11 skipping batches on it (the probe counter);
+   - stack6: the same scene without zcull (K1 six times, K2), the A/B
+     partner;
    every frame must drop no entry and cover pixels, and the first frame
-   of each path since config 2 (but deferred 1M) must equal the CPU plain
-   run of it bit for bit;
+   of each path since config 2 (but deferred 1M and the stacks) must equal
+   the CPU plain run of it bit for bit;
 6. timings: median ms per frame (CUDA events) of each path, the headline's
    setup / binning / raster split (each stage alone between syncs), and
    each kernel at its path's shapes (the headline for K1 and K2, the
@@ -82,7 +98,10 @@ Phases (any failure raises and the script exits nonzero):
    on the textured 250k path beside K2's on the same mesh untextured, with
    ``grid_sample`` (bilinear, border) on the textured pixels as the library
    call; K8 on config 3 avx, K9 on deferred 1M, and K10 as K9's time on
-   deferred 1M beside K9's on the same sphere without the quad; the
+   deferred 1M beside K9's on the same sphere without the quad; K11 on
+   stack6 zcull's first frame beside K2 on the same operands, its bound
+   the launch's work scaled to the batches it folds, and on bench.py's
+   order of the stack (outermost first), where it skips nothing; the
    deferred shade's time on deferred 1M's frame, and the fused-against-
    deferred A/B: ms per frame of the textured 250k scene through the fused
    route (K2 with K5) and through the G-buffer path (K9, shade); each
@@ -162,6 +181,10 @@ KERNELS = {
         source="tpu_renderer_torch/csrc/raster.cu",
         replaces="tpu_renderer/ops/raster_pallas.py:2018",
         path="deferred 1M"),
+    "K11 zcull": dict(
+        source="tpu_renderer_torch/csrc/raster.cu",
+        replaces="tpu_renderer/ops/raster_pallas.py:2384",
+        path="stack6 zcull"),
 }
 # The wrapper whose launch counter a KERNELS entry reads: K1 textured is
 # K1's wrapper with uvs; K5 runs inside K2's launches on its path, K10
@@ -455,6 +478,7 @@ def main():
         ROUTE_NAMES,
         TEXTURED_NAMES,
         route_scene,
+        zcull_stack,
     )
     from tpu_renderer_torch.models.textures import checkerboard
     from tpu_renderer_torch.ops import gbuffer, raster, setup
@@ -472,6 +496,8 @@ def main():
         "K7 record transpose": raster.finish_records,
         "K8 G-buffer mask": gbuffer.raster_pass,
         "K9 G-buffer sorted": gbuffer.raster_pass_queue,
+        "K11 zcull": raster.raster_zcull_kernel,
+        "K11 zcull rows 1": raster.raster_rows1_zcull_kernel,
     }
 
     # 1. Device.
@@ -641,13 +667,42 @@ def main():
                       gbuffer_launch(obj_, cfg_, tr_, li_, 512, 512),
                       ("mask", 16))
 
+    # K11 on K3's and K2's routes: bit-equal to its plain version and to
+    # the non-culling kernel on the same operands, skipping exactly the
+    # batches the plain replay of its decisions skips, more than none.
+    for rows in (1, 2):
+        sc, tr, li, (h, w) = zcull_stack(rows, dev)
+        launch = prepare_scene(sc, tr, li, h, w, zcull=True)
+        if launch.kernel is not raster.ZCULL_KERNELS[(8, rows)]:
+            raise AssertionError(f"K11 stack rows {rows} took "
+                                 f"{launch.kernel.__name__}")
+        skipped = torch.zeros(1, dtype=torch.int32, device=dev)
+        out = launch.kernel(*launch.operands, skipped=skipped,
+                            **launch.options)
+        label = (f"the {rows}-stream stack, "
+                 f"{sum(o.num_triangles for o, _ in sc)} tris {w}x{h}")
+        max_err["K11 zcull"] = max(max_err["K11 zcull"], assert_equal(
+            f"K11 on {label}", out, launch.run_plain()))
+        assert_equal(f"K11 on {label} against the non-culling kernel", out,
+                     raster.RASTER_KERNELS[(8, rows)](*launch.operands,
+                                                      **launch.options))
+        want = raster.zcull_skips_plain(*launch.operands[:2], tile_h=8,
+                                        **launch.options)
+        if int(skipped) != want or want <= 0:
+            raise AssertionError(f"K11 on {label}: skipped {int(skipped)}, "
+                                 f"the plain replay {want}")
+        log(f"# K11 zcull == plain and == K{4 - rows} on {label}: "
+            f"bit-equal, {int(skipped)} batches skipped (plain replay "
+            f"{want})")
+
     # 4. Small scenes on the card against the plain versions on the CPU
     # (the CPU runs are what the tests hold to the JAX package and golden).
-    def card_vs_cpu(label, sg, h, w, min_cov=1):
+    def card_vs_cpu(label, sg, h, w, min_cov=1, **knobs):
         fbs = []
         for d in ("cpu", dev):
             sc, tr_, li_ = torch_scene(sg, h, w, d)
-            fbs.append(trt.Renderer(h, w, device=d).render(sc, tr_, li_))
+            fbs.append(trt.Renderer(h, w, device=d, **knobs).render(
+                sc, tr_, li_))
         torch.cuda.synchronize()
         cpu_fb, gpu_fb = fbs
         same_z, err_z = bit_diff(gpu_fb.depth.cpu(), cpu_fb.depth)
@@ -675,6 +730,28 @@ def main():
         sg, (h, w) = route_scene(name, variant)
         card_vs_cpu(f"route {name} ({variant})", sg, h, w, 100)
 
+    # The Renderer's knobs, card against CPU: a clear colour on K2's route,
+    # calibrate (the same factor, then its frame), the reference backend.
+    card_vs_cpu("51,200-tri sphere, clear_color 0xFF203040",
+                phong_mesh_scene(grid), 512, 512, 1000,
+                clear_color=0xFF203040)
+    factors = []
+    for d in ("cpu", dev):
+        sc, tr_, li_ = torch_scene(
+            phong_mesh_scene(prim.construct_sphere_grid(46, 45)), 128, 128,
+            d)
+        r = trt.Renderer(128, 128, device=d)
+        factors.append((r.calibrate(sc, tr_, li_), r.budget_factor))
+    if factors[0] != factors[1] or factors[0][0] is None:
+        raise AssertionError(f"calibrate: CPU {factors[0]}, card "
+                             f"{factors[1]}")
+    card_vs_cpu(f"4,140-tri sphere at the calibrated budget "
+                f"{factors[0][0]:.6f}",
+                phong_mesh_scene(prim.construct_sphere_grid(46, 45)), 128,
+                128, 2174, budget_factor=factors[0][0])
+    card_vs_cpu("config 1, backend='reference'", sg1, 512, 512, 1000,
+                backend="reference")
+
     # The G-buffers of the G-buffer route scenes, card against CPU.
     for name in GBUFFER_NAMES:
         sg, (h, w) = route_scene(name, "gbuffer")
@@ -692,12 +769,15 @@ def main():
             f"plain, bit-equal, {int(outs[0][0].sum())} px covered")
 
     # 5. Paths.
-    def drive(path, scene, tr, li, h, w, n_frames, kernels):
+    def drive(path, scene, tr, li, h, w, n_frames, kernels, per_frame=None,
+              **knobs):
         """Render n_frames of the scene, rotated a little each frame,
-        through Renderer on the card, the launch counts set to 0 just
-        before and read just after. Returns (ms per frame, stats and
-        covered px of the last frame, the last framebuffer, launches)."""
-        renderer = trt.Renderer(h, w, device=dev)
+        through Renderer(**knobs) on the card, the launch counts set to 0
+        just before and read just after: each of ``kernels`` launched
+        once a frame (or ``per_frame[name]`` times), the others never.
+        Returns (ms per frame, the last framebuffer, launches)."""
+        per_frame = per_frame or {}
+        renderer = trt.Renderer(h, w, device=dev, **knobs)
         angles = [0.6 * i / max(n_frames - 1, 1) for i in range(n_frames)]
         events, frame_stats = [], []
         for wrapper in wrappers.values():
@@ -715,7 +795,8 @@ def main():
                                 st.get("bins_real_entries", -1)))
         torch.cuda.synchronize()
         launches = {n: wr.launches for n, wr in wrappers.items()}
-        want = {n: (n_frames if n in kernels else 0) for n in wrappers}
+        want = {n: (n_frames * per_frame.get(n, 1) if n in kernels else 0)
+                for n in wrappers}
         if launches != want:
             raise AssertionError(f"{path}: launches {launches} in "
                                  f"{n_frames} frames, want {want}")
@@ -874,6 +955,36 @@ def main():
                              f"{checks_def}")
     log(f"# deferred 1M frame checks: {json.dumps(checks_def)}")
 
+    # The stack paths: bench.py's 2M-triangle stack, innermost layer
+    # first, with zcull (K11) and without (K2). Frame 0 with and without
+    # zcull bit-equal, and K11's skipped batches on it (the probe).
+    scene6, tr6, li6 = scenes.stack_scene(409, 409, 6, H, W, device=dev,
+                                          inner_first=True)
+    T6 = sum(o.num_triangles for o, _ in scene6)
+    assert T6 == 2_007_372, T6
+    fb6 = [trt.Renderer(H, W, device=dev, zcull=z).render(scene6, tr6, li6)
+           for z in (True, False)]
+    assert_equal("stack6 frame 0, zcull against none",
+                 (fb6[0].depth, fb6[0].color), (fb6[1].depth, fb6[1].color))
+    launch6 = prepare_scene(scene6, tr6, li6, H, W, zcull=True)
+    if launch6.kernel is not raster.raster_zcull_kernel:
+        raise AssertionError(f"stack6 took {launch6.kernel.__name__}")
+    skipped6 = torch.zeros(1, dtype=torch.int32, device=dev)
+    launch6.kernel(*launch6.operands, skipped=skipped6, **launch6.options)
+    counts6 = launch6.qbins.counts[:-2]
+    batches6 = int(((counts6 + 31) // 32).sum())  # 32 entries a batch
+    if int(skipped6) <= 0:
+        raise AssertionError("K11 skipped nothing on stack6")
+    log(f"# stack6 frame 0: zcull == none, bit-equal; K11 skipped "
+        f"{int(skipped6)} of {batches6} batches; "
+        f"{int((fb6[0].depth > -3.0e38).sum())} px covered")
+    path_ms["stack6 zcull"], _, path_launches["stack6 zcull"] = drive(
+        "stack6 zcull", scene6, tr6, li6, H, W, n_frames,
+        ("K1 setup", "K11 zcull"), per_frame={"K1 setup": 6}, zcull=True)
+    path_ms["stack6"], _, path_launches["stack6"] = drive(
+        "stack6", scene6, tr6, li6, H, W, n_frames,
+        ("K1 setup", "K2 raster+shade"), per_frame={"K1 setup": 6})
+
     # 6a. Split of the headline frame: rotate / setup / binning / raster.
     # Each stage runs alone between two syncs, so its CUDA-event time is
     # its host enqueue plus its device time; the stages sum to more than a
@@ -1030,6 +1141,41 @@ def main():
         f"{k9_ms:.4f} ms against K9 on the sphere alone {k9s_ms:.4f} ms, "
         f"bound {bms10:.6f} ms ({by10})")
 
+    # K11 on stack6 zcull's first frame: held bit-equal to its plain
+    # version, timed beside it and beside K2 on the same operands; its
+    # bound the launch's work with the entry part scaled to the batches
+    # it folds. Then on bench.py's order of the stack (outermost first).
+    k2_on = raster.RASTER_KERNELS[(8, 2)]
+    max_err["K11 zcull"] = max(max_err["K11 zcull"], assert_equal(
+        f"K11 zcull at stack6 {T6} tris {W}x{H}", launch6.run(),
+        launch6.run_plain()))
+    k11_ms, k11_plain = in_turns(launch6.run, launch6.run_plain)
+    k2_stack_ms = statistics.median([event_ms(lambda: k2_on(
+        *launch6.operands, **launch6.options), 20) for _ in range(2)])
+    _, gid6, _ = launch6.run()
+    nbytes6, ops6 = raster_work(launch6, gid6)
+    px_bytes6 = gid6.numel() * 12
+    folded = 1.0 - int(skipped6) / batches6
+    bms11, by11 = bound(px_bytes6 + (nbytes6 - px_bytes6) * folded,
+                        ops6 * folded)
+    timing["K11 zcull"] = (k11_ms, k11_plain, bms11, by11, None)
+    log(f"# K11 zcull at stack6 {T6} tris {W}x{H}: kernel {k11_ms:.4f} ms, "
+        f"plain {k11_plain:.4f} ms, K2 on the same operands "
+        f"{k2_stack_ms:.4f} ms, bound {bms11:.4f} ms ({by11}; "
+        f"{folded:.4f} of the batches folded), bit-equal")
+    scene6b, _, _ = scenes.stack_scene(409, 409, 6, H, W, device=dev)
+    launch6b = prepare_scene(scene6b, tr6, li6, H, W, zcull=True)
+    skipped6b = torch.zeros(1, dtype=torch.int32, device=dev)
+    launch6b.kernel(*launch6b.operands, skipped=skipped6b,
+                    **launch6b.options)
+    k11b_ms = statistics.median([event_ms(launch6b.run, 20)
+                                 for _ in range(2)])
+    k2b_ms = statistics.median([event_ms(lambda: k2_on(
+        *launch6b.operands, **launch6b.options), 20) for _ in range(2)])
+    log(f"# K11 zcull on bench.py's order of the stack (outermost first): "
+        f"{int(skipped6b)} batches skipped, kernel {k11b_ms:.4f} ms, K2 "
+        f"{k2b_ms:.4f} ms")
+
     # The deferred shade of deferred 1M's frame (torch ops, no kernel).
     gid_q, gbuf_q = launch_def.run()
     cov_q, gbuf_q = gid_q[:H, :W] >= 0, gbuf_q[:, :H, :W]
@@ -1086,8 +1232,11 @@ def main():
                 ("config 3", (scene3, tr3, li3, 512, 512)),
                 ("config 5", (scene5f, tr5f, li5f, H, W)),
                 ("config 3 avx", (scene3avx, tr3, li3, 512, 512)),
-                ("deferred 1M", (scene_def, tr_def, li_def, H, W))):
-            renderer = trt.Renderer(h, w, device=dev)
+                ("deferred 1M", (scene_def, tr_def, li_def, H, W)),
+                ("stack6 zcull", (scene6, tr6, li6, H, W)),
+                ("stack6", (scene6, tr6, li6, H, W))):
+            renderer = trt.Renderer(h, w, device=dev,
+                                    zcull=path == "stack6 zcull")
             profile_frames(
                 path, lambda a: renderer.render(rotated(sc, a, dev), tr_,
                                                 li_),
@@ -1107,6 +1256,13 @@ def main():
             entry["untextured_k2_ms"] = round(k2u_ms, 4)
         if name == "K10 G-buffer side list":
             entry["k9_without_side_list_ms"] = round(k9s_ms, 4)
+        if name == "K11 zcull":
+            entry.update(
+                skipped_batches=int(skipped6), batches=batches6,
+                k2_same_operands_ms=round(k2_stack_ms, 4),
+                bench_order_skipped_batches=int(skipped6b),
+                bench_order_ms=round(k11b_ms, 4),
+                bench_order_k2_ms=round(k2b_ms, 4))
         kernels.append(entry)
     log("# frames: " + json.dumps({
         "ms_per_frame": {k: round(v, 4) for k, v in path_ms.items()},

@@ -3,7 +3,10 @@ K1 (setup, untextured and textured), K2 / K3 / K4 (raster + shade of the
 sorted strategy, single and multi-object), K6 (the mask strategy), K5
 (texture sampling, inside each route's finalize), K7 (record
 transpose), K8 / K9 / K10 (raster into a G-buffer: mask, sorted, side
-list), and whole frames on the card against the CPU run.
+list), K11 (the occlusion skip on K2's and K3's routes), and whole
+frames on the card against the CPU run, with the Renderer's knobs
+(clear_color, capacity, budget_factor, calibrate, zcull) and the
+'reference' backend.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports no JAX, so it also runs on a machine that has only torch; there,
@@ -31,6 +34,7 @@ from tpu_renderer_torch.models.route_scenes import (
     ROUTE_NAMES,
     TEXTURED_NAMES,
     torch_scene,
+    zcull_stack,
 )
 from tpu_renderer_torch.models.textures import checkerboard
 
@@ -374,3 +378,104 @@ def test_gbuffer_frame_on_card_equals_cpu(cuda, name):
     np.testing.assert_array_equal(gpu.color.view(torch.int32).cpu().numpy(),
                                   cpu.color.view(torch.int32).numpy())
     assert int((cpu.depth > -3.0e38).sum()) > 1000
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+def test_zcull_kernel_equals_plain_and_unculled(cuda, rows):
+    """K11 on K3's (rows 1) and K2's (rows 2) route: z, gid and colour
+    bit-equal to the plain version and to the non-culling kernel on the
+    same operands; the kernel skips exactly the batches the plain replay
+    of its decisions skips (``zcull_skips_plain``), more than none; the
+    launch counts on K11's wrapper only."""
+    from tpu_renderer_torch.engine.renderer import prepare_scene
+
+    scene, tr, li, (h, w) = zcull_stack(rows, cuda)
+    launch = prepare_scene(scene, tr, li, h, w, zcull=True)
+    wrapper, unculled = (trp.ZCULL_KERNELS[(8, rows)],
+                         trp.RASTER_KERNELS[(8, rows)])
+    assert launch.kernel is wrapper
+    skipped = torch.zeros(1, dtype=torch.int32, device=cuda)
+    n0, m0 = wrapper.launches, unculled.launches
+    out_k = launch.kernel(*launch.operands, skipped=skipped,
+                          **launch.options)
+    assert (wrapper.launches, unculled.launches) == (n0 + 1, m0)
+    out_u = unculled(*launch.operands, **launch.options)
+    out_p = launch.run_plain()
+    torch.cuda.synchronize()
+    for a, b, c in zip(out_k, out_u, out_p):
+        assert torch.equal(bits(a), bits(b))
+        assert torch.equal(bits(a), bits(c))
+    assert int(skipped) == trp.zcull_skips_plain(
+        *launch.operands[:2], tile_h=8, **launch.options) > 0
+    assert int(launch.stats()["bins_dropped"]) == 0
+    assert int((out_k[1] >= 0).sum()) > 20000
+
+
+def test_zcull_renderer_launches(cuda):
+    """Renderer(zcull=False) launches K2 and not K11; zcull=True launches
+    K11 and not K2; the two frames are bit-equal."""
+    scene, tr, li, (h, w) = zcull_stack(2, cuda)
+    fbs = []
+    for zcull in (False, True):
+        n2, n11 = trp.raster_kernel.launches, trp.raster_zcull_kernel.launches
+        fbs.append(trt.Renderer(h, w, device=cuda, zcull=zcull).render(
+            scene, tr, li))
+        torch.cuda.synchronize()
+        assert (trp.raster_kernel.launches - n2,
+                trp.raster_zcull_kernel.launches - n11) == (
+                    (0, 1) if zcull else (1, 0))
+    assert torch.equal(bits(fbs[0].depth), bits(fbs[1].depth))
+    assert torch.equal(bits(fbs[0].color), bits(fbs[1].color))
+
+
+def frames_card_and_cpu(make_scene, **knobs):
+    """(CPU frame and stats, card frame and stats) of Renderer(**knobs)."""
+    out = []
+    for dev in ("cpu", torch.device("cuda")):
+        scene, tr, li, (h, w) = make_scene(dev)
+        out.append(trt.Renderer(h, w, device=dev, **knobs).render(
+            scene, tr, li, with_stats=True))
+    torch.cuda.synchronize()
+    return out
+
+
+def assert_same_frames(cpu, gpu):
+    (cfb, cst), (gfb, gst) = cpu, gpu
+    np.testing.assert_array_equal(gfb.depth.cpu().numpy(), cfb.depth.numpy())
+    np.testing.assert_array_equal(gfb.color.view(torch.int32).cpu().numpy(),
+                                  cfb.color.view(torch.int32).numpy())
+    assert sorted(gst) == sorted(cst)
+    for key in cst:
+        assert float(gst[key]) == float(cst[key]), key
+
+
+@pytest.mark.parametrize("name, variant, knobs", [
+    ("k2multi", "textured", dict(clear_color=0xFF203040)),
+    ("k3", "gbuffer", dict(clear_color=0xFF203040)),
+    ("k3", "base", dict(clear_color=0xFF203040, zcull=True)),
+    ("k3", "base", dict(budget_factor=0.25)),
+    ("k3", "gbuffer", dict(budget_factor=0.5)),
+    ("k6", "base", dict(capacity=8)),
+    ("k4", "base", dict(zcull=True)),
+    ("k6", "gbuffer", dict(zcull=True)),
+    ("k6", "textured", dict(backend="reference")),
+    ("k4multi", "base", dict(backend="reference")),
+])
+def test_knobs_on_card_equal_cpu(cuda, name, variant, knobs):
+    """The Renderer's knobs and the 'reference' backend on the card give
+    the CPU run's frame and stats bit for bit."""
+    cpu, gpu = frames_card_and_cpu(
+        lambda dev: torch_scene(name, variant, dev), **knobs)
+    assert_same_frames(cpu, gpu)
+    assert int((cpu[0].depth > -3.0e38).sum()) > 1000
+
+
+def test_calibrate_on_card_equals_cpu(cuda):
+    """Renderer.calibrate on the card applies the CPU run's factor."""
+    got = []
+    for dev in ("cpu", cuda):
+        sc, tr, li = scene("sphere", 128, 128, dev)
+        r = trt.Renderer(128, 128, device=dev)
+        got.append((r.calibrate(sc, tr, li), r.budget_factor))
+    assert got[0] == got[1]
+    assert got[0][0] is not None

@@ -85,7 +85,7 @@ def test_rotation_and_rotate_object(angle):
     gives the same vertices out, except where XLA's CPU backend contracts
     a + b * c into an FMA (golden divergence #8): rtol 1e-6."""
     rj = np.asarray(jtf.rotation_y(angle))
-    rt = ttf.rotation_y(angle).numpy()
+    rt = ttf.rotation_y(angle, device="cpu").numpy()
     np.testing.assert_allclose(rt, rj, rtol=2e-7, atol=1e-7)
 
     rng = np.random.default_rng(11)

@@ -245,12 +245,13 @@ def test_subrect_origin_equals_full_frame():
 
 
 def test_routes_outside_the_slice_raise():
-    """Only zcull still raises. Textured objects the fused path cannot
-    take ('avx' addressing, a texture over the atlas limits) render
-    through the G-buffer path, alone and two at a time (object by
-    object); an unknown filter raises ValueError in the deferred shade,
-    as in the JAX package; rows 1 (K3), textures (K5) and the mask
-    strategy (K6, T <= 512) render."""
+    """No route raises now: zcull (K11) renders the frame it renders
+    without the flag. Textured objects the fused path cannot take ('avx'
+    addressing, a texture over the atlas limits) render through the
+    G-buffer path, alone and two at a time (object by object); an unknown
+    filter raises ValueError in the deferred shade, as in the JAX package;
+    rows 1 (K3), textures (K5) and the mask strategy (K6, T <= 512)
+    render."""
     tr_d, li_d = ts.baseline_camera_lights(H, W)
     mesh = tp.construct_sphere_grid(46, 45)
     tex = np.full((8, 8), 0xFF808080, np.uint32)
@@ -281,8 +282,10 @@ def test_routes_outside_the_slice_raise():
     obj, cfg = scene_t[0]
     pre = tsp.setup_for_raster(obj, tr, li, cfg, frame_height=H,
                                frame_width=W)
-    with pytest.raises(NotImplementedError, match="zcull"):
-        trp.rasterize_shaded(pre, tr, li, True, H, W, zcull=True)
+    plain = trp.rasterize_shaded(pre, tr, li, True, H, W)
+    culled = trp.rasterize_shaded(pre, tr, li, True, H, W, zcull=True)
+    for a, b in zip(plain[:3], culled[:3]):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert trp.raster_route(trp.AUTO_SORTED_THRESHOLD, H, W).strategy == (
         "mask")
     small = [(dict(p=(0.0, 0.0, 0.0), **tp.construct_cube()), {})]

@@ -16,8 +16,10 @@ K5 samples textures in the raster kernels' finalize. Textured objects the
 fused path cannot take (``uv_mode='avx'``, textures over the atlas limits)
 take the G-buffer path: K8 (mask) or K9 with the side-list fold K10
 (sorted) rasterize into an (11, H, W) G-buffer, and the deferred
-``shade`` samples, lights and packs it. Only zcull (K11) raises
-NotImplementedError.
+``shade`` samples, lights and packs it. K11, the occlusion skip, is K2
+and K3 with a per-batch cull (``Renderer(zcull=True)``). The Renderer
+takes the JAX package's knobs (backend 'kernels' or 'reference',
+clear_color, capacity, budget_factor and calibrate, zcull).
 
 Quick start (entry points run on the card and raise without one unless
 given ``device="cpu"``):
@@ -38,8 +40,14 @@ from .core.types import (
     make_lights,
     make_object,
     make_transform,
+    no_lights,
 )
-from .engine.renderer import Renderer, render_object, render_scene
+from .engine.renderer import (
+    Renderer,
+    calibrate_budget_factor,
+    render_object,
+    render_scene,
+)
 
 __all__ = [
     "DEPTH_CLEAR",
@@ -49,10 +57,12 @@ __all__ = [
     "ProjectiveTransform",
     "RenderObject",
     "Renderer",
+    "calibrate_budget_factor",
     "make_framebuffer",
     "make_lights",
     "make_object",
     "make_transform",
+    "no_lights",
     "render_object",
     "render_scene",
 ]

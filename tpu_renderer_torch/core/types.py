@@ -92,6 +92,18 @@ def make_lights(ambient, positions, intensities,
     )
 
 
+def no_lights(device="cuda") -> LightData:
+    """Zero lights: ambient never applied (the reference's per-light loop
+    multiplies ambient only on light index 0, so 0 lights => raw
+    colours)."""
+    device = resolve_device(device)
+    return LightData(
+        ambient=torch.ones((4,), dtype=F32, device=device),
+        light_p=torch.zeros((0, 3), dtype=F32, device=device),
+        light_intensity=torch.zeros((0, 4), dtype=F32, device=device),
+    )
+
+
 class RenderObject(NamedTuple):
     """One model: triangle soup + per-vertex attributes (+ optional texture).
 
@@ -135,6 +147,16 @@ def make_object(p, vertices, colors, normals, uvs, texture=None,
         uvs=_to_channel_major(uvs, 2, device),
         texture=tex,
     )
+
+
+def classic_arrays(obj: RenderObject) -> dict:
+    """The object's soup back in classic (V, C) vertex-major NumPy form
+    (serialization, goldens, debugging)."""
+    out = {}
+    for name in ("vertices", "colors", "normals", "uvs"):
+        a = getattr(obj, name).cpu().numpy()
+        out[name] = a.transpose(2, 1, 0).reshape(-1, a.shape[0])
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,6 @@
 // K2, K3, K4, K6: fused raster + shade, and K5, the texture sampler of
-// their finalize; K8, K9, K10: raster into a G-buffer.
+// their finalize; K8, K9, K10: raster into a G-buffer; K11: the occlusion
+// skip of K2 and K3.
 //
 // Replaces the Pallas kernels _raster_kernel_queue_shaded
 // (tpu_renderer/ops/raster_pallas.py:2192, launched at :2777) on its three
@@ -20,7 +21,13 @@
 //                     G-buffer finalize. The TPU ran K10 as a second grid
 //                     and merged the two G-buffers by (z desc, gid asc); the
 //                     fold applies that rule itself, so neither the second
-//                     (11, H, W) buffer nor the merge pass exists here.
+//                     (11, H, W) buffer nor the merge pass exists here;
+//   tr_raster_zcull, tr_raster_rows1_zcull
+//                     K11: K2 and K3 with the zcull branch (zcull and wide,
+//                     :2384-2394, bound _spanex_block_zmax :2151): a batch
+//                     that cannot win a pixel skips its fold
+//                     (batch_occluded). Output-exact; a batch's bound and
+//                     min cost one more barrier and two shuffle reductions.
 // Each runs stage-A span setup (_stage_a_fill :1120, which has the same
 // span formulas in the same op order as the narrow _chunk_best: the narrow
 // form masks entries through span_ok in the coverage test, the wide one
@@ -216,15 +223,74 @@ __device__ __forceinline__ void stage_a(const float* rec, float yf, float w_f,
   sh.gid[p] = to_i32(rec[kGidLane]);
 }
 
+// K11: can no pair of this batch win a pixel? Replaces the zcull branch of
+// _raster_kernel_queue_shaded (raster_pallas.py:2384-2394) and its bound
+// _spanex_block_zmax (:2151). zmax is the max over the batch's (entry,
+// row) pairs of z at the span's ends minx and maxx, by the fold's own
+// formula (z is linear in k and f32 rounding is monotone, so no pixel of
+// the span lies above its ends); rows without a span (maxx = -BIG) are left
+// out, and a NaN end counts as +inf, which never culls. tile_minz is the
+// min of the winners' z over the rows the batch folds: a stream's entries
+// touch only its strip's rows, and K2 walks stream 0 to its end before
+// stream 1, so a whole-tile min would stay DEPTH_CLEAR through stream 0.
+// When zmax + |zmax| * 1e-6 < tile_minz every fragment of the batch is
+// below every winner of its rows and loses the strict '>' test, so skipping
+// the fold changes no output. The reduction is block-wide (warp shuffles,
+// one shared slot per warp) and every thread returns the same answer.
+template <int TILE_H, int NROWS>
+__device__ __forceinline__ bool batch_occluded(const Shared& sh,
+                                               const Winners<TILE_H>& win,
+                                               int row_lo) {
+  constexpr int kWarps = kThreads / 32;
+  __shared__ float red[2][kWarps];
+  const float inf = __int_as_float(0x7f800000);
+  const int p = threadIdx.x;
+  const float minx = sh.span[Q_MINX][p], maxx = sh.span[Q_MAXX][p];
+  float zmax = -kBig;
+  if (maxx != -kBig) {
+    const float xoff = sh.span[Q_XOFF][p], zl = sh.span[Q_ZL][p];
+    const float zinc = sh.span[Q_ZINC][p];
+    const float z_lo = zl + (xoff + (minx - minx)) * zinc;
+    const float z_hi = zl + (xoff + (maxx - minx)) * zinc;
+    zmax = max_ieee(z_lo, z_hi);
+    if (is_nan(zmax)) zmax = inf;
+  }
+  float zmin = inf;
+#pragma unroll
+  for (int r = 0; r < TILE_H; ++r)
+    if (r >= row_lo && r < row_lo + NROWS) zmin = fminf(zmin, win.z[r]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    zmax = fmaxf(zmax, __shfl_xor_sync(0xffffffffu, zmax, o));
+    zmin = fminf(zmin, __shfl_xor_sync(0xffffffffu, zmin, o));
+  }
+  if ((p & 31) == 0) {
+    red[0][p >> 5] = zmax;
+    red[1][p >> 5] = zmin;
+  }
+  __syncthreads();
+  zmax = red[0][0];
+  zmin = red[1][0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) {
+    zmax = fmaxf(zmax, red[0][w]);
+    zmin = fminf(zmin, red[1][w]);
+  }
+  return zmax + fabsf(zmax) * 1e-6f < zmin;
+}
+
 // Stage the records ids[0..ne), run stage A on their (entry, row) pairs for
 // tile rows [row_lo, row_lo + NROWS), and fold the pairs into the winners
-// of this thread's column. ne * NROWS <= kThreads.
-template <int TILE_H, int NROWS>
+// of this thread's column. ne * NROWS <= kThreads. With CULL (K11) a batch
+// that cannot win a pixel (batch_occluded) skips its fold and, when
+// ``skipped`` is not null, adds one to it.
+template <int TILE_H, int NROWS, bool CULL = false>
 __device__ __forceinline__ void fold_batch(const float* __restrict__ recs,
                                            const int* __restrict__ ids, int ne,
                                            int row_lo, int row_base, float w_f,
                                            float xc, Shared& sh,
-                                           Winners<TILE_H>& win) {
+                                           Winners<TILE_H>& win,
+                                           int* skipped = nullptr) {
   static_assert(kThreads / NROWS <= kMaxBatch, "batch exceeds shared rows");
   constexpr int kPer = kRecLoad / 4;
   __syncthreads();  // the previous batch has been folded
@@ -246,6 +312,12 @@ __device__ __forceinline__ void fold_batch(const float* __restrict__ recs,
     }
   }
   __syncthreads();
+  if constexpr (CULL) {
+    if (batch_occluded<TILE_H, NROWS>(sh, win, row_lo)) {
+      if (threadIdx.x == 0 && skipped != nullptr) atomicAdd(skipped, 1);
+      return;
+    }
+  }
 #pragma unroll
   for (int r = 0; r < TILE_H; ++r) {
     if (r < row_lo || r >= row_lo + NROWS) continue;
@@ -536,19 +608,16 @@ __device__ __forceinline__ void write_tile(const Finalize& f,
     finalize_tile(f, win, ty, tx, row_base, xc);
 }
 
-// K2 / K3 / K4 (shaded) and K9 (G-buffer, STREAMS 1): the sorted
-// strategy's streams and side list. The side-list fold is K10: on the TPU
-// a second kernel over every tile plus an XLA merge by (z desc, gid asc)
-// (_merge_gbuf_by_gid, :2954); here the block that owns the tile folds the
-// list into the same winners under that rule.
-template <int TILE_H, int STREAMS, bool GBUF>
-__global__ void __launch_bounds__(kThreads) raster_kernel(
+// One tile of the sorted strategy: its streams, its side list, its
+// outputs. ZCULL (K11) culls the stream batches (batch_occluded), never
+// the side list, as the TPU kernel never culled its side-list fold.
+template <int TILE_H, int STREAMS, bool GBUF, bool ZCULL>
+__device__ __forceinline__ void raster_tile(
     const int* __restrict__ sorted_tri, const int* __restrict__ starts,
     const int* __restrict__ counts, const int* __restrict__ large_ids,
     const int* __restrict__ n_large, const int* __restrict__ lcounts,
-    Finalize f) {
+    const Finalize& f, Shared& sh, int* skipped) {
   constexpr int kStrip = TILE_H / STREAMS;  // rows each stream covers
-  __shared__ __align__(16) Shared sh;
   const int tile = blockIdx.x;
   const int ty = tile / f.tiles_x, tx = tile - ty * f.tiles_x;
   const int row_base = f.row0 + ty * TILE_H;
@@ -562,9 +631,10 @@ __global__ void __launch_bounds__(kThreads) raster_kernel(
     constexpr int kBatch = kThreads / kStrip;
     const int s = starts[STREAMS * tile + h], n = counts[STREAMS * tile + h];
     for (int b0 = 0; b0 < n; b0 += kBatch)
-      fold_batch<TILE_H, kStrip>(f.recs, sorted_tri + s + b0,
-                                 min(kBatch, n - b0), h * kStrip, row_base,
-                                 f.w_f, xc, sh, win);
+      fold_batch<TILE_H, kStrip, ZCULL>(f.recs, sorted_tri + s + b0,
+                                        min(kBatch, n - b0), h * kStrip,
+                                        row_base, f.w_f, xc, sh, win,
+                                        skipped);
   }
   // The large-triangle side list, over all rows, where its bboxes reach.
   if (lcounts[tile] > 0) {
@@ -575,6 +645,36 @@ __global__ void __launch_bounds__(kThreads) raster_kernel(
                                  0, row_base, f.w_f, xc, sh, win);
   }
   write_tile<TILE_H, GBUF>(f, win, ty, tx, row_base, xc);
+}
+
+// K2 / K3 / K4 (shaded) and K9 (G-buffer, STREAMS 1): the sorted
+// strategy's streams and side list. The side-list fold is K10: on the TPU
+// a second kernel over every tile plus an XLA merge by (z desc, gid asc)
+// (_merge_gbuf_by_gid, :2954); here the block that owns the tile folds the
+// list into the same winners under that rule.
+template <int TILE_H, int STREAMS, bool GBUF>
+__global__ void __launch_bounds__(kThreads) raster_kernel(
+    const int* __restrict__ sorted_tri, const int* __restrict__ starts,
+    const int* __restrict__ counts, const int* __restrict__ large_ids,
+    const int* __restrict__ n_large, const int* __restrict__ lcounts,
+    Finalize f) {
+  __shared__ __align__(16) Shared sh;
+  raster_tile<TILE_H, STREAMS, GBUF, false>(sorted_tri, starts, counts,
+                                            large_ids, n_large, lcounts, f,
+                                            sh, nullptr);
+}
+
+// K11: K2 (STREAMS 2) or K3 (STREAMS 1) with the occlusion skip; counts
+// the skipped batches in ``skipped`` when it is not null.
+template <int STREAMS>
+__global__ void __launch_bounds__(kThreads) raster_zcull_kernel(
+    const int* __restrict__ sorted_tri, const int* __restrict__ starts,
+    const int* __restrict__ counts, const int* __restrict__ large_ids,
+    const int* __restrict__ n_large, const int* __restrict__ lcounts,
+    Finalize f, int* skipped) {
+  __shared__ __align__(16) Shared sh;
+  raster_tile<8, STREAMS, false, true>(sorted_tri, starts, counts, large_ids,
+                                       n_large, lcounts, f, sh, skipped);
 }
 
 // K6 (shaded) and K8 (G-buffer): the mask strategy. Tile t's triangles are
@@ -665,6 +765,33 @@ Finalize make_gbuffer(const float* recs, int tile_h, int tiles_y, int tiles_x,
 TR_RASTER_ENTRY(tr_raster, 8, 2)         // K2
 TR_RASTER_ENTRY(tr_raster_rows1, 8, 1)   // K3
 TR_RASTER_ENTRY(tr_raster_narrow, 16, 1) // K4
+
+// K11 on K2's and K3's routes: the same operands as K2's entry, and
+// ``skipped`` (null, or one int the kernel adds its skipped batches to).
+#define TR_RASTER_ZCULL_ENTRY(NAME, STREAMS)                                   \
+  extern "C" int NAME(const float* recs, const int* sorted_tri,                \
+                      const int* starts, const int* counts,                    \
+                      const int* large_ids, const int* n_large,                \
+                      const int* lcounts, const float* params,                 \
+                      const int* objs, const int* texs,                        \
+                      const unsigned* atlas, int n_obj, int n_lights, int aw,  \
+                      int tiles_y, int tiles_x, int row0, int col0,            \
+                      int frame_w, float* z, int* gid, unsigned* color,        \
+                      int* skipped, void* stream) {                            \
+    if (n_obj < 1 || tiles_y < 1 || tiles_x < 1) return 1;                     \
+    tr::raster_zcull_kernel<STREAMS>                                           \
+        <<<tiles_y * tiles_x, tr::kThreads, 0,                                 \
+           static_cast<cudaStream_t>(stream)>>>(                               \
+            sorted_tri, starts, counts, large_ids, n_large, lcounts,           \
+            tr::make_finalize(recs, params, objs, texs, atlas, aw, n_obj,      \
+                              n_lights, tiles_x, row0, col0, frame_w, z, gid,  \
+                              color),                                          \
+            skipped);                                                          \
+    return static_cast<int>(cudaGetLastError());                               \
+  }
+
+TR_RASTER_ZCULL_ENTRY(tr_raster_zcull, 2)        // K11 on K2's route
+TR_RASTER_ZCULL_ENTRY(tr_raster_rows1_zcull, 1)  // K11 on K3's route
 
 // K6, 8- or 16-row tiles.
 extern "C" int tr_raster_mask(const float* recs, const int* ids,

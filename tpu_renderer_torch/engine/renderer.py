@@ -19,6 +19,12 @@ PyTorch counterpart of ``tpu_renderer.engine.renderer``, both branches of
   samples, shades and packs it, and the strict '>' merge lays it over the
   frame. A scene that holds such an object draws object by object.
 
+``backend`` names the draw path: 'kernels' (the default, the JAX
+package's 'pallas') is the two branches above; 'reference' (the JAX
+package's default) is the pure-tensor oracle: ``setup_triangles`` ->
+``ops.raster_reference.rasterize_reference`` -> ``shade`` -> pack ->
+merge, object by object, O(T * H * W).
+
 The device of the scene's tensors picks the implementation: CUDA tensors
 launch the kernels, CPU tensors run their plain versions. PyTorch runs
 eagerly, so nothing is compiled per scene signature.
@@ -26,7 +32,7 @@ eagerly, so nothing is compiled per scene signature.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -40,7 +46,7 @@ from ..core.types import (
     resolve_device,
 )
 from ..core.math import pack_argb
-from ..geometry.vertex import setup_records
+from ..geometry.vertex import setup_records, setup_triangles
 from ..ops.binning import triangle_bbox_rows
 from ..ops.gbuffer import rasterize_gbuffer
 from ..ops.raster import (
@@ -52,10 +58,12 @@ from ..ops.raster import (
     run_shaded,
     texture_fits_fused,
 )
+from ..ops.raster_reference import rasterize_reference
 from ..ops.setup import FUSED_SETUP_MIN, SetupOut, setup_for_raster
 from ..ops.shading import shade
 
 _OBJ_PAD = 128  # each object's table pads its triangle axis to this
+BACKENDS = ("kernels", "reference")
 
 
 def _merge_into(framebuffer: Framebuffer | None, covered, z, packed):
@@ -200,7 +208,10 @@ def _scene_table(scene, transform: ProjectiveTransform, lights: LightData,
 def prepare_scene(scene: Sequence[Tuple[RenderObject, ObjectConfig]],
                   transform: ProjectiveTransform, lights: LightData,
                   height: int, width: int, frame_height: int | None = None,
-                  frame_width: int | None = None) -> RasterLaunch:
+                  frame_width: int | None = None,
+                  capacity: int | None = None,
+                  budget_override: float | None = None,
+                  zcull: bool = False) -> RasterLaunch:
     """The one raster launch that draws ``scene`` into a (height, width)
     rect of a (frame_height, frame_width) frame: its route, kernel and
     operands, with the setup already run (FillEdgeTable, SURVEY.md §1.1).
@@ -208,7 +219,9 @@ def prepare_scene(scene: Sequence[Tuple[RenderObject, ObjectConfig]],
     channel-major table of setup_records) and its texture as the atlas;
     several objects take one scene-global table and atlas
     (``_scene_table``). Every object must be fusable (``_obj_fusable``);
-    the others take the G-buffer path of ``render_object``."""
+    the others take the G-buffer path of ``render_object``. ``capacity``,
+    ``budget_override`` and ``zcull`` go to ``ops.raster.prepare_raster``
+    (zcull: K11 on 8-row tiles, nothing elsewhere)."""
     assert all(_obj_fusable(obj, cfg) for obj, cfg in scene), (
         "prepare_scene is the fused launch; this scene holds an object "
         "for the G-buffer path")
@@ -228,21 +241,24 @@ def prepare_scene(scene: Sequence[Tuple[RenderObject, ObjectConfig]],
         table, objspecs, atlas = _scene_table(scene, transform, lights,
                                               frame_height, frame_width)
     return prepare_raster(table, objspecs, transform, lights, height, width,
-                          frame_height, frame_width, atlas=atlas)
+                          frame_height, frame_width, atlas=atlas,
+                          capacity=capacity, budget_override=budget_override,
+                          zcull=zcull)
 
 
 def _draw(framebuffer: Framebuffer | None, scene,
           transform: ProjectiveTransform, lights: LightData,
           frame_height: int | None, frame_width: int | None,
-          stats: dict | None) -> Framebuffer:
-    """Draw the scene in one raster launch (``prepare_scene``), as a fresh
-    frame or merged over ``framebuffer``."""
+          stats: dict | None, **knobs) -> Framebuffer:
+    """Draw the scene in one raster launch (``prepare_scene``, which takes
+    the ``knobs`` capacity, budget_override and zcull), as a fresh frame or
+    merged over ``framebuffer``."""
     if framebuffer is None:
         height, width = frame_height, frame_width
     else:
         height, width = framebuffer.height, framebuffer.width
     launch = prepare_scene(scene, transform, lights, height, width,
-                           frame_height, frame_width)
+                           frame_height, frame_width, **knobs)
     covered, z, packed, rstats = run_shaded(launch, height, width)
     _merge_stats(stats, rstats)
     return _merge_into(framebuffer, covered, z, packed)
@@ -251,26 +267,36 @@ def _draw(framebuffer: Framebuffer | None, scene,
 def _draw_deferred(framebuffer: Framebuffer | None, obj: RenderObject,
                    transform: ProjectiveTransform, lights: LightData,
                    cfg: ObjectConfig, frame_height: int | None,
-                   frame_width: int | None,
-                   stats: dict | None) -> Framebuffer:
-    """render_object's G-buffer branch (renderer.py:167-198): setup,
-    ``rasterize_gbuffer``, ``shade``, ``pack_argb``, then the strict '>'
-    merge of the covered pixels over ``framebuffer`` (a fresh zero-cleared
-    frame on the object's device when None: 'avx' narrows the coverage
-    after shading, so the G-buffer cannot stand for the frame)."""
+                   frame_width: int | None, stats: dict | None,
+                   backend: str = "kernels", capacity: int | None = None,
+                   budget_override: float | None = None) -> Framebuffer:
+    """render_object's deferred branch (renderer.py:167-198): a G-buffer,
+    ``shade``, ``pack_argb``, then the strict '>' merge of the covered
+    pixels over ``framebuffer`` (a fresh zero-cleared frame on the
+    object's device when None: 'avx' narrows the coverage after shading,
+    so the G-buffer cannot stand for the frame). The G-buffer comes from
+    setup_for_raster + ``rasterize_gbuffer`` (K8, or K9 with K10; with
+    ``capacity`` and ``budget_override``; no zcull, as in the JAX package)
+    or, on the 'reference' backend, from ``setup_triangles`` +
+    ``rasterize_reference``."""
     if framebuffer is None:
         framebuffer = make_framebuffer(frame_height, frame_width,
                                        device=obj.vertices.device)
     height, width = framebuffer.height, framebuffer.width
     frame_height = height if frame_height is None else frame_height
     frame_width = width if frame_width is None else frame_width
-    table = setup_for_raster(obj, transform, lights, cfg,
-                             frame_height=frame_height,
-                             frame_width=frame_width)
-    covered, gbuf, rstats = rasterize_gbuffer(
-        table, height, width, frame_height=frame_height,
-        frame_width=frame_width)
-    _merge_stats(stats, rstats)
+    if backend == "reference":
+        covered, gbuf = rasterize_reference(
+            setup_triangles(obj, transform, lights, cfg), height, width,
+            frame_width)
+    else:
+        table = setup_for_raster(obj, transform, lights, cfg,
+                                 frame_height=frame_height,
+                                 frame_width=frame_width)
+        covered, gbuf, rstats = rasterize_gbuffer(
+            table, height, width, capacity, frame_height=frame_height,
+            frame_width=frame_width, budget_override=budget_override)
+        _merge_stats(stats, rstats)
     rgba, covered = shade(covered, gbuf, transform, lights, cfg, obj.texture)
     return _merge_into(framebuffer, covered, gbuf[0], pack_argb(rgba))
 
@@ -279,23 +305,35 @@ def render_object(framebuffer: Framebuffer | None, obj: RenderObject,
                   transform: ProjectiveTransform, lights: LightData,
                   cfg: ObjectConfig, frame_height: int | None = None,
                   frame_width: int | None = None,
-                  stats: dict | None = None) -> Framebuffer:
-    """Draw one object (FillEdgeTable + DrawModel, SURVEY.md §1.1): the
-    fused launch when the object is fusable, else the G-buffer path
-    (``_draw_deferred``).
+                  stats: dict | None = None, *, backend: str = "kernels",
+                  capacity: int | None = None,
+                  budget_override: float | None = None,
+                  zcull: bool = False) -> Framebuffer:
+    """Draw one object (FillEdgeTable + DrawModel, SURVEY.md §1.1). On the
+    'kernels' backend: the fused launch when the object is fusable, else
+    the G-buffer path (``_draw_deferred``); on 'reference', the reference
+    rasterizer and the deferred shade.
 
     ``framebuffer=None`` is a fresh zero-cleared frame of (frame_height,
     frame_width): on the fused path the raster outputs already carry the
     clear values on uncovered pixels and are returned as they are.
     Otherwise the object merges over the framebuffer with the strict '>'
-    depth test."""
+    depth test. ``capacity`` is the mask strategy's per-tile list length,
+    ``budget_override`` the sorted strategy's budget factor (both in
+    ``stats``' terms: drops are counted); ``zcull`` launches K11 on the
+    fused 8-row routes and does nothing on K4, K6, the G-buffer path
+    (renderer.py:182-185 never passes it there) and 'reference'."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend: {backend}")
     if framebuffer is None and (frame_height is None or frame_width is None):
         raise ValueError("a fresh frame (framebuffer=None) needs frame dims")
-    if not _obj_fusable(obj, cfg):
+    if backend == "reference" or not _obj_fusable(obj, cfg):
         return _draw_deferred(framebuffer, obj, transform, lights, cfg,
-                              frame_height, frame_width, stats)
+                              frame_height, frame_width, stats, backend,
+                              capacity, budget_override)
     return _draw(framebuffer, [(obj, cfg)], transform, lights, frame_height,
-                 frame_width, stats)
+                 frame_width, stats, capacity=capacity,
+                 budget_override=budget_override, zcull=zcull)
 
 
 def render_scene(framebuffer: Framebuffer | None,
@@ -303,23 +341,31 @@ def render_scene(framebuffer: Framebuffer | None,
                  transform: ProjectiveTransform, lights: LightData,
                  frame_height: int | None = None,
                  frame_width: int | None = None,
-                 stats: dict | None = None) -> Framebuffer:
+                 stats: dict | None = None, *, backend: str = "kernels",
+                 capacity: int | None = None,
+                 budget_override: float | None = None,
+                 zcull: bool = False) -> Framebuffer:
     """Draw a list of objects in submission order over one z-buffer
-    (renderer.py:351): a scene of several fusable objects whose atlas fits
-    renders in one raster launch (prepare_scene), otherwise objects draw
-    one after another (fused or G-buffer each); both give the same frame.
-    ``framebuffer=None`` is a fresh (frame_height, frame_width) frame."""
+    (renderer.py:351): on the 'kernels' backend a scene of several
+    fusable objects whose atlas fits renders in one raster launch
+    (prepare_scene), otherwise objects draw one after another (fused,
+    G-buffer or reference each); both give the same frame.
+    ``framebuffer=None`` is a fresh (frame_height, frame_width) frame; the
+    knobs are ``render_object``'s."""
     if framebuffer is None and (frame_height is None or frame_width is None):
         raise ValueError("render_scene(framebuffer=None) needs frame dims")
-    if len(scene) > 1 and _scene_batchable(scene):
+    knobs = dict(capacity=capacity, budget_override=budget_override,
+                 zcull=zcull)
+    if backend == "kernels" and len(scene) > 1 and _scene_batchable(scene):
         return _draw(framebuffer, scene, transform, lights, frame_height,
-                     frame_width, stats)
+                     frame_width, stats, **knobs)
     if framebuffer is None and not scene:
         return make_framebuffer(frame_height, frame_width,
                                 device=transform.focal_length.device)
     for obj, cfg in scene:
         framebuffer = render_object(framebuffer, obj, transform, lights,
-                                    cfg, frame_height, frame_width, stats)
+                                    cfg, frame_height, frame_width, stats,
+                                    backend=backend, **knobs)
     return framebuffer
 
 
@@ -329,26 +375,109 @@ class Renderer:
     ``device`` is where frames are rendered: 'cuda' (the default) launches
     the kernels and raises when no card is present, 'cpu' runs their plain
     versions. The scene's tensors must live there.
+
+    The knobs of the JAX package's Renderer (renderer.py:405):
+    ``backend`` 'kernels' (the default here; the JAX package's 'pallas')
+    or 'reference' (the JAX package's default); ``clear_color``, the u32
+    ARGB the frame is cleared to (0 renders straight into a fresh frame,
+    anything else merges over a cleared one); ``capacity``, the mask
+    strategy's per-tile list length; ``budget_factor``, the sorted
+    strategy's entry budget in place of the policy's (set, or measured by
+    ``calibrate``); ``zcull``, the occlusion skip (K11) on the fused 8-row
+    routes, bit-exact, worth it on depth-complex scenes drawn front to
+    back.
     """
 
-    def __init__(self, height: int, width: int, device="cuda"):
+    def __init__(self, height: int, width: int, device="cuda",
+                 backend: str = "kernels", clear_color: int = 0,
+                 capacity: int | None = None,
+                 budget_factor: float | None = None, zcull: bool = False):
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend: {backend}")
         self.height = height
         self.width = width
         self.device = resolve_device(device)
+        self.backend = backend
+        self.clear_color = clear_color
+        self.capacity = capacity
+        self.budget_factor = budget_factor
+        self.zcull = zcull
 
     def render(self, scene: Sequence[Tuple[RenderObject, ObjectConfig]],
                transform: ProjectiveTransform, lights: LightData,
                with_stats: bool = False):
-        """Render a fresh frame. with_stats=True also returns the binning
-        stats ('bins_dropped' > 0 means entries past the static budget
-        were dropped, counted, never silently)."""
+        """Render a frame. with_stats=True also returns the binning stats
+        ('bins_dropped' > 0 means entries past the static budget or the
+        list capacity were dropped, counted, never silently; the
+        'reference' backend bins nothing and reports nothing)."""
         for obj, _ in scene:
             if obj.vertices.device.type != self.device.type:
                 raise ValueError(
                     f"scene on {obj.vertices.device}, renderer on "
                     f"{self.device}")
+        fb = (None if self.clear_color == 0 else make_framebuffer(
+            self.height, self.width, self.clear_color, device=self.device))
         stats: dict = {}
-        fb = render_scene(None, list(scene), transform, lights,
+        fb = render_scene(fb, list(scene), transform, lights,
                           frame_height=self.height, frame_width=self.width,
-                          stats=stats)
+                          stats=stats, backend=self.backend,
+                          capacity=self.capacity,
+                          budget_override=self.budget_factor,
+                          zcull=self.zcull)
         return (fb, stats) if with_stats else fb
+
+    def calibrate(self, scene: Sequence[Tuple[RenderObject, ObjectConfig]],
+                  transform: ProjectiveTransform, lights: LightData,
+                  margin: float = 1.25) -> Optional[float]:
+        """Tighten this renderer's entry budget from one representative
+        frame (renderer.py:469): render ``scene`` at the current budget,
+        take ``_suggest_budget_factor``'s suggestion, keep it only if a
+        re-render at it drops nothing (else revert). Returns the applied
+        factor, or None when nothing changed."""
+        _, stats = self.render(scene, transform, lights, with_stats=True)
+        suggestion = _suggest_budget_factor(stats, margin)
+        if suggestion is None:
+            return None
+        prev = self.budget_factor
+        self.budget_factor = suggestion
+        _, stats2 = self.render(scene, transform, lights, with_stats=True)
+        if int(stats2["bins_dropped"]) > 0:
+            self.budget_factor = prev
+            return None
+        return suggestion
+
+
+def _suggest_budget_factor(stats: dict, margin: float) -> Optional[float]:
+    """max policy factor * max stream utilization * margin from one
+    frame's stats (renderer.py:512), or None: no sorted draw, nothing
+    used, or a suggestion at or above the smallest policy factor of the
+    scene's draws (it would loosen some draw's budget)."""
+    if "bins_budget_utilization" not in stats:
+        return None
+    util = float(stats["bins_budget_utilization"])
+    used = float(stats["bins_budget_factor"])
+    used_min = float(stats["bins_budget_factor_min"])
+    if util <= 0.0:
+        return None
+    suggestion = used * util * margin
+    if suggestion >= used_min:
+        return None
+    return suggestion
+
+
+def calibrate_budget_factor(
+        scene: Sequence[Tuple[RenderObject, ObjectConfig]],
+        transform: ProjectiveTransform, lights: LightData,
+        frame_height: int, frame_width: int,
+        margin: float = 1.25) -> Optional[float]:
+    """One frame's budget-factor suggestion for this scene family, or None
+    (renderer.py:536): the 'kernels' backend at the policy budget,
+    ``_suggest_budget_factor``. Unvalidated, as in the JAX package: apply
+    it through ``budget_override`` (or prefer ``Renderer.calibrate``,
+    which re-renders and reverts on drops). Renders on the scene's
+    device."""
+    stats: dict = {}
+    render_scene(None, list(scene), transform, lights,
+                 frame_height=frame_height, frame_width=frame_width,
+                 stats=stats)
+    return _suggest_budget_factor(stats, margin)

@@ -1,25 +1,56 @@
 """Model transforms for animated scenes (PyTorch counterpart of
-``tpu_renderer.geometry.transform``, elementwise form only)."""
+``tpu_renderer.geometry.transform``, elementwise form only).
+
+The rotation matrices follow the entry points' device rule: a tensor
+angle keeps its device; a Python number goes to ``device``, the card
+unless the caller asks for the CPU (``core.types.resolve_device``)."""
 
 from __future__ import annotations
 
 import torch
 
 from ..core.math import scalar
-from ..core.types import RenderObject
+from ..core.types import RenderObject, resolve_device
 
 F32 = torch.float32
 
 
-def rotation_y(angle, device=None) -> torch.Tensor:
-    """3x3 rotation about +y, computed in f32 on ``device``."""
-    a = scalar(angle, device)
-    c, s = torch.cos(a), torch.sin(a)
-    one, zero = torch.ones_like(a), torch.zeros_like(a)
+def _cos_sin(angle, device):
+    """(cos, sin, 1, 0) of ``angle`` as 0-d f32 tensors on its device (a
+    tensor angle) or on ``resolve_device(device)``."""
+    if not isinstance(angle, torch.Tensor):
+        angle = scalar(angle, resolve_device(device))
+    a = angle.to(F32)
+    return torch.cos(a), torch.sin(a), torch.ones_like(a), torch.zeros_like(a)
+
+
+def rotation_y(angle, device="cuda") -> torch.Tensor:
+    """3x3 rotation about +y, computed in f32."""
+    c, s, one, zero = _cos_sin(angle, device)
     return torch.stack([
         torch.stack([c, zero, s]),
         torch.stack([zero, one, zero]),
         torch.stack([-s, zero, c]),
+    ])
+
+
+def rotation_x(angle, device="cuda") -> torch.Tensor:
+    """3x3 rotation about +x, computed in f32."""
+    c, s, one, zero = _cos_sin(angle, device)
+    return torch.stack([
+        torch.stack([one, zero, zero]),
+        torch.stack([zero, c, -s]),
+        torch.stack([zero, s, c]),
+    ])
+
+
+def rotation_z(angle, device="cuda") -> torch.Tensor:
+    """3x3 rotation about +z, computed in f32."""
+    c, s, one, zero = _cos_sin(angle, device)
+    return torch.stack([
+        torch.stack([c, -s, zero]),
+        torch.stack([s, c, zero]),
+        torch.stack([zero, zero, one]),
     ])
 
 

@@ -12,9 +12,15 @@ One record is one 128-lane f32 row: 3 edges x 28 field lanes, the global
 triangle id at lane 84, then zeros. Per-edge lane order: [valid, ymin,
 ymax, x0, xg, z0, zg, oz0, ozg, u0, ug, v0, vg, left, col0 rgba, colg rgba,
 n0 xyz, ng xyz].
+
+``setup_triangles`` gives the same fields as an ``EdgeTable``, the
+(T, 3)-minor view that the reference rasterizer (``ops.raster_reference``)
+walks triangle by triangle.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -48,6 +54,45 @@ F_COL0 = 14  # 4 lanes
 F_COLG = 18  # 4 lanes
 F_N0 = 22  # 3 lanes
 F_NG = 25  # 3 lanes
+
+
+class EdgeTable(NamedTuple):
+    """Per-triangle edge records (3 candidate edges each), the (T, 3)-minor
+    view of ``setup_fields``: float fields (T, 3), col0 / colg (T, 3, 4),
+    n0 / ng (T, 3, 3); ``valid`` (T, 3) bool folds in the backface cull."""
+
+    valid: torch.Tensor
+    ymin: torch.Tensor
+    ymax: torch.Tensor
+    x0: torch.Tensor
+    xg: torch.Tensor
+    z0: torch.Tensor
+    zg: torch.Tensor
+    oz0: torch.Tensor
+    ozg: torch.Tensor
+    u0: torch.Tensor
+    ug: torch.Tensor
+    v0: torch.Tensor
+    vg: torch.Tensor
+    left: torch.Tensor
+    col0: torch.Tensor
+    colg: torch.Tensor
+    n0: torch.Tensor
+    ng: torch.Tensor
+
+    @property
+    def num_triangles(self) -> int:
+        return self.valid.shape[0]
+
+
+def concat_edge_tables(tables) -> EdgeTable:
+    """Per-object edge tables concatenated along the triangle axis: row i
+    of the result is scene-global triangle id i, objects in submission
+    order (geometry/vertex.py:86)."""
+    tables = list(tables)
+    if len(tables) == 1:
+        return tables[0]
+    return EdgeTable(*[torch.cat(cols) for cols in zip(*tables)])
 
 
 def _norm3(x, y, z):
@@ -277,3 +322,28 @@ def setup_records(obj: RenderObject, transform: ProjectiveTransform,
     gid = (torch.arange(T, dtype=torch.int32, device=rec.device)
            + int(gid0)).to(F32)
     return torch.cat([rec, gid[None]])
+
+
+def setup_triangles(obj: RenderObject, transform: ProjectiveTransform,
+                    lights: LightData, cfg: ObjectConfig) -> EdgeTable:
+    """FillEdgeTable as an EdgeTable (geometry/vertex.py:344): the fields
+    of ``setup_fields``, the same values re-stacked (T, 3)-minor."""
+    fields, keep = setup_fields(setup_params(obj.p, transform, lights),
+                                obj.vertices, obj.colors, obj.normals,
+                                lights.count, cfg.phong,
+                                obj.uvs if cfg.textured else None)
+
+    def f(j):  # scalar field j -> (T, 3)
+        return fields[j].t()
+
+    def fvec(j0, n):  # n-channel field at lane j0 -> (T, 3, n)
+        return fields[j0:j0 + n].permute(2, 1, 0)
+
+    return EdgeTable(
+        valid=keep.t(),
+        ymin=f(F_YMIN), ymax=f(F_YMAX), x0=f(F_X0), xg=f(F_XG), z0=f(F_Z0),
+        zg=f(F_ZG), oz0=f(F_OZ0), ozg=f(F_OZG), u0=f(F_U0), ug=f(F_UG),
+        v0=f(F_V0), vg=f(F_VG), left=f(F_LEFT),
+        col0=fvec(F_COL0, 4), colg=fvec(F_COLG, 4), n0=fvec(F_N0, 3),
+        ng=fvec(F_NG, 3),
+    )

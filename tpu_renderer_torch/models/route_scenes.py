@@ -23,6 +23,13 @@ k2multi config 5 in full (its quad nearest, 64x64); k6 config 3 (bilinear
 64x64); k6multi two quads sharing one 32x32 texture, nearest and bilinear
 (tests/test_pallas.py:257).
 
+K11's stacks (``ZCULL_STACKS``): ``scenes.stack_scene`` with the
+innermost layer first (each later layer hidden), six Phong layers at
+640x640, where the 128-column tile at the centre lies inside even the
+innermost disc (78 px radius), so the skip fires from the second layer
+on: 6 x construct_sphere_grid(24, 24), 6,912 tris, takes K3's route
+(rows 1); 6 x construct_sphere_grid(60, 60), 43,200 tris, K2's (rows 2).
+
 G-buffer variants, textured objects the fused kernels cannot take: k3 the
 teapot with 'avx' nearest (32x32; K1 -> K9, 8-row tiles); k4 the
 side-list scene with a 16x600 nearest texture, over the fused width limit
@@ -42,6 +49,8 @@ ROUTE_NAMES = ("k3", "k4", "mixed", "k4multi", "k2multi")  # sorted routes
 MASK_NAMES = ("k6", "k6multi")
 TEXTURED_NAMES = ("k3", "k4", "mixed", "k2multi", "k6", "k6multi")
 GBUFFER_NAMES = ("k3", "k4", "mixed", "k6")
+# rows of the route -> stack_scene's (lat, lon, layers, frame side)
+ZCULL_STACKS = {1: (24, 24, 6, 640), 2: (60, 60, 6, 640)}
 
 
 def mesh_only(mesh):
@@ -152,3 +161,11 @@ def torch_scene(name, variant, device):
     tr_d, li_d = ts.baseline_camera_lights(*hw)
     scene, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device=device)
     return scene, tr, li, hw
+
+
+def zcull_stack(rows, device):
+    """(scene, transform, lights, (h, w)) of K11's stack on the route with
+    ``rows`` streams per tile."""
+    lat, lon, layers, side = ZCULL_STACKS[rows]
+    return ts.stack_scene(lat, lon, layers, side, side, device=device,
+                          inner_first=True) + ((side, side),)

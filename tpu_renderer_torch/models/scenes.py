@@ -10,6 +10,10 @@ Configs (``baseline_scene``):
 
 Textures are carried as data (u32 ARGB arrays in the config dicts) and
 sampled in the raster kernels' finalize.
+
+``stack_scene`` is ``bench.py --scale``'s depth-complex scene: concentric
+Phong spheres, in bench.py's order or the one that hides every later
+layer, the scene the occlusion skip (zcull, K11) is for.
 """
 
 from __future__ import annotations
@@ -23,7 +27,12 @@ from ..core.types import (
     make_transform,
     resolve_device,
 )
-from .primitives import construct_cube, construct_quad, construct_torus
+from .primitives import (
+    construct_cube,
+    construct_quad,
+    construct_sphere_grid,
+    construct_torus,
+)
 from .sphere import construct_sphere
 from .teapot import construct_teapot
 from .textures import checkerboard
@@ -140,3 +149,32 @@ def to_torch_scene(scene_golden, tr_dict, lights_dict, device="cuda"):
         )
         scene.append((obj, cfg))
     return scene, transform, lights
+
+
+def stack_scene(lat: int, lon: int, layers: int, height: int, width: int,
+                device="cuda", inner_first: bool = False):
+    """(scene, transform, lights) of ``layers`` concentric
+    ``construct_sphere_grid(lat, lon)`` spheres, layer i's vertices scaled
+    by 1 - 0.1 i, each a Phong object at the origin, with
+    ``baseline_scene(4)``'s camera and lights (bench.py:350-365;
+    ``stack_scene(409, 409, 6, 1080, 1920)`` is its 2,007,372-triangle
+    stack).
+
+    bench.py submits the outermost layer first, meaning the nearest.
+    Under the reference's winding a sphere grid shows its far hemisphere
+    (the headline sphere's frame reads z in [-0.5, 0.086]), so in that
+    order each layer is drawn in front of the last and nothing is hidden.
+    ``inner_first=True`` submits the innermost layer first: every later
+    layer then lies behind what is drawn, the occluded order the skip
+    (zcull, K11) is for."""
+    mesh = construct_sphere_grid(lat, lon)
+    meshes = [mesh]
+    for i in range(1, layers):
+        s = F(1.0 - 0.1 * i)  # descending radius
+        meshes.append({k: (np.asarray(v) * s if k == "vertices" else v)
+                       for k, v in mesh.items()})
+    if inner_first:
+        meshes.reverse()
+    _, tr_d, li_d = baseline_scene(4, height, width)
+    sg = [(dict(p=(0.0, 0.0, 0.0), **m), {"phong": True}) for m in meshes]
+    return to_torch_scene(sg, tr_d, li_d, device=device)

@@ -53,6 +53,7 @@ from .raster import (
     mask_capacity,
     mask_stream,
     raster_fragments,
+    record_table,
     resolve_winners,
 )
 from .setup import SetupOut
@@ -62,13 +63,14 @@ ATTR_FIELDS = COL_FIELDS + NRM_FIELDS + UV_FIELDS  # channels 1..10
 
 
 def gbuffer_route(t_policy: int, frame_height: int, frame_width: int,
-                  strategy: str = "auto",
-                  tile_h: int | None = None) -> RasterRoute:
+                  strategy: str = "auto", tile_h: int | None = None,
+                  budget_override: float | None = None) -> RasterRoute:
     """rasterize_pallas's route (raster_pallas.py:2864-2907): the mask
     strategy up to AUTO_SORTED_THRESHOLD triangles under 'auto', else the
     sorted one with ONE stream at every tile height, budget block
     QUEUE_BLK and _queue_expansion's policy factor as the budget (no row
-    packing, no rows-scaled budget, unlike the fused ``raster_route``)."""
+    packing, no rows-scaled budget, unlike the fused ``raster_route``);
+    ``budget_override`` replaces that factor."""
     if strategy == "auto":
         strategy = ("sorted" if t_policy > AUTO_SORTED_THRESHOLD
                     else "mask")
@@ -78,7 +80,7 @@ def gbuffer_route(t_policy: int, frame_height: int, frame_width: int,
         return RasterRoute("mask", tile_h, 1, 0, 0, 0.0, 0.0)
     if strategy != "sorted":
         raise ValueError(f"unknown strategy: {strategy}")
-    expansion, policy = _queue_expansion(tile_h, t_policy)
+    expansion, policy = _queue_expansion(tile_h, t_policy, budget_override)
     return RasterRoute("sorted", tile_h, 1, expansion, QUEUE_BLK, policy,
                        policy)
 
@@ -239,20 +241,25 @@ def prepare_gbuffer(table, height: int, width: int,
                     frame_height: int | None = None,
                     frame_width: int | None = None, row0: int = 0,
                     col0: int = 0, strategy: str = "auto",
-                    tile_h: int | None = None) -> GBufferLaunch:
+                    tile_h: int | None = None,
+                    budget_override: float | None = None) -> GBufferLaunch:
     """Everything before the G-buffer kernel (raster_pallas.py:2846-2911)
     for the local (height, width) rect at origin (row0, col0): the
     row-major table and bboxes, the route, the binning.
 
-    ``table`` is a SetupOut (K1's table and bboxes) or the channel-major
+    ``table`` is a SetupOut (K1's table and bboxes), the channel-major
     (85, T) table of ``setup_records`` (bboxes from ``triangle_bbox_rows``,
-    the row-major form from ``finish_records``, K7). The strategy and tile
-    height follow the true triangle count; the mask capacity (default
-    ``mask_capacity``) the table's rows, padding included."""
+    the row-major form from ``finish_records``, K7) or an EdgeTable
+    (``ops.raster.record_table``). The strategy and tile height follow the
+    true triangle count; the mask capacity (default ``mask_capacity``) the
+    table's rows, padding included; ``budget_override`` the sorted
+    budget (``gbuffer_route``). There is no zcull here: the JAX package
+    never culls the G-buffer kernels."""
     if frame_height is None:
         frame_height = height
     if frame_width is None:
         frame_width = width
+    table = record_table(table)
     if isinstance(table, SetupOut):
         recs, bbox = table.recs, table.bbox
         T, t_policy = int(recs.shape[0]), table.num_triangles
@@ -261,7 +268,7 @@ def prepare_gbuffer(table, height: int, width: int,
         bbox = triangle_bbox_rows(table, frame_height, frame_width)
         recs = finish_records(table)
     route = gbuffer_route(t_policy, frame_height, frame_width, strategy,
-                          tile_h)
+                          tile_h, budget_override)
     tiles_y = -(-height // route.tile_h)
     tiles_x = -(-width // TILE_W)
     options = dict(tile_h=route.tile_h, tiles_y=tiles_y, tiles_x=tiles_x,
@@ -282,14 +289,17 @@ def rasterize_gbuffer(table, height: int, width: int,
                       frame_height: int | None = None,
                       frame_width: int | None = None, row0: int = 0,
                       col0: int = 0, strategy: str = "auto",
-                      tile_h: int | None = None):
+                      tile_h: int | None = None,
+                      budget_override: float | None = None):
     """rasterize_pallas (raster_pallas.py:2822): ``table`` (see
     ``prepare_gbuffer``) rasterized into the local (height, width) rect ->
     (covered (H, W) bool, gbuf (11, H, W) f32, stats), ``strategy`` 'mask',
-    'sorted' or 'auto', ``capacity`` the mask strategy's list length;
-    stats as ``GBufferLaunch.stats``."""
+    'sorted' or 'auto', ``capacity`` the mask strategy's list length,
+    ``budget_override`` the sorted strategy's budget factor; stats as
+    ``GBufferLaunch.stats``."""
     launch = prepare_gbuffer(table, height, width, capacity, frame_height,
-                             frame_width, row0, col0, strategy, tile_h)
+                             frame_width, row0, col0, strategy, tile_h,
+                             budget_override)
     gid, gbuf = launch.run()
     return (gid[:height, :width] >= 0, gbuf[:, :height, :width],
             launch.stats())

@@ -30,9 +30,14 @@ gid-aware side-list merge compute. Multi-object launches pick each
 pixel's object from the winner's gid (``_finalize_shade``,
 raster_pallas.py:1600).
 
+K11, the occlusion skip (``zcull``), is K2 and K3 with a per-batch cull
+(``raster_zcull_kernel``, ``raster_rows1_zcull_kernel``); the cull changes
+no output, so its plain version is ``raster_plain``. As in the JAX package
+it applies on 8-row tiles only: K4, K6 and the G-buffer kernels ignore the
+flag.
+
 The G-buffer kernels K8, K9 and K10 (``ops.gbuffer``) share these
-kernels' fold, binning and plain fragments. zcull still raises
-NotImplementedError.
+kernels' fold, binning and plain fragments.
 """
 
 from __future__ import annotations
@@ -45,10 +50,12 @@ import numpy as np
 import torch
 
 from .. import _cuda
-from ..core.math import minimum, round_half_away, scalar, to_i32
+from ..core.math import maximum, minimum, round_half_away, scalar, to_i32
 from ..core.types import DEPTH_CLEAR, LightData, ProjectiveTransform
 from ..geometry.vertex import (
     EDGE_STRIDE,
+    REC_ROWS,
+    EdgeTable,
     F_COL0,
     F_COLG,
     F_LEFT,
@@ -111,16 +118,19 @@ NRM_FIELDS = tuple((F_N0 + c, F_NG + c) for c in range(3))
 UV_FIELDS = ((F_U0, F_UG), (F_V0, F_VG), (F_OZ0, F_OZG))  # u/z, v/z, 1/z
 
 
-def _queue_expansion(tile_h: int, num_triangles: int):
+def _queue_expansion(tile_h: int, num_triangles: int, override=None):
     """(expansion, budget_factor) policy of the sorted strategy's stream
     (raster_pallas.py:160): the tiles a triangle may cover before it goes
     to the side list, and the entry budget per triangle; the factor is
-    reported as stats['bins_budget_factor']."""
+    reported as stats['bins_budget_factor']. ``override`` (a renderer's
+    budget_factor) replaces the policy's factor."""
     if tile_h >= 16 and num_triangles <= 16384:
-        return 32, 4
-    if tile_h <= 8 and num_triangles > 65536:
-        return 4, 1.2
-    return 8, 2
+        exp, bf = 32, 4
+    elif tile_h <= 8 and num_triangles > 65536:
+        exp, bf = 4, 1.2
+    else:
+        exp, bf = 8, 2
+    return exp, (bf if override is None else override)
 
 
 def _rows_stream_budget_factor(t_policy, frame_height, frame_width):
@@ -268,22 +278,28 @@ class RasterRoute(NamedTuple):
 
 
 def raster_route(t_policy: int, frame_height: int, frame_width: int,
-                 n_objects: int = 1) -> RasterRoute:
+                 n_objects: int = 1,
+                 budget_override: float | None = None) -> RasterRoute:
     """The JAX package's 'auto' gates for a T-triangle draw of
     ``n_objects`` objects on this frame: the mask strategy up to
     AUTO_SORTED_THRESHOLD triangles (no stream: expansion, blk and the
-    budget factors are 0), the sorted strategy above it."""
+    budget factors are 0), the sorted strategy above it.
+    ``budget_override`` replaces the policy factor (and is what the stats
+    report); under row packing it is scaled by PACK_ROWS_STREAM_FRAC *
+    2 / rows (raster_pallas.py:2654-2666)."""
     tile_h = _pick_tile_h(t_policy, frame_height, frame_width)
     if t_policy <= AUTO_SORTED_THRESHOLD:
         return RasterRoute("mask", tile_h, 1, 0, 0, 0.0, 0.0)
-    expansion, policy = _queue_expansion(tile_h, t_policy)
+    expansion, policy = _queue_expansion(tile_h, t_policy, budget_override)
     wide = tile_h <= 8
     rows = 1
     if wide and (t_policy * PACK_ROWS_MAX_PX_PER_TRI
                  >= frame_height * frame_width):
         rows = PACK_ROWS
     bf = policy
-    if rows > 1 and n_objects > 1:
+    if rows > 1 and budget_override is not None:
+        bf = policy * PACK_ROWS_STREAM_FRAC * (2.0 / rows)
+    elif rows > 1 and n_objects > 1:
         # Stacked objects defeat the density key; flat per-stream budget.
         bf = (1.2 * PACK_ROWS_STREAM_FRAC) * (2.0 / rows)
     elif rows > 1:
@@ -409,9 +425,12 @@ def _outputs(tiles_y: int, tile_h: int, tiles_x: int, dev):
 def _raster(wrapper, entry: str, tile_h: int, streams: int, recs,
             qbins: QueueBins, lcounts, params, objs, texs, atlas, *,
             tiles_y: int, tiles_x: int, row0: int, col0: int,
-            frame_width: int, n_lights: int):
+            frame_width: int, n_lights: int, zcull: bool = False,
+            skipped=None):
     """Check the operands, launch ``entry`` and count it on ``wrapper``;
-    CPU tensors run ``raster_plain``."""
+    CPU tensors run ``raster_plain``. ``zcull`` entries (K11) take one more
+    operand, ``skipped``: None, or a (1,) i32 CUDA tensor the kernel adds
+    the number of batches it skipped to."""
     dev = recs.device
     kw = dict(tile_h=tile_h, tiles_y=tiles_y, tiles_x=tiles_x, row0=row0,
               col0=col0, frame_width=frame_width, n_lights=n_lights)
@@ -436,6 +455,11 @@ def _raster(wrapper, entry: str, tile_h: int, streams: int, recs,
         _cuda.check_tensor(name, t, dev, I32, shape)
     n_obj, atlas_ptr, aw = _check_finalize(dev, recs, params, objs, texs,
                                            atlas, n_lights)
+    probe = ()
+    if zcull:
+        if skipped is not None:
+            _cuda.check_tensor("skipped", skipped, dev, I32, (1,))
+        probe = (None if skipped is None else skipped.data_ptr(),)
     z, gid, color = _outputs(tiles_y, tile_h, tiles_x, dev)
     rc = getattr(_cuda.library(), entry)(
         recs.data_ptr(), qbins.sorted_tri.data_ptr(), qbins.starts.data_ptr(),
@@ -443,7 +467,7 @@ def _raster(wrapper, entry: str, tile_h: int, streams: int, recs,
         qbins.n_large.data_ptr(), lcounts.data_ptr(), params.data_ptr(),
         objs.data_ptr(), texs.data_ptr(), atlas_ptr, n_obj, n_lights, aw,
         tiles_y, tiles_x, row0, col0, frame_width, z.data_ptr(),
-        gid.data_ptr(), color.data_ptr(), _cuda.stream(dev),
+        gid.data_ptr(), color.data_ptr(), *probe, _cuda.stream(dev),
     )
     _cuda.check_launch(entry, rc)
     wrapper.launches += 1
@@ -514,12 +538,40 @@ def raster_mask_kernel(recs, bins: TileBins, params, objs, texs, atlas, *,
     return z, gid, color.view(torch.uint32)
 
 
+def raster_zcull_kernel(recs, qbins, lcounts, params, objs, texs, atlas,
+                        *, skipped=None, **kw):
+    """K11 on K2's route: K2 with the occlusion skip, a batch of stream
+    entries that cannot win a pixel skipping its fold (the zcull branch of
+    raster_pallas.py:2384-2394). Outputs equal K2's. CUDA tensors launch
+    ``tr_raster_zcull`` and count ``raster_zcull_kernel.launches``;
+    ``skipped`` is None or a (1,) i32 CUDA tensor that the kernel adds its
+    skipped batches to (a probe: the renderer passes None). CPU tensors run
+    ``raster_plain``."""
+    return _raster(raster_zcull_kernel, "tr_raster_zcull", 8, PACK_ROWS,
+                   recs, qbins, lcounts, params, objs, texs, atlas,
+                   zcull=True, skipped=skipped, **kw)
+
+
+def raster_rows1_zcull_kernel(recs, qbins, lcounts, params, objs, texs,
+                              atlas, *, skipped=None, **kw):
+    """K11 on K3's route (8-row tiles, one stream): as
+    ``raster_zcull_kernel``; ``tr_raster_rows1_zcull``, counted in
+    ``raster_rows1_zcull_kernel.launches``."""
+    return _raster(raster_rows1_zcull_kernel, "tr_raster_rows1_zcull", 8, 1,
+                   recs, qbins, lcounts, params, objs, texs, atlas,
+                   zcull=True, skipped=skipped, **kw)
+
+
 for _fn in (raster_kernel, raster_rows1_kernel, raster_narrow_kernel,
-            raster_mask_kernel):
+            raster_mask_kernel, raster_zcull_kernel,
+            raster_rows1_zcull_kernel):
     _fn.launches = 0
 for _entry in ("tr_raster", "tr_raster_rows1", "tr_raster_narrow"):
     _cuda.declare(_entry, [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
                   + [ctypes.c_void_p] * 4)
+for _entry in ("tr_raster_zcull", "tr_raster_rows1_zcull"):
+    _cuda.declare(_entry, [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                  + [ctypes.c_void_p] * 5)
 _cuda.declare("tr_raster_mask", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
               + [ctypes.c_void_p] * 4)
 
@@ -527,6 +579,10 @@ RASTER_KERNELS = {  # (tile_h, rows) -> wrapper of the sorted strategy
     (8, 2): raster_kernel,
     (8, 1): raster_rows1_kernel,
     (16, 1): raster_narrow_kernel,
+}
+ZCULL_KERNELS = {  # (tile_h, rows) -> K11's wrapper on that route
+    (8, 2): raster_zcull_kernel,
+    (8, 1): raster_rows1_zcull_kernel,
 }
 
 
@@ -818,6 +874,58 @@ def raster_plain(recs, qbins: QueueBins, lcounts, params, objs, texs, atlas,
     return zimg, gid_img, color
 
 
+def zcull_skips_plain(recs, qbins: QueueBins, *, tile_h: int, tiles_y: int,
+                      tiles_x: int, row0: int, col0: int, frame_width: int,
+                      **_) -> int:
+    """The number of batches K11 skips on these operands, replayed on the
+    plain path (``batch_occluded`` in csrc/raster.cu): per tile and stream,
+    batches of 128 / strip entries in stream order; a batch is skipped when
+    the max of its (entry, row) pairs' z at the span ends, plus 1e-6 of
+    its magnitude, lies below the min of the strip rows' running winners.
+    The side list is never culled and comes after, so it is left out. A
+    probe for the tests and chip_smoke; it loops over tiles and batches in
+    Python, so keep it to small frames."""
+    dev = recs.device
+    rs = qbins.starts.shape[0] // (tiles_y * tiles_x + 1)
+    strip = tile_h // rs
+    batch = 128 // strip
+    starts, counts = qbins.starts.tolist(), qbins.counts.tolist()
+    w_f = scalar(frame_width, dev)
+    inf = float("inf")
+    skipped = 0
+    for tile in range(tiles_y * tiles_x):
+        ty, tx = divmod(tile, tiles_x)
+        xc = (torch.arange(TILE_W, device=dev) + col0 + tx * TILE_W).to(F32)
+        zwin = torch.full((tile_h, TILE_W), DEPTH_CLEAR, dtype=F32,
+                          device=dev)
+        for h in range(rs):
+            s, n = starts[rs * tile + h], counts[rs * tile + h]
+            yf = (torch.arange(strip, device=dev) + row0 + ty * tile_h
+                  + h * strip).to(F32)
+            for b0 in range(0, n, batch):
+                ids = qbins.sorted_tri[s + b0:s + min(n, b0 + batch)].long()
+                minx, maxx, xoff, zl, zinc, _, _ = _span_setup(
+                    recs[ids].repeat_interleave(strip, 0),
+                    yf.repeat(ids.shape[0]), w_f, ())
+                z_lo = zl + (xoff + (minx - minx)) * zinc
+                z_hi = zl + (xoff + (maxx - minx)) * zinc
+                zp = maximum(z_lo, z_hi)
+                zp = torch.where(torch.isnan(zp), inf, zp)
+                zmax = torch.where(maxx != -_BIG, zp, -_BIG).max()
+                zmin = zwin[h * strip:(h + 1) * strip].min()
+                if bool(zmax + torch.abs(zmax) * 1e-6 < zmin):
+                    skipped += 1
+                    continue
+                k = xoff[:, None] + (xc[None, :] - minx[:, None])
+                z = zl[:, None] + k * zinc[:, None]
+                keep = ((xc[None, :] >= minx[:, None])
+                        & (xc[None, :] <= maxx[:, None]) & ~torch.isnan(z))
+                z = torch.where(keep, z, -inf).reshape(-1, strip, TILE_W)
+                zwin[h * strip:(h + 1) * strip] = torch.maximum(
+                    zwin[h * strip:(h + 1) * strip], z.amax(dim=0))
+    return skipped
+
+
 def mask_stream(bins: TileBins) -> QueueBins:
     """The mask strategy's per-tile lists as one sorted-strategy stream
     (tile t's entries at t * capacity, counts[t] of them) with an empty
@@ -849,10 +957,10 @@ def mask_plain(recs, bins: TileBins, params, objs, texs, atlas, *,
 
 class RasterLaunch(NamedTuple):
     """One raster launch, ready to run: its route, the wrapper of the
-    route's kernel (K2, K3, K4 or K6) and the wrapper's operands and
-    options. Operands: (recs, qbins, lcounts, params, objs, texs, atlas)
-    on the sorted routes, (recs, bins, params, objs, texs, atlas) on the
-    mask route."""
+    route's kernel (K2, K3, K4, K6, or K11 on K2's or K3's route) and the
+    wrapper's operands and options. Operands: (recs, qbins, lcounts,
+    params, objs, texs, atlas) on the sorted routes, (recs, bins, params,
+    objs, texs, atlas) on the mask route."""
 
     route: RasterRoute
     kernel: object
@@ -906,26 +1014,63 @@ def bin_stats(route: RasterRoute, bins) -> dict:
     }
 
 
+def pack_records(edges: EdgeTable) -> torch.Tensor:
+    """(T, 128) f32 row-major records of an EdgeTable (raster_pallas.py:412):
+    3 edges x 28 fields, the triangle id at lane 84, zeros after."""
+    T = edges.num_triangles
+    cols = []
+    for e in range(3):
+        cols += [edges.valid[:, e].to(F32)] + [
+            getattr(edges, f)[:, e] for f in (
+                "ymin", "ymax", "x0", "xg", "z0", "zg", "oz0", "ozg", "u0",
+                "ug", "v0", "vg", "left")]
+        cols += [edges.col0[:, e, c] for c in range(4)]
+        cols += [edges.colg[:, e, c] for c in range(4)]
+        cols += [edges.n0[:, e, c] for c in range(3)]
+        cols += [edges.ng[:, e, c] for c in range(3)]
+    cols.append(torch.arange(T, dtype=I32, device=edges.valid.device).to(F32))
+    rec = torch.stack(cols, dim=1)
+    return torch.nn.functional.pad(rec, (0, REC_LANES - rec.shape[1]))
+
+
+def record_table(table):
+    """``table`` as the raster entry points take it: an EdgeTable becomes
+    the channel-major (85, T) record table (``pack_records`` transposed),
+    which bins and rasterizes as ``setup_records``'s does; a SetupOut or a
+    channel-major table passes through."""
+    if isinstance(table, EdgeTable):
+        return pack_records(table)[:, :REC_ROWS].t().contiguous()
+    return table
+
+
 def prepare_raster(table, objspecs: tuple, transform: ProjectiveTransform,
                    lights: LightData, height: int, width: int,
                    frame_height: int | None = None,
                    frame_width: int | None = None, row0: int = 0,
-                   col0: int = 0, atlas=None) -> RasterLaunch:
+                   col0: int = 0, atlas=None, capacity: int | None = None,
+                   budget_override: float | None = None,
+                   zcull: bool = False) -> RasterLaunch:
     """Everything before the raster kernel (raster_pallas.py:2501-2723):
     the row-major table and bboxes, the route, the binning (and on the
     sorted routes the side-list gate), for the local (height, width) rect
     at origin (row0, col0).
 
-    ``table`` is a SetupOut (the K1 kernel's row-major table and bboxes)
-    or the channel-major (85, T) table of ``setup_records``, whose bboxes
+    ``table`` is a SetupOut (the K1 kernel's row-major table and bboxes),
+    the channel-major (85, T) table of ``setup_records``, whose bboxes
     come from ``triangle_bbox_rows`` and whose row-major form from
-    ``finish_records`` (K7); either way the record of gid g is row g.
-    ``objspecs`` holds one ObjSpec per object; ``atlas`` is the scene's
-    ``pack_texture_atlas`` when any object is textured."""
+    ``finish_records`` (K7), or an EdgeTable (``record_table``); either
+    way the record of gid g is row g. ``objspecs`` holds one ObjSpec per
+    object; ``atlas`` is the scene's ``pack_texture_atlas`` when any object
+    is textured. ``capacity`` is the mask strategy's list length (default
+    ``mask_capacity``), ``budget_override`` the sorted strategy's budget
+    factor (``raster_route``). ``zcull`` launches K11 in place of K2 or K3
+    on 8-row tiles; on 16-row tiles (K4) and the mask strategy (K6) it
+    does nothing, as in the JAX package."""
     if frame_height is None:
         frame_height = height
     if frame_width is None:
         frame_width = width
+    table = record_table(table)
     if isinstance(table, SetupOut):
         recs, bbox = table.recs, table.bbox
         T, t_policy = int(recs.shape[0]), table.num_triangles
@@ -944,7 +1089,8 @@ def prepare_raster(table, objspecs: tuple, transform: ProjectiveTransform,
             "texture atlas too large for the fused path")
     else:
         atlas = None
-    route = raster_route(t_policy, frame_height, frame_width, len(objspecs))
+    route = raster_route(t_policy, frame_height, frame_width, len(objspecs),
+                         budget_override)
     tiles_y = -(-height // route.tile_h)
     tiles_x = -(-width // TILE_W)
     finalize = (shade_params(transform, lights),
@@ -953,7 +1099,7 @@ def prepare_raster(table, objspecs: tuple, transform: ProjectiveTransform,
     options = dict(tiles_y=tiles_y, tiles_x=tiles_x, row0=row0, col0=col0,
                    frame_width=frame_width, n_lights=lights.count)
     if route.strategy == "mask":
-        capacity = mask_capacity(T)
+        capacity = mask_capacity(T) if capacity is None else capacity
         _mask_guard(capacity, tiles_y, tiles_x)
         bins = bin_triangles(height, width, route.tile_h, TILE_W, capacity,
                              row0, col0, bbox)
@@ -961,8 +1107,11 @@ def prepare_raster(table, objspecs: tuple, transform: ProjectiveTransform,
                             (recs, bins) + finalize,
                             dict(tile_h=route.tile_h, **options))
     qbins, lcounts = bin_for_raster(bbox, route, height, width, row0, col0)
-    return RasterLaunch(route, RASTER_KERNELS[(route.tile_h, route.rows)],
-                        (recs, qbins, lcounts) + finalize, options)
+    key = (route.tile_h, route.rows)
+    kernel = (ZCULL_KERNELS[key] if zcull and key in ZCULL_KERNELS
+              else RASTER_KERNELS[key])
+    return RasterLaunch(route, kernel, (recs, qbins, lcounts) + finalize,
+                        options)
 
 
 def rasterize_scene_shaded(table, objspecs: tuple,
@@ -970,17 +1119,18 @@ def rasterize_scene_shaded(table, objspecs: tuple,
                            height: int, width: int,
                            frame_height: int | None = None,
                            frame_width: int | None = None, row0: int = 0,
-                           col0: int = 0, zcull: bool = False, atlas=None):
+                           col0: int = 0, zcull: bool = False, atlas=None,
+                           capacity: int | None = None,
+                           budget_override: float | None = None):
     """Fused raster + interpolate + texture + shade + ARGB pack of a
-    scene's record table (see ``prepare_raster``) -> (covered, z (H, W),
+    scene's record table (see ``prepare_raster``, which also describes
+    ``zcull``, ``capacity`` and ``budget_override``) -> (covered, z (H, W),
     color u32 (H, W), stats) (raster_pallas.py:2467); see
-    ``RasterLaunch.stats``. ``zcull=True`` raises until its slice is
-    ported."""
-    if zcull:
-        raise NotImplementedError("zcull belongs to a later slice")
+    ``RasterLaunch.stats``."""
     return run_shaded(prepare_raster(table, objspecs, transform, lights,
                                      height, width, frame_height,
-                                     frame_width, row0, col0, atlas),
+                                     frame_width, row0, col0, atlas,
+                                     capacity, budget_override, zcull),
                       height, width)
 
 
@@ -996,10 +1146,13 @@ def rasterize_shaded(table, transform: ProjectiveTransform,
                      width: int, frame_height: int | None = None,
                      frame_width: int | None = None, row0: int = 0,
                      col0: int = 0, zcull: bool = False, texture=None,
-                     filter_mode: str = "nearest"):
+                     filter_mode: str = "nearest",
+                     capacity: int | None = None,
+                     budget_override: float | None = None):
     """Single-object entry point (raster_pallas.rasterize_pallas_shaded);
     ``texture`` (th, tw) u32 ARGB samples in the finalize, nearest or
     bilinear per ``filter_mode``."""
+    table = record_table(table)
     T = (table.num_triangles if isinstance(table, SetupOut)
          else int(table.shape[1]))
     atlas, tex = None, None
@@ -1010,4 +1163,5 @@ def rasterize_shaded(table, transform: ProjectiveTransform,
     return rasterize_scene_shaded(
         table, (ObjSpec(0, T, bool(phong), tex),), transform, lights,
         height, width, frame_height, frame_width, row0, col0, zcull, atlas,
+        capacity, budget_override,
     )
