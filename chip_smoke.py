@@ -35,6 +35,11 @@ Phases (any failure raises and the script exits nonzero):
      inside K9's launch with it), and on config 4's sphere at 1920x1080
      (16-row tiles); K8 (mask) on config 3 with 'avx' addressing and on
      config 1 at 512x512;
+   - the 32-row forms (256-thread blocks), the route scenes of
+     models/route_scenes.py forced to 32-row tiles: K4 (sorted) and K6
+     (mask), with and without side-list triangles, textured (K5) and not,
+     one and several objects; K8 and K9 (K10 on the side-list scenes),
+     gid and all 11 planes;
    - K11 (the occlusion skip) on K3's and K2's routes, on the stacks of
      models/route_scenes.py ZCULL_STACKS (six sphere layers at 640x640,
      innermost first), bit-equal to its plain version and to the
@@ -48,7 +53,12 @@ Phases (any failure raises and the script exits nonzero):
    versions on the CPU: bit-equal; the Renderer's knobs the same way:
    clear_color != 0 on the 51,200-triangle sphere at 512x512 (K1, K2),
    Renderer.calibrate on the 4,140-triangle sphere (the same factor
-   applied), and backend="reference" on config 1 at 512x512;
+   applied), and backend="reference" on config 1 at 512x512; the route
+   knobs: strategy='sorted' with tile_h=8 on scenes of at most 512
+   triangles (K2's route, K3's on two objects), strategy='mask' on the
+   528-triangle sphere; render_scene into a sub-rect at (37, 21), off the
+   tile grid, on the fused, G-buffer and reference branches, also against
+   the crop of the card's whole frame;
 5. paths, each through Renderer(device="cuda") for 3 warm-up and 20 timed
    frames, every object rotated about y each frame, the launch counts set
    to 0 just before the path and read just after:
@@ -85,6 +95,15 @@ Phases (any failure raises and the script exits nonzero):
      and K11 skipping batches on it (the probe counter);
    - stack6: the same scene without zcull (K1 six times, K2), the A/B
      partner;
+   - the 32-row paths, through the ops entry points with the route knobs
+     (rasterize_shaded, or rasterize_gbuffer + shade + merge): config 4
+     @32 (K7, K4 on 32-row tiles, expansion 32, budget 4); 40k @32
+     (construct_sphere_grid(140, 143), 40,040 Phong triangles, bench.py
+     --scale's first point, at 1920x1080: K1, K4 at 32 rows, expansion 8,
+     budget 2); config 3 @32 (K7, K6 at 32 rows with K5 bilinear); config
+     3 avx @32 (K7, K8 at 32 rows, the deferred shade); deferred 40k @32
+     (deferred 1M's construction on the 40k sphere: K1, K9 at 32 rows with
+     the quad on the side list, K10);
    every frame must drop no entry and cover pixels, and the first frame
    of each path since config 2 (but deferred 1M and the stacks) must equal
    the CPU plain run of it bit for bit;
@@ -102,7 +121,10 @@ Phases (any failure raises and the script exits nonzero):
    stack6 zcull's first frame beside K2 on the same operands, its bound
    the launch's work scaled to the batches it folds, and on bench.py's
    order of the stack (outermost first), where it skips nothing; the
-   deferred shade's time on deferred 1M's frame, and the fused-against-
+   32-row forms (K4 on config 4 and 40k, K6 on config 3, K8 on config 3
+   avx, K9 and K10 on deferred 40k), each also beside the 16-row form and
+   the 'auto' route's form on the same scene, in turns, with the same
+   frame; the deferred shade's time on deferred 1M's frame, and the fused-against-
    deferred A/B: ms per frame of the textured 250k scene through the fused
    route (K2 with K5) and through the G-buffer path (K9, shade); each
    kernel with the least time the card could take for the same work
@@ -185,12 +207,37 @@ KERNELS = {
         source="tpu_renderer_torch/csrc/raster.cu",
         replaces="tpu_renderer/ops/raster_pallas.py:2384",
         path="stack6 zcull"),
+    "K4 raster+shade 32-row": dict(
+        source="tpu_renderer_torch/csrc/raster.cu",
+        replaces="tpu_renderer/ops/raster_pallas.py:2372",
+        path="config 4 @32"),
+    "K6 raster+shade mask 32-row": dict(
+        source="tpu_renderer_torch/csrc/raster.cu",
+        replaces="tpu_renderer/ops/raster_pallas.py:2121",
+        path="config 3 @32"),
+    "K8 G-buffer mask 32-row": dict(
+        source="tpu_renderer_torch/csrc/raster.cu",
+        replaces="tpu_renderer/ops/raster_pallas.py:1756",
+        path="config 3 avx @32"),
+    "K9 G-buffer sorted 32-row": dict(
+        source="tpu_renderer_torch/csrc/raster.cu",
+        replaces="tpu_renderer/ops/raster_pallas.py:1853",
+        path="deferred 40k @32"),
+    "K10 G-buffer side list 32-row": dict(
+        source="tpu_renderer_torch/csrc/raster.cu",
+        replaces="tpu_renderer/ops/raster_pallas.py:2018",
+        path="deferred 40k @32"),
 }
 # The wrapper whose launch counter a KERNELS entry reads: K1 textured is
 # K1's wrapper with uvs; K5 runs inside K2's launches on its path, K10
-# inside K9's.
+# inside K9's; the 32-row forms of K6, K8 and K9 are their wrappers at
+# tile_h 32 (K4's has a wrapper of its own).
 COUNTER = {"K1 setup textured": "K1 setup", "K5 texture sampling":
-           "K2 raster+shade", "K10 G-buffer side list": "K9 G-buffer sorted"}
+           "K2 raster+shade", "K10 G-buffer side list": "K9 G-buffer sorted",
+           "K6 raster+shade mask 32-row": "K6 raster+shade mask",
+           "K8 G-buffer mask 32-row": "K8 G-buffer mask",
+           "K9 G-buffer sorted 32-row": "K9 G-buffer sorted",
+           "K10 G-buffer side list 32-row": "K9 G-buffer sorted"}
 GBUF_BYTES_PER_PX = 48  # gid and 11 f32 planes
 
 
@@ -346,14 +393,15 @@ def fold_work(launch, n_fields, px_bytes):
     return nbytes, ops
 
 
-def deferred_1m_mesh():
-    """The headline sphere grid with a 2.2-unit quad moved to z = -0.6
-    behind it as a backdrop, merged into one mesh (1,001,114 triangles)."""
+def backdrop_mesh(lat, lon):
+    """A sphere grid with a 2.2-unit quad moved to z = -0.6 behind it as a
+    backdrop, merged into one mesh (the quad's two triangles take the side
+    list): deferred 1M's mesh at (708, 707), 1,001,114 triangles."""
     from tpu_renderer_torch.models import primitives as prim
 
     quad = prim.construct_quad(2.2)
     quad["vertices"][:, 2] -= 0.6
-    return prim.merge_meshes(prim.construct_sphere_grid(708, 707), quad)
+    return prim.merge_meshes(prim.construct_sphere_grid(lat, lon), quad)
 
 
 def profile_frames(label, frame, angles, frame_ms):
@@ -464,8 +512,10 @@ def main():
     import tpu_renderer_torch as trt
     from tpu_renderer_torch import _cuda
     from tpu_renderer_torch.core.math import pack_argb, unpack_argb
+    from tpu_renderer_torch.core.types import Framebuffer
     from tpu_renderer_torch.engine.renderer import (
         _draw_deferred,
+        _merge_into,
         _obj_fusable,
         prepare_scene,
     )
@@ -480,6 +530,7 @@ def main():
         route_scene,
         zcull_stack,
     )
+    from tpu_renderer_torch.models.sphere import construct_sphere
     from tpu_renderer_torch.models.textures import checkerboard
     from tpu_renderer_torch.ops import gbuffer, raster, setup
     from tpu_renderer_torch.ops.shading import shade
@@ -498,6 +549,7 @@ def main():
         "K9 G-buffer sorted": gbuffer.raster_pass_queue,
         "K11 zcull": raster.raster_zcull_kernel,
         "K11 zcull rows 1": raster.raster_rows1_zcull_kernel,
+        "K4 raster+shade 32-row": raster.raster_narrow32_kernel,
     }
 
     # 1. Device.
@@ -525,7 +577,11 @@ def main():
     # 3. Each kernel against its plain version on the card.
     max_err = {name: 0.0 for name in KERNELS}
 
-    def check_launch(name, label, launch, want_route, n_obj, n_tex=0):
+    def check_launch(name, label, launch, want_route, n_obj, n_tex=0,
+                     err_key=None):
+        """A launch on ``name``'s wrapper and route (tile_h, rows), bit-equal
+        to its plain version; the error goes to ``err_key`` (default
+        ``name``) and K5's where an object is textured. Returns n_large."""
         r = launch.route
         textured = int((launch.texs[:, 1] > 0).sum())
         if (r.tile_h, r.rows) != want_route or launch.kernel is not \
@@ -536,7 +592,8 @@ def main():
                                  "textured object(s)")
         err = assert_equal(f"{name} on {label}", launch.run(),
                            launch.run_plain())
-        max_err[name] = max(max_err[name], err)
+        err_key = err_key or name
+        max_err[err_key] = max(max_err[err_key], err)
         if textured:
             key = "K5 texture sampling"
             max_err[key] = max(max_err[key], err)
@@ -621,10 +678,11 @@ def main():
                      f"2-object {variant} scene at {w}x{h}",
                      prepare_scene(scene, tr, li, h, w), (8, 1), 2, n_tex)
 
-    def check_gbuffer(name, label, launch, want_route):
+    def check_gbuffer(name, label, launch, want_route, suffix=""):
         """A G-buffer launch on its route's kernel, gid and 11 planes
         bit-equal to the plain version; K10's error where the side list is
-        not empty. Returns n_large."""
+        not empty, both under their names plus ``suffix``. Returns
+        n_large."""
         r = launch.route
         if (r.strategy, r.tile_h) != want_route or \
                 launch.kernel is not wrappers[name]:
@@ -632,19 +690,21 @@ def main():
                                  f"{launch.kernel.__name__}")
         err = assert_equal(f"{name} on {label}", launch.run(),
                            launch.run_plain())
-        max_err[name] = max(max_err[name], err)
+        max_err[name + suffix] = max(max_err[name + suffix], err)
         n_large = int(launch.qbins.n_large)
         if n_large:
-            key = "K10 G-buffer side list"
+            key = "K10 G-buffer side list" + suffix
             max_err[key] = max(max_err[key], err)
         log(f"# {name} == plain on {label} ({r.strategy}, tile_h "
             f"{r.tile_h}, n_large {n_large}): bit-equal, gid and 11 planes")
         return n_large
 
-    def gbuffer_launch(obj, cfg, tr, li, h, w):
+    def gbuffer_launch(obj, cfg, tr, li, h, w, **knobs):
+        """The G-buffer launch of one object (``knobs``: strategy,
+        tile_h)."""
         table = setup.setup_for_raster(obj, tr, li, cfg, frame_height=h,
                                        frame_width=w)
-        return gbuffer.prepare_gbuffer(table, h, w)
+        return gbuffer.prepare_gbuffer(table, h, w, **knobs)
 
     for label, quad in (("51,200-tri sphere", None),
                         ("sphere + large quad", 1.2)):
@@ -666,6 +726,46 @@ def main():
         check_gbuffer("K8 G-buffer mask", f"{label} at 512x512",
                       gbuffer_launch(obj_, cfg_, tr_, li_, 512, 512),
                       ("mask", 16))
+
+    # The 32-row forms (256-thread blocks) on the route scenes, forced to
+    # 32-row tiles: K4 (sorted) and K6 (mask) with and without the side
+    # list, textured (K5) and not, one and several objects; K8 and K9 (K10
+    # on the side-list scenes: the 2.2-unit quad covers 36 tiles of 32 rows
+    # at 384x384, more than the expansion of 32), gid and all 11 planes.
+    for name, variant, n_obj, n_tex in (
+            ("k4", "base", 1, 0), ("k4", "sidelist", 1, 0),
+            ("k4", "textured", 1, 1), ("k4multi", "sidelist", 3, 0),
+            ("k2multi", "textured", 4, 1), ("k6", "base", 1, 0),
+            ("k6", "textured", 1, 1), ("k6multi", "base", 2, 0),
+            ("k6multi", "textured", 2, 2)):
+        mask = name in MASK_NAMES
+        sg, (h, w) = route_scene(name, variant)
+        scene, tr, li = torch_scene(sg, h, w, dev)
+        kname = "K6 raster+shade mask" if mask else "K4 raster+shade 32-row"
+        n_large = check_launch(
+            kname, f"route {name} ({variant}) at {w}x{h}, 32-row tiles",
+            prepare_scene(scene, tr, li, h, w, tile_h=32,
+                          strategy="mask" if mask else "sorted"),
+            (32, 1), n_obj, n_tex, err_key=(
+                "K6 raster+shade mask 32-row" if mask else kname))
+        if (variant == "sidelist") != (n_large > 0):
+            raise AssertionError(f"route {name} ({variant}) at 32 rows: "
+                                 f"n_large {n_large}")
+    for name, variant, strategy in (
+            ("k4", "base", "sorted"), ("k4", "sidelist", "sorted"),
+            ("k4", "gbuffer", "sorted"), ("k6", "base", "mask"),
+            ("k6", "gbuffer", "mask")):
+        sg, (h, w) = route_scene(name, variant)
+        scene, tr, li = torch_scene(sg, h, w, dev)
+        n_large = check_gbuffer(
+            "K8 G-buffer mask" if strategy == "mask" else
+            "K9 G-buffer sorted",
+            f"route {name} ({variant}) at {w}x{h}, 32-row tiles",
+            gbuffer_launch(*scene[0], tr, li, h, w, strategy=strategy,
+                           tile_h=32), (strategy, 32), " 32-row")
+        if (variant != "base" and strategy == "sorted") != (n_large > 0):
+            raise AssertionError(f"route {name} ({variant}) G-buffer at 32 "
+                                 f"rows: n_large {n_large}")
 
     # K11 on K3's and K2's routes: bit-equal to its plain version and to
     # the non-culling kernel on the same operands, skipping exactly the
@@ -768,16 +868,84 @@ def main():
         log(f"# route {name} (gbuffer) {w}x{h}: G-buffer card == CPU "
             f"plain, bit-equal, {int(outs[0][0].sum())} px covered")
 
+    # Forced routes, card against CPU, through the launch the ops entry
+    # points run (prepare_scene with strategy and tile_h): the sorted
+    # strategy on 8-row tiles for scenes of at most 512 triangles (K2's
+    # route with row packing, K3's on two objects), the mask strategy for
+    # one above 512.
+    def launch_vs_cpu(label, sg, h, w, want, **knobs):
+        outs = []
+        for d in ("cpu", dev):
+            sc, tr_, li_ = torch_scene(sg, h, w, d)
+            launch = prepare_scene(sc, tr_, li_, h, w, **knobs)
+            r = launch.route
+            if (r.strategy, r.tile_h, r.rows) != want:
+                raise AssertionError(f"{label} took route {r}")
+            outs.append(raster.run_shaded(launch, h, w)[1:3])
+        assert_equal(f"{label}, card against CPU", outs[1], outs[0])
+        cov = int((outs[0][0] > -3.0e38).sum())
+        if cov < 500:
+            raise AssertionError(f"{label}: {cov} px covered")
+        log(f"# {label} {w}x{h} ({want}): card == CPU plain, bit-equal, "
+            f"{cov} px covered")
+
+    launch_vs_cpu("360-tri sphere, strategy='sorted', tile_h=8",
+                  phong_mesh_scene(construct_sphere(10)), 64, 64,
+                  ("sorted", 8, 2), strategy="sorted", tile_h=8)
+    launch_vs_cpu("route k6multi (108 tris), strategy='sorted', tile_h=8",
+                  route_scene("k6multi")[0], 128, 128, ("sorted", 8, 1),
+                  strategy="sorted", tile_h=8)
+    launch_vs_cpu("route k4 (528 tris), strategy='mask'",
+                  route_scene("k4")[0], 384, 384, ("mask", 16, 1),
+                  strategy="mask")
+
+    # render_scene into a sub-rect off the tile grid, called in JAX's order
+    # (..., backend, frame_height, frame_width, row0, col0), on the fused,
+    # G-buffer and reference branches: card against CPU, and against the
+    # crop of the card's whole frame.
+    r0, c0 = 37, 21
+    for name, variant, backend, (hs, ws) in (
+            ("k4multi", "sidelist", "kernels", (300, 300)),
+            ("k6", "gbuffer", "kernels", (60, 100)),
+            ("k6", "textured", "reference", (60, 100))):
+        sg, (h, w) = route_scene(name, variant)
+        fbs = []
+        for d in ("cpu", dev):
+            sc, tr_, li_ = torch_scene(sg, h, w, d)
+            fbs.append(trt.render_scene(
+                trt.make_framebuffer(hs, ws, device=d), sc, tr_, li_,
+                backend, h, w, r0, c0))
+        full = trt.render_scene(None, sc, tr_, li_, backend, h, w)
+        label = (f"route {name} ({variant}, {backend}) sub-rect {ws}x{hs} "
+                 f"at ({r0}, {c0})")
+        assert_equal(f"{label}, card against CPU",
+                     (fbs[1].depth, fbs[1].color),
+                     (fbs[0].depth, fbs[0].color))
+        assert_equal(f"{label}, against the crop of the whole frame",
+                     (fbs[1].depth, fbs[1].color),
+                     (full.depth[r0:r0 + hs, c0:c0 + ws],
+                      full.color[r0:r0 + hs, c0:c0 + ws]))
+        cov = int((fbs[0].depth > -3.0e38).sum())
+        if cov < 500:
+            raise AssertionError(f"{label}: {cov} px covered")
+        log(f"# {label}: card == CPU plain == the whole frame's crop, "
+            f"bit-equal, {cov} px covered")
+
     # 5. Paths.
     def drive(path, scene, tr, li, h, w, n_frames, kernels, per_frame=None,
-              **knobs):
+              render=None, **knobs):
         """Render n_frames of the scene, rotated a little each frame,
-        through Renderer(**knobs) on the card, the launch counts set to 0
-        just before and read just after: each of ``kernels`` launched
-        once a frame (or ``per_frame[name]`` times), the others never.
-        Returns (ms per frame, the last framebuffer, launches)."""
+        through Renderer(**knobs) on the card (or ``render(scene)`` ->
+        (framebuffer, stats)), the launch counts set to 0 just before and
+        read just after: each of ``kernels`` launched once a frame (or
+        ``per_frame[name]`` times), the others never. Returns (ms per
+        frame, the last framebuffer, launches)."""
         per_frame = per_frame or {}
-        renderer = trt.Renderer(h, w, device=dev, **knobs)
+        if render is None:
+            renderer = trt.Renderer(h, w, device=dev, **knobs)
+
+            def render(sc):
+                return renderer.render(sc, tr, li, with_stats=True)
         angles = [0.6 * i / max(n_frames - 1, 1) for i in range(n_frames)]
         events, frame_stats = [], []
         for wrapper in wrappers.values():
@@ -786,8 +954,7 @@ def main():
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
-            fb, st = renderer.render(rotated(scene, a, dev), tr, li,
-                                     with_stats=True)
+            fb, st = render(rotated(scene, a, dev))
             e1.record()
             events.append((e0, e1))
             frame_stats.append((st["bins_dropped"],
@@ -913,7 +1080,7 @@ def main():
         "config 3 avx", scene3avx, tr3, li3, 512, 512, n_frames,
         ("K7 record transpose", "K8 G-buffer mask"))
     tex1024 = checkerboard(1024, 1024, 64)
-    sg_def = [(dict(p=(0.0, 0.0, 0.0), **deferred_1m_mesh()),
+    sg_def = [(dict(p=(0.0, 0.0, 0.0), **backdrop_mesh(708, 707)),
                {"phong": True, "texture": tex1024,
                 "filter_mode": "bilinear"})]
     scene_def, tr_def, li_def = torch_scene(sg_def, H, W, dev)
@@ -984,6 +1151,70 @@ def main():
     path_ms["stack6"], _, path_launches["stack6"] = drive(
         "stack6", scene6, tr6, li6, H, W, n_frames,
         ("K1 setup", "K2 raster+shade"), per_frame={"K1 setup": 6})
+
+    # The 32-row paths, through the ops entry points with the route knobs
+    # (neither package's Renderer takes a tile height): the setup, then
+    # rasterize_shaded (fused) or rasterize_gbuffer + shade + the merge
+    # into a fresh frame (deferred). Frame 0 of each on the card against
+    # the CPU plain run first, then 23 frames each.
+    def fused_ops_frame(h, w, strategy, tile_h):
+        def frame(sc, tr_, li_):
+            (o, c), = sc
+            table = setup.setup_for_raster(o, tr_, li_, c, frame_height=h,
+                                           frame_width=w)
+            _, z, color, st = raster.rasterize_shaded(
+                table, tr_, li_, c.phong, h, w, None, h, w, 0, 0, strategy,
+                tile_h, o.texture if c.textured else None, c.filter_mode)
+            return Framebuffer(color=color, depth=z), st
+        return frame
+
+    def deferred_ops_frame(h, w, strategy, tile_h):
+        def frame(sc, tr_, li_):
+            (o, c), = sc
+            table = setup.setup_for_raster(o, tr_, li_, c, frame_height=h,
+                                           frame_width=w)
+            cov, gbuf, st = gbuffer.rasterize_gbuffer(
+                table, h, w, None, h, w, 0, 0, strategy, tile_h)
+            rgba, cov = shade(cov, gbuf, tr_, li_, c, o.texture)
+            fb = trt.make_framebuffer(h, w, device=o.vertices.device)
+            return _merge_into(fb, cov, gbuf[0], pack_argb(rgba)), st
+        return frame
+
+    mesh40k = prim.construct_sphere_grid(140, 143)
+    sg40 = phong_mesh_scene(mesh40k)
+    sg40d = [(dict(p=(0.0, 0.0, 0.0), **backdrop_mesh(140, 143)),
+              sg_def[0][1])]
+    paths32 = (
+        ("config 4 @32", sg4, H, W, fused_ops_frame(H, W, "sorted", 32),
+         ("K7 record transpose", "K4 raster+shade 32-row")),
+        ("40k @32", sg40, H, W, fused_ops_frame(H, W, "sorted", 32),
+         ("K1 setup", "K4 raster+shade 32-row")),
+        ("config 3 @32", sg3, 512, 512, fused_ops_frame(512, 512, "mask", 32),
+         ("K7 record transpose", "K6 raster+shade mask")),
+        ("config 3 avx @32", sg3avx, 512, 512,
+         deferred_ops_frame(512, 512, "auto", 32),
+         ("K7 record transpose", "K8 G-buffer mask")),
+        ("deferred 40k @32", sg40d, H, W,
+         deferred_ops_frame(H, W, "sorted", 32),
+         ("K1 setup", "K9 G-buffer sorted")))
+    for path, sg_, h, w, frame, _ in paths32:
+        outs = []
+        for d in ("cpu", dev):
+            sc, tr_, li_ = torch_scene(sg_, h, w, d)
+            fb, _ = frame(sc, tr_, li_)
+            outs.append((fb.depth, fb.color))
+        assert_equal(f"path {path} frame 0, card against CPU", outs[1],
+                     outs[0])
+        cov = int((outs[0][0] > -3.0e38).sum())
+        if cov < 1000:
+            raise AssertionError(f"path {path} frame 0: {cov} px covered")
+        log(f"# path {path} frame 0 {w}x{h}: card == CPU plain, bit-equal, "
+            f"{cov} px covered")
+    for path, sg_, h, w, frame, kernels in paths32:
+        sc, tr_, li_ = torch_scene(sg_, h, w, dev)
+        path_ms[path], _, path_launches[path] = drive(
+            path, sc, tr_, li_, h, w, n_frames, kernels,
+            render=lambda s_, f=frame, t=tr_, l=li_: f(s_, t, l))
 
     # 6a. Split of the headline frame: rotate / setup / binning / raster.
     # Each stage runs alone between two syncs, so its CUDA-event time is
@@ -1141,6 +1372,116 @@ def main():
         f"{k9_ms:.4f} ms against K9 on the sphere alone {k9s_ms:.4f} ms, "
         f"bound {bms10:.6f} ms ({by10})")
 
+    # The 32-row forms at their paths' shapes: each held bit-equal to its
+    # plain version, timed beside it, with its bound (K10 as K9's time with
+    # the quad beside K9's on the 40k sphere alone, both at 32 rows). Then
+    # the A/B: each beside the 16-row form on the same scene and, where the
+    # 'auto' route takes another, that form, in turns (32, other, other,
+    # 32), their outputs cropped to the frame bit-equal and drop-free.
+    def check_route(label, launch, want):
+        r = launch.route
+        got = (r.strategy, r.tile_h, r.rows, r.expansion, r.policy_factor)
+        if got != want or int(launch.stats()["bins_dropped"]) != 0:
+            raise AssertionError(f"{label}: route {r}, drops "
+                                 f"{int(launch.stats()['bins_dropped'])}")
+
+    def fused_forms(sc, tr_, li_, h, w, strategy, auto=False):
+        forms = {str(t): prepare_scene(sc, tr_, li_, h, w, strategy=strategy,
+                                       tile_h=t) for t in (32, 16)}
+        if auto:
+            forms["auto"] = prepare_scene(sc, tr_, li_, h, w)
+        return forms
+
+    def gbuffer_forms(sc, tr_, li_, h, w, strategy, auto=False):
+        forms = {str(t): gbuffer_launch(*sc[0], tr_, li_, h, w,
+                                        strategy=strategy, tile_h=t)
+                 for t in (32, 16)}
+        if auto:
+            forms["auto"] = gbuffer_launch(*sc[0], tr_, li_, h, w)
+        return forms
+
+    sc40, tr40, li40 = torch_scene(sg40, H, W, dev)
+    sc40d, tr40d, li40d = torch_scene(sg40d, H, W, dev)
+    sc40s, _, _ = torch_scene([(sg40[0][0], sg_def[0][1])], H, W, dev)
+    T40 = sc40[0][0].num_triangles
+    assert T40 == 40_040, T40
+    ab_forms = {
+        "config 4": (fused_forms(scene4, tr4, li4, H, W, "sorted"), H, W),
+        "40k": (fused_forms(sc40, tr40, li40, H, W, "sorted", True), H, W),
+        "config 3": (fused_forms(scene3, tr3, li3, 512, 512, "mask"), 512,
+                     512),
+        "config 3 avx": (gbuffer_forms(scene3avx, tr3, li3, 512, 512,
+                                       "mask"), 512, 512),
+        "deferred 40k": (gbuffer_forms(sc40d, tr40d, li40d, H, W, "sorted",
+                                       True), H, W),
+    }
+    check_route("config 4 @32", ab_forms["config 4"][0]["32"],
+                ("sorted", 32, 1, 32, 4))
+    check_route("40k @32", ab_forms["40k"][0]["32"], ("sorted", 32, 1, 8, 2))
+    check_route("deferred 40k @32", ab_forms["deferred 40k"][0]["32"],
+                ("sorted", 32, 1, 8, 2))
+    per_tile = ab_forms["40k"][0]["32"].qbins.counts[:-1]
+    log(f"# K4 32-row load on 40k: {int((per_tile > 0).sum())} of "
+        f"{per_tile.numel()} tiles hold entries, {int(per_tile.sum())} "
+        f"entries, max {int(per_tile.max())} in one tile")
+    time_launch("K4 raster+shade 32-row", "config 4 2,208 tris 1920x1080, "
+                "32-row tiles", ab_forms["config 4"][0]["32"])
+    time_launch("K4 raster+shade 32-row (40k)", f"40k {T40} tris 1920x1080, "
+                "32-row tiles", ab_forms["40k"][0]["32"])
+    time_launch("K6 raster+shade mask 32-row", "config 3 12 tris 512x512, "
+                "32-row tiles", ab_forms["config 3"][0]["32"])
+    kms, pms, work = time_gbuffer(
+        "K8 G-buffer mask 32-row", "config 3 avx 12 tris 512x512, 32-row "
+        "tiles", ab_forms["config 3 avx"][0]["32"])
+    timing["K8 G-buffer mask 32-row"] = (kms, pms) + bound(*work) + (None,)
+    d40 = ab_forms["deferred 40k"][0]["32"]
+    n_large40 = int(d40.qbins.n_large)
+    if n_large40 != 2:
+        raise AssertionError(f"deferred 40k @32: n_large {n_large40}, not 2")
+    k9_32, k9p_32, work_q32 = time_gbuffer(
+        "K9 G-buffer sorted 32-row", f"deferred 40k {T40 + 2} tris "
+        "1920x1080, 32-row tiles", d40)
+    timing["K9 G-buffer sorted 32-row"] = (k9_32, k9p_32) + bound(
+        *work_q32) + (None,)
+    k9s_32, _, work_s32 = time_gbuffer(
+        "K9 G-buffer sorted 32-row", f"the 40k sphere alone {T40} tris "
+        "1920x1080, 32-row tiles", gbuffer_launch(
+            *sc40s[0], tr40d, li40d, H, W, strategy="sorted", tile_h=32))
+    bms10b, by10b = bound(*(max(a - b, 0) for a, b in zip(work_q32,
+                                                          work_s32)))
+    timing["K10 G-buffer side list 32-row"] = (k9_32, k9p_32, bms10b, by10b,
+                                               None)
+    log(f"# K10 G-buffer side list 32-row ({n_large40} triangles): K9 with "
+        f"it {k9_32:.4f} ms against K9 on the 40k sphere alone "
+        f"{k9s_32:.4f} ms, bound {bms10b:.6f} ms ({by10b})")
+    ab32 = {}
+    for label, (forms, h, w) in ab_forms.items():
+        gbuf_form = isinstance(forms["32"], gbuffer.GBufferLaunch)
+
+        def crop(out, h=h, w=w, gbuf_form=gbuf_form):
+            if gbuf_form:
+                return out[0][:h, :w], out[1][:, :h, :w]
+            return tuple(a[:h, :w] for a in out)
+
+        want = crop(forms["32"].run())
+        row = {}
+        for tag, other in forms.items():
+            if tag == "32":
+                continue
+            r = other.route
+            if int(other.stats()["bins_dropped"]) != 0:
+                raise AssertionError(f"{label}, {tag} form: drops")
+            assert_equal(f"{label}: the {tag} form ({r.strategy}, tile_h "
+                         f"{r.tile_h}, rows {r.rows}) against the 32-row one",
+                         crop(other.run()), want)
+            ms32, ms_o = in_turns(forms["32"].run, other.run, 20, 20)
+            row[tag] = dict(tile_h=r.tile_h, rows=r.rows,
+                            ms_32=round(ms32, 4), ms=round(ms_o, 4))
+            log(f"# 32-row A/B on {label}: 32-row {ms32:.4f} ms against the "
+                f"{tag} form (tile_h {r.tile_h}, rows {r.rows}) "
+                f"{ms_o:.4f} ms, same frame")
+        ab32[label] = row
+
     # K11 on stack6 zcull's first frame: held bit-equal to its plain
     # version, timed beside it and beside K2 on the same operands; its
     # bound the launch's work with the entry part scaled to the batches
@@ -1241,6 +1582,11 @@ def main():
                 path, lambda a: renderer.render(rotated(sc, a, dev), tr_,
                                                 li_),
                 [0.06 * i for i in range(10)], path_ms[path])
+        for path, sg_, h, w, frame, _ in paths32:
+            sc, tr_, li_ = torch_scene(sg_, h, w, dev)
+            profile_frames(
+                path, lambda a: frame(rotated(sc, a, dev), tr_, li_),
+                [0.06 * i for i in range(10)], path_ms[path])
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -1256,6 +1602,8 @@ def main():
             entry["untextured_k2_ms"] = round(k2u_ms, 4)
         if name == "K10 G-buffer side list":
             entry["k9_without_side_list_ms"] = round(k9s_ms, 4)
+        if name == "K10 G-buffer side list 32-row":
+            entry["k9_without_side_list_ms"] = round(k9s_32, 4)
         if name == "K11 zcull":
             entry.update(
                 skipped_batches=int(skipped6), batches=batches6,
@@ -1270,6 +1618,7 @@ def main():
         "deferred_shade_ms": round(shade_ms, 4),
         "textured_250k_fused_vs_deferred_ms": [round(fused_ms, 4),
                                                round(def_ms, 4)],
+        "ab_32_rows": ab32,
         "card": smi_line}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

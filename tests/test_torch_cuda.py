@@ -1,12 +1,13 @@
 """The port's CUDA kernels against their plain-PyTorch versions on the card:
 K1 (setup, untextured and textured), K2 / K3 / K4 (raster + shade of the
-sorted strategy, single and multi-object), K6 (the mask strategy), K5
+sorted strategy, single and multi-object; K4 also on 32-row tiles), K6
+(the mask strategy, 8-, 16- and 32-row tiles), K5
 (texture sampling, inside each route's finalize), K7 (record
 transpose), K8 / K9 / K10 (raster into a G-buffer: mask, sorted, side
-list), K11 (the occlusion skip on K2's and K3's routes), and whole
-frames on the card against the CPU run, with the Renderer's knobs
-(clear_color, capacity, budget_factor, calibrate, zcull) and the
-'reference' backend.
+list; 8-, 16- and 32-row tiles), K11 (the occlusion skip on K2's and
+K3's routes), and whole frames on the card against the CPU run, with the
+Renderer's knobs (clear_color, capacity, budget_factor, calibrate,
+zcull), the 'reference' backend and sub-rects at an origin.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports no JAX, so it also runs on a machine that has only torch; there,
@@ -122,14 +123,14 @@ def test_subrect_origin_on_card(cuda):
                                frame_width=128)
     _, z, color, _ = trp.rasterize_shaded(pre, tr, li, True, 128, 128)
     r0, c0, h, w = 37, 21, 60, 100
-    _, zs, cs, _ = trp.rasterize_shaded(pre, tr, li, True, h, w, 128, 128,
-                                        r0, c0)
+    _, zs, cs, _ = trp.rasterize_shaded(pre, tr, li, True, h, w, None, 128,
+                                        128, r0, c0)
     torch.cuda.synchronize()
     assert torch.equal(bits(zs), bits(z[r0:r0 + h, c0:c0 + w]))
     assert torch.equal(bits(cs), bits(color[r0:r0 + h, c0:c0 + w]))
     launch = trp.prepare_raster(
-        pre, (trp.ObjSpec(0, obj.num_triangles, True),), tr, li, h, w, 128,
-        128, r0, c0)
+        pre, (trp.ObjSpec(0, obj.num_triangles, True),), tr, li, h, w, None,
+        128, 128, r0, c0)
     for a, b in zip(launch.run(), launch.run_plain()):
         assert torch.equal(bits(a), bits(b))
 
@@ -244,8 +245,8 @@ def test_mask_subrect_origin_on_card(cuda):
                                  frame_width=w)
     spec = trp.ObjSpec(0, obj.num_triangles, cfg.phong,
                        (0, 64, 64, "bilinear"))
-    launch = trp.prepare_raster(table, (spec,), tr, li, 60, 100, h, w, 37,
-                                21, atlas=full.operands[-1])
+    launch = trp.prepare_raster(table, (spec,), tr, li, 60, 100, None, h, w,
+                                37, 21, atlas=full.operands[-1])
     assert launch.kernel is trp.raster_mask_kernel
     out_k, out_p = launch.run(), launch.run_plain()
     torch.cuda.synchronize()
@@ -300,7 +301,7 @@ def test_route_subrect_origin_on_card(cuda, name):
                                  frame_width=w)
     launch = trp.prepare_raster(
         table, (trp.ObjSpec(0, obj.num_triangles, cfg.phong),), tr, li,
-        *{"k3": (150, 200), "k4": (300, 300)}[name], h, w, 37, 21)
+        *{"k3": (150, 200), "k4": (300, 300)}[name], None, h, w, 37, 21)
     assert launch.kernel is getattr(trp, ROUTE_KERNEL[name])
     assert int(launch.qbins.n_large) > 0
     out_k, out_p = launch.run(), launch.run_plain()
@@ -345,8 +346,8 @@ def test_gbuffer_kernel_equals_plain(cuda, name, variant, route):
 
 def test_gbuffer_subrect_and_tile_height_on_card(cuda):
     """K9's row0 / col0 offsets: a sub-rectangle off the tile grid equals
-    the plain version and the full frame's crop; tile_h 32, which the
-    'auto' route never picks, raises on CUDA tensors."""
+    the plain version and the full frame's crop; tile_h 24, which no CUDA
+    kernel runs, raises on CUDA tensors, naming the heights that do."""
     scene, tr, li, (h, w) = torch_scene("k4", "sidelist", cuda)
     obj, cfg = scene[0]
     table = tsp.setup_for_raster(obj, tr, li, cfg, frame_height=h,
@@ -359,8 +360,91 @@ def test_gbuffer_subrect_and_tile_height_on_card(cuda):
         assert torch.equal(bits(a), bits(b))
     assert torch.equal(bits(out_k[1][:, :300, :300]),
                        bits(full[:, 37:337, 21:321]))
-    with pytest.raises(ValueError, match="8- or 16-row"):
-        tgb.rasterize_gbuffer(table, h, w, tile_h=32)
+    with pytest.raises(ValueError, match="8, 16, 32 rows on CUDA, not 24"):
+        tgb.rasterize_gbuffer(table, h, w, tile_h=24)
+
+
+@pytest.mark.parametrize("name, variant, strategy", [
+    ("k4", "base", "sorted"), ("k4", "sidelist", "sorted"),
+    ("k6", "base", "mask"), ("k6", "gbuffer", "mask")])
+def test_gbuffer_32_rows_equals_plain(cuda, name, variant, strategy):
+    """K8 and K9 on 32-row tiles (256-thread blocks), K9 with the side
+    list (K10; the 2.2-unit quad covers the 36 tiles of the 384 x 384
+    frame, more than the expansion of 32): gid and the 11 planes
+    bit-equal to the plain version, one launch counted."""
+    launch = gbuffer_launch(name, variant, cuda, strategy=strategy,
+                            tile_h=32)
+    assert (launch.route.strategy, launch.route.tile_h) == (strategy, 32)
+    wrapper = launch.kernel
+    n0 = wrapper.launches
+    out_k = launch.run()
+    assert wrapper.launches == n0 + 1
+    out_p = launch.run_plain()
+    torch.cuda.synchronize()
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(bits(a), bits(b))
+    assert int((out_k[0] >= 0).sum()) > 1000
+    assert (int(launch.qbins.n_large) > 0) == (variant == "sidelist")
+
+
+@pytest.mark.parametrize("name, variant", [
+    ("k4", "base"), ("k4", "sidelist"), ("k4", "textured"),
+    ("k4multi", "sidelist"), ("k2multi", "textured"), ("k6", "textured"),
+    ("k6multi", "base"), ("k6multi", "textured")])
+def test_32_row_kernel_equals_plain(cuda, name, variant):
+    """K4 (sorted, ``raster_narrow32_kernel``) and K6 (mask) on 32-row
+    tiles, with and without the side list, textured (K5) and not, one and
+    several objects: z, gid and colour bit-equal to the plain version,
+    one launch counted on the route's wrapper."""
+    from tpu_renderer_torch.engine.renderer import prepare_scene
+
+    scene, tr, li, (h, w) = torch_scene(name, variant, cuda)
+    strategy = "mask" if name in MASK_NAMES else "sorted"
+    launch = prepare_scene(scene, tr, li, h, w, strategy=strategy,
+                           tile_h=32)
+    wrapper = (trp.raster_mask_kernel if strategy == "mask"
+               else trp.raster_narrow32_kernel)
+    assert launch.kernel is wrapper and launch.route.tile_h == 32
+    n0 = wrapper.launches
+    out_k = launch.run()
+    assert wrapper.launches == n0 + 1
+    out_p = launch.run_plain()
+    torch.cuda.synchronize()
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(bits(a), bits(b))
+    assert int((out_k[1] >= 0).sum()) > 1000
+    if variant == "sidelist":
+        assert int(launch.qbins.n_large) > 0
+
+
+@pytest.mark.parametrize("name, variant, backend", [
+    ("k4multi", "sidelist", "kernels"), ("k6", "gbuffer", "kernels"),
+    ("k6", "textured", "reference")])
+def test_subrect_render_scene_on_card_equals_cpu(cuda, name, variant,
+                                                 backend):
+    """render_scene into a sub-rect off the tile grid, called in JAX's
+    order (framebuffer, scene, transform, lights, backend, frame_height,
+    frame_width, row0, col0), on the fused, G-buffer and reference
+    branches: the card's frame equals the CPU run's and the crop of the
+    card's whole frame."""
+    r0, c0, hs, ws = 37, 21, 60, 100
+    frames = []
+    for dev in ("cpu", cuda):
+        scene, tr, li, (h, w) = torch_scene(name, variant, dev)
+        frames.append(trt.render_scene(
+            trt.make_framebuffer(hs, ws, device=dev), scene, tr, li,
+            backend, h, w, r0, c0))
+    full = trt.render_scene(None, scene, tr, li, backend, h, w)
+    torch.cuda.synchronize()
+    cpu, gpu = frames
+    np.testing.assert_array_equal(gpu.depth.cpu().numpy(), cpu.depth.numpy())
+    np.testing.assert_array_equal(gpu.color.view(torch.int32).cpu().numpy(),
+                                  cpu.color.view(torch.int32).numpy())
+    assert torch.equal(bits(gpu.depth), bits(full.depth[r0:r0 + hs,
+                                                        c0:c0 + ws]))
+    assert torch.equal(bits(gpu.color), bits(full.color[r0:r0 + hs,
+                                                        c0:c0 + ws]))
+    assert int((cpu.depth > -3.0e38).sum()) > 500
 
 
 @pytest.mark.parametrize("name", GBUFFER_NAMES)

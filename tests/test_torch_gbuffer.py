@@ -205,8 +205,8 @@ def test_gbuffer_stats_vs_jax(case):
 @pytest.mark.parametrize("strategy", ["mask", "sorted"])
 def test_tile_height_does_not_change_the_gbuffer(strategy):
     """tile_h is a performance knob (tests/test_pallas.py:288): 8-, 16-
-    and 32-row tiles give the same G-buffer. (The CUDA kernels take 8
-    and 16; the plain version any height.)"""
+    and 32-row tiles give the same G-buffer. (The CUDA kernels take 8, 16
+    and 32; the plain version any height.)"""
     sg, (h, w) = scene_of("config1")
     table, _, _, _ = port_table(sg, h, w)
     out = [tgb.rasterize_gbuffer(table, H, W, strategy=strategy, tile_h=th)

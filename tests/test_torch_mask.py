@@ -171,8 +171,8 @@ def test_mask_subrect_origin_equals_full_frame():
                                           texture=tex,
                                           filter_mode=cfg.filter_mode)
     r0, c0, hs, ws = 37, 21, 60, 100
-    _, zs, cs, st = trp.rasterize_shaded(table, tr, li, cfg.phong, hs, ws, h,
-                                         w, r0, c0, texture=tex,
+    _, zs, cs, st = trp.rasterize_shaded(table, tr, li, cfg.phong, hs, ws,
+                                         None, h, w, r0, c0, texture=tex,
                                          filter_mode=cfg.filter_mode)
     np.testing.assert_array_equal(zs.numpy(), z[r0:r0 + hs, c0:c0 + ws].numpy())
     np.testing.assert_array_equal(cs.numpy(),
@@ -198,7 +198,8 @@ def test_merge_stats_mixes_mask_and_sorted_draws(order):
     for obj, cfg in scene:
         launch = tre.prepare_scene([(obj, cfg)], tr, li, H, W)
         draws.append(launch.stats())
-        fb = tre.render_object(fb, obj, tr, li, cfg, H, W, stats=stats)
+        fb = tre.render_object(fb, obj, tr, li, cfg, "kernels", H, W,
+                               stats=stats)
     assert sorted(d["bins_dropped"].ndim for d in draws) == [0, 0]
     assert ["bins_real_entries" in d for d in draws] == (
         [False, True] if order == "mask-first" else [True, False])

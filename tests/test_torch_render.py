@@ -238,7 +238,8 @@ def test_subrect_origin_equals_full_frame():
                                frame_width=W)
     _, z, color, _ = trp.rasterize_shaded(pre, tr, li, True, H, W)
     r0, c0, h, w = 37, 21, 60, 100
-    _, zs, cs, _ = trp.rasterize_shaded(pre, tr, li, True, h, w, H, W, r0, c0)
+    _, zs, cs, _ = trp.rasterize_shaded(pre, tr, li, True, h, w, None, H, W,
+                                        r0, c0)
     np.testing.assert_array_equal(zs.numpy(), z[r0:r0 + h, c0:c0 + w].numpy())
     np.testing.assert_array_equal(cs.numpy(),
                                   color[r0:r0 + h, c0:c0 + w].numpy())

@@ -208,10 +208,10 @@ def test_subrect_origin_equals_full_frame_on_route(route):
     hs, ws = SUBRECT[route]
     launch = trp.prepare_raster(
         table, (trp.ObjSpec(0, obj.num_triangles, cfg.phong),), tr, li, hs,
-        ws, h, w, r0, c0)
+        ws, None, h, w, r0, c0)
     assert launch.route.rows == 1 and int(launch.qbins.n_large) > 0
-    _, zs, cs, _ = trp.rasterize_shaded(table, tr, li, cfg.phong, hs, ws, h,
-                                        w, r0, c0)
+    _, zs, cs, _ = trp.rasterize_shaded(table, tr, li, cfg.phong, hs, ws,
+                                        None, h, w, r0, c0)
     np.testing.assert_array_equal(zs.numpy(), z[r0:r0 + hs, c0:c0 + ws].numpy())
     np.testing.assert_array_equal(cs.numpy(),
                                   color[r0:r0 + hs, c0:c0 + ws].numpy())

@@ -13,11 +13,14 @@
 //                     rows_packed=1, :2355-2371);
 //   tr_raster_narrow  K4: sorted, 16-row tiles, one stream (the narrow
 //                     form, :2372-2380, _chunk_best :910 per CHUNK_T chunk);
-//   tr_raster_mask    K6: mask strategy, 8- or 16-row tiles, each tile's
-//                     padded triangle list (bin_triangles), no side list;
+//   tr_raster_narrow32
+//                     K4 on 32-row tiles (the narrow form at tile_h 32);
+//   tr_raster_mask    K6: mask strategy, 8-, 16- or 32-row tiles, each
+//                     tile's padded triangle list (bin_triangles), no side
+//                     list;
 //   tr_gbuffer_mask   K8: K6's fold, the G-buffer finalize (gbuffer_tile);
-//   tr_gbuffer_queue  K9 + K10: one sorted stream, 8- or 16-row tiles, the
-//                     side list (K10) folded by the tile's own block, the
+//   tr_gbuffer_queue  K9 + K10: one sorted stream, 8-, 16- or 32-row tiles,
+//                     the side list (K10) folded by the tile's own block, the
 //                     G-buffer finalize. The TPU ran K10 as a second grid
 //                     and merged the two G-buffers by (z desc, gid asc); the
 //                     fold applies that rule itself, so neither the second
@@ -49,25 +52,29 @@
 // the per-pixel fold, and one block walks a tile's entries in series. Dense
 // meshes concentrate entries: on the 1M-triangle 1080p sphere 215 of 2,025
 // tiles hold entries, one of them 7,165, and that tile sets the kernel's
-// time while most SMs idle. Splitting a tile's entries over several blocks
-// merged by the (z, gid) key is the next step.
+// time while most SMs idle. A 32-row tile holds the entries of two 16-row
+// ones and its block walks them in series (its two threads a column split
+// the rows, not the entries), so on the 40,040-triangle 1080p sphere grid
+// K4 on 32-row tiles takes about twice K4 on 16-row tiles on an H100.
+// Splitting a tile's entries over several blocks merged by the (z, gid) key
+// is the next step.
 //
 // Design: the TPU ran a sequential grid of (tile, record block) work items
 // that carried each tile's z / gid / attribute scratch from one item to the
-// next. Here one block of 128 threads owns one TILE_H x 128 framebuffer tile
-// and loops over all of its entries itself, so nothing crosses blocks and
-// no work-item table or record gather is needed: the block reads
-// recs[ids[i]] directly, from the sorted streams (starts / counts at
-// STREAMS * tile + stream) or the mask strategy's per-tile list (ids at
-// tile * capacity, counts[tile]). Entries go in batches of 128 (entry, row)
-// pairs:
+// next. Here one block of 128 threads (256 for 32-row tiles, see Tile) owns
+// one TILE_H x 128 framebuffer tile and loops over all of its entries
+// itself, so nothing crosses blocks and no work-item table or record gather
+// is needed: the block reads recs[ids[i]] directly, from the sorted streams
+// (starts / counts at STREAMS * tile + stream) or the mask strategy's
+// per-tile list (ids at tile * capacity, counts[tile]). Entries go in
+// batches of one (entry, row) pair per thread:
 //   1. the block stages the batch's record rows in shared memory with
 //      16-byte loads;
 //   2. thread p runs stage A's depth part for pair p (span bounds, z left
 //      value and per-pixel increment) into shared memory;
-//   3. thread x, owning column x of the tile, folds every pair of the batch
-//      into its TILE_H per-row winners: (z, gid, k), k the step from the
-//      span's left end.
+//   3. thread x, owning column x of the tile (and on 32-row tiles half of its
+//      rows), folds every pair of the batch into its per-row winners: (z,
+//      gid, k), k the step from the span's left end.
 // The winner rule is the lexicographic best (z descending, gid ascending)
 // over fragments with z > DEPTH_CLEAR, which is what the TPU's strict '>'
 // first-writer folds over gid-ordered lists plus the gid-aware side-list
@@ -76,10 +83,10 @@
 // record (row gid of the table) for only the planes that pixel's object
 // reads (colour, normal, u/z v/z 1/z), with the same f32 operations, so
 // the value al + k * inc is the one the fold would have kept. Registers
-// stay at 3 * TILE_H winner values whatever the scene's planes (config 5
-// needs 10), and one template serves every field set. Every tile is
-// written, so empty tiles need no masking afterwards. Tensor cores, TMA and
-// a persistent schedule are left for later work.
+// stay at 3 * min(TILE_H, 16) winner values whatever the scene's planes
+// (config 5 needs 10), and one template serves every field set. Every tile
+// is written, so empty tiles need no masking afterwards. Tensor cores, TMA
+// and a persistent schedule are left for later work.
 
 #include "common.cuh"
 
@@ -93,19 +100,54 @@ constexpr int kRecStride = 92;   // shared row stride: 16 B aligned
 // Depth part of stage A for one (entry, row) pair.
 constexpr int Q_MINX = 0, Q_MAXX = 1, Q_XOFF = 2, Q_ZL = 3, Q_ZINC = 4;
 constexpr int kNumQ = 5;
+constexpr int kMaxRows = 16;     // winner rows a thread keeps in registers
 
+// The block of a TILE_H-row tile. Up to 16 rows one thread owns a column
+// and all of its rows (kThreads threads). Taller tiles give each column
+// TILE_H / 16 threads, thread t owning rows [t / 128 * 16, + 16) of column
+// t % 128: 32-row tiles run 256 threads, and no thread keeps more than 16
+// rows of winners (3 x 16 registers), as the 16-row tiles' threads do.
 template <int TILE_H>
-struct Winners {
-  float z[TILE_H];
-  int g[TILE_H];
-  float k[TILE_H];
+struct Tile {
+  static_assert(TILE_H % 8 == 0 && (TILE_H <= kMaxRows ||
+                                    TILE_H % kMaxRows == 0), "tile height");
+  static constexpr int kThreads =
+      TILE_H <= kMaxRows ? tr::kThreads : kTileW * (TILE_H / kMaxRows);
+  static constexpr int kRows = TILE_H * kTileW / kThreads;  // per thread
 };
 
-struct Shared {
-  float rec[kMaxBatch][kRecStride];
-  float span[kNumQ][kThreads];
-  int gid[kThreads];
+// This thread's tile column and the first tile row it owns. The 8- and
+// 16-row tiles take threadIdx.x (unsigned, as it is) and 0, so their code is
+// what it was before taller tiles existed.
+template <int TILE_H>
+__device__ __forceinline__ unsigned tile_col() {
+  if constexpr (Tile<TILE_H>::kThreads == kTileW)
+    return threadIdx.x;
+  else
+    return threadIdx.x % kTileW;
+}
+template <int TILE_H>
+__device__ __forceinline__ int row_first() {
+  if constexpr (Tile<TILE_H>::kThreads == kTileW)
+    return 0;
+  else
+    return threadIdx.x / kTileW * Tile<TILE_H>::kRows;
+}
+
+template <int ROWS>
+struct Winners {
+  float z[ROWS];
+  int g[ROWS];
+  float k[ROWS];
 };
+
+template <int THREADS>
+struct SharedT {
+  float rec[kMaxBatch][kRecStride];
+  float span[kNumQ][THREADS];
+  int gid[THREADS];
+};
+using Shared = SharedT<kThreads>;
 
 // Everything the finalize reads besides the winners. The shaded kernels
 // write z, gid and colour; the G-buffer kernels gid and the 11 planes.
@@ -201,8 +243,9 @@ __device__ __forceinline__ float attr_at(const float* rec, const RowSpan& s,
 
 // Stage A's depth part for one (entry, row) pair, written to column p of
 // the span table (the attribute planes are recomputed at the finalize).
+template <class SH>
 __device__ __forceinline__ void stage_a(const float* rec, float yf, float w_f,
-                                        Shared& sh, int p) {
+                                        SH& sh, int p) {
   RowSpan s;
   row_span(rec, yf, s);
   // Span setup (projekt.cpp:306-421, closed form).
@@ -241,6 +284,7 @@ template <int TILE_H, int NROWS>
 __device__ __forceinline__ bool batch_occluded(const Shared& sh,
                                                const Winners<TILE_H>& win,
                                                int row_lo) {
+  static_assert(Tile<TILE_H>::kThreads == kThreads, "one thread a column");
   constexpr int kWarps = kThreads / 32;
   __shared__ float red[2][kWarps];
   const float inf = __int_as_float(0x7f800000);
@@ -281,20 +325,20 @@ __device__ __forceinline__ bool batch_occluded(const Shared& sh,
 
 // Stage the records ids[0..ne), run stage A on their (entry, row) pairs for
 // tile rows [row_lo, row_lo + NROWS), and fold the pairs into the winners
-// of this thread's column. ne * NROWS <= kThreads. With CULL (K11) a batch
-// that cannot win a pixel (batch_occluded) skips its fold and, when
-// ``skipped`` is not null, adds one to it.
+// of this thread's rows of its column. ne * NROWS <= the block's threads.
+// With CULL (K11) a batch that cannot win a pixel (batch_occluded) skips
+// its fold and, when ``skipped`` is not null, adds one to it.
 template <int TILE_H, int NROWS, bool CULL = false>
-__device__ __forceinline__ void fold_batch(const float* __restrict__ recs,
-                                           const int* __restrict__ ids, int ne,
-                                           int row_lo, int row_base, float w_f,
-                                           float xc, Shared& sh,
-                                           Winners<TILE_H>& win,
-                                           int* skipped = nullptr) {
-  static_assert(kThreads / NROWS <= kMaxBatch, "batch exceeds shared rows");
+__device__ __forceinline__ void fold_batch(
+    const float* __restrict__ recs, const int* __restrict__ ids, int ne,
+    int row_lo, int row_base, float w_f, float xc,
+    SharedT<Tile<TILE_H>::kThreads>& sh, Winners<Tile<TILE_H>::kRows>& win,
+    int* skipped = nullptr) {
+  constexpr int kBlock = Tile<TILE_H>::kThreads;
+  static_assert(kBlock / NROWS <= kMaxBatch, "batch exceeds shared rows");
   constexpr int kPer = kRecLoad / 4;
   __syncthreads();  // the previous batch has been folded
-  for (int i = threadIdx.x; i < ne * kPer; i += kThreads) {
+  for (int i = threadIdx.x; i < ne * kPer; i += kBlock) {
     const int e = i / kPer, q = i - e * kPer;
     const float4* src =
         reinterpret_cast<const float4*>(recs + (size_t)ids[e] * kRecLanes);
@@ -318,8 +362,10 @@ __device__ __forceinline__ void fold_batch(const float* __restrict__ recs,
       return;
     }
   }
+  const int r0 = row_first<TILE_H>();
 #pragma unroll
-  for (int r = 0; r < TILE_H; ++r) {
+  for (int rl = 0; rl < Tile<TILE_H>::kRows; ++rl) {
+    const int r = r0 + rl;
     if (r < row_lo || r >= row_lo + NROWS) continue;
     for (int e = 0; e < ne; ++e) {
       const int p = e * NROWS + (r - row_lo);
@@ -328,10 +374,10 @@ __device__ __forceinline__ void fold_batch(const float* __restrict__ recs,
       const float k = sh.span[Q_XOFF][p] + (xc - minx);
       const float z = sh.span[Q_ZL][p] + k * sh.span[Q_ZINC][p];
       const int g = sh.gid[p];
-      if (z > win.z[r] || (z == win.z[r] && g < win.g[r])) {
-        win.z[r] = z;
-        win.g[r] = g;
-        win.k[r] = k;
+      if (z > win.z[rl] || (z == win.z[rl] && g < win.g[rl])) {
+        win.z[rl] = z;
+        win.g[rl] = g;
+        win.k[rl] = k;
       }
     }
   }
@@ -508,22 +554,24 @@ __device__ __forceinline__ unsigned shade_pixel(const Finalize& f, int g,
   return pack_argb(rgba);
 }
 
-// Write the tile's z, gid and colour; uncovered pixels pack the zero base.
+// Write this thread's pixels of the tile: z, gid and colour; uncovered
+// pixels pack the zero base.
 template <int TILE_H>
-__device__ __forceinline__ void finalize_tile(const Finalize& f,
-                                              const Winners<TILE_H>& win,
-                                              int ty, int tx, int row_base,
-                                              float xc) {
+__device__ __forceinline__ void finalize_tile(
+    const Finalize& f, const Winners<Tile<TILE_H>::kRows>& win, int ty,
+    int tx, int row_base, float xc) {
+  const int r0 = row_first<TILE_H>();
 #pragma unroll
-  for (int r = 0; r < TILE_H; ++r) {
-    const size_t o =
-        (size_t)(ty * TILE_H + r) * f.out_w + tx * kTileW + threadIdx.x;
-    f.z_out[o] = win.z[r];
-    f.gid_out[o] = win.g[r];
+  for (int rl = 0; rl < Tile<TILE_H>::kRows; ++rl) {
+    const int r = r0 + rl;
+    const size_t o = (size_t)(ty * TILE_H + r) * f.out_w + tx * kTileW +
+                     tile_col<TILE_H>();
+    f.z_out[o] = win.z[rl];
+    f.gid_out[o] = win.g[rl];
     f.color_out[o] =
-        win.g[r] >= 0 ? shade_pixel(f, win.g[r], win.z[r], win.k[r], xc,
-                                    static_cast<float>(row_base + r))
-                      : 0u;
+        win.g[rl] >= 0 ? shade_pixel(f, win.g[rl], win.z[rl], win.k[rl], xc,
+                                     static_cast<float>(row_base + r))
+                       : 0u;
   }
 }
 
@@ -559,17 +607,19 @@ __device__ __forceinline__ void attr_lanes(int c, int& j0, int& jg) {
 }
 
 template <int TILE_H>
-__device__ __forceinline__ void gbuffer_tile(const Finalize& f,
-                                             const Winners<TILE_H>& win,
-                                             int ty, int tx, int row_base) {
+__device__ __forceinline__ void gbuffer_tile(
+    const Finalize& f, const Winners<Tile<TILE_H>::kRows>& win, int ty,
+    int tx, int row_base) {
+  const int r0 = row_first<TILE_H>();
 #pragma unroll
-  for (int r = 0; r < TILE_H; ++r) {
-    const size_t o =
-        (size_t)(ty * TILE_H + r) * f.out_w + tx * kTileW + threadIdx.x;
-    const int g = win.g[r];
+  for (int rl = 0; rl < Tile<TILE_H>::kRows; ++rl) {
+    const int r = r0 + rl;
+    const size_t o = (size_t)(ty * TILE_H + r) * f.out_w + tx * kTileW +
+                     tile_col<TILE_H>();
+    const int g = win.g[rl];
     f.gid_out[o] = g;
     float* px = f.gbuf_out + o;
-    px[0] = win.z[r];
+    px[0] = win.z[rl];
     if (g >= 0) {
       const float* rec = f.recs + (size_t)g * kRecLanes;
       RowSpan s;
@@ -578,7 +628,7 @@ __device__ __forceinline__ void gbuffer_tile(const Finalize& f,
       for (int c = 0; c < kAttrPlanes; ++c) {
         int j0, jg;
         attr_lanes(c, j0, jg);
-        px[(c + 1) * f.plane] = attr_at(rec, s, j0, jg, win.k[r]);
+        px[(c + 1) * f.plane] = attr_at(rec, s, j0, jg, win.k[rl]);
       }
     } else {
 #pragma unroll
@@ -587,10 +637,10 @@ __device__ __forceinline__ void gbuffer_tile(const Finalize& f,
   }
 }
 
-template <int TILE_H>
-__device__ __forceinline__ void init_winners(Winners<TILE_H>& win) {
+template <int ROWS>
+__device__ __forceinline__ void init_winners(Winners<ROWS>& win) {
 #pragma unroll
-  for (int r = 0; r < TILE_H; ++r) {
+  for (int r = 0; r < ROWS; ++r) {
     win.z[r] = kDepthClear;
     win.g[r] = -1;
     win.k[r] = 0.0f;
@@ -599,13 +649,13 @@ __device__ __forceinline__ void init_winners(Winners<TILE_H>& win) {
 
 // The tile's outputs: the G-buffer (GBUF) or z, gid and colour.
 template <int TILE_H, bool GBUF>
-__device__ __forceinline__ void write_tile(const Finalize& f,
-                                           const Winners<TILE_H>& win, int ty,
-                                           int tx, int row_base, float xc) {
+__device__ __forceinline__ void write_tile(
+    const Finalize& f, const Winners<Tile<TILE_H>::kRows>& win, int ty,
+    int tx, int row_base, float xc) {
   if constexpr (GBUF)
-    gbuffer_tile(f, win, ty, tx, row_base);
+    gbuffer_tile<TILE_H>(f, win, ty, tx, row_base);
   else
-    finalize_tile(f, win, ty, tx, row_base, xc);
+    finalize_tile<TILE_H>(f, win, ty, tx, row_base, xc);
 }
 
 // One tile of the sorted strategy: its streams, its side list, its
@@ -616,19 +666,21 @@ __device__ __forceinline__ void raster_tile(
     const int* __restrict__ sorted_tri, const int* __restrict__ starts,
     const int* __restrict__ counts, const int* __restrict__ large_ids,
     const int* __restrict__ n_large, const int* __restrict__ lcounts,
-    const Finalize& f, Shared& sh, int* skipped) {
+    const Finalize& f, SharedT<Tile<TILE_H>::kThreads>& sh, int* skipped) {
+  constexpr int kBlock = Tile<TILE_H>::kThreads;
   constexpr int kStrip = TILE_H / STREAMS;  // rows each stream covers
   const int tile = blockIdx.x;
   const int ty = tile / f.tiles_x, tx = tile - ty * f.tiles_x;
   const int row_base = f.row0 + ty * TILE_H;
-  const float xc = static_cast<float>(f.col0 + tx * kTileW + threadIdx.x);
-  Winners<TILE_H> win;
+  const float xc =
+      static_cast<float>(f.col0 + tx * kTileW + tile_col<TILE_H>());
+  Winners<Tile<TILE_H>::kRows> win;
   init_winners(win);
 
   // The tile's streams: stream h covers rows [h * kStrip, (h + 1) * kStrip).
 #pragma unroll
   for (int h = 0; h < STREAMS; ++h) {
-    constexpr int kBatch = kThreads / kStrip;
+    constexpr int kBatch = kBlock / kStrip;
     const int s = starts[STREAMS * tile + h], n = counts[STREAMS * tile + h];
     for (int b0 = 0; b0 < n; b0 += kBatch)
       fold_batch<TILE_H, kStrip, ZCULL>(f.recs, sorted_tri + s + b0,
@@ -638,7 +690,7 @@ __device__ __forceinline__ void raster_tile(
   }
   // The large-triangle side list, over all rows, where its bboxes reach.
   if (lcounts[tile] > 0) {
-    constexpr int kSide = kThreads / TILE_H;
+    constexpr int kSide = kBlock / TILE_H;
     const int nl = *n_large;
     for (int b0 = 0; b0 < nl; b0 += kSide)
       fold_batch<TILE_H, TILE_H>(f.recs, large_ids + b0, min(kSide, nl - b0),
@@ -653,12 +705,12 @@ __device__ __forceinline__ void raster_tile(
 // (_merge_gbuf_by_gid, :2954); here the block that owns the tile folds the
 // list into the same winners under that rule.
 template <int TILE_H, int STREAMS, bool GBUF>
-__global__ void __launch_bounds__(kThreads) raster_kernel(
+__global__ void __launch_bounds__(Tile<TILE_H>::kThreads) raster_kernel(
     const int* __restrict__ sorted_tri, const int* __restrict__ starts,
     const int* __restrict__ counts, const int* __restrict__ large_ids,
     const int* __restrict__ n_large, const int* __restrict__ lcounts,
     Finalize f) {
-  __shared__ __align__(16) Shared sh;
+  __shared__ __align__(16) SharedT<Tile<TILE_H>::kThreads> sh;
   raster_tile<TILE_H, STREAMS, GBUF, false>(sorted_tri, starts, counts,
                                             large_ids, n_large, lcounts, f,
                                             sh, nullptr);
@@ -681,17 +733,18 @@ __global__ void __launch_bounds__(kThreads) raster_zcull_kernel(
 // ids[t * capacity + i] for i < counts[t], in submission order; each covers
 // all of the tile's rows.
 template <int TILE_H, bool GBUF>
-__global__ void __launch_bounds__(kThreads) mask_kernel(
+__global__ void __launch_bounds__(Tile<TILE_H>::kThreads) mask_kernel(
     const int* __restrict__ ids, const int* __restrict__ counts, int capacity,
     Finalize f) {
-  __shared__ __align__(16) Shared sh;
+  __shared__ __align__(16) SharedT<Tile<TILE_H>::kThreads> sh;
   const int tile = blockIdx.x;
   const int ty = tile / f.tiles_x, tx = tile - ty * f.tiles_x;
   const int row_base = f.row0 + ty * TILE_H;
-  const float xc = static_cast<float>(f.col0 + tx * kTileW + threadIdx.x);
-  Winners<TILE_H> win;
+  const float xc =
+      static_cast<float>(f.col0 + tx * kTileW + tile_col<TILE_H>());
+  Winners<Tile<TILE_H>::kRows> win;
   init_winners(win);
-  constexpr int kBatch = kThreads / TILE_H;
+  constexpr int kBatch = Tile<TILE_H>::kThreads / TILE_H;
   const int* list = ids + (size_t)tile * capacity;
   const int n = counts[tile];
   for (int b0 = 0; b0 < n; b0 += kBatch)
@@ -753,7 +806,7 @@ Finalize make_gbuffer(const float* recs, int tile_h, int tiles_y, int tiles_x,
                       void* stream) {                                          \
     if (n_obj < 1 || tiles_y < 1 || tiles_x < 1) return 1;                     \
     tr::raster_kernel<TILE_H, STREAMS, false>                                  \
-        <<<tiles_y * tiles_x, tr::kThreads, 0,                                 \
+        <<<tiles_y * tiles_x, tr::Tile<TILE_H>::kThreads, 0,                   \
            static_cast<cudaStream_t>(stream)>>>(                               \
             sorted_tri, starts, counts, large_ids, n_large, lcounts,           \
             tr::make_finalize(recs, params, objs, texs, atlas, aw, n_obj,      \
@@ -762,9 +815,10 @@ Finalize make_gbuffer(const float* recs, int tile_h, int tiles_y, int tiles_x,
     return static_cast<int>(cudaGetLastError());                               \
   }
 
-TR_RASTER_ENTRY(tr_raster, 8, 2)         // K2
-TR_RASTER_ENTRY(tr_raster_rows1, 8, 1)   // K3
-TR_RASTER_ENTRY(tr_raster_narrow, 16, 1) // K4
+TR_RASTER_ENTRY(tr_raster, 8, 2)           // K2
+TR_RASTER_ENTRY(tr_raster_rows1, 8, 1)     // K3
+TR_RASTER_ENTRY(tr_raster_narrow, 16, 1)   // K4
+TR_RASTER_ENTRY(tr_raster_narrow32, 32, 1) // K4, 32-row tiles
 
 // K11 on K2's and K3's routes: the same operands as K2's entry, and
 // ``skipped`` (null, or one int the kernel adds its skipped batches to).
@@ -793,7 +847,7 @@ TR_RASTER_ENTRY(tr_raster_narrow, 16, 1) // K4
 TR_RASTER_ZCULL_ENTRY(tr_raster_zcull, 2)        // K11 on K2's route
 TR_RASTER_ZCULL_ENTRY(tr_raster_rows1_zcull, 1)  // K11 on K3's route
 
-// K6, 8- or 16-row tiles.
+// K6, 8-, 16- or 32-row tiles.
 extern "C" int tr_raster_mask(const float* recs, const int* ids,
                               const int* counts, const float* params,
                               const int* objs, const int* texs,
@@ -814,12 +868,15 @@ extern "C" int tr_raster_mask(const float* recs, const int* ids,
   else if (tile_h == 16)
     tr::mask_kernel<16, false><<<grid, tr::kThreads, 0, s>>>(ids, counts,
                                                              capacity, f);
+  else if (tile_h == 32)
+    tr::mask_kernel<32, false><<<grid, tr::Tile<32>::kThreads, 0, s>>>(
+        ids, counts, capacity, f);
   else
     return 1;  // invalid value
   return static_cast<int>(cudaGetLastError());
 }
 
-// K8: the mask strategy into a G-buffer, 8- or 16-row tiles; gid (out_h,
+// K8: the mask strategy into a G-buffer, 8-, 16- or 32-row tiles; gid (out_h,
 // out_w) i32 and gbuf (11, out_h, out_w) f32, out_h = tiles_y * tile_h.
 extern "C" int tr_gbuffer_mask(const float* recs, const int* ids,
                                const int* counts, int capacity, int tile_h,
@@ -837,13 +894,17 @@ extern "C" int tr_gbuffer_mask(const float* recs, const int* ids,
   else if (tile_h == 16)
     tr::mask_kernel<16, true><<<grid, tr::kThreads, 0, s>>>(ids, counts,
                                                             capacity, f);
+  else if (tile_h == 32)
+    tr::mask_kernel<32, true><<<grid, tr::Tile<32>::kThreads, 0, s>>>(
+        ids, counts, capacity, f);
   else
     return 1;  // invalid value
   return static_cast<int>(cudaGetLastError());
 }
 
-// K9 + K10: the sorted strategy's single stream into a G-buffer, with the
-// large-triangle side list folded on tiles whose lcounts gate is open.
+// K9 + K10: the sorted strategy's single stream into a G-buffer, 8-, 16- or
+// 32-row tiles, with the large-triangle side list folded on tiles whose
+// lcounts gate is open.
 extern "C" int tr_gbuffer_queue(const float* recs, const int* sorted_tri,
                                 const int* starts, const int* counts,
                                 const int* large_ids, const int* n_large,
@@ -860,6 +921,9 @@ extern "C" int tr_gbuffer_queue(const float* recs, const int* sorted_tri,
         sorted_tri, starts, counts, large_ids, n_large, lcounts, f);
   else if (tile_h == 16)
     tr::raster_kernel<16, 1, true><<<grid, tr::kThreads, 0, s>>>(
+        sorted_tri, starts, counts, large_ids, n_large, lcounts, f);
+  else if (tile_h == 32)
+    tr::raster_kernel<32, 1, true><<<grid, tr::Tile<32>::kThreads, 0, s>>>(
         sorted_tri, starts, counts, large_ids, n_large, lcounts, f);
   else
     return 1;  // invalid value

@@ -208,20 +208,23 @@ def _scene_table(scene, transform: ProjectiveTransform, lights: LightData,
 def prepare_scene(scene: Sequence[Tuple[RenderObject, ObjectConfig]],
                   transform: ProjectiveTransform, lights: LightData,
                   height: int, width: int, frame_height: int | None = None,
-                  frame_width: int | None = None,
-                  capacity: int | None = None,
+                  frame_width: int | None = None, row0: int = 0,
+                  col0: int = 0, capacity: int | None = None,
                   budget_override: float | None = None,
-                  zcull: bool = False) -> RasterLaunch:
-    """The one raster launch that draws ``scene`` into a (height, width)
-    rect of a (frame_height, frame_width) frame: its route, kernel and
-    operands, with the setup already run (FillEdgeTable, SURVEY.md §1.1).
-    One object takes setup_for_raster (K1 from 4096 triangles, else the
-    channel-major table of setup_records) and its texture as the atlas;
-    several objects take one scene-global table and atlas
-    (``_scene_table``). Every object must be fusable (``_obj_fusable``);
-    the others take the G-buffer path of ``render_object``. ``capacity``,
-    ``budget_override`` and ``zcull`` go to ``ops.raster.prepare_raster``
-    (zcull: K11 on 8-row tiles, nothing elsewhere)."""
+                  zcull: bool = False, strategy: str = "auto",
+                  tile_h: int | None = None) -> RasterLaunch:
+    """The one raster launch that draws ``scene`` into the (height, width)
+    rect at origin (row0, col0) of a (frame_height, frame_width) frame: its
+    route, kernel and operands, with the setup already run (FillEdgeTable,
+    SURVEY.md §1.1). One object takes setup_for_raster (K1 from 4096
+    triangles, else the channel-major table of setup_records) and its
+    texture as the atlas; several objects take one scene-global table and
+    atlas (``_scene_table``). Every object must be fusable
+    (``_obj_fusable``); the others take the G-buffer path of
+    ``render_object``. ``capacity``, ``budget_override``, ``zcull``,
+    ``strategy`` and ``tile_h`` go to ``ops.raster.prepare_raster`` (zcull:
+    K11 on 8-row tiles, nothing elsewhere; the route knobs, which the
+    engine's draws leave to 'auto', force a route)."""
     assert all(_obj_fusable(obj, cfg) for obj, cfg in scene), (
         "prepare_scene is the fused launch; this scene holds an object "
         "for the G-buffer path")
@@ -241,24 +244,34 @@ def prepare_scene(scene: Sequence[Tuple[RenderObject, ObjectConfig]],
         table, objspecs, atlas = _scene_table(scene, transform, lights,
                                               frame_height, frame_width)
     return prepare_raster(table, objspecs, transform, lights, height, width,
-                          frame_height, frame_width, atlas=atlas,
-                          capacity=capacity, budget_override=budget_override,
-                          zcull=zcull)
+                          capacity, frame_height, frame_width, row0, col0,
+                          strategy, tile_h, atlas, budget_override, zcull)
 
 
-def _draw(framebuffer: Framebuffer | None, scene,
-          transform: ProjectiveTransform, lights: LightData,
-          frame_height: int | None, frame_width: int | None,
-          stats: dict | None, **knobs) -> Framebuffer:
-    """Draw the scene in one raster launch (``prepare_scene``, which takes
-    the ``knobs`` capacity, budget_override and zcull), as a fresh frame or
-    merged over ``framebuffer``."""
+def _local_rect(framebuffer: Framebuffer | None, frame_height, frame_width):
+    """(height, width, frame_height, frame_width) of a draw: the
+    framebuffer is the local rect of the frame (a fresh one, None, is the
+    whole frame), and the frame's dims default to the rect's
+    (renderer.py:103-124)."""
     if framebuffer is None:
         height, width = frame_height, frame_width
     else:
         height, width = framebuffer.height, framebuffer.width
+    return (height, width, height if frame_height is None else frame_height,
+            width if frame_width is None else frame_width)
+
+
+def _draw(framebuffer: Framebuffer | None, scene,
+          transform: ProjectiveTransform, lights: LightData,
+          frame_height: int | None, frame_width: int | None, row0: int,
+          col0: int, stats: dict | None, **knobs) -> Framebuffer:
+    """Draw the scene in one raster launch (``prepare_scene``, which takes
+    the ``knobs`` capacity, budget_override and zcull), as a fresh frame or
+    merged over ``framebuffer``, the rect at (row0, col0)."""
+    height, width, frame_height, frame_width = _local_rect(
+        framebuffer, frame_height, frame_width)
     launch = prepare_scene(scene, transform, lights, height, width,
-                           frame_height, frame_width, **knobs)
+                           frame_height, frame_width, row0, col0, **knobs)
     covered, z, packed, rstats = run_shaded(launch, height, width)
     _merge_stats(stats, rstats)
     return _merge_into(framebuffer, covered, z, packed)
@@ -269,60 +282,67 @@ def _draw_deferred(framebuffer: Framebuffer | None, obj: RenderObject,
                    cfg: ObjectConfig, frame_height: int | None,
                    frame_width: int | None, stats: dict | None,
                    backend: str = "kernels", capacity: int | None = None,
-                   budget_override: float | None = None) -> Framebuffer:
+                   budget_override: float | None = None, row0: int = 0,
+                   col0: int = 0) -> Framebuffer:
     """render_object's deferred branch (renderer.py:167-198): a G-buffer,
     ``shade``, ``pack_argb``, then the strict '>' merge of the covered
     pixels over ``framebuffer`` (a fresh zero-cleared frame on the
     object's device when None: 'avx' narrows the coverage after shading,
-    so the G-buffer cannot stand for the frame). The G-buffer comes from
-    setup_for_raster + ``rasterize_gbuffer`` (K8, or K9 with K10; with
-    ``capacity`` and ``budget_override``; no zcull, as in the JAX package)
-    or, on the 'reference' backend, from ``setup_triangles`` +
+    so the G-buffer cannot stand for the frame), the rect at (row0, col0)
+    of the frame. The G-buffer comes from setup_for_raster +
+    ``rasterize_gbuffer`` (K8, or K9 with K10; with ``capacity`` and
+    ``budget_override``; no zcull, as in the JAX package) or, on the
+    'reference' backend, from ``setup_triangles`` +
     ``rasterize_reference``."""
+    height, width, frame_height, frame_width = _local_rect(
+        framebuffer, frame_height, frame_width)
     if framebuffer is None:
-        framebuffer = make_framebuffer(frame_height, frame_width,
+        framebuffer = make_framebuffer(height, width,
                                        device=obj.vertices.device)
-    height, width = framebuffer.height, framebuffer.width
-    frame_height = height if frame_height is None else frame_height
-    frame_width = width if frame_width is None else frame_width
     if backend == "reference":
         covered, gbuf = rasterize_reference(
             setup_triangles(obj, transform, lights, cfg), height, width,
-            frame_width)
+            frame_width, row0, col0)
     else:
         table = setup_for_raster(obj, transform, lights, cfg,
                                  frame_height=frame_height,
                                  frame_width=frame_width)
         covered, gbuf, rstats = rasterize_gbuffer(
-            table, height, width, capacity, frame_height=frame_height,
-            frame_width=frame_width, budget_override=budget_override)
+            table, height, width, capacity, frame_height, frame_width, row0,
+            col0, budget_override=budget_override)
         _merge_stats(stats, rstats)
-    rgba, covered = shade(covered, gbuf, transform, lights, cfg, obj.texture)
+    rgba, covered = shade(covered, gbuf, transform, lights, cfg, obj.texture,
+                          row0, col0)
     return _merge_into(framebuffer, covered, gbuf[0], pack_argb(rgba))
 
 
 def render_object(framebuffer: Framebuffer | None, obj: RenderObject,
                   transform: ProjectiveTransform, lights: LightData,
-                  cfg: ObjectConfig, frame_height: int | None = None,
-                  frame_width: int | None = None,
-                  stats: dict | None = None, *, backend: str = "kernels",
-                  capacity: int | None = None,
+                  cfg: ObjectConfig, backend: str = "kernels",
+                  frame_height: int | None = None,
+                  frame_width: int | None = None, row0: int = 0,
+                  col0: int = 0, capacity: int | None = None,
+                  stats: dict | None = None,
                   budget_override: float | None = None,
                   zcull: bool = False) -> Framebuffer:
-    """Draw one object (FillEdgeTable + DrawModel, SURVEY.md §1.1). On the
+    """Draw one object (FillEdgeTable + DrawModel, SURVEY.md §1.1), with
+    the JAX package's parameters in its order (renderer.py:84). On the
     'kernels' backend: the fused launch when the object is fusable, else
     the G-buffer path (``_draw_deferred``); on 'reference', the reference
     rasterizer and the deferred shade.
 
-    ``framebuffer=None`` is a fresh zero-cleared frame of (frame_height,
-    frame_width): on the fused path the raster outputs already carry the
-    clear values on uncovered pixels and are returned as they are.
-    Otherwise the object merges over the framebuffer with the strict '>'
-    depth test. ``capacity`` is the mask strategy's per-tile list length,
-    ``budget_override`` the sorted strategy's budget factor (both in
-    ``stats``' terms: drops are counted); ``zcull`` launches K11 on the
-    fused 8-row routes and does nothing on K4, K6, the G-buffer path
-    (renderer.py:182-185 never passes it there) and 'reference'."""
+    ``framebuffer`` may be the local rect at origin (row0, col0) of a
+    larger (frame_height, frame_width) frame, as a device of a sharded
+    frame renders its tile (SURVEY.md §5.8). ``framebuffer=None`` is a
+    fresh zero-cleared frame of (frame_height, frame_width): on the fused
+    path the raster outputs already carry the clear values on uncovered
+    pixels and are returned as they are. Otherwise the object merges over
+    the framebuffer with the strict '>' depth test. ``capacity`` is the
+    mask strategy's per-tile list length, ``budget_override`` the sorted
+    strategy's budget factor (both in ``stats``' terms: drops are
+    counted); ``zcull`` launches K11 on the fused 8-row routes and does
+    nothing on K4, K6, the G-buffer path (renderer.py:182-185 never passes
+    it there) and 'reference'."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend: {backend}")
     if framebuffer is None and (frame_height is None or frame_width is None):
@@ -330,42 +350,43 @@ def render_object(framebuffer: Framebuffer | None, obj: RenderObject,
     if backend == "reference" or not _obj_fusable(obj, cfg):
         return _draw_deferred(framebuffer, obj, transform, lights, cfg,
                               frame_height, frame_width, stats, backend,
-                              capacity, budget_override)
+                              capacity, budget_override, row0, col0)
     return _draw(framebuffer, [(obj, cfg)], transform, lights, frame_height,
-                 frame_width, stats, capacity=capacity,
+                 frame_width, row0, col0, stats, capacity=capacity,
                  budget_override=budget_override, zcull=zcull)
 
 
 def render_scene(framebuffer: Framebuffer | None,
                  scene: Sequence[Tuple[RenderObject, ObjectConfig]],
                  transform: ProjectiveTransform, lights: LightData,
-                 frame_height: int | None = None,
-                 frame_width: int | None = None,
-                 stats: dict | None = None, *, backend: str = "kernels",
-                 capacity: int | None = None,
+                 backend: str = "kernels", frame_height: int | None = None,
+                 frame_width: int | None = None, row0: int = 0,
+                 col0: int = 0, capacity: int | None = None,
+                 stats: dict | None = None,
                  budget_override: float | None = None,
                  zcull: bool = False) -> Framebuffer:
     """Draw a list of objects in submission order over one z-buffer
-    (renderer.py:351): on the 'kernels' backend a scene of several
-    fusable objects whose atlas fits renders in one raster launch
-    (prepare_scene), otherwise objects draw one after another (fused,
-    G-buffer or reference each); both give the same frame.
-    ``framebuffer=None`` is a fresh (frame_height, frame_width) frame; the
-    knobs are ``render_object``'s."""
+    (renderer.py:351, same parameters in the same order): on the
+    'kernels' backend a scene of several fusable objects whose atlas fits
+    renders in one raster launch (prepare_scene), otherwise objects draw
+    one after another (fused, G-buffer or reference each); both give the
+    same frame. ``framebuffer=None`` is a fresh (frame_height,
+    frame_width) frame; the origin and knobs are ``render_object``'s."""
     if framebuffer is None and (frame_height is None or frame_width is None):
         raise ValueError("render_scene(framebuffer=None) needs frame dims")
     knobs = dict(capacity=capacity, budget_override=budget_override,
                  zcull=zcull)
     if backend == "kernels" and len(scene) > 1 and _scene_batchable(scene):
         return _draw(framebuffer, scene, transform, lights, frame_height,
-                     frame_width, stats, **knobs)
+                     frame_width, row0, col0, stats, **knobs)
     if framebuffer is None and not scene:
         return make_framebuffer(frame_height, frame_width,
                                 device=transform.focal_length.device)
     for obj, cfg in scene:
         framebuffer = render_object(framebuffer, obj, transform, lights,
-                                    cfg, frame_height, frame_width, stats,
-                                    backend=backend, **knobs)
+                                    cfg, backend, frame_height, frame_width,
+                                    row0, col0, capacity, stats,
+                                    budget_override, zcull)
     return framebuffer
 
 
@@ -418,11 +439,9 @@ class Renderer:
         fb = (None if self.clear_color == 0 else make_framebuffer(
             self.height, self.width, self.clear_color, device=self.device))
         stats: dict = {}
-        fb = render_scene(fb, list(scene), transform, lights,
-                          frame_height=self.height, frame_width=self.width,
-                          stats=stats, backend=self.backend,
-                          capacity=self.capacity,
-                          budget_override=self.budget_factor,
+        fb = render_scene(fb, list(scene), transform, lights, self.backend,
+                          self.height, self.width, capacity=self.capacity,
+                          stats=stats, budget_override=self.budget_factor,
                           zcull=self.zcull)
         return (fb, stats) if with_stats else fb
 

@@ -11,7 +11,7 @@ and gid -1. It holds three kernels, in ``csrc/raster.cu``:
 - K8, ``raster_pass``: the mask strategy (``_raster_kernel_tilelist``
   :1756), each tile folding its ``bin_triangles`` list in place;
 - K9, ``raster_pass_queue``: the sorted strategy's single stream
-  (``_raster_kernel_queue`` :1853), 8- or 16-row tiles;
+  (``_raster_kernel_queue`` :1853);
 - K10: the large-triangle side list (``_raster_kernel_bcast`` :2018, merged
   by ``_merge_gbuf_by_gid`` :2954), folded inside K9's launch by the block
   that owns the tile, under the same (z desc, gid asc) rule, and counted
@@ -20,8 +20,10 @@ and gid -1. It holds three kernels, in ``csrc/raster.cu``:
 Each wrapper launches its kernel on CUDA tensors and runs its plain
 version on CPU tensors: ``gbuffer_plain``, the plain raster's fragments and
 winners (``ops.raster.raster_fragments``, ``resolve_winners``) over all 10
-attribute planes. The CUDA entries take 8- and 16-row tiles, which is what
-the 'auto' route picks; the plain version takes any tile height.
+attribute planes. The CUDA entries take 8-, 16- and 32-row tiles
+(``ops.raster.CUDA_TILE_HEIGHTS``: the 'auto' route's heights and the
+Pallas kernels' default of 32, 256-thread blocks); the plain version takes
+any tile height.
 """
 
 from __future__ import annotations
@@ -35,7 +37,6 @@ from .. import _cuda
 from ..geometry.vertex import REC_LANES
 from .binning import QueueBins, TileBins, bin_triangles, triangle_bbox_rows
 from .raster import (
-    AUTO_SORTED_THRESHOLD,
     COL_FIELDS,
     F32,
     I32,
@@ -45,10 +46,11 @@ from .raster import (
     UV_FIELDS,
     RasterRoute,
     _mask_guard,
-    _pick_tile_h,
     _queue_expansion,
     bin_for_raster,
     bin_stats,
+    check_cuda_tile_h,
+    pick_strategy,
     finish_records,
     mask_capacity,
     mask_stream,
@@ -71,15 +73,10 @@ def gbuffer_route(t_policy: int, frame_height: int, frame_width: int,
     QUEUE_BLK and _queue_expansion's policy factor as the budget (no row
     packing, no rows-scaled budget, unlike the fused ``raster_route``);
     ``budget_override`` replaces that factor."""
-    if strategy == "auto":
-        strategy = ("sorted" if t_policy > AUTO_SORTED_THRESHOLD
-                    else "mask")
-    if tile_h is None:
-        tile_h = _pick_tile_h(t_policy, frame_height, frame_width)
+    strategy, tile_h = pick_strategy(t_policy, frame_height, frame_width,
+                                     strategy, tile_h)
     if strategy == "mask":
         return RasterRoute("mask", tile_h, 1, 0, 0, 0.0, 0.0)
-    if strategy != "sorted":
-        raise ValueError(f"unknown strategy: {strategy}")
     expansion, policy = _queue_expansion(tile_h, t_policy, budget_override)
     return RasterRoute("sorted", tile_h, 1, expansion, QUEUE_BLK, policy,
                        policy)
@@ -94,8 +91,7 @@ def _outputs(tiles_y: int, tile_h: int, tiles_x: int, dev):
 def _check_cuda(kernel: str, dev, recs, tile_h: int) -> None:
     if dev.type != "cuda":
         raise ValueError(f"{kernel} runs on CUDA or CPU tensors, not {dev}")
-    if tile_h not in (8, 16):
-        raise ValueError(f"{kernel} runs 8- or 16-row tiles, not {tile_h}")
+    check_cuda_tile_h(kernel, tile_h)
     _cuda.check_tensor("recs", recs, dev, F32, (recs.shape[0], REC_LANES))
 
 

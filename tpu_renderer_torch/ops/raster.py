@@ -5,13 +5,12 @@ one or several objects per launch, textured ('scalar' addressing, nearest
 or bilinear, within the fused atlas limits) or not. It holds five kernels:
 
 - K2, K3 and K4: the Pallas ``_raster_kernel_queue_shaded``
-  (raster_pallas.py:2192) on the sorted strategy's three routes -- 8-row
-  tiles with row packing 2 (K2, ``raster_kernel``), 8-row tiles with one
-  stream (K3, ``raster_rows1_kernel``), 16-row tiles with one stream (K4,
-  ``raster_narrow_kernel``);
+  (raster_pallas.py:2192) on the sorted strategy's routes -- 8-row tiles
+  with row packing 2 (K2, ``raster_kernel``), 8-row tiles with one stream
+  (K3, ``raster_rows1_kernel``), 16- or 32-row tiles with one stream (K4,
+  ``raster_narrow_kernel``, ``raster_narrow32_kernel``);
 - K6: the Pallas ``_raster_kernel_tilelist_shaded`` (raster_pallas.py:2121),
-  the mask strategy of draws of at most 512 triangles
-  (``raster_mask_kernel``), 8- or 16-row tiles;
+  the mask strategy (``raster_mask_kernel``), 8-, 16- or 32-row tiles;
 - K5: the texture fetch of their finalize (``_sample_texture_atlas`` :755,
   ``_sample_texture_atlas_bilinear`` :863), a device function of
   ``csrc/raster.cu`` with no launch of its own; its plain version is
@@ -20,15 +19,16 @@ or bilinear, within the fused atlas limits) or not. It holds five kernels:
   channel-major record table to the row-major one (``csrc/records.cu``).
 
 Each wrapper launches its CUDA kernel on CUDA tensors and runs its plain
-version on CPU tensors. The raster kernels' plain version,
-``raster_plain``, is vectorised over the binned entries (the mask
-strategy's lists go in as one stream, ``mask_plain``); each pixel's winner
-is the lexicographic best (z descending, gid ascending) over fragments
-with z > DEPTH_CLEAR, which is what the TPU kernels' strict '>'
-first-writer folds over gid-ordered lists plus the sorted strategy's
-gid-aware side-list merge compute. Multi-object launches pick each
-pixel's object from the winner's gid (``_finalize_shade``,
-raster_pallas.py:1600).
+version on CPU tensors. The CUDA kernels take 8-, 16- and 32-row tiles
+(``CUDA_TILE_HEIGHTS``); the plain versions any height. The raster
+kernels' plain version, ``raster_plain``, is vectorised over the binned
+entries (the mask strategy's lists go in as one stream, ``mask_plain``);
+each pixel's winner is the lexicographic best (z descending, gid
+ascending) over fragments with z > DEPTH_CLEAR, which is what the TPU
+kernels' strict '>' first-writer folds over gid-ordered lists plus the
+sorted strategy's gid-aware side-list merge compute. Multi-object
+launches pick each pixel's object from the winner's gid
+(``_finalize_shade``, raster_pallas.py:1600).
 
 K11, the occlusion skip (``zcull``), is K2 and K3 with a per-batch cull
 (``raster_zcull_kernel``, ``raster_rows1_zcull_kernel``); the cull changes
@@ -105,6 +105,8 @@ PACK_ROWS_STREAM_FRAC = 0.45  # multi-object per-stream budget, x 1.2
 LARGE_CAPACITY = 2048  # side-list slots (bin_triangles_queue default)
 CHUNK_T = 8  # the mask strategy's list capacity rounds up to this
 MASK_MAX_CAPACITY = 4096
+STRATEGIES = ("auto", "mask", "sorted")
+CUDA_TILE_HEIGHTS = (8, 16, 32)  # tile heights the CUDA raster kernels run
 _MASK_BLOCK_BYTES_CAP = 4 * 1024 * 1024  # one tile's list of records
 _MASK_TOTAL_BYTES_CAP = 512 * 1024 * 1024  # all tiles' lists of records
 # The f32 gid lane is exact only up to 2**24 triangles per scene.
@@ -277,18 +279,38 @@ class RasterRoute(NamedTuple):
     policy_factor: float  # _queue_expansion's, reported in the stats
 
 
+def pick_strategy(t_policy: int, frame_height: int, frame_width: int,
+                  strategy: str, tile_h: int | None) -> tuple[str, int]:
+    """(strategy, tile_h) of a T-triangle draw (raster_pallas.py:2529-2532):
+    'auto' takes the mask strategy up to AUTO_SORTED_THRESHOLD triangles
+    and the sorted one above it, 'mask' or 'sorted' forces one; ``tile_h``
+    None takes ``_pick_tile_h``'s height."""
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown strategy: {strategy}")
+    if strategy == "auto":
+        strategy = ("sorted" if t_policy > AUTO_SORTED_THRESHOLD
+                    else "mask")
+    if tile_h is None:
+        tile_h = _pick_tile_h(t_policy, frame_height, frame_width)
+    return strategy, tile_h
+
+
 def raster_route(t_policy: int, frame_height: int, frame_width: int,
-                 n_objects: int = 1,
-                 budget_override: float | None = None) -> RasterRoute:
-    """The JAX package's 'auto' gates for a T-triangle draw of
-    ``n_objects`` objects on this frame: the mask strategy up to
-    AUTO_SORTED_THRESHOLD triangles (no stream: expansion, blk and the
-    budget factors are 0), the sorted strategy above it.
-    ``budget_override`` replaces the policy factor (and is what the stats
-    report); under row packing it is scaled by PACK_ROWS_STREAM_FRAC *
-    2 / rows (raster_pallas.py:2654-2666)."""
-    tile_h = _pick_tile_h(t_policy, frame_height, frame_width)
-    if t_policy <= AUTO_SORTED_THRESHOLD:
+                 n_objects: int = 1, budget_override: float | None = None,
+                 strategy: str = "auto",
+                 tile_h: int | None = None) -> RasterRoute:
+    """The fused route of a T-triangle draw of ``n_objects`` objects on
+    this frame (raster_pallas.py:2529-2532, 2640-2690): the strategy and
+    tile height of ``pick_strategy`` (the mask strategy has no stream:
+    expansion, blk and the budget factors are 0); on the sorted strategy,
+    8-row tiles (wide) pack two row streams when the scene is dense
+    enough, taller ones run one stream. ``budget_override`` replaces the
+    policy factor (and is what the stats report); under row packing it is
+    scaled by PACK_ROWS_STREAM_FRAC * 2 / rows
+    (raster_pallas.py:2654-2666)."""
+    strategy, tile_h = pick_strategy(t_policy, frame_height, frame_width,
+                                     strategy, tile_h)
+    if strategy == "mask":
         return RasterRoute("mask", tile_h, 1, 0, 0, 0.0, 0.0)
     expansion, policy = _queue_expansion(tile_h, t_policy, budget_override)
     wide = tile_h <= 8
@@ -499,10 +521,27 @@ def raster_narrow_kernel(recs, qbins, lcounts, params, objs, texs, atlas,
                    qbins, lcounts, params, objs, texs, atlas, **kw)
 
 
+def raster_narrow32_kernel(recs, qbins, lcounts, params, objs, texs, atlas,
+                           **kw):
+    """K4 on 32-row tiles (one stream; 256-thread blocks, two threads a
+    column): outputs (tiles_y * 32, tiles_x * 128); ``tr_raster_narrow32``,
+    counted in ``raster_narrow32_kernel.launches``."""
+    return _raster(raster_narrow32_kernel, "tr_raster_narrow32", 32, 1,
+                   recs, qbins, lcounts, params, objs, texs, atlas, **kw)
+
+
+def check_cuda_tile_h(kernel: str, tile_h: int) -> None:
+    """Raise unless the CUDA kernels run ``tile_h``-row tiles."""
+    if tile_h not in CUDA_TILE_HEIGHTS:
+        heights = ", ".join(map(str, CUDA_TILE_HEIGHTS))
+        raise ValueError(f"{kernel} runs tiles of {heights} rows on CUDA, "
+                         f"not {tile_h}")
+
+
 def raster_mask_kernel(recs, bins: TileBins, params, objs, texs, atlas, *,
                        tile_h: int, tiles_y: int, tiles_x: int, row0: int,
                        col0: int, frame_width: int, n_lights: int):
-    """K6, the mask strategy (8- or 16-row tiles): each tile folds its
+    """K6, the mask strategy (8-, 16- or 32-row tiles): each tile folds its
     list ``bins.ids`` (submission order, ``bins.counts`` entries) over all
     of its rows, reading the records in place; outputs as K2's. CUDA
     tensors launch ``tr_raster_mask`` and count
@@ -517,8 +556,7 @@ def raster_mask_kernel(recs, bins: TileBins, params, objs, texs, atlas, *,
         return mask_plain(recs, bins, params, objs, texs, atlas, **kw)
     if dev.type != "cuda":
         raise ValueError(f"K6 runs on CUDA or CPU tensors, not {dev}")
-    if tile_h not in (8, 16):
-        raise ValueError(f"K6 runs 8- or 16-row tiles, not {tile_h}")
+    check_cuda_tile_h("K6", tile_h)
     capacity = bins.ids.shape[2]
     _cuda.check_tensor("ids", bins.ids, dev, I32,
                        (tiles_y, tiles_x, capacity))
@@ -563,10 +601,11 @@ def raster_rows1_zcull_kernel(recs, qbins, lcounts, params, objs, texs,
 
 
 for _fn in (raster_kernel, raster_rows1_kernel, raster_narrow_kernel,
-            raster_mask_kernel, raster_zcull_kernel,
+            raster_narrow32_kernel, raster_mask_kernel, raster_zcull_kernel,
             raster_rows1_zcull_kernel):
     _fn.launches = 0
-for _entry in ("tr_raster", "tr_raster_rows1", "tr_raster_narrow"):
+for _entry in ("tr_raster", "tr_raster_rows1", "tr_raster_narrow",
+               "tr_raster_narrow32"):
     _cuda.declare(_entry, [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
                   + [ctypes.c_void_p] * 4)
 for _entry in ("tr_raster_zcull", "tr_raster_rows1_zcull"):
@@ -579,6 +618,7 @@ RASTER_KERNELS = {  # (tile_h, rows) -> wrapper of the sorted strategy
     (8, 2): raster_kernel,
     (8, 1): raster_rows1_kernel,
     (16, 1): raster_narrow_kernel,
+    (32, 1): raster_narrow32_kernel,
 }
 ZCULL_KERNELS = {  # (tile_h, rows) -> K11's wrapper on that route
     (8, 2): raster_zcull_kernel,
@@ -1045,15 +1085,18 @@ def record_table(table):
 
 def prepare_raster(table, objspecs: tuple, transform: ProjectiveTransform,
                    lights: LightData, height: int, width: int,
+                   capacity: int | None = None,
                    frame_height: int | None = None,
                    frame_width: int | None = None, row0: int = 0,
-                   col0: int = 0, atlas=None, capacity: int | None = None,
+                   col0: int = 0, strategy: str = "auto",
+                   tile_h: int | None = None, atlas=None,
                    budget_override: float | None = None,
                    zcull: bool = False) -> RasterLaunch:
     """Everything before the raster kernel (raster_pallas.py:2501-2723):
     the row-major table and bboxes, the route, the binning (and on the
     sorted routes the side-list gate), for the local (height, width) rect
-    at origin (row0, col0).
+    at origin (row0, col0) of a (frame_height, frame_width) frame. The
+    parameters are ``rasterize_scene_shaded``'s, in its order.
 
     ``table`` is a SetupOut (the K1 kernel's row-major table and bboxes),
     the channel-major (85, T) table of ``setup_records``, whose bboxes
@@ -1062,10 +1105,12 @@ def prepare_raster(table, objspecs: tuple, transform: ProjectiveTransform,
     way the record of gid g is row g. ``objspecs`` holds one ObjSpec per
     object; ``atlas`` is the scene's ``pack_texture_atlas`` when any object
     is textured. ``capacity`` is the mask strategy's list length (default
-    ``mask_capacity``), ``budget_override`` the sorted strategy's budget
-    factor (``raster_route``). ``zcull`` launches K11 in place of K2 or K3
-    on 8-row tiles; on 16-row tiles (K4) and the mask strategy (K6) it
-    does nothing, as in the JAX package."""
+    ``mask_capacity``); ``strategy`` and ``tile_h`` force the route
+    (``raster_route``; the sorted strategy has kernels for the heights of
+    ``RASTER_KERNELS``); ``budget_override`` is the sorted strategy's
+    budget factor. ``zcull`` launches K11 in place of K2 or K3 on 8-row
+    tiles; on taller tiles (K4) and the mask strategy (K6) it does
+    nothing, as in the JAX package."""
     if frame_height is None:
         frame_height = height
     if frame_width is None:
@@ -1090,7 +1135,7 @@ def prepare_raster(table, objspecs: tuple, transform: ProjectiveTransform,
     else:
         atlas = None
     route = raster_route(t_policy, frame_height, frame_width, len(objspecs),
-                         budget_override)
+                         budget_override, strategy, tile_h)
     tiles_y = -(-height // route.tile_h)
     tiles_x = -(-width // TILE_W)
     finalize = (shade_params(transform, lights),
@@ -1106,8 +1151,13 @@ def prepare_raster(table, objspecs: tuple, transform: ProjectiveTransform,
         return RasterLaunch(route, raster_mask_kernel,
                             (recs, bins) + finalize,
                             dict(tile_h=route.tile_h, **options))
-    qbins, lcounts = bin_for_raster(bbox, route, height, width, row0, col0)
     key = (route.tile_h, route.rows)
+    if key not in RASTER_KERNELS:
+        heights = sorted({h for h, _ in RASTER_KERNELS})
+        raise ValueError(
+            f"the sorted strategy runs tiles of "
+            f"{', '.join(map(str, heights))} rows, not {route.tile_h}")
+    qbins, lcounts = bin_for_raster(bbox, route, height, width, row0, col0)
     kernel = (ZCULL_KERNELS[key] if zcull and key in ZCULL_KERNELS
               else RASTER_KERNELS[key])
     return RasterLaunch(route, kernel, (recs, qbins, lcounts) + finalize,
@@ -1117,20 +1167,21 @@ def prepare_raster(table, objspecs: tuple, transform: ProjectiveTransform,
 def rasterize_scene_shaded(table, objspecs: tuple,
                            transform: ProjectiveTransform, lights: LightData,
                            height: int, width: int,
+                           capacity: int | None = None,
                            frame_height: int | None = None,
                            frame_width: int | None = None, row0: int = 0,
-                           col0: int = 0, zcull: bool = False, atlas=None,
-                           capacity: int | None = None,
-                           budget_override: float | None = None):
+                           col0: int = 0, strategy: str = "auto",
+                           tile_h: int | None = None, atlas=None,
+                           budget_override: float | None = None,
+                           zcull: bool = False):
     """Fused raster + interpolate + texture + shade + ARGB pack of a
-    scene's record table (see ``prepare_raster``, which also describes
-    ``zcull``, ``capacity`` and ``budget_override``) -> (covered, z (H, W),
-    color u32 (H, W), stats) (raster_pallas.py:2467); see
-    ``RasterLaunch.stats``."""
+    scene's record table -> (covered, z (H, W), color u32 (H, W), stats)
+    (raster_pallas.py:2467, same parameters in the same order; see
+    ``prepare_raster``); stats as ``RasterLaunch.stats``."""
     return run_shaded(prepare_raster(table, objspecs, transform, lights,
-                                     height, width, frame_height,
-                                     frame_width, row0, col0, atlas,
-                                     capacity, budget_override, zcull),
+                                     height, width, capacity, frame_height,
+                                     frame_width, row0, col0, strategy,
+                                     tile_h, atlas, budget_override, zcull),
                       height, width)
 
 
@@ -1143,15 +1194,17 @@ def run_shaded(launch: RasterLaunch, height: int, width: int):
 
 def rasterize_shaded(table, transform: ProjectiveTransform,
                      lights: LightData, phong: bool, height: int,
-                     width: int, frame_height: int | None = None,
+                     width: int, capacity: int | None = None,
+                     frame_height: int | None = None,
                      frame_width: int | None = None, row0: int = 0,
-                     col0: int = 0, zcull: bool = False, texture=None,
+                     col0: int = 0, strategy: str = "auto",
+                     tile_h: int | None = None, texture=None,
                      filter_mode: str = "nearest",
-                     capacity: int | None = None,
-                     budget_override: float | None = None):
-    """Single-object entry point (raster_pallas.rasterize_pallas_shaded);
-    ``texture`` (th, tw) u32 ARGB samples in the finalize, nearest or
-    bilinear per ``filter_mode``."""
+                     budget_override: float | None = None,
+                     zcull: bool = False):
+    """Single-object entry point (raster_pallas.rasterize_pallas_shaded,
+    same parameters in the same order); ``texture`` (th, tw) u32 ARGB
+    samples in the finalize, nearest or bilinear per ``filter_mode``."""
     table = record_table(table)
     T = (table.num_triangles if isinstance(table, SetupOut)
          else int(table.shape[1]))
@@ -1162,6 +1215,6 @@ def rasterize_shaded(table, transform: ProjectiveTransform,
             ("bilinear",) if filter_mode == "bilinear" else ())
     return rasterize_scene_shaded(
         table, (ObjSpec(0, T, bool(phong), tex),), transform, lights,
-        height, width, frame_height, frame_width, row0, col0, zcull, atlas,
-        capacity, budget_override,
+        height, width, capacity, frame_height, frame_width, row0, col0,
+        strategy, tile_h, atlas, budget_override, zcull,
     )
