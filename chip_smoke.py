@@ -30,7 +30,9 @@ Phases (any failure raises and the script exits nonzero):
      bilinear) at 512x512, and a 2-object scene on 8-row tiles at 128x128,
      untextured and with two quads, nearest and bilinear;
    - the G-buffer kernels, gid and all 11 planes: K9 (sorted, one
-     stream) on the 51,200-triangle sphere grid at 512x512 (8-row tiles),
+     stream, each tile's entries split into parts that many blocks fold,
+     merged by the (z, gid) key) on the 51,200-triangle sphere grid at
+     512x512 (8-row tiles),
      with and without the merged large quad (K10, the side-list fold, runs
      inside K9's launch with it), and on config 4's sphere at 1920x1080
      (16-row tiles); K8 (mask) on config 3 with 'avx' addressing and on
@@ -113,11 +115,16 @@ Phases (any failure raises and the script exits nonzero):
    textured 250k point for K1 textured, config 3 for K6), first held
    bit-equal to its plain version on those inputs, then timed beside its
    plain version's (K7 also beside ``t().contiguous()``, the one PyTorch
-   call that transposes); K5, which has no launch of its own, as K2's time
+   call that transposes, in turns, and each call's host and device time
+   from a profiler trace); K5, which has no launch of its own, as K2's time
    on the textured 250k path beside K2's on the same mesh untextured, with
    ``grid_sample`` (bilinear, border) on the textured pixels as the library
    call; K8 on config 3 avx, K9 on deferred 1M, and K10 as K9's time on
-   deferred 1M beside K9's on the same sphere without the quad; K11 on
+   deferred 1M beside K9's on the same sphere without the quad; K9 on
+   deferred 1M and K9@32 on deferred 40k @32 also held bit-equal at 16
+   entries a part, with their part counts read back from the kernel and
+   held equal to the bins', timed beside one part a tile
+   in turns, and over a sweep of the entries a part; K11 on
    stack6 zcull's first frame beside K2 on the same operands, its bound
    the launch's work scaled to the batches it folds, and on bench.py's
    order of the stack (outermost first), where it skips nothing; the
@@ -306,6 +313,51 @@ def bound(nbytes, ops):
     """(least ms the card could take, what bounds it)."""
     tb, to = nbytes / BYTES_PER_MS, ops / F32_OPS_PER_MS
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def profile_calls(fn, n):
+    """(host ms, device ms, device op names) per call of ``fn`` over ``n``
+    calls, from one torch.profiler trace: the host time of each call is
+    its record_function span, the device time the sum of its device
+    operations."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        for _ in range(n):
+            with record_function("call"):
+                fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    host = [e.time_range.elapsed_us() for e in events
+            if e.name == "call" and e.device_type == DeviceType.CPU]
+    dev = [e for e in events
+           if e.device_type == DeviceType.CUDA and e.name != "call"]
+    if len(host) != n or not dev:
+        raise AssertionError(f"profile of {n} calls: {len(host)} host "
+                             f"spans, {len(dev)} device ops")
+    return (sum(host) / 1e3 / n,
+            sum(e.time_range.elapsed_us() for e in dev) / 1e3 / n,
+            sorted({e.name[:60] for e in dev}))
+
+
+def k9_parts_plain(launch, part_entries):
+    """(parts a tile, entries of the busiest part) that a K9 launch split
+    into parts of at most ``part_entries`` stream entries should have, the
+    side list one more part of each tile whose lcounts gate is open
+    (csrc/raster.cu, part_scan_kernel), counted from the bins on the
+    host."""
+    counts = launch.qbins.counts[:-1].long()
+    side = launch.operands[2] > 0
+    per_tile = (counts + part_entries - 1) // part_entries + side.long()
+    n_large = int(launch.qbins.n_large) if bool(side.any()) else 0
+    return per_tile.cpu(), max(min(part_entries, int(counts.max())),
+                               n_large)
 
 
 def setup_work(T, tp, phong, n_lights, textured=False):
@@ -1346,10 +1398,75 @@ def main():
             f"ms, bound {bms:.4f} ms ({by}), bit-equal")
         return kms, pms, work
 
-    per_tile = launch_def.qbins.counts[:-1]
-    log(f"# K9 load: {int((per_tile > 0).sum())} of {per_tile.numel()} "
-        f"tiles hold entries, {int(per_tile.sum())} entries, max "
-        f"{int(per_tile.max())} in one tile")
+    # K9's split: at P = 16 held bit-equal to its plain version (the
+    # default P is held by time_gbuffer), its parts, the A/B of the default
+    # P against one stream part a tile (P = 2^31 - 1, K10's side list a
+    # part of its own either way) in turns, and the sweep of P.
+    one_part = 2 ** 31 - 1
+    k9_split = {}
+
+    def k9_with(launch, part_entries, seen=None):
+        """``launch.run`` with K9_PART_ENTRIES = ``part_entries``; keeps
+        the call's part offsets, read back from the device by the
+        caller, in ``seen[part_entries]``."""
+        def run():
+            old = gbuffer.K9_PART_ENTRIES
+            gbuffer.K9_PART_ENTRIES = part_entries
+            try:
+                return launch.run()
+            finally:
+                gbuffer.K9_PART_ENTRIES = old
+                if seen is not None:
+                    seen[part_entries] = gbuffer.raster_pass_queue.part_offsets
+        return run
+
+    def k9_load(key, label, launch, seen):
+        """The parts of the A/B's last calls as the kernel counted them
+        (its part offsets), held equal to the count from the bins."""
+        per_tile = launch.qbins.counts[:-1]
+        parts, busiest = [], []
+        for p_ in (gbuffer.K9_PART_ENTRIES, one_part):
+            off = seen[p_].cpu()
+            want, most = k9_parts_plain(launch, p_)
+            if int(off[0]) != 0 or not torch.equal(off[1:] - off[:-1],
+                                                   want.int()):
+                raise AssertionError(
+                    f"{key} at {label}, P = {p_}: the kernel counted "
+                    f"{int(off[-1])} parts, the bins give {int(want.sum())}")
+            parts.append(int(off[-1]))
+            busiest.append(most)
+        log(f"# {key} load at {label}: {int((per_tile > 0).sum())} of "
+            f"{per_tile.numel()} tiles hold entries, {int(per_tile.sum())} "
+            f"entries, max {int(per_tile.max())} in one tile; the kernel "
+            f"counted {parts[0]} parts of at most {gbuffer.K9_PART_ENTRIES} "
+            f"entries and {parts[1]} at one part a tile, as the bins give; "
+            f"the busiest part {busiest[0]} entries ({busiest[1]} at one "
+            f"part a tile), from the bins")
+        return parts
+
+    def k9_split_phase(key, label, launch):
+        max_err[key] = max(max_err[key], assert_equal(
+            f"{key} at {label}, P = 16", k9_with(launch, 16)(),
+            launch.run_plain()))
+        log(f"# {key} == plain at {label}, P = 16: bit-equal")
+        p0, seen = gbuffer.K9_PART_ENTRIES, {}
+        ms_split, ms_one = in_turns(k9_with(launch, p0, seen),
+                                    k9_with(launch, one_part, seen), 20, 20)
+        log(f"# {key} A/B at {label}: P = {p0} {ms_split:.4f} ms against "
+            f"one part a tile {ms_one:.4f} ms (in turns)")
+        parts, parts1 = k9_load(key, label, launch, seen)
+        sweep = {p_: statistics.median([event_ms(k9_with(launch, p_), 20)
+                                        for _ in range(2)])
+                 for p_ in (16, 32, 64, 128, 256, 512, 1024)}
+        log(f"# {key} sweep of P at {label} (ms): " + json.dumps(
+            {p_: round(v, 4) for p_, v in sweep.items()}))
+        k9_split[key] = dict(part_entries=p0, parts=parts,
+                             one_part_parts=parts1,
+                             split_ms=round(ms_split, 4),
+                             one_part_ms=round(ms_one, 4),
+                             sweep_ms={p_: round(v, 4)
+                                       for p_, v in sweep.items()})
+
     c3_launch = gbuffer_launch(*scene3avx[0], tr3, li3, 512, 512)
     kms, pms, work = time_gbuffer("K8 G-buffer mask",
                                   "config 3 avx 12 tris 512x512", c3_launch)
@@ -1359,6 +1476,8 @@ def main():
         launch_def)
     timing["K9 G-buffer sorted"] = (k9_ms, k9_plain) + bound(*work_q) + (
         None,)
+    k9_split_phase("K9 G-buffer sorted", f"deferred 1M {T_def} tris "
+                   f"{W}x{H}", launch_def)
     sphere_only = [(dict(p=(0.0, 0.0, 0.0), **mesh), sg_def[0][1])]
     sc_s, tr_s, li_s = torch_scene(sphere_only, H, W, dev)
     launch_s = gbuffer_launch(*sc_s[0], tr_s, li_s, H, W)
@@ -1443,6 +1562,8 @@ def main():
         "1920x1080, 32-row tiles", d40)
     timing["K9 G-buffer sorted 32-row"] = (k9_32, k9p_32) + bound(
         *work_q32) + (None,)
+    k9_split_phase("K9 G-buffer sorted 32-row", f"deferred 40k {T40 + 2} "
+                   "tris 1920x1080, 32-row tiles", d40)
     k9s_32, _, work_s32 = time_gbuffer(
         "K9 G-buffer sorted 32-row", f"the 40k sphere alone {T40} tris "
         "1920x1080, 32-row tiles", gbuffer_launch(
@@ -1552,15 +1673,30 @@ def main():
     R, T4 = table4.shape
     tp4 = T4 + (-T4 % raster.REC_T_BLK)
     padded = torch.nn.functional.pad(table4, (0, tp4 - T4, 0, 128 - R))
-    kms, pms = in_turns(lambda: raster.finish_records(table4),
-                        lambda: raster.finish_records_plain(table4), 50, 20)
-    lms = statistics.median([event_ms(lambda: padded.t().contiguous(), 50)
-                             for _ in range(2)])
+
+    def k7():
+        return raster.finish_records(table4)
+
+    def lib7():
+        return padded.t().contiguous()
+
+    # The kernel and the library call by events in turns (each call's host
+    # work before its launch included), the plain version beside them;
+    # then each call's host and device time from a profiler trace.
+    kms, lms = in_turns(k7, lib7, 50, 50)
+    pms = statistics.median([event_ms(
+        lambda: raster.finish_records_plain(table4), 20) for _ in range(2)])
     bms, by = bound(R * T4 * 4 + tp4 * 128 * 4, 0)
     timing["K7 record transpose"] = (kms, pms, bms, by, lms)
+    k7_prof = {}
+    for tag, fn in (("kernel", k7), ("t().contiguous()", lib7)):
+        host_ms, dev_ms, names = profile_calls(fn, 200)
+        k7_prof[tag] = dict(host_ms=round(host_ms, 4),
+                            device_ms=round(dev_ms, 4), ops=names)
     log(f"# K7 record transpose at config 4 ({R}, {T4}) -> ({tp4}, 128): "
-        f"kernel {kms:.4f} ms, plain {pms:.4f} ms, t().contiguous() "
-        f"{lms:.4f} ms, bound {bms:.6f} ms ({by})")
+        f"kernel {kms:.4f} ms, t().contiguous() {lms:.4f} ms (events, in "
+        f"turns), plain {pms:.4f} ms, bound {bms:.6f} ms ({by}); profiler "
+        f"per call: " + json.dumps(k7_prof))
 
     if args.profile:
         for path, (sc, tr_, li_, h, w) in (
@@ -1604,6 +1740,14 @@ def main():
             entry["k9_without_side_list_ms"] = round(k9s_ms, 4)
         if name == "K10 G-buffer side list 32-row":
             entry["k9_without_side_list_ms"] = round(k9s_32, 4)
+        if name in k9_split:
+            entry.update(k9_split[name])
+        if name == "K7 record transpose":
+            entry.update(
+                host_ms=k7_prof["kernel"]["host_ms"],
+                device_ms=k7_prof["kernel"]["device_ms"],
+                library_host_ms=k7_prof["t().contiguous()"]["host_ms"],
+                library_device_ms=k7_prof["t().contiguous()"]["device_ms"])
         if name == "K11 zcull":
             entry.update(
                 skipped_batches=int(skipped6), batches=batches6,

@@ -5,7 +5,9 @@ sorted strategy, single and multi-object; K4 also on 32-row tiles), K6
 (texture sampling, inside each route's finalize), K7 (record
 transpose), K8 / K9 / K10 (raster into a G-buffer: mask, sorted, side
 list; 8-, 16- and 32-row tiles), K11 (the occlusion skip on K2's and
-K3's routes), and whole frames on the card against the CPU run, with the
+K3's routes), K9 split into parts of 1, 16 and the default number of
+entries merged by the (z, gid) key, and whole frames on the card against
+the CPU run, with the
 Renderer's knobs (clear_color, capacity, budget_factor, calibrate,
 zcull), the 'reference' backend and sub-rects at an origin.
 
@@ -34,6 +36,7 @@ from tpu_renderer_torch.models.route_scenes import (
     MASK_NAMES,
     ROUTE_NAMES,
     TEXTURED_NAMES,
+    route_scene,
     torch_scene,
     zcull_stack,
 )
@@ -258,7 +261,8 @@ def test_mask_subrect_origin_on_card(cuda):
 
 
 @pytest.mark.parametrize("shape", [(85, 1), (85, 528), (85, 3456),
-                                   (128, 700), (3, 2000)])
+                                   (128, 700), (3, 2000), (85, 2208), (1, 1),
+                                   (128, 513), (85, 31)])
 def test_finish_records_kernel_equals_plain(cuda, shape):
     """K7: bit-equal to pad + t().contiguous(), NaN and -0 included."""
     rng = np.random.default_rng(shape[1])
@@ -362,6 +366,54 @@ def test_gbuffer_subrect_and_tile_height_on_card(cuda):
                        bits(full[:, 37:337, 21:321]))
     with pytest.raises(ValueError, match="8, 16, 32 rows on CUDA, not 24"):
         tgb.rasterize_gbuffer(table, h, w, tile_h=24)
+
+
+@pytest.mark.parametrize("part_entries", [1, 16, tgb.K9_PART_ENTRIES])
+@pytest.mark.parametrize("tile_h", [8, 16, 32])
+def test_split_k9_equals_plain(cuda, monkeypatch, tile_h, part_entries):
+    """K9 with each tile's entries split into parts of 1, 16 and the
+    default K9_PART_ENTRIES entries, merged by the (z desc, gid asc) key:
+    gid and the 11 planes bit-equal to gbuffer_plain at 8, 16 and 32 rows,
+    without and with the side list (K10, a part of its own), in a sub-rect
+    at (37, 21), and on the k4 scene with every triangle drawn twice (equal
+    z across parts, the smaller gid wins); one launch counted each, its
+    part offsets as the bins give them."""
+    monkeypatch.setattr(tgb, "K9_PART_ENTRIES", part_entries)
+    scene, tr, li, (h, w) = torch_scene("k4", "sidelist", cuda)
+    obj, cfg = scene[0]
+    sg, _ = route_scene("k4", "sidelist")
+    doubled, _, _ = ts.to_torch_scene(
+        [(dict(p=o["p"], **tp.merge_meshes(o, o)), c) for o, c in sg],
+        *ts.baseline_camera_lights(h, w), device=cuda)
+    cases = []
+    for variant in ("base", "sidelist"):
+        sc, _, _, _ = torch_scene("k4", variant, cuda)
+        cases.append((variant, sc[0], (h, w, None, h, w, 0, 0)))
+    cases.append(("sub-rect", scene[0], (300, 300, None, h, w, 37, 21)))
+    cases.append(("doubled", doubled[0], (h, w, None, h, w, 0, 0)))
+    for label, (o, c), args in cases:
+        table = tsp.setup_for_raster(o, tr, li, c, frame_height=h,
+                                     frame_width=w)
+        launch = tgb.prepare_gbuffer(table, *args, strategy="sorted",
+                                     tile_h=tile_h)
+        assert launch.kernel is tgb.raster_pass_queue
+        if label != "sub-rect":  # at 32 rows its quad spans few tiles
+            assert (int(launch.qbins.n_large) > 0) == (label != "base")
+        n0 = tgb.raster_pass_queue.launches
+        out_k = launch.run()
+        assert tgb.raster_pass_queue.launches == n0 + 1
+        counts = launch.qbins.counts[:-1].long()
+        parts = ((counts + part_entries - 1) // part_entries
+                 + (launch.operands[2] > 0).long())
+        assert torch.equal(tgb.raster_pass_queue.part_offsets.long(),
+                           torch.cat([parts.new_zeros(1), parts.cumsum(0)]))
+        out_p = launch.run_plain()
+        torch.cuda.synchronize()
+        for a, b in zip(out_k, out_p):
+            assert torch.equal(bits(a), bits(b)), label
+        assert int((out_k[0] >= 0).sum()) > 1000, label
+        if label == "doubled":
+            assert int(out_k[0].max()) < obj.num_triangles
 
 
 @pytest.mark.parametrize("name, variant, strategy", [

@@ -163,7 +163,7 @@ def test_rasterize_reference_chunks_equal_merge_fragments():
     edges = tvx.setup_triangles(obj, tr, li, cfg)
     rows = torch.arange(H, dtype=torch.float32)
     cols = torch.arange(W, dtype=torch.float32)
-    covered, gbuf = trr.empty_gbuffer(H, W)
+    covered, gbuf = trr.empty_gbuffer(H, W, device="cpu")
     for t in range(edges.num_triangles):
         covered, gbuf = trr.merge_fragments(covered, gbuf, tsp.span_block(
             tsp.TriangleSlice(*(f[t] for f in edges)), rows, cols, W))

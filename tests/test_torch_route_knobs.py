@@ -7,7 +7,8 @@ changes the kernel only on 8-row sorted routes and a sorted height
 without a kernel raises; ``_mask_guard``'s advice can be followed; and
 ``render_scene`` into a sub-rect at (row0, col0), called in JAX's order,
 holds the whole frame's pixels on every branch (fused, G-buffer,
-reference), bit for bit. Scenes come from the suite's generators and the
+reference), bit for bit; ``empty_gbuffer`` needs a card unless asked for
+the CPU. Scenes come from the suite's generators and the
 route scenes (NumPy, deterministic); everything runs the kernels' plain
 versions.
 """
@@ -16,14 +17,16 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
-from tpu_renderer_torch.core.types import make_framebuffer
+from tpu_renderer_torch.core.types import DEPTH_CLEAR, make_framebuffer
 from tpu_renderer_torch.engine import renderer as tre
 from tpu_renderer_torch.models import scenes as ts
 from tpu_renderer_torch.models.route_scenes import route_scene
 from tpu_renderer_torch.models.sphere import construct_sphere
 from tpu_renderer_torch.ops import gbuffer as tgb
 from tpu_renderer_torch.ops import raster as trp
+from tpu_renderer_torch.ops import raster_reference as trr
 from tpu_renderer_torch.ops import setup as tsp
 
 SUB = (37, 21, 60, 100)  # row0, col0, height, width of the sub-rects
@@ -136,3 +139,19 @@ def test_mask_guard_advice_can_be_followed():
                                 strategy="sorted")
     assert launch.route.strategy == "sorted"
     assert int(launch.stats()["bins_dropped"]) == 0
+
+
+def test_empty_gbuffer_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    """empty_gbuffer builds its buffers on the card by default and raises
+    without one, as JAX's places them on the default device;
+    device='cpu' builds them on the CPU: covered all False, DEPTH_CLEAR in
+    channel 0, zeros in the 10 attribute channels."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trr.empty_gbuffer(4, 6)
+    covered, gbuf = trr.empty_gbuffer(4, 6, device="cpu")
+    assert covered.device.type == gbuf.device.type == "cpu"
+    assert covered.shape == (4, 6) and not bool(covered.any())
+    assert gbuf.shape == (trr.GBUF_CHANNELS, 4, 6)
+    assert bool((gbuf[0] == DEPTH_CLEAR).all())
+    assert not bool(gbuf[1:].any())

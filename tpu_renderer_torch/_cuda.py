@@ -17,6 +17,12 @@ Python wrappers raise when that is not 0.
 
 Nothing here runs at import time: a CPU-only machine (no nvcc, no card)
 imports the package and runs the plain versions.
+
+A launch's host work is kept small, since a small kernel's time is
+mostly its launch: ``stream`` gives the current stream's raw handle
+without building a ``torch.cuda.Stream`` object, ``check_tensor`` costs
+one expression when the tensor is right, and ctypes caches each C entry
+on the library after its first lookup.
 """
 
 from __future__ import annotations
@@ -129,12 +135,18 @@ def library() -> ctypes.CDLL:
 
 
 def stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of ``device``'s current stream."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def check_tensor(name, t, device, dtype, shape) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
     ``device``."""
+    if (t.device == device and t.dtype is dtype and t.shape == shape
+            and t.is_contiguous()):
+        return
     if t.device != device:
         raise ValueError(f"{name} on {t.device}, expected {device}")
     if t.dtype != dtype:

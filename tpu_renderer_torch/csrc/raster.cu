@@ -20,11 +20,13 @@
 //                     list;
 //   tr_gbuffer_mask   K8: K6's fold, the G-buffer finalize (gbuffer_tile);
 //   tr_gbuffer_queue  K9 + K10: one sorted stream, 8-, 16- or 32-row tiles,
-//                     the side list (K10) folded by the tile's own block, the
-//                     G-buffer finalize. The TPU ran K10 as a second grid
-//                     and merged the two G-buffers by (z desc, gid asc); the
-//                     fold applies that rule itself, so neither the second
-//                     (11, H, W) buffer nor the merge pass exists here;
+//                     each tile's entries split into parts that many blocks
+//                     fold in parallel, the side list (K10) one more part of
+//                     each tile it reaches, the parts merged by the (z desc,
+//                     gid asc) key, then the G-buffer finalize (see "K9 +
+//                     K10" below). The TPU ran K10 as a second grid and
+//                     merged the two G-buffers by that rule; here the key
+//                     merge does it, so no second (11, H, W) buffer exists;
 //   tr_raster_zcull, tr_raster_rows1_zcull
 //                     K11: K2 and K3 with the zcull branch (zcull and wide,
 //                     :2384-2394, bound _spanex_block_zmax :2151): a batch
@@ -55,9 +57,9 @@
 // time while most SMs idle. A 32-row tile holds the entries of two 16-row
 // ones and its block walks them in series (its two threads a column split
 // the rows, not the entries), so on the 40,040-triangle 1080p sphere grid
-// K4 on 32-row tiles takes about twice K4 on 16-row tiles on an H100.
-// Splitting a tile's entries over several blocks merged by the (z, gid) key
-// is the next step.
+// K4 on 32-row tiles takes about twice K4 on 16-row tiles on an H100. K9
+// splits each tile's entries over many blocks merged by the (z, gid) key
+// (below); K2, K3, K4 and K11 still walk a tile in one block.
 //
 // Design: the TPU ran a sequential grid of (tile, record block) work items
 // that carried each tile's z / gid / attribute scratch from one item to the
@@ -241,6 +243,22 @@ __device__ __forceinline__ float attr_at(const float* rec, const RowSpan& s,
   return al + k * inc;
 }
 
+// Span setup (projekt.cpp:306-421, closed form): the span's first and last
+// column on this row, clipped to the frame, and the step of the first from
+// the unclipped left end. Stage A and K9's finalize both call it, so the k
+// the finalize recomputes is the fold's, bit for bit.
+__device__ __forceinline__ void span_cols(const RowSpan& s, float w_f,
+                                          float& minx, float& maxx,
+                                          float& xoff) {
+  const float xl = s.xl, xr = s.xr;
+  xoff = xl < 0.0f ? -xl : 0.0f;
+  const float w1 = w_f - 1.0f;
+  const float lx = xl < 0.0f ? 0.0f : (xl >= w_f ? w1 : xl);
+  const float rx = xr < 0.0f ? 0.0f : (xr >= w_f ? w1 : xr);
+  minx = min_ieee(round_half_away(lx), w1);
+  maxx = min_ieee(round_half_away(rx), w1);
+}
+
 // Stage A's depth part for one (entry, row) pair, written to column p of
 // the span table (the attribute planes are recomputed at the finalize).
 template <class SH>
@@ -248,14 +266,8 @@ __device__ __forceinline__ void stage_a(const float* rec, float yf, float w_f,
                                         SH& sh, int p) {
   RowSpan s;
   row_span(rec, yf, s);
-  // Span setup (projekt.cpp:306-421, closed form).
-  const float xl = s.xl, xr = s.xr;
-  const float xoff = xl < 0.0f ? -xl : 0.0f;
-  const float w1 = w_f - 1.0f;
-  const float lx = xl < 0.0f ? 0.0f : (xl >= w_f ? w1 : xl);
-  const float rx = xr < 0.0f ? 0.0f : (xr >= w_f ? w1 : xr);
-  const float minx = min_ieee(round_half_away(lx), w1);
-  const float maxx = min_ieee(round_half_away(rx), w1);
+  float minx, maxx, xoff;
+  span_cols(s, w_f, minx, maxx, xoff);
   float zl, zinc;
   attr_span(rec, s, F_Z0, F_ZG, zl, zinc);
   sh.span[Q_MINX][p] = minx;
@@ -659,9 +671,9 @@ __device__ __forceinline__ void write_tile(
 }
 
 // One tile of the sorted strategy: its streams, its side list, its
-// outputs. ZCULL (K11) culls the stream batches (batch_occluded), never
-// the side list, as the TPU kernel never culled its side-list fold.
-template <int TILE_H, int STREAMS, bool GBUF, bool ZCULL>
+// shaded outputs. ZCULL (K11) culls the stream batches (batch_occluded),
+// never the side list, as the TPU kernel never culled its side-list fold.
+template <int TILE_H, int STREAMS, bool ZCULL>
 __device__ __forceinline__ void raster_tile(
     const int* __restrict__ sorted_tri, const int* __restrict__ starts,
     const int* __restrict__ counts, const int* __restrict__ large_ids,
@@ -696,24 +708,21 @@ __device__ __forceinline__ void raster_tile(
       fold_batch<TILE_H, TILE_H>(f.recs, large_ids + b0, min(kSide, nl - b0),
                                  0, row_base, f.w_f, xc, sh, win);
   }
-  write_tile<TILE_H, GBUF>(f, win, ty, tx, row_base, xc);
+  finalize_tile<TILE_H>(f, win, ty, tx, row_base, xc);
 }
 
-// K2 / K3 / K4 (shaded) and K9 (G-buffer, STREAMS 1): the sorted
-// strategy's streams and side list. The side-list fold is K10: on the TPU
-// a second kernel over every tile plus an XLA merge by (z desc, gid asc)
-// (_merge_gbuf_by_gid, :2954); here the block that owns the tile folds the
-// list into the same winners under that rule.
-template <int TILE_H, int STREAMS, bool GBUF>
+// K2 / K3 / K4: the sorted strategy's streams and side list, one block a
+// tile. The side list goes into the same winners under the (z desc, gid
+// asc) rule. K9, the G-buffer form, has kernels of its own (below).
+template <int TILE_H, int STREAMS>
 __global__ void __launch_bounds__(Tile<TILE_H>::kThreads) raster_kernel(
     const int* __restrict__ sorted_tri, const int* __restrict__ starts,
     const int* __restrict__ counts, const int* __restrict__ large_ids,
     const int* __restrict__ n_large, const int* __restrict__ lcounts,
     Finalize f) {
   __shared__ __align__(16) SharedT<Tile<TILE_H>::kThreads> sh;
-  raster_tile<TILE_H, STREAMS, GBUF, false>(sorted_tri, starts, counts,
-                                            large_ids, n_large, lcounts, f,
-                                            sh, nullptr);
+  raster_tile<TILE_H, STREAMS, false>(sorted_tri, starts, counts, large_ids,
+                                      n_large, lcounts, f, sh, nullptr);
 }
 
 // K11: K2 (STREAMS 2) or K3 (STREAMS 1) with the occlusion skip; counts
@@ -725,8 +734,8 @@ __global__ void __launch_bounds__(kThreads) raster_zcull_kernel(
     const int* __restrict__ n_large, const int* __restrict__ lcounts,
     Finalize f, int* skipped) {
   __shared__ __align__(16) Shared sh;
-  raster_tile<8, STREAMS, false, true>(sorted_tri, starts, counts, large_ids,
-                                       n_large, lcounts, f, sh, skipped);
+  raster_tile<8, STREAMS, true>(sorted_tri, starts, counts, large_ids,
+                                n_large, lcounts, f, sh, skipped);
 }
 
 // K6 (shaded) and K8 (G-buffer): the mask strategy. Tile t's triangles are
@@ -751,6 +760,248 @@ __global__ void __launch_bounds__(Tile<TILE_H>::kThreads) mask_kernel(
     fold_batch<TILE_H, TILE_H>(f.recs, list + b0, min(kBatch, n - b0), 0,
                                row_base, f.w_f, xc, sh, win);
   write_tile<TILE_H, GBUF>(f, win, ty, tx, row_base, xc);
+}
+
+// ---------------------------------------------------------------------------
+// K9 + K10: the sorted strategy into a G-buffer, each tile's entries split
+// over many blocks. Replaces _raster_kernel_queue (raster_pallas.py:1853),
+// whose sequential grid of (tile, record block) work items carried a tile's
+// scratch from one item to the next, and _raster_kernel_bcast (:2018) with
+// its merge _merge_gbuf_by_gid (:2954).
+//
+// One block walking a tile's entries in series left the busiest tile to set
+// the time (7,165 entries, 448 batches, on the 1M-triangle 1080p sphere,
+// while 1,810 of 2,025 tiles hold none). Here the work items run in
+// parallel:
+//   1. part_scan_kernel: part p of tile t is a run of at most P entries of
+//      t's stream, and where lcounts[t] > 0 the side list is one more part
+//      of t; one block counts each tile's parts and writes their exclusive
+//      prefix sum (part_off[nfb] is the total), on the device, so the host
+//      never waits;
+//   2. split_walk_kernel: a grid of about as many blocks as the card holds
+//      at once strides over the part ids; a block finds its part's tile by
+//      binary search in part_off, folds the part with fold_batch into
+//      registers exactly as raster_tile does (every row of the tile: one
+//      stream, and the side list on every row), then each pixel whose
+//      partial winner has g >= 0 does one atomicMax on its 64-bit key;
+//   3. split_finalize_kernel: one block a tile decodes each pixel's winning
+//      gid from the key, recomputes the fold's k and z from recs[g] with the
+//      same f32 operations (fold_kz), and writes gid and the 11 planes
+//      through gbuffer_tile.
+// The key orders partial winners as the fold does, z descending then gid
+// ascending (winner_key), so the merge is exact in any order of the parts.
+// The keys are (hp, wp) u64 over the whole padded frame, zeroed each
+// launch; 0 stands for no winner.
+// ---------------------------------------------------------------------------
+
+constexpr int kScanThreads = 1024;
+
+__device__ __forceinline__ int stream_parts(int n, int part_entries) {
+  return n > 0 ? (n - 1) / part_entries + 1 : 0;  // no overflow at INT_MAX
+}
+
+// part_off[t] = the parts of tiles [0, t), t <= nfb. One block of
+// kScanThreads threads, kScanThreads tiles a round.
+__global__ void __launch_bounds__(kScanThreads) part_scan_kernel(
+    const int* __restrict__ counts, const int* __restrict__ lcounts, int nfb,
+    int part_entries, int* __restrict__ part_off) {
+  constexpr int kWarps = kScanThreads / 32;
+  __shared__ int warp_sum[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int carry = 0;
+  for (int base = 0; base < nfb; base += kScanThreads) {
+    const int t = base + threadIdx.x;
+    const int n = t < nfb ? stream_parts(counts[t], part_entries) +
+                                (lcounts[t] > 0 ? 1 : 0)
+                          : 0;
+    int v = n;  // inclusive scan within the warp
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += u;
+    }
+    if (lane == 31) warp_sum[warp] = v;
+    __syncthreads();
+    if (warp == 0) {  // inclusive scan of the warps' sums
+      int w = warp_sum[lane];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, w, o);
+        if (lane >= o) w += u;
+      }
+      warp_sum[lane] = w;
+    }
+    __syncthreads();
+    if (t < nfb)
+      part_off[t] = carry + v - n + (warp > 0 ? warp_sum[warp - 1] : 0);
+    carry += warp_sum[kWarps - 1];
+    __syncthreads();  // every thread has read warp_sum
+  }
+  if (threadIdx.x == 0) part_off[nfb] = carry;
+}
+
+// The merge key of a partial winner: unsigned order is the fold's order.
+// High word: z's bits made monotone (the sign flip: negative floats
+// inverted, positive ones with the sign bit set), after -0 is made +0, since
+// the fold's `z > win.z || (z == win.z && g < win.g)` treats +-0 as one z
+// that the smaller gid wins; low word: 0xFFFFFFFF - g, larger for the
+// smaller gid. A partial winner has z > kDepthClear (the fold starts there
+// with gid -1 and takes only strictly larger z or, at the same z, a smaller
+// gid, which no g >= 0 is than -1), so z is never NaN, -inf or -FLT_MAX,
+// its high word is above that of -FLT_MAX, and the key is never 0. The bit
+// order holds for subnormals as for normal numbers (built -ftz=false).
+__device__ __forceinline__ unsigned long long winner_key(float z, int g) {
+  unsigned u = __float_as_uint(z);
+  if (u == 0x80000000u) u = 0u;
+  const unsigned ord = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<unsigned long long>(ord) << 32) |
+         (0xFFFFFFFFu - static_cast<unsigned>(g));
+}
+
+// The fold's k and z for record rec at pixel (xc, yf): stage A's span
+// setup and attr_span, then the fold's two lines, the same f32 operations
+// in the same order, so z carries the bits (and the sign of a zero) the
+// fold compared.
+__device__ __forceinline__ void fold_kz(const float* rec, float yf, float w_f,
+                                        float xc, float& k, float& z) {
+  RowSpan s;
+  row_span(rec, yf, s);
+  float minx, maxx, xoff;
+  span_cols(s, w_f, minx, maxx, xoff);
+  k = xoff + (xc - minx);
+  float zl, zinc;
+  attr_span(rec, s, F_Z0, F_ZG, zl, zinc);
+  z = zl + k * zinc;
+}
+
+template <int TILE_H>
+__device__ __forceinline__ size_t tile_pixel(const Finalize& f, int ty,
+                                             int tx, int r) {
+  return (size_t)(ty * TILE_H + r) * f.out_w + tx * kTileW +
+         tile_col<TILE_H>();
+}
+
+template <int TILE_H>
+__global__ void __launch_bounds__(Tile<TILE_H>::kThreads) split_walk_kernel(
+    const int* __restrict__ sorted_tri, const int* __restrict__ starts,
+    const int* __restrict__ counts, const int* __restrict__ large_ids,
+    const int* __restrict__ n_large, const int* __restrict__ part_off,
+    int nfb, int part_entries, Finalize f,
+    unsigned long long* __restrict__ keys) {
+  __shared__ __align__(16) SharedT<Tile<TILE_H>::kThreads> sh;
+  constexpr int kBatch = Tile<TILE_H>::kThreads / TILE_H;
+  const int total = part_off[nfb];
+  for (int part = blockIdx.x; part < total; part += gridDim.x) {
+    int lo = 0, hi = nfb;  // part_off[lo] <= part < part_off[hi]
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) >> 1;
+      if (part_off[mid] <= part)
+        lo = mid;
+      else
+        hi = mid;
+    }
+    const int tile = lo, j = part - part_off[tile];
+    const int n = counts[tile];
+    const int* ids = large_ids;  // the side-list part, after the stream's
+    int ne = *n_large;
+    if (j < stream_parts(n, part_entries)) {
+      const int first = j * part_entries;
+      ids = sorted_tri + starts[tile] + first;
+      ne = min(n - first, part_entries);
+    }
+    const int ty = tile / f.tiles_x, tx = tile - ty * f.tiles_x;
+    const int row_base = f.row0 + ty * TILE_H;
+    const float xc =
+        static_cast<float>(f.col0 + tx * kTileW + tile_col<TILE_H>());
+    Winners<Tile<TILE_H>::kRows> win;
+    init_winners(win);
+    for (int b0 = 0; b0 < ne; b0 += kBatch)
+      fold_batch<TILE_H, TILE_H>(f.recs, ids + b0, min(kBatch, ne - b0), 0,
+                                 row_base, f.w_f, xc, sh, win);
+    const int r0 = row_first<TILE_H>();
+#pragma unroll
+    for (int rl = 0; rl < Tile<TILE_H>::kRows; ++rl)
+      if (win.g[rl] >= 0)
+        atomicMax(keys + tile_pixel<TILE_H>(f, ty, tx, r0 + rl),
+                  winner_key(win.z[rl], win.g[rl]));
+  }
+}
+
+template <int TILE_H>
+__global__ void __launch_bounds__(Tile<TILE_H>::kThreads)
+    split_finalize_kernel(const unsigned long long* __restrict__ keys,
+                          Finalize f) {
+  const int tile = blockIdx.x;
+  const int ty = tile / f.tiles_x, tx = tile - ty * f.tiles_x;
+  const int row_base = f.row0 + ty * TILE_H;
+  const float xc =
+      static_cast<float>(f.col0 + tx * kTileW + tile_col<TILE_H>());
+  Winners<Tile<TILE_H>::kRows> win;
+  init_winners(win);
+  const int r0 = row_first<TILE_H>();
+#pragma unroll
+  for (int rl = 0; rl < Tile<TILE_H>::kRows; ++rl) {
+    const unsigned long long key =
+        keys[tile_pixel<TILE_H>(f, ty, tx, r0 + rl)];
+    if (key == 0ull) continue;  // no winner: DEPTH_CLEAR, gid -1, k 0
+    const int g = static_cast<int>(0xFFFFFFFFu - static_cast<unsigned>(key));
+    win.g[rl] = g;
+    fold_kz(f.recs + (size_t)g * kRecLanes,
+            static_cast<float>(row_base + r0 + rl), f.w_f, xc, win.k[rl],
+            win.z[rl]);
+  }
+  gbuffer_tile<TILE_H>(f, win, ty, tx, row_base);
+}
+
+// Blocks of split_walk_kernel<TILE_H> that the current card runs at once,
+// into *blocks. A successful answer is kept for each device index.
+template <int TILE_H>
+cudaError_t resident_blocks(int* blocks) {
+  constexpr int kMaxDevices = 64;
+  static int cached[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && cached[dev] > 0) {
+    *blocks = cached[dev];
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, split_walk_kernel<TILE_H>, Tile<TILE_H>::kThreads, 0);
+  if (e != cudaSuccess) return e;
+  if (sms * per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = sms * per_sm;
+  if (dev < kMaxDevices) cached[dev] = *blocks;
+  return cudaSuccess;
+}
+
+template <int TILE_H>
+int split_gbuffer(const int* sorted_tri, const int* starts, const int* counts,
+                  const int* large_ids, const int* n_large,
+                  const int* lcounts, int entries, int part_entries,
+                  const Finalize& f, int nfb, int* part_off,
+                  unsigned long long* keys, size_t n_keys, cudaStream_t s) {
+  int resident = 0;
+  cudaError_t e = resident_blocks<TILE_H>(&resident);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if ((e = cudaMemsetAsync(keys, 0, n_keys * sizeof(*keys), s)) != cudaSuccess)
+    return static_cast<int>(e);
+  part_scan_kernel<<<1, kScanThreads, 0, s>>>(counts, lcounts, nfb,
+                                               part_entries, part_off);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  // At most entries / P + nfb stream parts and nfb side-list parts.
+  const long long most = (long long)entries / part_entries + 2LL * nfb;
+  const int grid = static_cast<int>(most < resident ? most : resident);
+  split_walk_kernel<TILE_H><<<grid, Tile<TILE_H>::kThreads, 0, s>>>(
+      sorted_tri, starts, counts, large_ids, n_large, part_off, nfb,
+      part_entries, f, keys);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  split_finalize_kernel<TILE_H><<<nfb, Tile<TILE_H>::kThreads, 0, s>>>(keys,
+                                                                       f);
+  return static_cast<int>(cudaGetLastError());
 }
 
 Finalize make_finalize(const float* recs, const float* params, const int* objs,
@@ -805,7 +1056,7 @@ Finalize make_gbuffer(const float* recs, int tile_h, int tiles_y, int tiles_x,
                       int frame_w, float* z, int* gid, unsigned* color,        \
                       void* stream) {                                          \
     if (n_obj < 1 || tiles_y < 1 || tiles_x < 1) return 1;                     \
-    tr::raster_kernel<TILE_H, STREAMS, false>                                  \
+    tr::raster_kernel<TILE_H, STREAMS>                                         \
         <<<tiles_y * tiles_x, tr::Tile<TILE_H>::kThreads, 0,                   \
            static_cast<cudaStream_t>(stream)>>>(                               \
             sorted_tri, starts, counts, large_ids, n_large, lcounts,           \
@@ -903,29 +1154,38 @@ extern "C" int tr_gbuffer_mask(const float* recs, const int* ids,
 }
 
 // K9 + K10: the sorted strategy's single stream into a G-buffer, 8-, 16- or
-// 32-row tiles, with the large-triangle side list folded on tiles whose
-// lcounts gate is open.
+// 32-row tiles, each tile's stream split into parts of at most
+// part_entries entries, the side list one more part of each tile whose
+// lcounts gate is open. entries: the length of sorted_tri (the parts'
+// bound, for the grid). keys: (hp * wp) u64 scratch, hp = tiles_y *
+// tile_h, wp = tiles_x * 128. part_off: (tiles_y * tiles_x + 1) i32, left
+// holding each tile's first part and, last, the parts' total.
 extern "C" int tr_gbuffer_queue(const float* recs, const int* sorted_tri,
                                 const int* starts, const int* counts,
                                 const int* large_ids, const int* n_large,
                                 const int* lcounts, int tile_h, int tiles_y,
                                 int tiles_x, int row0, int col0, int frame_w,
+                                int entries, int part_entries,
+                                unsigned long long* keys, int* part_off,
                                 int* gid, float* gbuf, void* stream) {
-  if (tiles_y < 1 || tiles_x < 1) return 1;
+  if (tiles_y < 1 || tiles_x < 1 || entries < 0 || part_entries < 1)
+    return 1;  // cudaErrorInvalidValue
   const tr::Finalize f = tr::make_gbuffer(recs, tile_h, tiles_y, tiles_x,
                                           row0, col0, frame_w, gid, gbuf);
+  const int nfb = tiles_y * tiles_x;
+  const size_t n_keys = f.plane;  // hp * wp
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = tiles_y * tiles_x;
   if (tile_h == 8)
-    tr::raster_kernel<8, 1, true><<<grid, tr::kThreads, 0, s>>>(
-        sorted_tri, starts, counts, large_ids, n_large, lcounts, f);
-  else if (tile_h == 16)
-    tr::raster_kernel<16, 1, true><<<grid, tr::kThreads, 0, s>>>(
-        sorted_tri, starts, counts, large_ids, n_large, lcounts, f);
-  else if (tile_h == 32)
-    tr::raster_kernel<32, 1, true><<<grid, tr::Tile<32>::kThreads, 0, s>>>(
-        sorted_tri, starts, counts, large_ids, n_large, lcounts, f);
-  else
-    return 1;  // invalid value
-  return static_cast<int>(cudaGetLastError());
+    return tr::split_gbuffer<8>(sorted_tri, starts, counts, large_ids,
+                                n_large, lcounts, entries, part_entries, f,
+                                nfb, part_off, keys, n_keys, s);
+  if (tile_h == 16)
+    return tr::split_gbuffer<16>(sorted_tri, starts, counts, large_ids,
+                                 n_large, lcounts, entries, part_entries, f,
+                                 nfb, part_off, keys, n_keys, s);
+  if (tile_h == 32)
+    return tr::split_gbuffer<32>(sorted_tri, starts, counts, large_ids,
+                                 n_large, lcounts, entries, part_entries, f,
+                                 nfb, part_off, keys, n_keys, s);
+  return 1;  // invalid value
 }

@@ -11,11 +11,12 @@ and gid -1. It holds three kernels, in ``csrc/raster.cu``:
 - K8, ``raster_pass``: the mask strategy (``_raster_kernel_tilelist``
   :1756), each tile folding its ``bin_triangles`` list in place;
 - K9, ``raster_pass_queue``: the sorted strategy's single stream
-  (``_raster_kernel_queue`` :1853);
+  (``_raster_kernel_queue`` :1853), each tile's entries split into parts
+  of at most ``K9_PART_ENTRIES`` that many blocks fold in parallel, merged
+  by a 64-bit (z desc, gid asc) key per pixel;
 - K10: the large-triangle side list (``_raster_kernel_bcast`` :2018, merged
-  by ``_merge_gbuf_by_gid`` :2954), folded inside K9's launch by the block
-  that owns the tile, under the same (z desc, gid asc) rule, and counted
-  with K9.
+  by ``_merge_gbuf_by_gid`` :2954), one more part of each tile it reaches,
+  inside K9's call, merged by the same key, and counted with K9.
 
 Each wrapper launches its kernel on CUDA tensors and runs its plain
 version on CPU tensors: ``gbuffer_plain``, the plain raster's fragments and
@@ -61,6 +62,11 @@ from .raster import (
 from .setup import SetupOut
 
 GBUF_CHANNELS = 11  # z, rgba, normal xyz, u/z, v/z, 1/z
+# K9: stream entries per part (csrc/raster.cu, "K9 + K10"), chosen on an
+# H100 by chip_smoke.py's sweep (PERF.md). It spreads the work and changes
+# no output: any int in [1, 2^31) gives the same G-buffer, bit for bit;
+# 2^31 - 1 gives one stream part a tile.
+K9_PART_ENTRIES = 32
 ATTR_FIELDS = COL_FIELDS + NRM_FIELDS + UV_FIELDS  # channels 1..10
 
 
@@ -129,20 +135,26 @@ def raster_pass(recs, bins: TileBins, *, tile_h: int, tiles_y: int,
 def raster_pass_queue(recs, qbins: QueueBins, lcounts, *, tile_h: int,
                       tiles_y: int, tiles_x: int, row0: int, col0: int,
                       frame_width: int):
-    """K9 + K10, the sorted strategy into a G-buffer: each tile folds its
-    stream entries and, where ``lcounts`` is open, the side list
-    ``qbins.large_ids``. Outputs as ``raster_pass``'s. CUDA tensors launch
-    ``tr_gbuffer_queue`` and count ``raster_pass_queue.launches`` (K10
-    runs inside that launch); CPU tensors run ``gbuffer_plain``."""
+    """K9 + K10, the sorted strategy into a G-buffer: each tile's stream
+    entries, and where ``lcounts`` is open the side list
+    ``qbins.large_ids``, folded in parts of at most ``K9_PART_ENTRIES``
+    entries (the side list one part) and merged by the (z desc, gid asc)
+    key. Outputs as ``raster_pass``'s. CUDA tensors launch
+    ``tr_gbuffer_queue`` (the key fill, the part count, the walk and the
+    finalize are its device ops), count ``raster_pass_queue.launches``
+    once (K10 runs inside that call) and leave the parts' offsets on the
+    device in ``raster_pass_queue.part_offsets`` ((tiles + 1,) i32, tile
+    t's parts from [t] to [t + 1], the last the total); CPU tensors run
+    ``gbuffer_plain``."""
     dev = recs.device
-    kw = dict(tile_h=tile_h, tiles_y=tiles_y, tiles_x=tiles_x, row0=row0,
-              col0=col0, frame_width=frame_width)
     nfb = tiles_y * tiles_x
     if qbins.starts.shape[0] != nfb + 1:
         raise ValueError(f"starts has {qbins.starts.shape[0]} entries for "
                          f"{nfb} tiles and one stream")
     if dev.type == "cpu":
-        return gbuffer_plain(recs, qbins, lcounts, **kw)
+        return gbuffer_plain(recs, qbins, lcounts, tile_h=tile_h,
+                             tiles_y=tiles_y, tiles_x=tiles_x, row0=row0,
+                             col0=col0, frame_width=frame_width)
     _check_cuda("K9", dev, recs, tile_h)
     for name, t, shape in (
         ("sorted_tri", qbins.sorted_tri, qbins.sorted_tri.shape),
@@ -154,23 +166,28 @@ def raster_pass_queue(recs, qbins: QueueBins, lcounts, *, tile_h: int,
     ):
         _cuda.check_tensor(name, t, dev, I32, shape)
     gid, gbuf = _outputs(tiles_y, tile_h, tiles_x, dev)
+    keys = torch.empty(gid.shape, dtype=torch.int64, device=dev)
+    part_off = torch.empty((nfb + 1,), dtype=I32, device=dev)
     rc = _cuda.library().tr_gbuffer_queue(
         recs.data_ptr(), qbins.sorted_tri.data_ptr(), qbins.starts.data_ptr(),
         qbins.counts.data_ptr(), qbins.large_ids.data_ptr(),
         qbins.n_large.data_ptr(), lcounts.data_ptr(), tile_h, tiles_y,
-        tiles_x, row0, col0, frame_width, gid.data_ptr(), gbuf.data_ptr(),
-        _cuda.stream(dev))
+        tiles_x, row0, col0, frame_width, qbins.sorted_tri.shape[0],
+        K9_PART_ENTRIES, keys.data_ptr(), part_off.data_ptr(), gid.data_ptr(),
+        gbuf.data_ptr(), _cuda.stream(dev))
     _cuda.check_launch("tr_gbuffer_queue", rc)
     raster_pass_queue.launches += 1
+    raster_pass_queue.part_offsets = part_off
     return gid, gbuf
 
 
 raster_pass.launches = 0
 raster_pass_queue.launches = 0
+raster_pass_queue.part_offsets = None
 _cuda.declare("tr_gbuffer_mask", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
               + [ctypes.c_void_p] * 3)
 _cuda.declare("tr_gbuffer_queue", [ctypes.c_void_p] * 7
-              + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
+              + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 5)
 
 
 def gbuffer_plain(recs, qbins: QueueBins, lcounts, *, tile_h: int,

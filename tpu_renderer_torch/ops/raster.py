@@ -381,20 +381,21 @@ def finish_records(rec_t: torch.Tensor) -> torch.Tensor:
     128), zero padded to 128 lanes and to Tp = T rounded up to REC_T_BLK
     (raster_pallas.py:449).
 
-    CUDA tensors launch ``tr_records`` (csrc/records.cu) and count the
-    launch in ``finish_records.launches``; CPU tensors run
+    CUDA tensors launch ``tr_records`` (csrc/records.cu; the table's own
+    device and shape need no check, the C entry rejects bad sizes) and
+    count the launch in ``finish_records.launches``; CPU tensors run
     ``finish_records_plain``."""
+    if not rec_t.is_cuda:
+        if rec_t.device.type == "cpu":
+            return finish_records_plain(rec_t)
+        raise ValueError(f"K7 runs on CUDA or CPU tensors, not "
+                         f"{rec_t.device}")
     R, T = rec_t.shape
     tp = T + (-T % REC_T_BLK)
     dev = rec_t.device
-    if dev.type == "cpu":
-        return finish_records_plain(rec_t)
-    if dev.type != "cuda":
-        raise ValueError(f"K7 runs on CUDA or CPU tensors, not {dev}")
-    _cuda.check_tensor("rec_t", rec_t, dev, F32, (R, T))
-    if not (0 < R <= REC_LANES and T > 0 and tp < 2 ** 24):
-        raise ValueError(f"bad record table shape {(R, T)}")
-    out = torch.empty((tp, REC_LANES), dtype=F32, device=dev)
+    if rec_t.dtype is not F32 or not rec_t.is_contiguous():
+        _cuda.check_tensor("rec_t", rec_t, dev, F32, (R, T))
+    out = rec_t.new_empty((tp, REC_LANES))
     rc = _cuda.library().tr_records(rec_t.data_ptr(), R, T, tp,
                                     out.data_ptr(), _cuda.stream(dev))
     _cuda.check_launch("tr_records", rc)

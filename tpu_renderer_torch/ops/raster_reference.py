@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.types import DEPTH_CLEAR
+from ..core.types import DEPTH_CLEAR, resolve_device
 from ..geometry.vertex import EdgeTable
 from .spans import SpanBlock, TriangleSlice, span_k, span_rows
 
@@ -30,8 +30,10 @@ GBUF_CHANNELS = 11
 _CHUNK_PX = 1 << 21  # triangles x pixels evaluated at once
 
 
-def empty_gbuffer(height: int, width: int, device="cpu"):
-    """(covered (H, W) all False, gbuf (11, H, W): DEPTH_CLEAR, zeros)."""
+def empty_gbuffer(height: int, width: int, device="cuda"):
+    """(covered (H, W) all False, gbuf (11, H, W): DEPTH_CLEAR, zeros), on
+    the card unless ``device`` says otherwise (raises without one)."""
+    device = resolve_device(device)
     covered = torch.zeros((height, width), dtype=torch.bool, device=device)
     gbuf = torch.zeros((GBUF_CHANNELS, height, width), dtype=F32,
                        device=device)
