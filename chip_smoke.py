@@ -44,10 +44,13 @@ Phases (any failure raises and the script exits nonzero):
      gid and all 11 planes;
    - K11 (the occlusion skip) on K3's and K2's routes, on the stacks of
      models/route_scenes.py ZCULL_STACKS (six sphere layers at 640x640,
-     innermost first), bit-equal to its plain version and to the
-     non-culling K3 / K2 on the same operands, with as many batches
-     skipped as the plain replay of its decisions (``zcull_skips_plain``)
-     and more than none;
+     innermost first), at the default part size, at 256 entries a part
+     and at one part a stream: bit-equal to its plain version and to the
+     non-culling K3 / K2 on the same operands, with at
+     least as many batches skipped as the per-part replay of its decisions
+     (``zcull_skips_plain(..., part_entries=P)``, each part culling against
+     its own winners alone; more than none at 256), at most the stream
+     batches, and at one part a stream exactly the serial replay;
 4. card against CPU: each route's small scene (models/route_scenes.py,
    with and without side-list triangles, textured, the mask routes and
    the G-buffer routes, whose G-buffers are compared too) and a
@@ -94,7 +97,8 @@ Phases (any failure raises and the script exits nonzero):
      (stack_scene(409, 409, 6)), innermost layer first, at 1920x1080
      through Renderer(zcull=True): six K1 launches and one K11 per frame,
      no K2; its first frame bit-equal to the same frame without zcull,
-     and K11 skipping batches on it (the probe counter);
+     and K11 skipping batches on it at the default part size (the probe
+     counter);
    - stack6: the same scene without zcull (K1 six times, K2), the A/B
      partner;
    - the 32-row paths, through the ops entry points with the route knobs
@@ -116,26 +120,31 @@ Phases (any failure raises and the script exits nonzero):
    bit-equal to its plain version on those inputs, then timed beside its
    plain version's (K7 also beside ``t().contiguous()``, the one PyTorch
    call that transposes, in turns, and each call's host and device time
-   from a profiler trace); K5, which has no launch of its own, as K2's time
-   on the textured 250k path beside K2's on the same mesh untextured, with
-   ``grid_sample`` (bilinear, border) on the textured pixels as the library
-   call; K8 on config 3 avx, K9 on deferred 1M, and K10 as K9's time on
-   deferred 1M beside K9's on the same sphere without the quad; K9 on
-   deferred 1M and K9@32 on deferred 40k @32 also held bit-equal at 16
-   entries a part, with their part counts read back from the kernel and
-   held equal to the bins', timed beside one part a tile
-   in turns, and over a sweep of the entries a part; K11 on
-   stack6 zcull's first frame beside K2 on the same operands, its bound
-   the launch's work scaled to the batches it folds, and on bench.py's
-   order of the stack (outermost first), where it skips nothing; the
-   32-row forms (K4 on config 4 and 40k, K6 on config 3, K8 on config 3
-   avx, K9 and K10 on deferred 40k), each also beside the 16-row form and
-   the 'auto' route's form on the same scene, in turns, with the same
-   frame; the deferred shade's time on deferred 1M's frame, and the fused-against-
-   deferred A/B: ms per frame of the textured 250k scene through the fused
-   route (K2 with K5) and through the G-buffer path (K9, shade); each
-   kernel with the least time the card could take for the same work
-   (bytes at 3.35 TB/s against f32 operations at 67 TFLOP/s);
+   from a profiler trace); K5, which has no launch of its own, as the
+   device time of the shaded finalize kernel (which samples the texture)
+   on the textured 250k path beside the finalize on the same mesh
+   untextured and ``grid_sample`` (bilinear, border) on the textured
+   pixels, the library call, all three from profiler traces taken in
+   turns, with their spread; K8 on config 3
+   avx, K9 on deferred 1M, and K10 as K9's time on deferred 1M beside
+   K9's on the same sphere without the quad; the split kernels (K2 on the
+   headline, K4 on 32-row tiles on 40k, K9 on deferred 1M and deferred
+   40k @32, K11 on stack6 zcull) also held bit-equal at 16 entries a part,
+   with their part counts read back from the kernel and held equal to the
+   bins', timed beside one part a stream of a tile in turns, and (but
+   K11) over a sweep of the entries a part; K11 on stack6 zcull's first
+   frame beside K2 on the same operands in turns, bit-equal to it, its
+   skipped batches at the default part size and at one part a stream,
+   its bound the launch's work scaled to the batches it folds, and on
+   bench.py's order of the stack (outermost first); the 32-row forms (K4
+   on config 4 and 40k, K6 on config 3, K8 on config 3 avx, K9 and K10 on
+   deferred 40k), each also beside the 16-row form and the 'auto' route's
+   form on the same scene, in turns, with the same frame; the deferred
+   shade's time on deferred 1M's frame, and the fused-against-deferred
+   A/B: ms per frame of the textured 250k scene through the fused route
+   (K2 with K5) and through the G-buffer path (K9, shade); each kernel
+   with the least time the card could take for the same work (bytes at
+   3.35 TB/s against f32 operations at 67 TFLOP/s);
 7. with --profile only: host enqueue time, device time, top kernels and
    device idle share of 10 frames of each path, from a torch.profiler
    trace.
@@ -246,6 +255,8 @@ COUNTER = {"K1 setup textured": "K1 setup", "K5 texture sampling":
            "K9 G-buffer sorted 32-row": "K9 G-buffer sorted",
            "K10 G-buffer side list 32-row": "K9 G-buffer sorted"}
 GBUF_BYTES_PER_PX = 48  # gid and 11 f32 planes
+ONE_PART = 2 ** 31 - 1  # a part size that keeps each stream of a tile whole
+K5_ROUNDS = 6  # profiler traces of each K5 call, in turns
 
 
 def log(*args):
@@ -315,13 +326,11 @@ def bound(nbytes, ops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def profile_calls(fn, n):
-    """(host ms, device ms, device op names) per call of ``fn`` over ``n``
-    calls, from one torch.profiler trace: the host time of each call is
-    its record_function span, the device time the sum of its device
-    operations."""
+def trace_calls(fn, n):
+    """The events of one torch.profiler trace of ``n`` calls of ``fn``
+    (after 3 untraced ones), each call in a record_function span named
+    "call"."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     for _ in range(3):
@@ -333,7 +342,17 @@ def profile_calls(fn, n):
             with record_function("call"):
                 fn()
         torch.cuda.synchronize()
-    events = prof.events()
+    return prof.events()
+
+
+def profile_calls(fn, n):
+    """(host ms, device ms, device op names) per call of ``fn`` over ``n``
+    calls, from one torch.profiler trace: the host time of each call is
+    its record_function span, the device time the sum of its device
+    operations."""
+    from torch.autograd import DeviceType
+
+    events = trace_calls(fn, n)
     host = [e.time_range.elapsed_us() for e in events
             if e.name == "call" and e.device_type == DeviceType.CPU]
     dev = [e for e in events
@@ -346,18 +365,104 @@ def profile_calls(fn, n):
             sorted({e.name[:60] for e in dev}))
 
 
-def k9_parts_plain(launch, part_entries):
-    """(parts a tile, entries of the busiest part) that a K9 launch split
-    into parts of at most ``part_entries`` stream entries should have, the
-    side list one more part of each tile whose lcounts gate is open
-    (csrc/raster.cu, part_scan_kernel), counted from the bins on the
-    host."""
-    counts = launch.qbins.counts[:-1].long()
+def parts_plain(launch, part_entries):
+    """(parts a tile, entries of the busiest part) that a sorted launch
+    split into parts of at most ``part_entries`` entries of each stream
+    should have, the side list one more part of each tile whose lcounts
+    gate is open (csrc/raster.cu, part_scan_kernel), counted from the bins
+    on the host."""
+    nfb = launch.options["tiles_y"] * launch.options["tiles_x"]
+    counts = launch.qbins.counts.long().reshape(nfb + 1, -1)[:nfb]
     side = launch.operands[2] > 0
-    per_tile = (counts + part_entries - 1) // part_entries + side.long()
+    per_tile = ((counts + part_entries - 1) // part_entries).sum(dim=1) + (
+        side.long())
     n_large = int(launch.qbins.n_large) if bool(side.any()) else 0
     return per_tile.cpu(), max(min(part_entries, int(counts.max())),
                                n_large)
+
+
+def stream_batches(launch, part_entries):
+    """Stream batches of a split K11 launch: each stream of each tile cut
+    into parts of at most ``part_entries`` entries, each part into batches
+    of 128 / strip rows entries."""
+    nfb = launch.options["tiles_y"] * launch.options["tiles_x"]
+    counts = launch.qbins.counts.long().reshape(nfb + 1, -1)[:nfb]
+    batch = 128 // (launch.route.tile_h // counts.shape[1])
+    full, rest = counts // part_entries, counts % part_entries
+    return int((full * -(-part_entries // batch)
+                + (rest + batch - 1) // batch).sum())
+
+
+def with_part_entries(value, fn, wrapper=None, seen=None):
+    """``fn`` run with ``ops.raster.RASTER_PART_ENTRIES`` (the split
+    kernels' part size) set to ``value``; keeps the call's part offsets,
+    left on ``wrapper.part_offsets``, in ``seen[value]``."""
+    from tpu_renderer_torch.ops import raster
+
+    def run():
+        old = raster.RASTER_PART_ENTRIES
+        raster.RASTER_PART_ENTRIES = value
+        try:
+            return fn()
+        finally:
+            raster.RASTER_PART_ENTRIES = old
+            if seen is not None:
+                seen[value] = wrapper.part_offsets
+    return run
+
+
+def kernel_device_ms(fn, n, name_part):
+    """Device ms per launch of the one kernel of ``fn`` whose name holds
+    ``name_part``, over ``n`` calls, from one torch.profiler trace (the
+    mean over the launches the trace recorded: it may miss one)."""
+    from torch.autograd import DeviceType
+
+    dev = [e for e in trace_calls(fn, n)
+           if e.device_type == DeviceType.CUDA and name_part in e.name]
+    if not n // 2 <= len(dev) <= n:
+        raise AssertionError(f"profile of {n} calls: {len(dev)} device ops "
+                             f"named like {name_part!r}")
+    return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / len(dev)
+
+
+def device_ms_in_turns(calls, n, rounds):
+    """For each ``(fn, name_part)`` of ``calls``, ``kernel_device_ms`` of
+    ``rounds`` traces of ``n`` calls each, the traces taken in turns: the
+    calls in order, then in reverse, and so on (A B B A A B ...)."""
+    got = [[] for _ in calls]
+    for r in range(rounds):
+        order = range(len(calls))
+        for i in (order if r % 2 == 0 else reversed(order)):
+            got[i].append(kernel_device_ms(calls[i][0], n, calls[i][1]))
+    return got
+
+
+def finalize_work(launch, gid_out):
+    """(bytes, f32 operations) of a split launch's shaded finalize on
+    this run's data: the (hp, wp) u64 keys read, 12 bytes per output pixel
+    written, the 88 record lanes of every distinct winner, the shading
+    tables and texture atlas; per covered pixel the winner's stage A with
+    the planes its object reads, the pack, the texture fetch per textured
+    pixel and Phong per Phong pixel (``raster_work``'s finalize terms)."""
+    import torch
+    from tpu_renderer_torch.ops import raster
+
+    params, objs, atlas = launch.operands[-4], launch.objs, launch.operands[-1]
+    fields, _, nrm_off, _ = raster.launch_fields(objs, launch.texs)
+    cov = gid_out >= 0
+    n_cov = int(cov.sum())
+    n_win = int(torch.unique(gid_out[cov]).numel())
+    n_phong = (int(raster._phong_mask(gid_out, objs).sum())
+               if nrm_off is not None else 0)
+    n_tex = int(textured_pixels(launch, gid_out).sum())
+    nbytes = (gid_out.numel() * (8 + 12) + n_win * 88 * 4
+              + params.numel() * 4 + objs.shape[0] * 7 * 4
+              + (0 if atlas is None else atlas.numel() * 4))
+    ops = (n_cov * (STAGE_A_OPS + STAGE_A_FIELD_OPS * len(fields) + PACK_OPS)
+           + n_tex * TEX_OPS
+           + n_phong * (PHONG_OPS + PHONG_LIGHT_OPS
+                        * launch.options["n_lights"]))
+    return nbytes, ops
 
 
 def setup_work(T, tp, phong, n_lights, textured=False):
@@ -819,33 +924,61 @@ def main():
             raise AssertionError(f"route {name} ({variant}) G-buffer at 32 "
                                  f"rows: n_large {n_large}")
 
-    # K11 on K3's and K2's routes: bit-equal to its plain version and to
-    # the non-culling kernel on the same operands, skipping exactly the
-    # batches the plain replay of its decisions skips, more than none.
+    # K11 on K3's and K2's routes: bit-equal to its plain version and to the
+    # non-culling kernel on the same operands; its skipped batches at least
+    # the per-part replay (each part culling against its own winners alone)
+    # and at most the stream batches, at the default part size, at 256
+    # entries a part (where that replay skips batches, so the kernel must)
+    # and at one part a stream, and there, with every side-list gate closed
+    # (the rows-2 stack also runs with its lcounts zeroed), equal to the
+    # serial replay.
     for rows in (1, 2):
         sc, tr, li, (h, w) = zcull_stack(rows, dev)
         launch = prepare_scene(sc, tr, li, h, w, zcull=True)
         if launch.kernel is not raster.ZCULL_KERNELS[(8, rows)]:
             raise AssertionError(f"K11 stack rows {rows} took "
                                  f"{launch.kernel.__name__}")
-        skipped = torch.zeros(1, dtype=torch.int32, device=dev)
-        out = launch.kernel(*launch.operands, skipped=skipped,
-                            **launch.options)
         label = (f"the {rows}-stream stack, "
                  f"{sum(o.num_triangles for o, _ in sc)} tris {w}x{h}")
-        max_err["K11 zcull"] = max(max_err["K11 zcull"], assert_equal(
-            f"K11 on {label}", out, launch.run_plain()))
-        assert_equal(f"K11 on {label} against the non-culling kernel", out,
-                     raster.RASTER_KERNELS[(8, rows)](*launch.operands,
-                                                      **launch.options))
-        want = raster.zcull_skips_plain(*launch.operands[:2], tile_h=8,
-                                        **launch.options)
-        if int(skipped) != want or want <= 0:
-            raise AssertionError(f"K11 on {label}: skipped {int(skipped)}, "
-                                 f"the plain replay {want}")
+        gates = launch.operands[2]
+        closed = launch.operands[:2] + (torch.zeros_like(gates),) + (
+            launch.operands[3:])
+        replay = {p_: raster.zcull_skips_plain(
+            *launch.operands[:2], tile_h=8,
+            part_entries=None if p_ == ONE_PART else p_, **launch.options)
+            for p_ in (raster.RASTER_PART_ENTRIES, 256, ONE_PART)}
+        if replay[256] <= 0:
+            raise AssertionError(f"K11 on {label}: the replay at 256 "
+                                 "entries a part skips nothing")
+        cases = [("", launch.operands, p_) for p_ in replay]
+        if bool((gates > 0).any()):
+            cases.append((" gates closed", closed, ONE_PART))
+        got = {}
+        for tag, operands, p_ in cases:
+            want = raster.raster_plain(*operands, tile_h=8, **launch.options)
+            unculled = raster.RASTER_KERNELS[(8, rows)](*operands,
+                                                        **launch.options)
+            skipped = torch.zeros(1, dtype=torch.int32, device=dev)
+
+            def k11(operands=operands, skipped=skipped):
+                return launch.kernel(*operands, skipped=skipped,
+                                     **launch.options)
+            out = with_part_entries(p_, k11)()
+            what = f"K11 on {label}{tag}, P = {p_}"
+            max_err["K11 zcull"] = max(max_err["K11 zcull"],
+                                       assert_equal(what, out, want))
+            assert_equal(f"{what}, against the non-culling kernel", out,
+                         unculled)
+            n, floor = int(skipped), replay[p_]
+            batches = stream_batches(launch, p_)
+            exact = p_ == ONE_PART and not bool((operands[2] > 0).any())
+            if not floor <= n <= batches or (exact and n != floor):
+                raise AssertionError(f"{what}: skipped {n}, the replay "
+                                     f"{floor}, batches {batches}")
+            got[f"P={p_}{tag}"] = n
         log(f"# K11 zcull == plain and == K{4 - rows} on {label}: "
-            f"bit-equal, {int(skipped)} batches skipped (plain replay "
-            f"{want})")
+            f"bit-equal; batches skipped {json.dumps(got)}, the per-part "
+            f"replay {json.dumps(replay)} (P = {ONE_PART}: the serial one)")
 
     # 4. Small scenes on the card against the plain versions on the CPU
     # (the CPU runs are what the tests hold to the JAX package and golden).
@@ -1190,8 +1323,7 @@ def main():
         raise AssertionError(f"stack6 took {launch6.kernel.__name__}")
     skipped6 = torch.zeros(1, dtype=torch.int32, device=dev)
     launch6.kernel(*launch6.operands, skipped=skipped6, **launch6.options)
-    counts6 = launch6.qbins.counts[:-2]
-    batches6 = int(((counts6 + 31) // 32).sum())  # 32 entries a batch
+    batches6 = stream_batches(launch6, raster.RASTER_PART_ENTRIES)
     if int(skipped6) <= 0:
         raise AssertionError("K11 skipped nothing on stack6")
     log(f"# stack6 frame 0: zcull == none, bit-equal; K11 skipped "
@@ -1353,35 +1485,82 @@ def main():
                 "config 1 12 tris 512x512",
                 prepare_scene(scene1, tr1, li1, 512, 512))
 
-    # K5: K2 on the textured 250k mesh beside K2 on the same mesh
-    # untextured. The library call: grid_sample (bilinear, border, corners
-    # aligned: u * (tw - 1), as K5) of the texture's four channels at as
-    # many (u, v) points as the frame has textured pixels (spread over the
-    # texture; grid_sample is not bit-equal to K5, and its time is not
-    # used by the port).
-    k5_ms, k5_plain, gid250 = time_launch(
+    # K5, which runs inside the shaded finalize: the finalize kernel's
+    # device time on the textured 250k mesh beside the same mesh
+    # untextured, and K2's whole time on both (events). The library call:
+    # grid_sample (bilinear, border, corners aligned: u * (tw - 1), as K5)
+    # of the texture's four channels at as many (u, v) points as the frame
+    # has textured pixels (spread over the texture; grid_sample is not
+    # bit-equal to K5, and its time is not used by the port). The three
+    # device times come from torch.profiler traces of 20 calls each, taken
+    # in turns over K5_ROUNDS rounds, so the row's ms and library_ms read
+    # one clock; K5's own cost is bounded by the textured-minus-untextured
+    # difference of each round, reported with its spread.
+    k2t_ms, k5_plain, gid250 = time_launch(
         "K2 raster+shade (textured 250k)", f"textured {T250} tris {W}x{H}",
         launch250)
     sg250u = [(sg250[0][0], {})]
     sc_u, tr_u, li_u = torch_scene(sg250u, H, W, dev)
+    launch250u = prepare_scene(sc_u, tr_u, li_u, H, W)
     k2u_ms, _, _ = time_launch("K2 raster+shade (untextured 250k)",
-                               f"untextured {T250} tris {W}x{H}",
-                               prepare_scene(sc_u, tr_u, li_u, H, W))
+                               f"untextured {T250} tris {W}x{H}", launch250u)
     tmask = textured_pixels(launch250, gid250)
     n_texpx = int(tmask.sum())
     grid_uv = torch.rand((1, 1, n_texpx, 2), device=dev,
                          generator=torch.Generator(dev).manual_seed(0))
     grid_uv = grid_uv * 2.0 - 1.0
     tex_f = torch.stack(unpack_argb(launch250.operands[-1]))[None]
-    lib_ms = statistics.median([event_ms(
-        lambda: torch.nn.functional.grid_sample(
+
+    def grid_sample():
+        return torch.nn.functional.grid_sample(
             tex_f, grid_uv, mode="bilinear", padding_mode="border",
-            align_corners=True), 20) for _ in range(2)])
-    bms5, by5 = bound(128 * 128 * 4, n_texpx * TEX_OPS)
-    timing["K5 texture sampling"] = (k5_ms, k5_plain, bms5, by5, lib_ms)
-    log(f"# K5 texture sampling ({n_texpx} textured px): K2 textured "
-        f"{k5_ms:.4f} ms against K2 untextured {k2u_ms:.4f} ms on the same "
-        f"mesh, grid_sample {lib_ms:.4f} ms, bound {bms5:.6f} ms ({by5})")
+            align_corners=True)
+    lib_event_ms = statistics.median([event_ms(grid_sample, 20)
+                                      for _ in range(2)])
+    tex_r, untex_r, lib_r = device_ms_in_turns(
+        [(launch250.run, "split_finalize_kernel"),
+         (launch250u.run, "split_finalize_kernel"),
+         (grid_sample, "grid_sampler")], 20, K5_ROUNDS)
+    fin_tex, fin_untex, lib_dev_ms = (statistics.median(r) for r in
+                                      (tex_r, untex_r, lib_r))
+    diffs = [a - b for a, b in zip(tex_r, untex_r)]
+    bms5, by5 = bound(*finalize_work(launch250, gid250))
+    bms5s, by5s = bound(128 * 128 * 4, n_texpx * TEX_OPS)
+    timing["K5 texture sampling"] = (fin_tex, k5_plain, bms5, by5,
+                                     lib_dev_ms)
+    if max(diffs) < lib_dev_ms:
+        verdict = "does not lose: every round's difference is under it"
+    elif min(diffs) > lib_dev_ms:
+        verdict = "loses: every round's difference is over it"
+    else:
+        verdict = "not resolved: the rounds' differences straddle it"
+
+    def spread(vals):
+        return [round(min(vals), 4), round(max(vals), 4)]
+    k5_info = dict(
+        clocks=dict(ms="device, profiler: the whole shaded finalize, "
+                    "textured", plain_ms="events: plain K2, textured",
+                    library_ms="device, profiler: grid_sample",
+                    bound_ms="the textured finalize's work"),
+        rounds=K5_ROUNDS, finalize_textured_ms_spread=spread(tex_r),
+        finalize_untextured_ms=round(fin_untex, 4),
+        finalize_untextured_ms_spread=spread(untex_r),
+        finalize_difference_ms=round(statistics.median(diffs), 4),
+        finalize_difference_ms_spread=spread(diffs),
+        library_ms_spread=spread(lib_r),
+        library_event_ms=round(lib_event_ms, 4),
+        sampling_bound_ms=round(bms5s, 6), sampling_bound_by=by5s,
+        k2_textured_ms=round(k2t_ms, 4), untextured_k2_ms=round(k2u_ms, 4),
+        textured_pixels=n_texpx, against_library=verdict)
+    log(f"# K5 texture sampling ({n_texpx} textured px), device times in "
+        f"turns over {K5_ROUNDS} traces each (median [min, max]): the "
+        f"shaded finalize {fin_tex:.4f} {spread(tex_r)} ms textured, "
+        f"{fin_untex:.4f} {spread(untex_r)} untextured on the same mesh, "
+        f"difference {statistics.median(diffs):.4f} {spread(diffs)}; "
+        f"grid_sample {lib_dev_ms:.4f} {spread(lib_r)} (events "
+        f"{lib_event_ms:.4f}); K5 {verdict}; K2 whole {k2t_ms:.4f} / "
+        f"{k2u_ms:.4f} ms (events); bound of the finalize {bms5:.6f} ms "
+        f"({by5}), of the sampling alone {bms5s:.6f} ms ({by5s})")
 
     # K8, K9 and K10: each held bit-equal to its plain version, then timed
     # beside it, with its bound. K10 is K9's time on deferred 1M beside
@@ -1398,36 +1577,29 @@ def main():
             f"ms, bound {bms:.4f} ms ({by}), bit-equal")
         return kms, pms, work
 
-    # K9's split: at P = 16 held bit-equal to its plain version (the
-    # default P is held by time_gbuffer), its parts, the A/B of the default
-    # P against one stream part a tile (P = 2^31 - 1, K10's side list a
-    # part of its own either way) in turns, and the sweep of P.
-    one_part = 2 ** 31 - 1
-    k9_split = {}
+    # The split kernels (K9, K2, K4 on 32-row tiles, K11): at P = 16 held
+    # bit-equal to the plain version (the default P is held where each is
+    # timed), the parts of the A/B's calls read back and held to the
+    # bins' count, the A/B of the default P against one part a stream of a
+    # tile (P = 2^31 - 1, the side list a part of its own either way) in
+    # turns, and the sweep of P.
+    split_info = {}
 
-    def k9_with(launch, part_entries, seen=None):
-        """``launch.run`` with K9_PART_ENTRIES = ``part_entries``; keeps
-        the call's part offsets, read back from the device by the
-        caller, in ``seen[part_entries]``."""
-        def run():
-            old = gbuffer.K9_PART_ENTRIES
-            gbuffer.K9_PART_ENTRIES = part_entries
-            try:
-                return launch.run()
-            finally:
-                gbuffer.K9_PART_ENTRIES = old
-                if seen is not None:
-                    seen[part_entries] = gbuffer.raster_pass_queue.part_offsets
-        return run
+    def split_run(launch, part_entries, seen=None):
+        """``launch.run`` at ``part_entries`` entries a part."""
+        return with_part_entries(part_entries, launch.run, launch.kernel,
+                                 seen)
 
-    def k9_load(key, label, launch, seen):
+    def split_load(key, label, launch, seen, p0):
         """The parts of the A/B's last calls as the kernel counted them
         (its part offsets), held equal to the count from the bins."""
-        per_tile = launch.qbins.counts[:-1]
+        nfb = launch.options["tiles_y"] * launch.options["tiles_x"]
+        rs = launch.qbins.counts.shape[0] // (nfb + 1)
+        per_tile = launch.qbins.counts[:rs * nfb]
         parts, busiest = [], []
-        for p_ in (gbuffer.K9_PART_ENTRIES, one_part):
+        for p_ in (p0, ONE_PART):
             off = seen[p_].cpu()
-            want, most = k9_parts_plain(launch, p_)
+            want, most = parts_plain(launch, p_)
             if int(off[0]) != 0 or not torch.equal(off[1:] - off[:-1],
                                                    want.int()):
                 raise AssertionError(
@@ -1436,36 +1608,39 @@ def main():
             parts.append(int(off[-1]))
             busiest.append(most)
         log(f"# {key} load at {label}: {int((per_tile > 0).sum())} of "
-            f"{per_tile.numel()} tiles hold entries, {int(per_tile.sum())} "
-            f"entries, max {int(per_tile.max())} in one tile; the kernel "
-            f"counted {parts[0]} parts of at most {gbuffer.K9_PART_ENTRIES} "
-            f"entries and {parts[1]} at one part a tile, as the bins give; "
-            f"the busiest part {busiest[0]} entries ({busiest[1]} at one "
-            f"part a tile), from the bins")
+            f"{per_tile.numel()} streams hold entries, "
+            f"{int(per_tile.sum())} entries, max {int(per_tile.max())} in "
+            f"one stream; the kernel counted {parts[0]} parts of at most "
+            f"{p0} entries and {parts[1]} at one part a stream, as the bins "
+            f"give; the busiest part {busiest[0]} entries ({busiest[1]} at "
+            f"one part a stream), from the bins")
         return parts
 
-    def k9_split_phase(key, label, launch):
+    def split_phase(key, label, launch, sweep=True):
+        p0 = raster.RASTER_PART_ENTRIES
         max_err[key] = max(max_err[key], assert_equal(
-            f"{key} at {label}, P = 16", k9_with(launch, 16)(),
+            f"{key} at {label}, P = 16", split_run(launch, 16)(),
             launch.run_plain()))
         log(f"# {key} == plain at {label}, P = 16: bit-equal")
-        p0, seen = gbuffer.K9_PART_ENTRIES, {}
-        ms_split, ms_one = in_turns(k9_with(launch, p0, seen),
-                                    k9_with(launch, one_part, seen), 20, 20)
+        seen = {}
+        ms_split, ms_one = in_turns(split_run(launch, p0, seen),
+                                    split_run(launch, ONE_PART, seen), 20,
+                                    20)
         log(f"# {key} A/B at {label}: P = {p0} {ms_split:.4f} ms against "
-            f"one part a tile {ms_one:.4f} ms (in turns)")
-        parts, parts1 = k9_load(key, label, launch, seen)
-        sweep = {p_: statistics.median([event_ms(k9_with(launch, p_), 20)
-                                        for _ in range(2)])
-                 for p_ in (16, 32, 64, 128, 256, 512, 1024)}
-        log(f"# {key} sweep of P at {label} (ms): " + json.dumps(
-            {p_: round(v, 4) for p_, v in sweep.items()}))
-        k9_split[key] = dict(part_entries=p0, parts=parts,
-                             one_part_parts=parts1,
-                             split_ms=round(ms_split, 4),
-                             one_part_ms=round(ms_one, 4),
-                             sweep_ms={p_: round(v, 4)
-                                       for p_, v in sweep.items()})
+            f"one part a stream {ms_one:.4f} ms (in turns)")
+        parts, parts1 = split_load(key, label, launch, seen, p0)
+        info = dict(part_entries=p0, parts=parts, one_part_parts=parts1,
+                    split_ms=round(ms_split, 4), one_part_ms=round(ms_one, 4))
+        if sweep:
+            ms = {p_: statistics.median([event_ms(split_run(launch, p_), 20)
+                                         for _ in range(2)])
+                  for p_ in (16, 32, 64, 128, 256, 512, 1024)}
+            log(f"# {key} sweep of P at {label} (ms): " + json.dumps(
+                {p_: round(v, 4) for p_, v in ms.items()}))
+            info["sweep_ms"] = {p_: round(v, 4) for p_, v in ms.items()}
+        split_info[key] = info
+
+    split_phase("K2 raster+shade", f"headline {T} tris {W}x{H}", head_launch)
 
     c3_launch = gbuffer_launch(*scene3avx[0], tr3, li3, 512, 512)
     kms, pms, work = time_gbuffer("K8 G-buffer mask",
@@ -1476,8 +1651,8 @@ def main():
         launch_def)
     timing["K9 G-buffer sorted"] = (k9_ms, k9_plain) + bound(*work_q) + (
         None,)
-    k9_split_phase("K9 G-buffer sorted", f"deferred 1M {T_def} tris "
-                   f"{W}x{H}", launch_def)
+    split_phase("K9 G-buffer sorted", f"deferred 1M {T_def} tris {W}x{H}",
+                launch_def)
     sphere_only = [(dict(p=(0.0, 0.0, 0.0), **mesh), sg_def[0][1])]
     sc_s, tr_s, li_s = torch_scene(sphere_only, H, W, dev)
     launch_s = gbuffer_launch(*sc_s[0], tr_s, li_s, H, W)
@@ -1547,6 +1722,8 @@ def main():
                 "32-row tiles", ab_forms["config 4"][0]["32"])
     time_launch("K4 raster+shade 32-row (40k)", f"40k {T40} tris 1920x1080, "
                 "32-row tiles", ab_forms["40k"][0]["32"])
+    split_phase("K4 raster+shade 32-row", f"40k {T40} tris 1920x1080, "
+                "32-row tiles", ab_forms["40k"][0]["32"])
     time_launch("K6 raster+shade mask 32-row", "config 3 12 tris 512x512, "
                 "32-row tiles", ab_forms["config 3"][0]["32"])
     kms, pms, work = time_gbuffer(
@@ -1562,8 +1739,8 @@ def main():
         "1920x1080, 32-row tiles", d40)
     timing["K9 G-buffer sorted 32-row"] = (k9_32, k9p_32) + bound(
         *work_q32) + (None,)
-    k9_split_phase("K9 G-buffer sorted 32-row", f"deferred 40k {T40 + 2} "
-                   "tris 1920x1080, 32-row tiles", d40)
+    split_phase("K9 G-buffer sorted 32-row", f"deferred 40k {T40 + 2} tris "
+                "1920x1080, 32-row tiles", d40)
     k9s_32, _, work_s32 = time_gbuffer(
         "K9 G-buffer sorted 32-row", f"the 40k sphere alone {T40} tris "
         "1920x1080, 32-row tiles", gbuffer_launch(
@@ -1604,16 +1781,36 @@ def main():
         ab32[label] = row
 
     # K11 on stack6 zcull's first frame: held bit-equal to its plain
-    # version, timed beside it and beside K2 on the same operands; its
-    # bound the launch's work with the entry part scaled to the batches
-    # it folds. Then on bench.py's order of the stack (outermost first).
+    # version and to K2 split on the same operands, timed beside its plain
+    # version, beside K2 split and beside itself at one part a stream, in
+    # turns; its skipped batches at the default P and at one part a
+    # stream; its bound the
+    # launch's work with the entry part scaled to the batches it folds.
+    # Then on bench.py's order of the stack (outermost first).
     k2_on = raster.RASTER_KERNELS[(8, 2)]
+
+    def k2_split(launch):
+        return lambda: k2_on(*launch.operands, **launch.options)
+
     max_err["K11 zcull"] = max(max_err["K11 zcull"], assert_equal(
         f"K11 zcull at stack6 {T6} tris {W}x{H}", launch6.run(),
         launch6.run_plain()))
+    assert_equal(f"K11 zcull at stack6 {T6} tris {W}x{H} against K2 split",
+                 launch6.run(), k2_split(launch6)())
     k11_ms, k11_plain = in_turns(launch6.run, launch6.run_plain)
-    k2_stack_ms = statistics.median([event_ms(lambda: k2_on(
-        *launch6.operands, **launch6.options), 20) for _ in range(2)])
+    k11_vs_k2, k2_stack_ms = in_turns(launch6.run, k2_split(launch6), 20, 20)
+    split_phase("K11 zcull", f"stack6 {T6} tris {W}x{H}", launch6,
+                sweep=False)
+    skips6 = {}
+    for p_ in (raster.RASTER_PART_ENTRIES, ONE_PART):
+        sk = torch.zeros(1, dtype=torch.int32, device=dev)
+        out = with_part_entries(p_, lambda sk=sk: launch6.kernel(
+            *launch6.operands, skipped=sk, **launch6.options))()
+        assert_equal(f"K11 zcull at stack6, P = {p_}", out,
+                     k2_split(launch6)())
+        skips6[f"P={p_}"] = int(sk)
+    if skips6[f"P={raster.RASTER_PART_ENTRIES}"] <= 0:
+        raise AssertionError(f"K11 skipped nothing on stack6: {skips6}")
     _, gid6, _ = launch6.run()
     nbytes6, ops6 = raster_work(launch6, gid6)
     px_bytes6 = gid6.numel() * 12
@@ -1622,21 +1819,20 @@ def main():
                         ops6 * folded)
     timing["K11 zcull"] = (k11_ms, k11_plain, bms11, by11, None)
     log(f"# K11 zcull at stack6 {T6} tris {W}x{H}: kernel {k11_ms:.4f} ms, "
-        f"plain {k11_plain:.4f} ms, K2 on the same operands "
-        f"{k2_stack_ms:.4f} ms, bound {bms11:.4f} ms ({by11}; "
-        f"{folded:.4f} of the batches folded), bit-equal")
+        f"plain {k11_plain:.4f} ms, bound {bms11:.4f} ms ({by11}; "
+        f"{folded:.4f} of the batches folded), bit-equal; in turns "
+        f"{k11_vs_k2:.4f} ms against K2 split on the same operands "
+        f"{k2_stack_ms:.4f} ms; skipped batches by part size "
+        f"{json.dumps(skips6)}")
     scene6b, _, _ = scenes.stack_scene(409, 409, 6, H, W, device=dev)
     launch6b = prepare_scene(scene6b, tr6, li6, H, W, zcull=True)
     skipped6b = torch.zeros(1, dtype=torch.int32, device=dev)
     launch6b.kernel(*launch6b.operands, skipped=skipped6b,
                     **launch6b.options)
-    k11b_ms = statistics.median([event_ms(launch6b.run, 20)
-                                 for _ in range(2)])
-    k2b_ms = statistics.median([event_ms(lambda: k2_on(
-        *launch6b.operands, **launch6b.options), 20) for _ in range(2)])
+    k11b_ms, k2b_ms = in_turns(launch6b.run, k2_split(launch6b), 20, 20)
     log(f"# K11 zcull on bench.py's order of the stack (outermost first): "
         f"{int(skipped6b)} batches skipped, kernel {k11b_ms:.4f} ms, K2 "
-        f"{k2b_ms:.4f} ms")
+        f"{k2b_ms:.4f} ms (in turns)")
 
     # The deferred shade of deferred 1M's frame (torch ops, no kernel).
     gid_q, gbuf_q = launch_def.run()
@@ -1735,13 +1931,13 @@ def main():
             plain_ms=round(pms, 4), bound_ms=round(bms, 6), bound_by=by,
             library_ms=None if lms is None else round(lms, 4))
         if name == "K5 texture sampling":
-            entry["untextured_k2_ms"] = round(k2u_ms, 4)
+            entry.update(k5_info)
         if name == "K10 G-buffer side list":
             entry["k9_without_side_list_ms"] = round(k9s_ms, 4)
         if name == "K10 G-buffer side list 32-row":
             entry["k9_without_side_list_ms"] = round(k9s_32, 4)
-        if name in k9_split:
-            entry.update(k9_split[name])
+        if name in split_info:
+            entry.update(split_info[name])
         if name == "K7 record transpose":
             entry.update(
                 host_ms=k7_prof["kernel"]["host_ms"],
@@ -1752,6 +1948,8 @@ def main():
             entry.update(
                 skipped_batches=int(skipped6), batches=batches6,
                 k2_same_operands_ms=round(k2_stack_ms, 4),
+                ms_in_turns_with_k2=round(k11_vs_k2, 4),
+                skipped_by_part_size=skips6,
                 bench_order_skipped_batches=int(skipped6b),
                 bench_order_ms=round(k11b_ms, 4),
                 bench_order_k2_ms=round(k2b_ms, 4))

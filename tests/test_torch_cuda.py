@@ -5,9 +5,9 @@ sorted strategy, single and multi-object; K4 also on 32-row tiles), K6
 (texture sampling, inside each route's finalize), K7 (record
 transpose), K8 / K9 / K10 (raster into a G-buffer: mask, sorted, side
 list; 8-, 16- and 32-row tiles), K11 (the occlusion skip on K2's and
-K3's routes), K9 split into parts of 1, 16 and the default number of
-entries merged by the (z, gid) key, and whole frames on the card against
-the CPU run, with the
+K3's routes), K2 / K3 / K4 and K9 split into parts of 1, 16 and the
+default number of entries merged by the (z, gid) key, and whole frames
+on the card against the CPU run, with the
 Renderer's knobs (clear_color, capacity, budget_factor, calibrate,
 zcull), the 'reference' backend and sub-rects at an origin.
 
@@ -314,6 +314,65 @@ def test_route_subrect_origin_on_card(cuda, name):
         assert torch.equal(bits(a), bits(b))
 
 
+SPLIT_ROUTES = {  # kernel -> (route scene, wrapper, prepare_scene knobs)
+    "K2": ("mixed", "raster_kernel", {}),
+    "K3": ("k3", "raster_rows1_kernel", {}),
+    "K4": ("k4", "raster_narrow_kernel", {}),
+    "K4@32": ("k4", "raster_narrow32_kernel",
+              dict(strategy="sorted", tile_h=32)),
+}
+
+
+def split_parts(launch, part_entries):
+    """(tiles + 1,) offsets of a sorted launch's parts (K2, K3, K4, K11 or
+    K9), from its bins: per tile the parts of at most ``part_entries``
+    entries of each stream, and one more where the side-list gate is
+    open."""
+    nfb = launch.options["tiles_y"] * launch.options["tiles_x"]
+    counts = launch.qbins.counts.long().reshape(nfb + 1, -1)[:nfb]
+    parts = ((counts + part_entries - 1) // part_entries).sum(dim=1) + (
+        launch.operands[2] > 0).long()
+    return torch.cat([parts.new_zeros(1), parts.cumsum(0)])
+
+
+@pytest.mark.parametrize("part_entries", [1, 16, trp.RASTER_PART_ENTRIES])
+@pytest.mark.parametrize("kernel", sorted(SPLIT_ROUTES))
+def test_split_raster_equals_plain(cuda, monkeypatch, kernel, part_entries):
+    """K2, K3, K4 and K4 on 32-row tiles with each tile's streams split
+    into parts of 1, 16 and the default RASTER_PART_ENTRIES entries, merged
+    by the (z desc, gid asc) key and shaded by the finalize: z, gid and
+    colour bit-equal to raster_plain without and with the side list,
+    textured (K5), and in a sub-rect at (37, 21); one launch counted each,
+    its part offsets as the bins give them."""
+    from tpu_renderer_torch.engine.renderer import prepare_scene
+
+    monkeypatch.setattr(trp, "RASTER_PART_ENTRIES", part_entries)
+    name, wrapper_name, knobs = SPLIT_ROUTES[kernel]
+    wrapper = getattr(trp, wrapper_name)
+    for variant in ("base", "sidelist", "textured", "sub-rect"):
+        sc, tr, li, (h, w) = torch_scene(
+            name, "sidelist" if variant == "sub-rect" else variant, cuda)
+        rect = (h, w) if variant != "sub-rect" else (h - 60, w - 40, h, w,
+                                                     37, 21)
+        launch = prepare_scene(sc, tr, li, *rect, **knobs)
+        assert launch.kernel is wrapper, variant
+        if variant == "sidelist":
+            assert int(launch.qbins.n_large) > 0
+        if variant == "textured":
+            assert int((launch.texs[:, 1] > 0).sum()) > 0
+        n0 = wrapper.launches
+        out_k = launch.run()
+        assert wrapper.launches == n0 + 1
+        assert torch.equal(wrapper.part_offsets.long(),
+                           split_parts(launch, part_entries)), variant
+        out_p = launch.run_plain()
+        torch.cuda.synchronize()
+        for a, b in zip(out_k, out_p):
+            assert torch.equal(bits(a), bits(b)), variant
+        assert int((out_k[1] >= 0).sum()) > (
+            100 if variant == "sub-rect" else 1000), variant
+
+
 def gbuffer_launch(name, variant, device, **kw):
     """The G-buffer launch of the first object of a route's scene, its
     setup (K1 or setup_records) run on ``device``."""
@@ -368,17 +427,17 @@ def test_gbuffer_subrect_and_tile_height_on_card(cuda):
         tgb.rasterize_gbuffer(table, h, w, tile_h=24)
 
 
-@pytest.mark.parametrize("part_entries", [1, 16, tgb.K9_PART_ENTRIES])
+@pytest.mark.parametrize("part_entries", [1, 16, trp.RASTER_PART_ENTRIES])
 @pytest.mark.parametrize("tile_h", [8, 16, 32])
 def test_split_k9_equals_plain(cuda, monkeypatch, tile_h, part_entries):
     """K9 with each tile's entries split into parts of 1, 16 and the
-    default K9_PART_ENTRIES entries, merged by the (z desc, gid asc) key:
+    default RASTER_PART_ENTRIES entries, merged by the (z desc, gid asc) key:
     gid and the 11 planes bit-equal to gbuffer_plain at 8, 16 and 32 rows,
     without and with the side list (K10, a part of its own), in a sub-rect
     at (37, 21), and on the k4 scene with every triangle drawn twice (equal
     z across parts, the smaller gid wins); one launch counted each, its
     part offsets as the bins give them."""
-    monkeypatch.setattr(tgb, "K9_PART_ENTRIES", part_entries)
+    monkeypatch.setattr(trp, "RASTER_PART_ENTRIES", part_entries)
     scene, tr, li, (h, w) = torch_scene("k4", "sidelist", cuda)
     obj, cfg = scene[0]
     sg, _ = route_scene("k4", "sidelist")
@@ -402,11 +461,8 @@ def test_split_k9_equals_plain(cuda, monkeypatch, tile_h, part_entries):
         n0 = tgb.raster_pass_queue.launches
         out_k = launch.run()
         assert tgb.raster_pass_queue.launches == n0 + 1
-        counts = launch.qbins.counts[:-1].long()
-        parts = ((counts + part_entries - 1) // part_entries
-                 + (launch.operands[2] > 0).long())
         assert torch.equal(tgb.raster_pass_queue.part_offsets.long(),
-                           torch.cat([parts.new_zeros(1), parts.cumsum(0)]))
+                           split_parts(launch, part_entries))
         out_p = launch.run_plain()
         torch.cuda.synchronize()
         for a, b in zip(out_k, out_p):
@@ -516,13 +572,36 @@ def test_gbuffer_frame_on_card_equals_cpu(cuda, name):
     assert int((cpu.depth > -3.0e38).sum()) > 1000
 
 
+def stream_batches(qbins, nfb, part_entries, batch):
+    """Stream batches of a split launch: each stream of each tile cut into
+    parts of at most ``part_entries`` entries, each part into batches of
+    ``batch``."""
+    rs = qbins.counts.shape[0] // (nfb + 1)
+    total = 0
+    for n in qbins.counts[:rs * nfb].tolist():
+        full, rest = divmod(n, part_entries)
+        total += full * -(-part_entries // batch) + -(-rest // batch)
+    return total
+
+
 @pytest.mark.parametrize("rows", [1, 2])
-def test_zcull_kernel_equals_plain_and_unculled(cuda, rows):
-    """K11 on K3's (rows 1) and K2's (rows 2) route: z, gid and colour
-    bit-equal to the plain version and to the non-culling kernel on the
-    same operands; the kernel skips exactly the batches the plain replay
-    of its decisions skips (``zcull_skips_plain``), more than none; the
-    launch counts on K11's wrapper only."""
+def test_zcull_kernel_equals_plain_and_unculled(cuda, monkeypatch, rows):
+    """K11 on K3's (rows 1) and K2's (rows 2) route, at the default
+    RASTER_PART_ENTRIES, at 256 entries a part and at one part a stream: z,
+    gid and colour bit-equal to the plain version and to the non-culling
+    kernel (K3 or K2, split alike) on the same operands; the launch counts
+    on K11's wrapper only. Its skipped batches depend on the
+    order the parts run in, so they are held to bounds: at least the
+    per-part replay (``zcull_skips_plain(..., part_entries=P)``, each part
+    culling against its own winners alone) and at most the stream batches;
+    at 256 entries a part that replay skips batches, so the kernel does.
+    At one part a stream with every side-list gate closed (the rows-1 stack
+    has no side list; the rows-2 one runs with its lcounts zeroed too)
+    exactly the serial replay: each strip's keys are then written only by
+    its own part, after it has folded. The default part size's launch fits
+    in about one wave of blocks here, so few keys are set when its parts
+    test them; test_zcull_kernel_skips_on_the_2m_stack holds its skips > 0
+    on a stack that takes many waves."""
     from tpu_renderer_torch.engine.renderer import prepare_scene
 
     scene, tr, li, (h, w) = zcull_stack(rows, cuda)
@@ -530,21 +609,64 @@ def test_zcull_kernel_equals_plain_and_unculled(cuda, rows):
     wrapper, unculled = (trp.ZCULL_KERNELS[(8, rows)],
                          trp.RASTER_KERNELS[(8, rows)])
     assert launch.kernel is wrapper
+    gates = launch.operands[2]
+    assert bool((gates > 0).any()) == (rows == 2)
+    closed = launch.operands[:2] + (torch.zeros_like(gates),) + (
+        launch.operands[3:])
+    nfb = launch.options["tiles_y"] * launch.options["tiles_x"]
+    one = 2 ** 31 - 1
+    replay = {p: trp.zcull_skips_plain(
+        *launch.operands[:2], tile_h=8,
+        part_entries=None if p == one else p, **launch.options)
+        for p in (trp.RASTER_PART_ENTRIES, 256, one)}
+    assert replay[256] > 0
+    cases = [(launch.operands, p) for p in replay] + [(closed, one)]
+    for operands, part_entries in cases:
+        monkeypatch.setattr(trp, "RASTER_PART_ENTRIES", part_entries)
+        skipped = torch.zeros(1, dtype=torch.int32, device=cuda)
+        n0, m0 = wrapper.launches, unculled.launches
+        out_k = wrapper(*operands, skipped=skipped, **launch.options)
+        assert (wrapper.launches, unculled.launches) == (n0 + 1, m0)
+        out_u = unculled(*operands, **launch.options)
+        out_p = trp.raster_plain(*operands, tile_h=8, **launch.options)
+        torch.cuda.synchronize()
+        for a, b, c in zip(out_k, out_u, out_p):
+            assert torch.equal(bits(a), bits(b))
+            assert torch.equal(bits(a), bits(c))
+        batches = stream_batches(launch.qbins, nfb, part_entries,
+                                 128 // (8 // rows))
+        floor = replay[part_entries]
+        assert floor <= int(skipped) <= batches, part_entries
+        if part_entries == one and not bool((operands[2] > 0).any()):
+            assert int(skipped) == floor
+    assert int(launch.stats()["bins_dropped"]) == 0
+    assert int((out_p[1] >= 0).sum()) > 20000
+
+
+def test_zcull_kernel_skips_on_the_2m_stack(cuda):
+    """K11 at the default RASTER_PART_ENTRIES on bench.py's
+    2,007,372-triangle stack (stack_scene(409, 409, 6) at 1920x1080,
+    innermost layer first), whose parts take many waves of blocks: bit-equal
+    to K2 on the same operands, and more than none of its stream batches
+    skipped (at most all of them)."""
+    from tpu_renderer_torch.engine.renderer import prepare_scene
+
+    h, w = 1080, 1920
+    scene, tr, li = ts.stack_scene(409, 409, 6, h, w, device=cuda,
+                                   inner_first=True)
+    launch = prepare_scene(scene, tr, li, h, w, zcull=True)
+    assert launch.kernel is trp.raster_zcull_kernel
+    assert int(launch.stats()["bins_dropped"]) == 0
     skipped = torch.zeros(1, dtype=torch.int32, device=cuda)
-    n0, m0 = wrapper.launches, unculled.launches
     out_k = launch.kernel(*launch.operands, skipped=skipped,
                           **launch.options)
-    assert (wrapper.launches, unculled.launches) == (n0 + 1, m0)
-    out_u = unculled(*launch.operands, **launch.options)
-    out_p = launch.run_plain()
+    out_u = trp.raster_kernel(*launch.operands, **launch.options)
     torch.cuda.synchronize()
-    for a, b, c in zip(out_k, out_u, out_p):
+    for a, b in zip(out_k, out_u):
         assert torch.equal(bits(a), bits(b))
-        assert torch.equal(bits(a), bits(c))
-    assert int(skipped) == trp.zcull_skips_plain(
-        *launch.operands[:2], tile_h=8, **launch.options) > 0
-    assert int(launch.stats()["bins_dropped"]) == 0
-    assert int((out_k[1] >= 0).sum()) > 20000
+    nfb = launch.options["tiles_y"] * launch.options["tiles_x"]
+    batches = stream_batches(launch.qbins, nfb, trp.RASTER_PART_ENTRIES, 32)
+    assert 0 < int(skipped) <= batches
 
 
 def test_zcull_renderer_launches(cuda):

@@ -11,88 +11,30 @@ Bars: ``bin_triangles`` (ids, counts, drops), ``_mask_guard`` and the
 capacity default exactly as JAX's; frames, route asserted: coverage exact,
 colour mismatch <= 0.2%, depth within rtol 1e-6 on >= 99.5% of pixels
 against JAX, bit-exact against the golden.
+
+This file holds the frames; the binning and guard tests sit in
+test_torch_mask_binning.py and the mixed stats in test_torch_mask_stats.py,
+so that each file keeps under ten cases and pytest-xdist's ``--dist
+loadfile`` hands them out after tests/test_parallel.py, the suite's
+longest file.
 """
 
 import numpy as np
 import pytest
-import torch
 
 from test_torch_render import assert_frame_parity
-from tpu_renderer.engine import renderer as jre
 from tpu_renderer.engine.renderer import Renderer as JRenderer
 from tpu_renderer.golden import cpu_reference as gold
 from tpu_renderer.models import scenes as js
-from tpu_renderer.ops import binning as jbin
-from tpu_renderer.ops import raster_pallas as jrp
 import tpu_renderer_torch as trt
 from tpu_renderer_torch.engine import renderer as tre
-from tpu_renderer_torch.models import primitives as tp
 from tpu_renderer_torch.models import scenes as ts
 from tpu_renderer_torch.models.route_scenes import route_scene
-from tpu_renderer_torch.ops import binning as tbin
 from tpu_renderer_torch.ops import raster as trp
 from tpu_renderer_torch.ops import setup as tsp
 
 H = W = 128
 F = np.float32
-
-
-def seeded_bboxes(T, h, w, seed):
-    """Global-frame bboxes of T triangles, as _bbox_core returns them: a
-    validity mask, rows in [0, h], columns in [0, w - 1]."""
-    rng = np.random.default_rng(seed)
-    ylo = rng.uniform(0, h, T).astype(F)
-    yhi = np.minimum(ylo + rng.exponential(h / 6, T), h).astype(F)
-    xlo = rng.uniform(0, w - 1, T).astype(F)
-    xhi = np.minimum(xlo + rng.exponential(w / 6, T), w - 1).astype(F)
-    valid = rng.uniform(size=T) < 0.9
-    return valid, ylo, yhi, xlo, xhi
-
-
-@pytest.mark.parametrize("T, tile_h, capacity, origin", [
-    (12, 16, 16, (0, 0)),
-    (300, 8, 304, (0, 0)),
-    (300, 8, 24, (0, 0)),      # capacity below demand: drops counted
-    (500, 16, 40, (37, 21)),   # sub-rectangle at an offset, drops
-])
-def test_bin_triangles_vs_jax(T, tile_h, capacity, origin):
-    """Per-tile lists in submission order, counts and n_dropped integer-
-    exact against JAX's bin_triangles on seeded bboxes."""
-    row0, col0 = origin
-    h, w = (H - row0, W - col0) if origin != (0, 0) else (H, W)
-    bbox = seeded_bboxes(T, H, W, T + capacity)
-    want = jbin.bin_triangles(None, h, w, tile_h, trp.TILE_W, capacity, H,
-                              W, row0, col0, bbox=tuple(map(np.asarray,
-                                                            bbox)))
-    got = tbin.bin_triangles(h, w, tile_h, trp.TILE_W, capacity, row0, col0,
-                             tuple(torch.from_numpy(a) for a in bbox))
-    for name in ("ids", "counts", "n_dropped"):
-        np.testing.assert_array_equal(getattr(got, name).numpy(),
-                                      np.asarray(getattr(want, name)),
-                                      err_msg=name)
-    assert got.ids.is_contiguous() and got.ids.dtype == torch.int32
-    assert (int(got.n_dropped) > 0) == (capacity < T)
-
-
-@pytest.mark.parametrize("capacity, tiles", [
-    (512, (64, 4)), (512, (135, 15)), (8192, (1, 1)), (4096, (300, 15)),
-    (8, (1, 1))])
-def test_mask_guard_and_capacity_as_jax(capacity, tiles):
-    """_mask_guard raises the same errors for the same inputs, and the
-    capacity default follows the table's length."""
-    try:
-        jrp._mask_guard(capacity, *tiles)
-        want = None
-    except ValueError as e:
-        want = str(e)
-    if want is None:
-        trp._mask_guard(capacity, *tiles)
-    else:
-        with pytest.raises(ValueError) as err:
-            trp._mask_guard(capacity, *tiles)
-        assert str(err.value) == want
-    for T in (1, 7, 8, 12, 300, 512, 4095, 10 ** 6):
-        assert trp.mask_capacity(T) == min(max(8, -(-T // 8) * 8), 4096)
 
 
 FRAMES = {  # name -> (scene_golden, tile_h)
@@ -178,41 +120,3 @@ def test_mask_subrect_origin_equals_full_frame():
     np.testing.assert_array_equal(cs.numpy(),
                                   color[r0:r0 + hs, c0:c0 + ws].numpy())
     assert int(st["bins_dropped"]) == 0 and (zs > -3.0e38).sum() > 1000
-
-
-@pytest.mark.parametrize("order", ["mask-first", "sorted-first"])
-def test_merge_stats_mixes_mask_and_sorted_draws(order):
-    """Fault 1: a per-object scene of a mask draw (config 1's cube) and a
-    sorted draw (the 4,140-triangle sphere grid), stats on. The mask draw
-    adds only its drops; the sorted draw's entries, utilization and policy
-    factor (max and min) carry over: the dict JAX's _merge_stats builds
-    from the same draws' stats."""
-    tr_d, li_d = ts.baseline_camera_lights(H, W)
-    sg = [(dict(p=(0.3, 0.2, 0.2), **tp.construct_cube(0.5)), {}),
-          (dict(p=(0.0, 0.0, 0.0), **tp.construct_sphere_grid(46, 45)),
-           {"phong": True})]
-    if order == "sorted-first":
-        sg = sg[::-1]
-    scene, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device="cpu")
-    stats, fb, draws = {}, None, []
-    for obj, cfg in scene:
-        launch = tre.prepare_scene([(obj, cfg)], tr, li, H, W)
-        draws.append(launch.stats())
-        fb = tre.render_object(fb, obj, tr, li, cfg, "kernels", H, W,
-                               stats=stats)
-    assert sorted(d["bins_dropped"].ndim for d in draws) == [0, 0]
-    assert ["bins_real_entries" in d for d in draws] == (
-        [False, True] if order == "mask-first" else [True, False])
-    want = {}
-    for d in draws:
-        jre._merge_stats(want, {k: np.asarray(v) if torch.is_tensor(v)
-                                else v for k, v in d.items()})
-    assert set(stats) == set(want) == {
-        "bins_dropped", "bins_real_entries", "bins_budget_utilization",
-        "bins_budget_factor", "bins_budget_factor_min"}
-    for k in want:
-        np.testing.assert_array_equal(np.asarray(stats[k]),
-                                      np.asarray(want[k]), err_msg=k)
-    gc, gd = gold.render(sg, tr_d, li_d, H, W)
-    np.testing.assert_array_equal(fb.color.numpy(), gc)
-    np.testing.assert_array_equal(fb.depth.numpy(), gd)

@@ -13,6 +13,12 @@ versions.
 Budgets (tests/test_parity_jax.py; XLA's CPU backend contracts FMAs,
 golden divergence #8): coverage exact, color mismatch <= 0.2%, depth
 within rtol 1e-6 on >= 99.5% of pixels; equal bins_dropped.
+
+This file holds the shared helpers and the sphere's tests; the side-list
+variant, sub-rects and routes sit in test_torch_render_sidelist.py, the
+device defaults in test_torch_render_device.py, so that each file keeps
+under ten cases and pytest-xdist's ``--dist loadfile`` hands them out
+after tests/test_parallel.py, the suite's longest file.
 """
 
 import functools
@@ -28,8 +34,6 @@ from tpu_renderer.models import scenes as js
 from tpu_renderer.ops import shading as jsh
 from tpu_renderer.ops import setup_pallas as jsp
 import tpu_renderer_torch as trt
-from tpu_renderer_torch.core import types as tt
-from tpu_renderer_torch.engine import renderer as tre
 from tpu_renderer_torch.models import primitives as tp
 from tpu_renderer_torch.models import scenes as ts
 from tpu_renderer_torch.ops import raster as trp
@@ -89,9 +93,9 @@ def jax_setup(variant):
     return np.asarray(recs), tuple(np.asarray(a) for a in bbox)
 
 
-@pytest.fixture(scope="module", params=["sphere", "sidelist"])
-def case(request):
-    variant = request.param
+def make_case(variant):
+    """The port's frame of a variant with the golden's and JAX's, JAX's
+    stats and setup table."""
     sg, tr_d, li_d = golden_scene(variant)
     gc, gd = gold.render(sg, tr_d, li_d, H, W)
 
@@ -111,6 +115,12 @@ def case(request):
         port=(fb.color.numpy(), fb.depth.numpy()), stats=stats,
         scene=(scene_t, trt_, lit),
     )
+
+
+@pytest.fixture(scope="module", params=["sphere"])
+def case(request):
+    """The sphere (its side-list variant: test_torch_render_sidelist.py)."""
+    return make_case(request.param)
 
 
 def test_route(case):
@@ -225,106 +235,3 @@ def test_objects_drawn_in_order_vs_golden():
     assert_frame_parity(fb.color.numpy(), fb.depth.numpy(), gc, gd)
     assert int(stats["bins_dropped"]) == 0
     assert int(stats["bins_real_entries"]) > 0
-
-
-def test_subrect_origin_equals_full_frame():
-    """A sub-rectangle rasterized at origin (row0, col0) of the frame,
-    off the tile grid, holds the full frame's pixels: binning works in
-    local tiles, the fragments and the shading in global pixels."""
-    sg, tr_d, li_d = golden_scene("sidelist")
-    scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device="cpu")
-    obj, cfg = scene_t[0]
-    pre = tsp.setup_for_raster(obj, tr, li, cfg, frame_height=H,
-                               frame_width=W)
-    _, z, color, _ = trp.rasterize_shaded(pre, tr, li, True, H, W)
-    r0, c0, h, w = 37, 21, 60, 100
-    _, zs, cs, _ = trp.rasterize_shaded(pre, tr, li, True, h, w, None, H, W,
-                                        r0, c0)
-    np.testing.assert_array_equal(zs.numpy(), z[r0:r0 + h, c0:c0 + w].numpy())
-    np.testing.assert_array_equal(cs.numpy(),
-                                  color[r0:r0 + h, c0:c0 + w].numpy())
-
-
-def test_routes_outside_the_slice_raise():
-    """No route raises now: zcull (K11) renders the frame it renders
-    without the flag. Textured objects the fused path cannot take ('avx'
-    addressing, a texture over the atlas limits) render through the
-    G-buffer path, alone and two at a time (object by object); an unknown
-    filter raises ValueError in the deferred shade, as in the JAX package;
-    rows 1 (K3), textures (K5) and the mask strategy (K6, T <= 512)
-    render."""
-    tr_d, li_d = ts.baseline_camera_lights(H, W)
-    mesh = tp.construct_sphere_grid(46, 45)
-    tex = np.full((8, 8), 0xFF808080, np.uint32)
-    for cfg_d in ({"texture": tex, "uv_mode": "avx"},
-                  {"texture": np.full((8, 600), 0xFF808080, np.uint32)}):
-        sg = [(dict(p=(0.0, 0.0, 0.0), **mesh), cfg_d)]
-        scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device="cpu")
-        assert not tre._obj_fusable(*scene_t[0])
-        fb = trt.Renderer(H, W, device="cpu").render(scene_t, tr, li)
-        assert int((fb.depth > -3.0e38).sum()) > 2000
-        fb2 = trt.render_scene(None, scene_t * 2, tr, li, frame_height=H,
-                               frame_width=W)
-        np.testing.assert_array_equal(fb2.color.numpy(), fb.color.numpy())
-    sg = [(dict(p=(0.0, 0.0, 0.0), **mesh),
-           {"texture": tex, "filter_mode": "trilinear"})]
-    scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device="cpu")
-    with pytest.raises(ValueError, match="unknown filter_mode"):
-        trt.Renderer(H, W, device="cpu").render(scene_t, tr, li)
-    sg = [(dict(p=(0.0, 0.0, 0.0), **mesh), {"texture": tex})]
-    scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device="cpu")
-    fb = trt.Renderer(H, W, device="cpu").render(scene_t, tr, li)
-    assert int((fb.depth > -3.0e38).sum()) > 0
-    sg = [(dict(p=(0.0, 0.0, 0.0), **mesh), {"phong": True})]
-    scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device="cpu")
-    assert trp.raster_route(4140, 512, 512).rows == 1
-    fb = trt.Renderer(512, 512, device="cpu").render(scene_t, tr, li)
-    assert int((fb.depth > -3.0e38).sum()) > 0
-    obj, cfg = scene_t[0]
-    pre = tsp.setup_for_raster(obj, tr, li, cfg, frame_height=H,
-                               frame_width=W)
-    plain = trp.rasterize_shaded(pre, tr, li, True, H, W)
-    culled = trp.rasterize_shaded(pre, tr, li, True, H, W, zcull=True)
-    for a, b in zip(plain[:3], culled[:3]):
-        np.testing.assert_array_equal(a.numpy(), b.numpy())
-    assert trp.raster_route(trp.AUTO_SORTED_THRESHOLD, H, W).strategy == (
-        "mask")
-    small = [(dict(p=(0.0, 0.0, 0.0), **tp.construct_cube()), {})]
-    scene_t, tr, li = ts.to_torch_scene(small, tr_d, li_d, device="cpu")
-    fb = trt.Renderer(H, W, device="cpu").render(scene_t, tr, li)
-    assert int((fb.depth > -3.0e38).sum()) > 0
-
-
-def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
-    """Renderer and to_torch_scene default to the card and raise without
-    one; device='cpu' runs the plain versions."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        trt.Renderer(8, 8)
-    sg, tr_d, li_d = golden_scene("sphere")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        ts.to_torch_scene(sg, tr_d, li_d)
-    scene_t, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device="cpu")
-    fb = trt.Renderer(8, 8, device="cpu").render(scene_t, tr, li)
-    assert fb.color.shape == (8, 8) and fb.color.device.type == "cpu"
-
-
-@pytest.mark.parametrize("make", [
-    lambda **kw: tt.make_transform(3.0, 1.0, 300.0, (4.0, 4.0), **kw),
-    lambda **kw: tt.make_lights((0.3,) * 4, [(2.0, 2.0, 1.0)],
-                                [(0.8,) * 4], **kw),
-    lambda **kw: tt.make_object((0.0, 0.0, 0.0),
-                                **tp.construct_quad(1.0), **kw),
-    lambda **kw: tt.make_framebuffer(8, 8, **kw),
-], ids=["make_transform", "make_lights", "make_object", "make_framebuffer"])
-def test_constructors_need_a_card_unless_asked_for_the_cpu(monkeypatch,
-                                                           make):
-    """The public constructors default to the card as the entry points
-    do: without one they raise unless given device='cpu', and a scene
-    built from their defaults never renders on the CPU unasked."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        make()
-    leaves = [t for t in torch.utils._pytree.tree_leaves(make(device="cpu"))
-              if isinstance(t, torch.Tensor)]
-    assert leaves and all(t.device.type == "cpu" for t in leaves)

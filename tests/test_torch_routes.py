@@ -16,6 +16,13 @@ interpret mode as its own tests run them; the port runs
 its kernels' plain versions. Budgets (tests/test_parity_jax.py): coverage
 exact, colour mismatch <= 0.2%, depth within rtol 1e-6 on >= 99.5% of
 pixels; bins_dropped equal.
+
+This file holds the scenes' fixtures and the tests against JAX; the others
+sit in files of at most nine cases, which pytest-xdist's ``--dist
+loadfile`` hands out after tests/test_parallel.py, the suite's longest
+file: test_torch_routes_launch.py (each scene's launch),
+test_torch_routes_golden.py (the frames against the golden) and
+test_torch_routes_plain.py (no launch counted on the CPU).
 """
 
 import functools
@@ -28,7 +35,6 @@ from tpu_renderer.engine.renderer import Renderer as JRenderer
 from tpu_renderer.golden import cpu_reference as gold
 from tpu_renderer.models import scenes as js
 import tpu_renderer_torch as trt
-from tpu_renderer_torch.engine import renderer as tre
 from tpu_renderer_torch.models import scenes as ts
 from tpu_renderer_torch.ops import raster as trp
 from tpu_renderer_torch.ops import setup as tsp
@@ -79,69 +85,9 @@ def jax_case(request):
     return out
 
 
-@pytest.fixture
-def spies(monkeypatch):
-    """Record every call of K1's and K7's plain versions (the CPU stand-ins
-    of those kernels)."""
-    seen = dict(k1=[], k7=[])
-    k1, k7 = tsp.setup_plain, trp.finish_records_plain
-
-    def k1_spy(*a, **k):
-        seen["k1"].append(a[1].shape[2])
-        return k1(*a, **k)
-
-    def k7_spy(rec_t):
-        seen["k7"].append(tuple(rec_t.shape))
-        return k7(rec_t)
-
-    monkeypatch.setattr(tsp, "setup_plain", k1_spy)
-    monkeypatch.setattr(trp, "finish_records_plain", k7_spy)
-    return seen
-
-
-ROUTES = {  # route -> (tile_h, rows), K1 inputs, K7 inputs
-    "k3": ((8, 1), [5428], []),
-    "k4": ((16, 1), [], [(85, 528)]),
-    "mixed": ((8, 2), [4140], [(85, 128)]),
-}
-
-
-def test_route(case, spies):
-    """The scene's one raster launch, on the route's kernel, with the setup
-    form the JAX gates pick (K1 from 4096 triangles, else setup_records
-    and K7), and the side list filled only in the side-list variant; the
-    Renderer's frame is that launch's output."""
-    scene_t, tr, li = case["scene"]
-    h, w = case["hw"]
-    launch = tre.prepare_scene(scene_t, tr, li, h, w)
-    want, k1, k7 = ROUTES[case["route"]]
-    if case["variant"] == "sidelist" and case["route"] != "mixed":
-        # The quad's 2 triangles join the one object (in the mixed scene
-        # they join the cube, which still pads to 128).
-        k1 = [t + 2 for t in k1]
-        k7 = [(r, t + 2) for r, t in k7]
-    assert spies["k1"] == k1 and spies["k7"] == k7
-    assert (launch.route.strategy, launch.route.tile_h,
-            launch.route.rows) == ("sorted",) + want
-    assert launch.kernel is trp.RASTER_KERNELS[want]
-    assert launch.operands[4].shape == (len(scene_t), 3)
-    n_large = int(launch.qbins.n_large)
-    assert (n_large > 0) == (case["variant"] == "sidelist")
-    assert (int(launch.operands[2].sum()) > 0) == (n_large > 0)
-    z, _, color = (a[:h, :w].numpy() for a in launch.run())
-    np.testing.assert_array_equal(color, case["port"][0])
-    np.testing.assert_array_equal(z, case["port"][1])
-
-
 def test_frame_vs_jax(jax_case):
     assert_frame_parity(*jax_case["port"], *jax_case["jax"])
     assert (jax_case["port"][1] > -3.0e38).sum() > 1000
-
-
-def test_frame_vs_golden(case):
-    assert_frame_parity(*case["port"], *case["gold"])
-    assert int(case["stats"]["bins_dropped"]) == 0
-    assert (case["port"][1] > -3.0e38).sum() > 1000
 
 
 def test_stats_vs_jax(jax_case):
@@ -177,16 +123,6 @@ def test_setup_forms_give_one_frame():
     np.testing.assert_array_equal(outs[0][0], outs[1][0])
     np.testing.assert_array_equal(outs[0][1], outs[1][1])
     assert (outs[0][0] > -3.0e38).sum() > 1000
-
-
-def test_plain_versions_touch_no_launch_counter(case):
-    """CPU tensors run the plain versions, which count no launch."""
-    scene_t, tr, li = case["scene"]
-    h, w = case["hw"]
-    wrappers = list(trp.RASTER_KERNELS.values()) + [trp.finish_records]
-    before = [k.launches for k in wrappers]
-    trt.render_scene(None, scene_t, tr, li, frame_height=h, frame_width=w)
-    assert [k.launches for k in wrappers] == before
 
 
 SUBRECT = {"k3": (150, 200), "k4": (300, 300)}  # wide enough for side lists

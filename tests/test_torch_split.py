@@ -1,7 +1,8 @@
-"""K9's split fold and key merge (csrc/raster.cu, "K9 + K10") on the CPU.
+"""K9's split fold and key merge (csrc/raster.cu, "The sorted strategy,
+each tile's entries split") on the CPU.
 
 On the card K9 folds each tile's stream in parts of at most P entries
-(``ops.gbuffer.K9_PART_ENTRIES``), the side list one more part of each
+(``ops.raster.RASTER_PART_ENTRIES``), the side list one more part of each
 tile it reaches, many blocks at once, and merges the parts' winners per
 pixel by one atomicMax on a 64-bit key. The CUDA code cannot run here, so
 these tests hold its two rules with a mirror in torch:
@@ -11,9 +12,10 @@ these tests hold its two rules with a mirror in torch:
 - the plain split fold: ``gbuffer_plain``'s fragments grouped by part
   (parts of 1, 3 and 16 entries), each part's winners by
   ``resolve_winners``, merged by the key, equal bit for bit to
-  ``gbuffer_plain`` on route scenes at 8 and 32 rows with the side list,
-  one of them with every triangle drawn twice, so that equal-z ties cross
-  part boundaries.
+  ``gbuffer_plain`` on route scenes at 8 and 32 rows with the side list
+  (here k4's; K3's and k4's with every triangle drawn twice, so that
+  equal-z ties cross part boundaries, in test_torch_split_doubled.py,
+  which keeps each file under ten cases).
 
 Imports no JAX: a few seconds in all.
 """
@@ -96,45 +98,48 @@ def test_key_bits():
 
 def split_parts(qbins, lcounts, nfb, tile_h, part_entries):
     """(part id of every (entry, row) pair in ``raster_fragments``' pair
-    order, tri of every pair, parts of every tile): tile t's stream
-    entry i goes to part part_off[t] + i // P, its side list (where
-    lcounts[t] > 0) to part part_off[t] + ceil(counts[t] / P), part_off
-    the exclusive prefix sum of the parts per tile (part_scan_kernel)."""
-    counts = qbins.counts[:nfb].to(torch.int64)
-    starts = qbins.starts[:nfb].to(torch.int64)
+    order, tri of every pair, parts of every tile), with rs streams a tile
+    (rs = 1 on K9's route): entry i of stream h of tile t goes to part
+    part_off[t] + (the parts of t's streams before h) + i // P, t's side
+    list (where lcounts[t] > 0) to the part after its streams' parts,
+    part_off the exclusive prefix sum of the parts per tile
+    (part_scan_kernel)."""
+    rs = qbins.starts.shape[0] // (nfb + 1)
+    counts = qbins.counts[:rs * nfb].to(torch.int64).reshape(nfb, rs)
+    starts = qbins.starts[:rs * nfb].to(torch.int64).reshape(nfb, rs)
     side = (lcounts > 0).to(torch.int64)
     stream_parts = (counts + part_entries - 1) // part_entries
-    per_tile = stream_parts + side
+    per_tile = stream_parts.sum(dim=1) + side
     part_off = torch.cumsum(per_tile, 0) - per_tile
-    tile = torch.repeat_interleave(torch.arange(nfb), counts)
-    first = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(tile.shape[0]) - first[tile]
-    tri = qbins.sorted_tri.to(torch.int64)[starts[tile] + pos]
-    part = part_off[tile] + pos // part_entries
+    before = torch.cumsum(stream_parts, 1) - stream_parts
+    strip = functools.partial(torch.repeat_interleave, repeats=tile_h // rs)
+    parts, tris = [], []
+    for h in range(rs):
+        cn = counts[:, h]
+        tile = torch.repeat_interleave(torch.arange(nfb), cn)
+        first = torch.cumsum(cn, 0) - cn
+        pos = torch.arange(tile.shape[0]) - first[tile]
+        tris.append(strip(qbins.sorted_tri.to(torch.int64)[
+            starts[tile, h] + pos]))
+        parts.append(strip(part_off[tile] + before[tile, h]
+                           + pos // part_entries))
     nl = int(qbins.n_large)
     ltiles = torch.nonzero(lcounts > 0).reshape(-1)
-    side_part = (part_off + stream_parts)[ltiles].repeat_interleave(nl)
-    side_tri = qbins.large_ids[:nl].to(torch.int64).repeat(ltiles.shape[0])
-    rows = functools.partial(torch.repeat_interleave, repeats=tile_h)
-    return (rows(torch.cat([part, side_part])),
-            rows(torch.cat([tri, side_tri])), per_tile)
+    side_part = (part_off + stream_parts.sum(dim=1))[ltiles]
+    rows = functools.partial(torch.repeat_interleave, repeats=nl * tile_h)
+    side_tri = qbins.large_ids[:nl].to(torch.int64).repeat_interleave(
+        tile_h).repeat(ltiles.shape[0])
+    return (torch.cat(parts + [rows(side_part)]),
+            torch.cat(tris + [side_tri]), per_tile)
 
 
-def split_gbuffer_plain(launch, part_entries):
-    """The plain split fold: the launch's fragments (``raster_fragments``
-    with the 10 attribute planes) grouped by (part, pixel), each group's
-    winner by ``resolve_winners``, the groups of a pixel merged by the max
-    unsigned key. Returns ((gid, gbuf), parts per tile, (pixel, z, gid)
-    of every group's winner)."""
-    recs, qbins, lcounts = launch.operands
-    o = launch.options
-    nfb = o["tiles_y"] * o["tiles_x"]
-    hp, wp = o["tiles_y"] * o["tile_h"], o["tiles_x"] * trp.TILE_W
-    frags = trp.raster_fragments(recs, qbins, lcounts, **o,
-                                 fields=tgb.ATTR_FIELDS)
-    part, tri, per_tile = split_parts(qbins, lcounts, nfb, o["tile_h"],
-                                      part_entries)
-    assert torch.equal(tri, frags.pair_tri.to(torch.int64))
+def split_merge(frags, part, hp, wp):
+    """The fragments (``raster_fragments``) folded part by part (``part``
+    the part of each pair), each part's winner at each pixel by
+    ``resolve_winners``, the parts of a pixel merged by the max unsigned
+    key. Returns (z (hp, wp), DEPTH_CLEAR where uncovered; gid (hp, wp)
+    i32, -1; the winner's plane of each of ``frags.attrs``, 0) and (pixel,
+    z, gid) of every part's winner at each pixel it covers."""
     group, pix_of = torch.unique(part[frags.pair] * (hp * wp) + frags.pix,
                                  return_inverse=True)
     gz, gg, gplanes = trp.resolve_winners(frags._replace(pix=pix_of), 1,
@@ -150,12 +155,30 @@ def split_gbuffer_plain(launch, part_entries):
     wpix = gpix[win]
     gid = torch.full((hp * wp,), -1, dtype=torch.int32)
     gid[wpix] = gg[win]
-    gbuf = torch.zeros((tgb.GBUF_CHANNELS, hp * wp), dtype=torch.float32)
-    gbuf[0] = trp.DEPTH_CLEAR
-    for c, plane in enumerate([gz[None]] + gplanes):
-        gbuf[c, wpix] = plane[0][win]
-    return (gid.reshape(hp, wp), gbuf.reshape(-1, hp, wp)), per_tile, (
-        gpix, gz, gg)
+    planes = []
+    for fill, plane in [(trp.DEPTH_CLEAR, gz[None])] + [
+            (0.0, p) for p in gplanes]:
+        out = torch.full((hp * wp,), fill, dtype=torch.float32)
+        out[wpix] = plane[0][win]
+        planes.append(out.reshape(hp, wp))
+    return planes[0], gid.reshape(hp, wp), planes[1:], (gpix, gz, gg)
+
+
+def split_gbuffer_plain(launch, part_entries):
+    """The plain split fold of a G-buffer launch: its fragments with the 10
+    attribute planes merged part by part (``split_merge``). Returns ((gid,
+    gbuf), parts per tile, (pixel, z, gid) of every group's winner)."""
+    recs, qbins, lcounts = launch.operands
+    o = launch.options
+    nfb = o["tiles_y"] * o["tiles_x"]
+    hp, wp = o["tiles_y"] * o["tile_h"], o["tiles_x"] * trp.TILE_W
+    frags = trp.raster_fragments(recs, qbins, lcounts, **o,
+                                 fields=tgb.ATTR_FIELDS)
+    part, tri, per_tile = split_parts(qbins, lcounts, nfb, o["tile_h"],
+                                      part_entries)
+    assert torch.equal(tri, frags.pair_tri.to(torch.int64))
+    z, gid, planes, groups = split_merge(frags, part, hp, wp)
+    return (gid, torch.stack([z] + planes)), per_tile, groups
 
 
 def doubled(sg):
@@ -187,15 +210,10 @@ def launch_and_plain(name, tile_h):
     return launch, launch.run_plain(), obj.num_triangles
 
 
-@pytest.mark.parametrize("part_entries", [1, 3, 16])
-@pytest.mark.parametrize("name, tile_h", [
-    ("k4", 8), ("k4", 32), ("k3", 8), ("k4 doubled", 8),
-    ("k4 doubled", 32)])
-def test_split_fold_equals_gbuffer_plain(name, tile_h, part_entries):
-    """Parts of 1, 3 and 16 entries merged by the key give gbuffer_plain's
-    gid and 11 planes bit for bit, with tiles of several parts and the
-    side list a part of its own; on the doubled scene equal-z winners of
-    different parts meet at many pixels and the smaller gid wins."""
+def check_split_fold(name, tile_h, part_entries):
+    """Parts of ``part_entries`` entries merged by the key give
+    gbuffer_plain's gid and 11 planes bit for bit (the test below and
+    test_torch_split_doubled.py)."""
     launch, want, n_tri = launch_and_plain(name, tile_h)
     got, per_tile, (gpix, gz, gg) = split_gbuffer_plain(launch,
                                                         part_entries)
@@ -210,3 +228,13 @@ def test_split_fold_equals_gbuffer_plain(name, tile_h, part_entries):
         tie = (p[1:] == p[:-1]) & (z[1:] == z[:-1]) & (g[1:] != g[:-1])
         assert int(tie.sum()) > 100
         assert int(got[0].max()) < n_tri // 2  # the first copy wins
+
+
+@pytest.mark.parametrize("part_entries", [1, 3, 16])
+@pytest.mark.parametrize("name, tile_h", [("k4", 8), ("k4", 32)])
+def test_split_fold_equals_gbuffer_plain(name, tile_h, part_entries):
+    """Parts of 1, 3 and 16 entries merged by the key give gbuffer_plain's
+    gid and 11 planes bit for bit, with tiles of several parts and the
+    side list a part of its own (K3's scene and the doubled ones:
+    test_torch_split_doubled.py)."""
+    check_split_fold(name, tile_h, part_entries)

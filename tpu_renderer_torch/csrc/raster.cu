@@ -20,19 +20,21 @@
 //                     list;
 //   tr_gbuffer_mask   K8: K6's fold, the G-buffer finalize (gbuffer_tile);
 //   tr_gbuffer_queue  K9 + K10: one sorted stream, 8-, 16- or 32-row tiles,
-//                     each tile's entries split into parts that many blocks
-//                     fold in parallel, the side list (K10) one more part of
-//                     each tile it reaches, the parts merged by the (z desc,
-//                     gid asc) key, then the G-buffer finalize (see "K9 +
-//                     K10" below). The TPU ran K10 as a second grid and
-//                     merged the two G-buffers by that rule; here the key
-//                     merge does it, so no second (11, H, W) buffer exists;
+//                     into a G-buffer;
 //   tr_raster_zcull, tr_raster_rows1_zcull
 //                     K11: K2 and K3 with the zcull branch (zcull and wide,
 //                     :2384-2394, bound _spanex_block_zmax :2151): a batch
 //                     that cannot win a pixel skips its fold
 //                     (batch_occluded). Output-exact; a batch's bound and
-//                     min cost one more barrier and two shuffle reductions.
+//                     min cost one more barrier, two shuffle reductions and
+//                     a read of its strip's keys.
+// The sorted entries (K2, K3, K4, K9 + K10, K11) split each tile's streams
+// into parts that many blocks fold in parallel, the side list (K10 on the
+// G-buffer route) one more part of each tile it reaches, and merge the
+// parts by a (z desc, gid asc) key per pixel before a finalize per tile
+// (see "The sorted strategy, each tile's entries split" below). The TPU
+// ran K10 as a second grid and merged the two G-buffers by that rule; here
+// the key merge does it, so no second (11, H, W) buffer exists.
 // Each runs stage-A span setup (_stage_a_fill :1120, which has the same
 // span formulas in the same op order as the narrow _chunk_best: the narrow
 // form masks entries through span_ok in the coverage test, the wide one
@@ -47,26 +49,24 @@
 // :863), as its base colour; Blinn-Phong shade_planes where the object is
 // Phong, the base colour elsewhere; pack_argb_planes.
 //
-// Bound on the H100: the busiest tile. Device-memory traffic is small (one
-// 352 B record read per entry, 12 B written per pixel, 48 B for a G-buffer
-// pixel); the work is the
-// per-(entry, row) span setup (~60 f32 operations with IEEE divisions) and
-// the per-pixel fold, and one block walks a tile's entries in series. Dense
-// meshes concentrate entries: on the 1M-triangle 1080p sphere 215 of 2,025
-// tiles hold entries, one of them 7,165, and that tile sets the kernel's
-// time while most SMs idle. A 32-row tile holds the entries of two 16-row
-// ones and its block walks them in series (its two threads a column split
-// the rows, not the entries), so on the 40,040-triangle 1080p sphere grid
-// K4 on 32-row tiles takes about twice K4 on 16-row tiles on an H100. K9
-// splits each tile's entries over many blocks merged by the (z, gid) key
-// (below); K2, K3, K4 and K11 still walk a tile in one block.
+// Bound on the H100: the busiest tile's work. Device-memory traffic is small
+// (one 352 B record read per entry, 12 B written per pixel, 48 B for a
+// G-buffer pixel, 8 B a pixel of keys on the sorted routes); the work is
+// the per-(entry, row) span setup (~60 f32 operations with IEEE divisions)
+// and the per-pixel fold. Dense meshes concentrate entries: on the
+// 1M-triangle 1080p sphere 215 of 2,025 tiles hold entries, one of them
+// 7,165. One block walking a tile's entries in series let that tile set the
+// kernel's time while most SMs idled (and a 32-row tile, two 16-row tiles'
+// entries, about doubled it), so the sorted routes split a tile's entries
+// over many blocks; the mask strategy (K6, K8), whose lists hold at most a
+// few thousand small-scene entries, still folds a tile in one block.
 //
 // Design: the TPU ran a sequential grid of (tile, record block) work items
 // that carried each tile's z / gid / attribute scratch from one item to the
-// next. Here one block of 128 threads (256 for 32-row tiles, see Tile) owns
-// one TILE_H x 128 framebuffer tile and loops over all of its entries
-// itself, so nothing crosses blocks and no work-item table or record gather
-// is needed: the block reads recs[ids[i]] directly, from the sorted streams
+// next. Here a block of 128 threads (256 for 32-row tiles, see Tile) folds
+// a run of one tile's entries (the mask strategy: all of them; the sorted
+// one: a part) into the winners of that TILE_H x 128 framebuffer tile in
+// registers, reading recs[ids[i]] directly, from the sorted streams
 // (starts / counts at STREAMS * tile + stream) or the mask strategy's
 // per-tile list (ids at tile * capacity, counts[tile]). Entries go in
 // batches of one (entry, row) pair per thread:
@@ -87,8 +87,8 @@
 // the value al + k * inc is the one the fold would have kept. Registers
 // stay at 3 * min(TILE_H, 16) winner values whatever the scene's planes
 // (config 5 needs 10), and one template serves every field set. Every tile
-// is written, so empty tiles need no masking afterwards. Tensor cores, TMA
-// and a persistent schedule are left for later work.
+// is written, so empty tiles need no masking afterwards. Tensor cores and
+// TMA are left for later work.
 
 #include "common.cuh"
 
@@ -278,24 +278,71 @@ __device__ __forceinline__ void stage_a(const float* rec, float yf, float w_f,
   sh.gid[p] = to_i32(rec[kGidLane]);
 }
 
+// The merge key of a partial winner: unsigned order is the fold's order.
+// High word: z's bits made monotone (the sign flip: negative floats
+// inverted, positive ones with the sign bit set), after -0 is made +0, since
+// the fold's `z > win.z || (z == win.z && g < win.g)` treats +-0 as one z
+// that the smaller gid wins; low word: 0xFFFFFFFF - g, larger for the
+// smaller gid. A partial winner has z > kDepthClear (the fold starts there
+// with gid -1 and takes only strictly larger z or, at the same z, a smaller
+// gid, which no g >= 0 is than -1), so z is never NaN, -inf or -FLT_MAX,
+// its high word is above that of -FLT_MAX, and the key is never 0. The bit
+// order holds for subnormals as for normal numbers (built -ftz=false).
+__device__ __forceinline__ unsigned long long winner_key(float z, int g) {
+  unsigned u = __float_as_uint(z);
+  if (u == 0x80000000u) u = 0u;
+  const unsigned ord = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<unsigned long long>(ord) << 32) |
+         (0xFFFFFFFFu - static_cast<unsigned>(g));
+}
+
+// The z of a key (winner_key's high word undone; -0 comes back as +0), and
+// kDepthClear for key 0, no winner.
+__device__ __forceinline__ float key_z(unsigned long long key) {
+  if (key == 0ull) return kDepthClear;
+  const unsigned ord = static_cast<unsigned>(key >> 32);
+  return __uint_as_float((ord & 0x80000000u) ? (ord & 0x7FFFFFFFu) : ~ord);
+}
+
+// A key as it stands now, while other blocks may raise it: a relaxed load
+// at device scope, which reads L2, where the atomics are performed.
+__device__ __forceinline__ unsigned long long load_key(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p));
+  return v;
+}
+
 // K11: can no pair of this batch win a pixel? Replaces the zcull branch of
 // _raster_kernel_queue_shaded (raster_pallas.py:2384-2394) and its bound
 // _spanex_block_zmax (:2151). zmax is the max over the batch's (entry,
 // row) pairs of z at the span's ends minx and maxx, by the fold's own
 // formula (z is linear in k and f32 rounding is monotone, so no pixel of
 // the span lies above its ends); rows without a span (maxx = -BIG) are left
-// out, and a NaN end counts as +inf, which never culls. tile_minz is the
-// min of the winners' z over the rows the batch folds: a stream's entries
-// touch only its strip's rows, and K2 walks stream 0 to its end before
-// stream 1, so a whole-tile min would stay DEPTH_CLEAR through stream 0.
-// When zmax + |zmax| * 1e-6 < tile_minz every fragment of the batch is
-// below every winner of its rows and loses the strict '>' test, so skipping
-// the fold changes no output. The reduction is block-wide (warp shuffles,
-// one shared slot per warp) and every thread returns the same answer.
+// out, and a NaN end counts as +inf, which never culls. zmin is the min,
+// over the pixels of the rows the batch folds (a stream's entries touch
+// only its strip's rows), of max(this part's partial winner z, the z of
+// the pixel's merge key as it stands now; key 0 counts as DEPTH_CLEAR).
+// The skip is exact, whatever the order in which the parts run and
+// whatever key values this block reads:
+//   - keys only grow (atomicMax), and every key ever stored is the key of
+//     a partial winner at that pixel, so the z read from a key, stale or
+//     not, is at or below the z of the pixel's final winner (the largest
+//     key); this part's partial winner is merged into that key too, so its
+//     z is at or below it as well;
+//   - when zmax + |zmax| * 1e-6 < zmin, every fragment of the batch lies
+//     strictly below the final winner of its pixel, so it is not that
+//     winner and cannot tie it: skipping the fold removes only fragments
+//     that lose, and the winner's own fragment is never skipped (its z
+//     would be below itself).
+// The margin is the one of the serial form; nothing else is loosened.
+// ``keys`` points at this thread's column in tile row 0, rows key_stride
+// apart. The reduction is block-wide (warp shuffles, one shared slot per
+// warp) and every thread returns the same answer.
 template <int TILE_H, int NROWS>
-__device__ __forceinline__ bool batch_occluded(const Shared& sh,
-                                               const Winners<TILE_H>& win,
-                                               int row_lo) {
+__device__ __forceinline__ bool batch_occluded(
+    const Shared& sh, const Winners<TILE_H>& win, int row_lo,
+    const unsigned long long* keys, size_t key_stride) {
   static_assert(Tile<TILE_H>::kThreads == kThreads, "one thread a column");
   constexpr int kWarps = kThreads / 32;
   __shared__ float red[2][kWarps];
@@ -314,7 +361,9 @@ __device__ __forceinline__ bool batch_occluded(const Shared& sh,
   float zmin = inf;
 #pragma unroll
   for (int r = 0; r < TILE_H; ++r)
-    if (r >= row_lo && r < row_lo + NROWS) zmin = fminf(zmin, win.z[r]);
+    if (r >= row_lo && r < row_lo + NROWS)
+      zmin = fminf(zmin, fmaxf(win.z[r],
+                               key_z(load_key(keys + r * key_stride))));
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     zmax = fmaxf(zmax, __shfl_xor_sync(0xffffffffu, zmax, o));
@@ -338,14 +387,16 @@ __device__ __forceinline__ bool batch_occluded(const Shared& sh,
 // Stage the records ids[0..ne), run stage A on their (entry, row) pairs for
 // tile rows [row_lo, row_lo + NROWS), and fold the pairs into the winners
 // of this thread's rows of its column. ne * NROWS <= the block's threads.
-// With CULL (K11) a batch that cannot win a pixel (batch_occluded) skips
-// its fold and, when ``skipped`` is not null, adds one to it.
+// With CULL (K11) a batch that cannot win a pixel (batch_occluded, against
+// ``keys``) skips its fold and, when ``skipped`` is not null, adds one to
+// it.
 template <int TILE_H, int NROWS, bool CULL = false>
 __device__ __forceinline__ void fold_batch(
     const float* __restrict__ recs, const int* __restrict__ ids, int ne,
     int row_lo, int row_base, float w_f, float xc,
     SharedT<Tile<TILE_H>::kThreads>& sh, Winners<Tile<TILE_H>::kRows>& win,
-    int* skipped = nullptr) {
+    int* skipped = nullptr, const unsigned long long* keys = nullptr,
+    size_t key_stride = 0) {
   constexpr int kBlock = Tile<TILE_H>::kThreads;
   static_assert(kBlock / NROWS <= kMaxBatch, "batch exceeds shared rows");
   constexpr int kPer = kRecLoad / 4;
@@ -369,7 +420,7 @@ __device__ __forceinline__ void fold_batch(
   }
   __syncthreads();
   if constexpr (CULL) {
-    if (batch_occluded<TILE_H, NROWS>(sh, win, row_lo)) {
+    if (batch_occluded<TILE_H, NROWS>(sh, win, row_lo, keys, key_stride)) {
       if (threadIdx.x == 0 && skipped != nullptr) atomicAdd(skipped, 1);
       return;
     }
@@ -670,74 +721,6 @@ __device__ __forceinline__ void write_tile(
     finalize_tile<TILE_H>(f, win, ty, tx, row_base, xc);
 }
 
-// One tile of the sorted strategy: its streams, its side list, its
-// shaded outputs. ZCULL (K11) culls the stream batches (batch_occluded),
-// never the side list, as the TPU kernel never culled its side-list fold.
-template <int TILE_H, int STREAMS, bool ZCULL>
-__device__ __forceinline__ void raster_tile(
-    const int* __restrict__ sorted_tri, const int* __restrict__ starts,
-    const int* __restrict__ counts, const int* __restrict__ large_ids,
-    const int* __restrict__ n_large, const int* __restrict__ lcounts,
-    const Finalize& f, SharedT<Tile<TILE_H>::kThreads>& sh, int* skipped) {
-  constexpr int kBlock = Tile<TILE_H>::kThreads;
-  constexpr int kStrip = TILE_H / STREAMS;  // rows each stream covers
-  const int tile = blockIdx.x;
-  const int ty = tile / f.tiles_x, tx = tile - ty * f.tiles_x;
-  const int row_base = f.row0 + ty * TILE_H;
-  const float xc =
-      static_cast<float>(f.col0 + tx * kTileW + tile_col<TILE_H>());
-  Winners<Tile<TILE_H>::kRows> win;
-  init_winners(win);
-
-  // The tile's streams: stream h covers rows [h * kStrip, (h + 1) * kStrip).
-#pragma unroll
-  for (int h = 0; h < STREAMS; ++h) {
-    constexpr int kBatch = kBlock / kStrip;
-    const int s = starts[STREAMS * tile + h], n = counts[STREAMS * tile + h];
-    for (int b0 = 0; b0 < n; b0 += kBatch)
-      fold_batch<TILE_H, kStrip, ZCULL>(f.recs, sorted_tri + s + b0,
-                                        min(kBatch, n - b0), h * kStrip,
-                                        row_base, f.w_f, xc, sh, win,
-                                        skipped);
-  }
-  // The large-triangle side list, over all rows, where its bboxes reach.
-  if (lcounts[tile] > 0) {
-    constexpr int kSide = kBlock / TILE_H;
-    const int nl = *n_large;
-    for (int b0 = 0; b0 < nl; b0 += kSide)
-      fold_batch<TILE_H, TILE_H>(f.recs, large_ids + b0, min(kSide, nl - b0),
-                                 0, row_base, f.w_f, xc, sh, win);
-  }
-  finalize_tile<TILE_H>(f, win, ty, tx, row_base, xc);
-}
-
-// K2 / K3 / K4: the sorted strategy's streams and side list, one block a
-// tile. The side list goes into the same winners under the (z desc, gid
-// asc) rule. K9, the G-buffer form, has kernels of its own (below).
-template <int TILE_H, int STREAMS>
-__global__ void __launch_bounds__(Tile<TILE_H>::kThreads) raster_kernel(
-    const int* __restrict__ sorted_tri, const int* __restrict__ starts,
-    const int* __restrict__ counts, const int* __restrict__ large_ids,
-    const int* __restrict__ n_large, const int* __restrict__ lcounts,
-    Finalize f) {
-  __shared__ __align__(16) SharedT<Tile<TILE_H>::kThreads> sh;
-  raster_tile<TILE_H, STREAMS, false>(sorted_tri, starts, counts, large_ids,
-                                      n_large, lcounts, f, sh, nullptr);
-}
-
-// K11: K2 (STREAMS 2) or K3 (STREAMS 1) with the occlusion skip; counts
-// the skipped batches in ``skipped`` when it is not null.
-template <int STREAMS>
-__global__ void __launch_bounds__(kThreads) raster_zcull_kernel(
-    const int* __restrict__ sorted_tri, const int* __restrict__ starts,
-    const int* __restrict__ counts, const int* __restrict__ large_ids,
-    const int* __restrict__ n_large, const int* __restrict__ lcounts,
-    Finalize f, int* skipped) {
-  __shared__ __align__(16) Shared sh;
-  raster_tile<8, STREAMS, true>(sorted_tri, starts, counts, large_ids,
-                                n_large, lcounts, f, sh, skipped);
-}
-
 // K6 (shaded) and K8 (G-buffer): the mask strategy. Tile t's triangles are
 // ids[t * capacity + i] for i < counts[t], in submission order; each covers
 // all of the tile's rows.
@@ -763,35 +746,42 @@ __global__ void __launch_bounds__(Tile<TILE_H>::kThreads) mask_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K9 + K10: the sorted strategy into a G-buffer, each tile's entries split
-// over many blocks. Replaces _raster_kernel_queue (raster_pallas.py:1853),
-// whose sequential grid of (tile, record block) work items carried a tile's
-// scratch from one item to the next, and _raster_kernel_bcast (:2018) with
-// its merge _merge_gbuf_by_gid (:2954).
+// The sorted strategy, each tile's entries split over many blocks: K2, K3,
+// K4 (raster + shade), K11 (K2 and K3 with the occlusion skip) and K9 + K10
+// (into a G-buffer). Replaces _raster_kernel_queue_shaded
+// (raster_pallas.py:2192) on its routes, _raster_kernel_queue (:1853) and
+// _raster_kernel_bcast (:2018) with its merge _merge_gbuf_by_gid (:2954),
+// whose sequential grids of (tile, record block) work items carried a
+// tile's scratch from one item to the next.
 //
 // One block walking a tile's entries in series left the busiest tile to set
-// the time (7,165 entries, 448 batches, on the 1M-triangle 1080p sphere,
-// while 1,810 of 2,025 tiles hold none). Here the work items run in
-// parallel:
-//   1. part_scan_kernel: part p of tile t is a run of at most P entries of
-//      t's stream, and where lcounts[t] > 0 the side list is one more part
-//      of t; one block counts each tile's parts and writes their exclusive
-//      prefix sum (part_off[nfb] is the total), on the device, so the host
-//      never waits;
+// the time (7,165 entries on the 1M-triangle 1080p sphere, while 1,810 of
+// 2,025 tiles hold none). Here the work items run in parallel:
+//   1. part_scan_kernel: a stream part is a run of at most P entries of one
+//      stream h of tile t (STREAMS streams a tile, stream h covering the
+//      strip of rows [h * TILE_H / STREAMS, (h + 1) * TILE_H / STREAMS)),
+//      and where lcounts[t] > 0 the side list is one more part of t, over
+//      all rows; one block counts each tile's parts and writes their
+//      exclusive prefix sum (part_off[nfb] is the total), on the device, so
+//      the host never waits. A tile's parts are numbered stream by stream,
+//      in stream order, the side-list part last;
 //   2. split_walk_kernel: a grid of about as many blocks as the card holds
-//      at once strides over the part ids; a block finds its part's tile by
+//      at once strides over the parts; a block finds its part's tile by
 //      binary search in part_off, folds the part with fold_batch into
-//      registers exactly as raster_tile does (every row of the tile: one
-//      stream, and the side list on every row), then each pixel whose
-//      partial winner has g >= 0 does one atomicMax on its 64-bit key;
+//      registers (a stream part over its strip's rows, the side list over
+//      all of them), then each pixel whose partial winner has g >= 0 does
+//      one atomicMax on its 64-bit key;
 //   3. split_finalize_kernel: one block a tile decodes each pixel's winning
-//      gid from the key, recomputes the fold's k and z from recs[g] with the
-//      same f32 operations (fold_kz), and writes gid and the 11 planes
-//      through gbuffer_tile.
+//      gid from the key, recomputes the fold's k and z from recs[g] at the
+//      pixel's own row with the same f32 operations (fold_kz: the row the
+//      fold took as row_base + h * strip + rr is the same int, so the same
+//      float), and writes z, gid and colour (finalize_tile: K5, the object
+//      masks, Phong) or gid and the 11 planes (gbuffer_tile).
 // The key orders partial winners as the fold does, z descending then gid
 // ascending (winner_key), so the merge is exact in any order of the parts.
 // The keys are (hp, wp) u64 over the whole padded frame, zeroed each
-// launch; 0 stands for no winner.
+// launch; 0 stands for no winner. K11 culls a stream batch against its
+// part's partial winners and the keys as they stand (batch_occluded).
 // ---------------------------------------------------------------------------
 
 constexpr int kScanThreads = 1024;
@@ -800,8 +790,10 @@ __device__ __forceinline__ int stream_parts(int n, int part_entries) {
   return n > 0 ? (n - 1) / part_entries + 1 : 0;  // no overflow at INT_MAX
 }
 
-// part_off[t] = the parts of tiles [0, t), t <= nfb. One block of
-// kScanThreads threads, kScanThreads tiles a round.
+// part_off[t] = the parts of tiles [0, t), t <= nfb; stream h of tile t has
+// counts[STREAMS * t + h] entries. One block of kScanThreads threads,
+// kScanThreads tiles a round.
+template <int STREAMS>
 __global__ void __launch_bounds__(kScanThreads) part_scan_kernel(
     const int* __restrict__ counts, const int* __restrict__ lcounts, int nfb,
     int part_entries, int* __restrict__ part_off) {
@@ -811,9 +803,13 @@ __global__ void __launch_bounds__(kScanThreads) part_scan_kernel(
   int carry = 0;
   for (int base = 0; base < nfb; base += kScanThreads) {
     const int t = base + threadIdx.x;
-    const int n = t < nfb ? stream_parts(counts[t], part_entries) +
-                                (lcounts[t] > 0 ? 1 : 0)
-                          : 0;
+    int n = 0;
+    if (t < nfb) {
+      n = lcounts[t] > 0 ? 1 : 0;
+#pragma unroll
+      for (int h = 0; h < STREAMS; ++h)
+        n += stream_parts(counts[STREAMS * t + h], part_entries);
+    }
     int v = n;  // inclusive scan within the warp
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
@@ -840,24 +836,6 @@ __global__ void __launch_bounds__(kScanThreads) part_scan_kernel(
   if (threadIdx.x == 0) part_off[nfb] = carry;
 }
 
-// The merge key of a partial winner: unsigned order is the fold's order.
-// High word: z's bits made monotone (the sign flip: negative floats
-// inverted, positive ones with the sign bit set), after -0 is made +0, since
-// the fold's `z > win.z || (z == win.z && g < win.g)` treats +-0 as one z
-// that the smaller gid wins; low word: 0xFFFFFFFF - g, larger for the
-// smaller gid. A partial winner has z > kDepthClear (the fold starts there
-// with gid -1 and takes only strictly larger z or, at the same z, a smaller
-// gid, which no g >= 0 is than -1), so z is never NaN, -inf or -FLT_MAX,
-// its high word is above that of -FLT_MAX, and the key is never 0. The bit
-// order holds for subnormals as for normal numbers (built -ftz=false).
-__device__ __forceinline__ unsigned long long winner_key(float z, int g) {
-  unsigned u = __float_as_uint(z);
-  if (u == 0x80000000u) u = 0u;
-  const unsigned ord = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return (static_cast<unsigned long long>(ord) << 32) |
-         (0xFFFFFFFFu - static_cast<unsigned>(g));
-}
-
 // The fold's k and z for record rec at pixel (xc, yf): stage A's span
 // setup and attr_span, then the fold's two lines, the same f32 operations
 // in the same order, so z carries the bits (and the sign of a zero) the
@@ -881,17 +859,32 @@ __device__ __forceinline__ size_t tile_pixel(const Finalize& f, int ty,
          tile_col<TILE_H>();
 }
 
-template <int TILE_H>
+// Fold ids[0..ne) in batches of the block's threads / NROWS entries over
+// tile rows [row_lo, row_lo + NROWS).
+template <int TILE_H, int NROWS, bool CULL>
+__device__ __forceinline__ void fold_run(
+    const int* ids, int ne, int row_lo, int row_base, float xc,
+    const Finalize& f, SharedT<Tile<TILE_H>::kThreads>& sh,
+    Winners<Tile<TILE_H>::kRows>& win, int* skipped,
+    const unsigned long long* keys) {
+  constexpr int kBatch = Tile<TILE_H>::kThreads / NROWS;
+  for (int b0 = 0; b0 < ne; b0 += kBatch)
+    fold_batch<TILE_H, NROWS, CULL>(f.recs, ids + b0, min(kBatch, ne - b0),
+                                    row_lo, row_base, f.w_f, xc, sh, win,
+                                    skipped, keys, f.out_w);
+}
+
+template <int TILE_H, int STREAMS, bool CULL>
 __global__ void __launch_bounds__(Tile<TILE_H>::kThreads) split_walk_kernel(
     const int* __restrict__ sorted_tri, const int* __restrict__ starts,
     const int* __restrict__ counts, const int* __restrict__ large_ids,
     const int* __restrict__ n_large, const int* __restrict__ part_off,
     int nfb, int part_entries, Finalize f,
-    unsigned long long* __restrict__ keys) {
+    unsigned long long* __restrict__ keys, int* skipped) {
   __shared__ __align__(16) SharedT<Tile<TILE_H>::kThreads> sh;
-  constexpr int kBatch = Tile<TILE_H>::kThreads / TILE_H;
-  const int total = part_off[nfb];
-  for (int part = blockIdx.x; part < total; part += gridDim.x) {
+  constexpr int kStrip = TILE_H / STREAMS;  // rows each stream covers
+  const int n = part_off[nfb];
+  for (int part = blockIdx.x; part < n; part += gridDim.x) {
     int lo = 0, hi = nfb;  // part_off[lo] <= part < part_off[hi]
     while (hi - lo > 1) {
       const int mid = (lo + hi) >> 1;
@@ -900,24 +893,45 @@ __global__ void __launch_bounds__(Tile<TILE_H>::kThreads) split_walk_kernel(
       else
         hi = mid;
     }
-    const int tile = lo, j = part - part_off[tile];
-    const int n = counts[tile];
-    const int* ids = large_ids;  // the side-list part, after the stream's
+    const int tile = lo;
+    int j = part - part_off[lo];
+    // The part's stream h and its run of entries; h == STREAMS: the side
+    // list, after the streams' parts.
+    int h = 0;
+    for (; h < STREAMS; ++h) {
+      const int np = stream_parts(counts[STREAMS * tile + h], part_entries);
+      if (j < np) break;
+      j -= np;
+    }
+    const int* ids = large_ids;
     int ne = *n_large;
-    if (j < stream_parts(n, part_entries)) {
+    if (h < STREAMS) {
       const int first = j * part_entries;
-      ids = sorted_tri + starts[tile] + first;
-      ne = min(n - first, part_entries);
+      ids = sorted_tri + starts[STREAMS * tile + h] + first;
+      ne = min(counts[STREAMS * tile + h] - first, part_entries);
     }
     const int ty = tile / f.tiles_x, tx = tile - ty * f.tiles_x;
     const int row_base = f.row0 + ty * TILE_H;
     const float xc =
         static_cast<float>(f.col0 + tx * kTileW + tile_col<TILE_H>());
+    const unsigned long long* tile_keys =
+        keys + tile_pixel<TILE_H>(f, ty, tx, 0);
     Winners<Tile<TILE_H>::kRows> win;
     init_winners(win);
-    for (int b0 = 0; b0 < ne; b0 += kBatch)
-      fold_batch<TILE_H, TILE_H>(f.recs, ids + b0, min(kBatch, ne - b0), 0,
-                                 row_base, f.w_f, xc, sh, win);
+    if constexpr (kStrip == TILE_H && !CULL) {
+      // One stream: its parts and the side list fold over the same rows.
+      fold_run<TILE_H, TILE_H, false>(ids, ne, 0, row_base, xc, f, sh, win,
+                                      nullptr, nullptr);
+    } else {
+      // The side list is never culled, as the TPU kernel never culled its
+      // side-list fold.
+      if (h < STREAMS)
+        fold_run<TILE_H, kStrip, CULL>(ids, ne, h * kStrip, row_base, xc, f,
+                                       sh, win, skipped, tile_keys);
+      else
+        fold_run<TILE_H, TILE_H, false>(ids, ne, 0, row_base, xc, f, sh, win,
+                                        nullptr, nullptr);
+    }
     const int r0 = row_first<TILE_H>();
 #pragma unroll
     for (int rl = 0; rl < Tile<TILE_H>::kRows; ++rl)
@@ -927,7 +941,9 @@ __global__ void __launch_bounds__(Tile<TILE_H>::kThreads) split_walk_kernel(
   }
 }
 
-template <int TILE_H>
+// The tile's outputs from the keys: z, gid and colour, or (GBUF) gid and
+// the 11 planes.
+template <int TILE_H, bool GBUF>
 __global__ void __launch_bounds__(Tile<TILE_H>::kThreads)
     split_finalize_kernel(const unsigned long long* __restrict__ keys,
                           Finalize f) {
@@ -950,12 +966,13 @@ __global__ void __launch_bounds__(Tile<TILE_H>::kThreads)
             static_cast<float>(row_base + r0 + rl), f.w_f, xc, win.k[rl],
             win.z[rl]);
   }
-  gbuffer_tile<TILE_H>(f, win, ty, tx, row_base);
+  write_tile<TILE_H, GBUF>(f, win, ty, tx, row_base, xc);
 }
 
-// Blocks of split_walk_kernel<TILE_H> that the current card runs at once,
-// into *blocks. A successful answer is kept for each device index.
-template <int TILE_H>
+// Blocks of split_walk_kernel<TILE_H, STREAMS, CULL> that the current card
+// runs at once, into *blocks. A successful answer is kept for each device
+// index.
+template <int TILE_H, int STREAMS, bool CULL>
 cudaError_t resident_blocks(int* blocks) {
   constexpr int kMaxDevices = 64;
   static int cached[kMaxDevices] = {};
@@ -970,7 +987,8 @@ cudaError_t resident_blocks(int* blocks) {
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, split_walk_kernel<TILE_H>, Tile<TILE_H>::kThreads, 0);
+      &per_sm, split_walk_kernel<TILE_H, STREAMS, CULL>,
+      Tile<TILE_H>::kThreads, 0);
   if (e != cudaSuccess) return e;
   if (sms * per_sm < 1) return cudaErrorInvalidConfiguration;
   *blocks = sms * per_sm;
@@ -978,29 +996,34 @@ cudaError_t resident_blocks(int* blocks) {
   return cudaSuccess;
 }
 
-template <int TILE_H>
-int split_gbuffer(const int* sorted_tri, const int* starts, const int* counts,
-                  const int* large_ids, const int* n_large,
-                  const int* lcounts, int entries, int part_entries,
-                  const Finalize& f, int nfb, int* part_off,
-                  unsigned long long* keys, size_t n_keys, cudaStream_t s) {
+// The four device ops of one split launch: zero the keys, count the parts,
+// walk them, finalize. part_off: nfb + 1 ints.
+template <int TILE_H, int STREAMS, bool CULL, bool GBUF>
+int split_raster(const int* sorted_tri, const int* starts, const int* counts,
+                 const int* large_ids, const int* n_large, const int* lcounts,
+                 int entries, int part_entries, const Finalize& f, int nfb,
+                 int* part_off, unsigned long long* keys, size_t n_keys,
+                 int* skipped, cudaStream_t s) {
   int resident = 0;
-  cudaError_t e = resident_blocks<TILE_H>(&resident);
+  cudaError_t e = resident_blocks<TILE_H, STREAMS, CULL>(&resident);
   if (e != cudaSuccess) return static_cast<int>(e);
   if ((e = cudaMemsetAsync(keys, 0, n_keys * sizeof(*keys), s)) != cudaSuccess)
     return static_cast<int>(e);
-  part_scan_kernel<<<1, kScanThreads, 0, s>>>(counts, lcounts, nfb,
-                                               part_entries, part_off);
+  part_scan_kernel<STREAMS><<<1, kScanThreads, 0, s>>>(
+      counts, lcounts, nfb, part_entries, part_off);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  // At most entries / P + nfb stream parts and nfb side-list parts.
-  const long long most = (long long)entries / part_entries + 2LL * nfb;
+  // At most entries / P + STREAMS * nfb stream parts and nfb side-list
+  // parts.
+  const long long most =
+      (long long)entries / part_entries + (STREAMS + 1LL) * nfb;
   const int grid = static_cast<int>(most < resident ? most : resident);
-  split_walk_kernel<TILE_H><<<grid, Tile<TILE_H>::kThreads, 0, s>>>(
-      sorted_tri, starts, counts, large_ids, n_large, part_off, nfb,
-      part_entries, f, keys);
+  split_walk_kernel<TILE_H, STREAMS, CULL>
+      <<<grid, Tile<TILE_H>::kThreads, 0, s>>>(
+          sorted_tri, starts, counts, large_ids, n_large, part_off, nfb,
+          part_entries, f, keys, skipped);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  split_finalize_kernel<TILE_H><<<nfb, Tile<TILE_H>::kThreads, 0, s>>>(keys,
-                                                                       f);
+  split_finalize_kernel<TILE_H, GBUF>
+      <<<nfb, Tile<TILE_H>::kThreads, 0, s>>>(keys, f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1045,6 +1068,13 @@ Finalize make_gbuffer(const float* recs, int tile_h, int tiles_y, int tiles_x,
 
 }  // namespace tr
 
+// K2 / K3 / K4: the sorted strategy's streams and side list, split into
+// parts of at most part_entries stream entries, the side list one more part
+// of each tile whose lcounts gate is open. entries: the length of
+// sorted_tri (the parts' bound, for the grid). keys: (hp * wp) u64
+// scratch, hp = tiles_y * TILE_H, wp = tiles_x * 128. part_off:
+// (tiles_y * tiles_x + 1) i32, left holding each tile's first part and,
+// last, the parts' total.
 #define TR_RASTER_ENTRY(NAME, TILE_H, STREAMS)                                 \
   extern "C" int NAME(const float* recs, const int* sorted_tri,                \
                       const int* starts, const int* counts,                    \
@@ -1053,17 +1083,21 @@ Finalize make_gbuffer(const float* recs, int tile_h, int tiles_y, int tiles_x,
                       const int* objs, const int* texs,                        \
                       const unsigned* atlas, int n_obj, int n_lights, int aw,  \
                       int tiles_y, int tiles_x, int row0, int col0,            \
-                      int frame_w, float* z, int* gid, unsigned* color,        \
-                      void* stream) {                                          \
-    if (n_obj < 1 || tiles_y < 1 || tiles_x < 1) return 1;                     \
-    tr::raster_kernel<TILE_H, STREAMS>                                         \
-        <<<tiles_y * tiles_x, tr::Tile<TILE_H>::kThreads, 0,                   \
-           static_cast<cudaStream_t>(stream)>>>(                               \
-            sorted_tri, starts, counts, large_ids, n_large, lcounts,           \
-            tr::make_finalize(recs, params, objs, texs, atlas, aw, n_obj,      \
-                              n_lights, tiles_x, row0, col0, frame_w, z, gid,  \
-                              color));                                         \
-    return static_cast<int>(cudaGetLastError());                               \
+                      int frame_w, int entries, int part_entries,              \
+                      unsigned long long* keys, int* part_off, float* z,       \
+                      int* gid, unsigned* color, void* stream) {               \
+    if (n_obj < 1 || tiles_y < 1 || tiles_x < 1 || entries < 0 ||              \
+        part_entries < 1)                                                      \
+      return 1;                                                                \
+    const int nfb = tiles_y * tiles_x;                                         \
+    return tr::split_raster<TILE_H, STREAMS, false, false>(                    \
+        sorted_tri, starts, counts, large_ids, n_large, lcounts, entries,      \
+        part_entries,                                                          \
+        tr::make_finalize(recs, params, objs, texs, atlas, aw, n_obj,          \
+                          n_lights, tiles_x, row0, col0, frame_w, z, gid,      \
+                          color),                                              \
+        nfb, part_off, keys, (size_t)nfb * TILE_H * tr::kTileW, nullptr,       \
+        static_cast<cudaStream_t>(stream));                                    \
   }
 
 TR_RASTER_ENTRY(tr_raster, 8, 2)           // K2
@@ -1081,18 +1115,22 @@ TR_RASTER_ENTRY(tr_raster_narrow32, 32, 1) // K4, 32-row tiles
                       const int* objs, const int* texs,                        \
                       const unsigned* atlas, int n_obj, int n_lights, int aw,  \
                       int tiles_y, int tiles_x, int row0, int col0,            \
-                      int frame_w, float* z, int* gid, unsigned* color,        \
-                      int* skipped, void* stream) {                            \
-    if (n_obj < 1 || tiles_y < 1 || tiles_x < 1) return 1;                     \
-    tr::raster_zcull_kernel<STREAMS>                                           \
-        <<<tiles_y * tiles_x, tr::kThreads, 0,                                 \
-           static_cast<cudaStream_t>(stream)>>>(                               \
-            sorted_tri, starts, counts, large_ids, n_large, lcounts,           \
-            tr::make_finalize(recs, params, objs, texs, atlas, aw, n_obj,      \
-                              n_lights, tiles_x, row0, col0, frame_w, z, gid,  \
-                              color),                                          \
-            skipped);                                                          \
-    return static_cast<int>(cudaGetLastError());                               \
+                      int frame_w, int entries, int part_entries,              \
+                      unsigned long long* keys, int* part_off, float* z,       \
+                      int* gid, unsigned* color, int* skipped,                 \
+                      void* stream) {                                          \
+    if (n_obj < 1 || tiles_y < 1 || tiles_x < 1 || entries < 0 ||              \
+        part_entries < 1)                                                      \
+      return 1;                                                                \
+    const int nfb = tiles_y * tiles_x;                                         \
+    return tr::split_raster<8, STREAMS, true, false>(                          \
+        sorted_tri, starts, counts, large_ids, n_large, lcounts, entries,      \
+        part_entries,                                                          \
+        tr::make_finalize(recs, params, objs, texs, atlas, aw, n_obj,          \
+                          n_lights, tiles_x, row0, col0, frame_w, z, gid,      \
+                          color),                                              \
+        nfb, part_off, keys, (size_t)nfb * 8 * tr::kTileW, skipped,            \
+        static_cast<cudaStream_t>(stream));                                    \
   }
 
 TR_RASTER_ZCULL_ENTRY(tr_raster_zcull, 2)        // K11 on K2's route
@@ -1176,16 +1214,16 @@ extern "C" int tr_gbuffer_queue(const float* recs, const int* sorted_tri,
   const size_t n_keys = f.plane;  // hp * wp
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile_h == 8)
-    return tr::split_gbuffer<8>(sorted_tri, starts, counts, large_ids,
-                                n_large, lcounts, entries, part_entries, f,
-                                nfb, part_off, keys, n_keys, s);
+    return tr::split_raster<8, 1, false, true>(
+        sorted_tri, starts, counts, large_ids, n_large, lcounts, entries,
+        part_entries, f, nfb, part_off, keys, n_keys, nullptr, s);
   if (tile_h == 16)
-    return tr::split_gbuffer<16>(sorted_tri, starts, counts, large_ids,
-                                 n_large, lcounts, entries, part_entries, f,
-                                 nfb, part_off, keys, n_keys, s);
+    return tr::split_raster<16, 1, false, true>(
+        sorted_tri, starts, counts, large_ids, n_large, lcounts, entries,
+        part_entries, f, nfb, part_off, keys, n_keys, nullptr, s);
   if (tile_h == 32)
-    return tr::split_gbuffer<32>(sorted_tri, starts, counts, large_ids,
-                                 n_large, lcounts, entries, part_entries, f,
-                                 nfb, part_off, keys, n_keys, s);
+    return tr::split_raster<32, 1, false, true>(
+        sorted_tri, starts, counts, large_ids, n_large, lcounts, entries,
+        part_entries, f, nfb, part_off, keys, n_keys, nullptr, s);
   return 1;  // invalid value
 }

@@ -12,8 +12,8 @@ and gid -1. It holds three kernels, in ``csrc/raster.cu``:
   :1756), each tile folding its ``bin_triangles`` list in place;
 - K9, ``raster_pass_queue``: the sorted strategy's single stream
   (``_raster_kernel_queue`` :1853), each tile's entries split into parts
-  of at most ``K9_PART_ENTRIES`` that many blocks fold in parallel, merged
-  by a 64-bit (z desc, gid asc) key per pixel;
+  of at most ``ops.raster.RASTER_PART_ENTRIES`` that many blocks fold in
+  parallel, merged by a 64-bit (z desc, gid asc) key per pixel;
 - K10: the large-triangle side list (``_raster_kernel_bcast`` :2018, merged
   by ``_merge_gbuf_by_gid`` :2954), one more part of each tile it reaches,
   inside K9's call, merged by the same key, and counted with K9.
@@ -36,6 +36,7 @@ import torch
 
 from .. import _cuda
 from ..geometry.vertex import REC_LANES
+from . import raster as _raster
 from .binning import QueueBins, TileBins, bin_triangles, triangle_bbox_rows
 from .raster import (
     COL_FIELDS,
@@ -62,11 +63,6 @@ from .raster import (
 from .setup import SetupOut
 
 GBUF_CHANNELS = 11  # z, rgba, normal xyz, u/z, v/z, 1/z
-# K9: stream entries per part (csrc/raster.cu, "K9 + K10"), chosen on an
-# H100 by chip_smoke.py's sweep (PERF.md). It spreads the work and changes
-# no output: any int in [1, 2^31) gives the same G-buffer, bit for bit;
-# 2^31 - 1 gives one stream part a tile.
-K9_PART_ENTRIES = 32
 ATTR_FIELDS = COL_FIELDS + NRM_FIELDS + UV_FIELDS  # channels 1..10
 
 
@@ -137,15 +133,15 @@ def raster_pass_queue(recs, qbins: QueueBins, lcounts, *, tile_h: int,
                       frame_width: int):
     """K9 + K10, the sorted strategy into a G-buffer: each tile's stream
     entries, and where ``lcounts`` is open the side list
-    ``qbins.large_ids``, folded in parts of at most ``K9_PART_ENTRIES``
-    entries (the side list one part) and merged by the (z desc, gid asc)
-    key. Outputs as ``raster_pass``'s. CUDA tensors launch
-    ``tr_gbuffer_queue`` (the key fill, the part count, the walk and the
-    finalize are its device ops), count ``raster_pass_queue.launches``
-    once (K10 runs inside that call) and leave the parts' offsets on the
-    device in ``raster_pass_queue.part_offsets`` ((tiles + 1,) i32, tile
-    t's parts from [t] to [t + 1], the last the total); CPU tensors run
-    ``gbuffer_plain``."""
+    ``qbins.large_ids``, folded in parts of at most
+    ``ops.raster.RASTER_PART_ENTRIES`` entries (the side list one part)
+    and merged by the (z desc, gid asc) key. Outputs as ``raster_pass``'s.
+    CUDA tensors launch ``tr_gbuffer_queue`` (the key fill, the part count, the
+    walk and the finalize are its device ops), count
+    ``raster_pass_queue.launches`` once (K10 runs inside that call) and leave
+    the parts' offsets on the device in ``raster_pass_queue.part_offsets``
+    ((tiles + 1,) i32, tile t's parts from [t] to [t + 1], the last the total);
+    CPU tensors run ``gbuffer_plain``."""
     dev = recs.device
     nfb = tiles_y * tiles_x
     if qbins.starts.shape[0] != nfb + 1:
@@ -173,8 +169,8 @@ def raster_pass_queue(recs, qbins: QueueBins, lcounts, *, tile_h: int,
         qbins.counts.data_ptr(), qbins.large_ids.data_ptr(),
         qbins.n_large.data_ptr(), lcounts.data_ptr(), tile_h, tiles_y,
         tiles_x, row0, col0, frame_width, qbins.sorted_tri.shape[0],
-        K9_PART_ENTRIES, keys.data_ptr(), part_off.data_ptr(), gid.data_ptr(),
-        gbuf.data_ptr(), _cuda.stream(dev))
+        _raster.RASTER_PART_ENTRIES, keys.data_ptr(), part_off.data_ptr(),
+        gid.data_ptr(), gbuf.data_ptr(), _cuda.stream(dev))
     _cuda.check_launch("tr_gbuffer_queue", rc)
     raster_pass_queue.launches += 1
     raster_pass_queue.part_offsets = part_off

@@ -20,21 +20,28 @@ or bilinear, within the fused atlas limits) or not. It holds five kernels:
 
 Each wrapper launches its CUDA kernel on CUDA tensors and runs its plain
 version on CPU tensors. The CUDA kernels take 8-, 16- and 32-row tiles
-(``CUDA_TILE_HEIGHTS``); the plain versions any height. The raster
-kernels' plain version, ``raster_plain``, is vectorised over the binned
-entries (the mask strategy's lists go in as one stream, ``mask_plain``);
-each pixel's winner is the lexicographic best (z descending, gid
-ascending) over fragments with z > DEPTH_CLEAR, which is what the TPU
-kernels' strict '>' first-writer folds over gid-ordered lists plus the
-sorted strategy's gid-aware side-list merge compute. Multi-object
-launches pick each pixel's object from the winner's gid
-(``_finalize_shade``, raster_pallas.py:1600).
+(``CUDA_TILE_HEIGHTS``); the plain versions any height. On the sorted
+routes one wrapper call is four device ops: the CUDA code cuts each
+tile's streams into parts of at most ``RASTER_PART_ENTRIES`` entries (the
+side list one more part), many blocks fold the parts, a 64-bit (z desc,
+gid asc) key per pixel merges them, and a finalize block per tile shades
+the winners, as K9 does (``ops.gbuffer``). The raster kernels' plain
+version, ``raster_plain``, is vectorised over the binned entries (the mask
+strategy's lists go in as one stream, ``mask_plain``); each pixel's winner
+is the lexicographic best (z descending, gid ascending) over fragments
+with z > DEPTH_CLEAR, which is what the TPU kernels' strict '>'
+first-writer folds over gid-ordered lists plus the sorted strategy's
+gid-aware side-list merge compute. Multi-object launches pick each pixel's
+object from the winner's gid (``_finalize_shade``, raster_pallas.py:1600).
 
 K11, the occlusion skip (``zcull``), is K2 and K3 with a per-batch cull
-(``raster_zcull_kernel``, ``raster_rows1_zcull_kernel``); the cull changes
-no output, so its plain version is ``raster_plain``. As in the JAX package
-it applies on 8-row tiles only: K4, K6 and the G-buffer kernels ignore the
-flag.
+(``raster_zcull_kernel``, ``raster_rows1_zcull_kernel``) against the
+part's own winners and the merge keys as they stand; the cull changes
+no output, so its plain version
+is ``raster_plain``, and ``zcull_skips_plain`` replays the skips a part
+takes against its own winners alone, a floor under the kernel's count. As
+in the JAX package it applies on 8-row tiles only: K4, K6 and the G-buffer
+kernels ignore the flag.
 
 The G-buffer kernels K8, K9 and K10 (``ops.gbuffer``) share these
 kernels' fold, binning and plain fragments.
@@ -107,6 +114,12 @@ CHUNK_T = 8  # the mask strategy's list capacity rounds up to this
 MASK_MAX_CAPACITY = 4096
 STRATEGIES = ("auto", "mask", "sorted")
 CUDA_TILE_HEIGHTS = (8, 16, 32)  # tile heights the CUDA raster kernels run
+# K2, K3, K4, K9, K11: stream entries per part (csrc/raster.cu, "The
+# sorted strategy, each tile's entries split"), chosen on an H100 by
+# chip_smoke.py's sweeps (PERF.md). It spreads the work and changes no
+# output: any int in [1, 2^31) gives the same frame, bit for bit; 2^31 - 1
+# gives one part a stream of a tile.
+RASTER_PART_ENTRIES = 32
 _MASK_BLOCK_BYTES_CAP = 4 * 1024 * 1024  # one tile's list of records
 _MASK_TOTAL_BYTES_CAP = 512 * 1024 * 1024  # all tiles' lists of records
 # The f32 gid lane is exact only up to 2**24 triangles per scene.
@@ -451,9 +464,14 @@ def _raster(wrapper, entry: str, tile_h: int, streams: int, recs,
             frame_width: int, n_lights: int, zcull: bool = False,
             skipped=None):
     """Check the operands, launch ``entry`` and count it on ``wrapper``;
-    CPU tensors run ``raster_plain``. ``zcull`` entries (K11) take one more
-    operand, ``skipped``: None, or a (1,) i32 CUDA tensor the kernel adds
-    the number of batches it skipped to."""
+    CPU tensors run ``raster_plain``. The entry's device ops are the key
+    fill, the part count, the walk over parts of at most
+    RASTER_PART_ENTRIES stream entries and the finalize (csrc/raster.cu,
+    "The sorted strategy, each tile's entries split"); its keys and part
+    offsets are one scratch tensor, and the offsets ((tiles + 1,) i32, the
+    last the total) stay in ``wrapper.part_offsets``. ``zcull`` entries
+    (K11) take one more operand, ``skipped``: None, or a (1,) i32 CUDA
+    tensor the kernel adds the number of batches it skipped to."""
     dev = recs.device
     kw = dict(tile_h=tile_h, tiles_y=tiles_y, tiles_x=tiles_x, row0=row0,
               col0=col0, frame_width=frame_width, n_lights=n_lights)
@@ -484,23 +502,31 @@ def _raster(wrapper, entry: str, tile_h: int, streams: int, recs,
             _cuda.check_tensor("skipped", skipped, dev, I32, (1,))
         probe = (None if skipped is None else skipped.data_ptr(),)
     z, gid, color = _outputs(tiles_y, tile_h, tiles_x, dev)
+    n_keys = z.numel()
+    # u64 keys, then the part offsets.
+    scratch = torch.empty((2 * n_keys + nfb + 1,), dtype=I32, device=dev)
+    part_off = scratch[2 * n_keys:2 * n_keys + nfb + 1]
     rc = getattr(_cuda.library(), entry)(
         recs.data_ptr(), qbins.sorted_tri.data_ptr(), qbins.starts.data_ptr(),
         qbins.counts.data_ptr(), qbins.large_ids.data_ptr(),
         qbins.n_large.data_ptr(), lcounts.data_ptr(), params.data_ptr(),
         objs.data_ptr(), texs.data_ptr(), atlas_ptr, n_obj, n_lights, aw,
-        tiles_y, tiles_x, row0, col0, frame_width, z.data_ptr(),
+        tiles_y, tiles_x, row0, col0, frame_width,
+        qbins.sorted_tri.shape[0], RASTER_PART_ENTRIES,
+        scratch.data_ptr(), part_off.data_ptr(), z.data_ptr(),
         gid.data_ptr(), color.data_ptr(), *probe, _cuda.stream(dev),
     )
     _cuda.check_launch(entry, rc)
     wrapper.launches += 1
+    wrapper.part_offsets = part_off
     return z, gid, color.view(torch.uint32)
 
 
 def raster_kernel(recs, qbins, lcounts, params, objs, texs, atlas, **kw):
     """K2 (8-row tiles, two strip streams): (z f32, gid i32, color u32),
     each (tiles_y * 8, tiles_x * 128), written for every tile. CUDA tensors
-    launch ``tr_raster`` and count ``raster_kernel.launches``."""
+    launch ``tr_raster``, count ``raster_kernel.launches`` once and leave
+    the parts' offsets in ``raster_kernel.part_offsets`` (``_raster``)."""
     return _raster(raster_kernel, "tr_raster", 8, PACK_ROWS, recs, qbins,
                    lcounts, params, objs, texs, atlas, **kw)
 
@@ -581,11 +607,13 @@ def raster_zcull_kernel(recs, qbins, lcounts, params, objs, texs, atlas,
                         *, skipped=None, **kw):
     """K11 on K2's route: K2 with the occlusion skip, a batch of stream
     entries that cannot win a pixel skipping its fold (the zcull branch of
-    raster_pallas.py:2384-2394). Outputs equal K2's. CUDA tensors launch
+    raster_pallas.py:2384-2394), tested against the part's own winners and
+    the merge keys as they stand. Outputs equal K2's. CUDA tensors launch
     ``tr_raster_zcull`` and count ``raster_zcull_kernel.launches``;
     ``skipped`` is None or a (1,) i32 CUDA tensor that the kernel adds its
-    skipped batches to (a probe: the renderer passes None). CPU tensors run
-    ``raster_plain``."""
+    skipped batches to (a probe: the renderer passes None; the count
+    depends on the order the parts run in, ``zcull_skips_plain`` bounds it
+    from below). CPU tensors run ``raster_plain``."""
     return _raster(raster_zcull_kernel, "tr_raster_zcull", 8, PACK_ROWS,
                    recs, qbins, lcounts, params, objs, texs, atlas,
                    zcull=True, skipped=skipped, **kw)
@@ -605,13 +633,17 @@ for _fn in (raster_kernel, raster_rows1_kernel, raster_narrow_kernel,
             raster_narrow32_kernel, raster_mask_kernel, raster_zcull_kernel,
             raster_rows1_zcull_kernel):
     _fn.launches = 0
+for _fn in (raster_kernel, raster_rows1_kernel, raster_narrow_kernel,
+            raster_narrow32_kernel, raster_zcull_kernel,
+            raster_rows1_zcull_kernel):
+    _fn.part_offsets = None
 for _entry in ("tr_raster", "tr_raster_rows1", "tr_raster_narrow",
                "tr_raster_narrow32"):
-    _cuda.declare(_entry, [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
-                  + [ctypes.c_void_p] * 4)
+    _cuda.declare(_entry, [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
+                  + [ctypes.c_void_p] * 6)
 for _entry in ("tr_raster_zcull", "tr_raster_rows1_zcull"):
-    _cuda.declare(_entry, [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
-                  + [ctypes.c_void_p] * 5)
+    _cuda.declare(_entry, [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
+                  + [ctypes.c_void_p] * 7)
 _cuda.declare("tr_raster_mask", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
               + [ctypes.c_void_p] * 4)
 
@@ -917,15 +949,34 @@ def raster_plain(recs, qbins: QueueBins, lcounts, params, objs, texs, atlas,
 
 def zcull_skips_plain(recs, qbins: QueueBins, *, tile_h: int, tiles_y: int,
                       tiles_x: int, row0: int, col0: int, frame_width: int,
-                      **_) -> int:
-    """The number of batches K11 skips on these operands, replayed on the
-    plain path (``batch_occluded`` in csrc/raster.cu): per tile and stream,
-    batches of 128 / strip entries in stream order; a batch is skipped when
-    the max of its (entry, row) pairs' z at the span ends, plus 1e-6 of
-    its magnitude, lies below the min of the strip rows' running winners.
-    The side list is never culled and comes after, so it is left out. A
-    probe for the tests and chip_smoke; it loops over tiles and batches in
-    Python, so keep it to small frames."""
+                      part_entries: int | None = None, **_) -> int:
+    """The number of batches K11 skips on these operands when each part
+    culls against its own partial winners only, replayed on the plain path
+    (``batch_occluded`` in csrc/raster.cu without the keys): per tile and
+    stream, the stream cut into parts of at most ``part_entries`` entries
+    (None: the whole stream one part), each part's batches of 128 / strip
+    entries in order, its winners starting at DEPTH_CLEAR; a batch is
+    skipped when the max of its (entry, row) pairs' z at the span ends,
+    plus 1e-6 of its magnitude, lies below the min of the strip rows'
+    winners. The side list is never culled, so it is left out.
+
+    What the kernel's count is held to:
+    - at least this count, at any part size and in any order of the parts.
+      By induction over a part's batches, the kernel's max(own winner, key)
+      at each pixel of the strip stays at or above this replay's own
+      winner: a batch both fold raises both alike; a batch the kernel skips
+      lies below max(own, key) at every pixel of its rows, so the replay's
+      fold of it leaves its winner at or below that max. So the kernel's
+      min over the strip is at or above the replay's, and every batch the
+      replay skips, the kernel skips;
+    - at most the stream batches;
+    - equal to it with one part a stream (``part_entries`` at or above
+      every stream's count) where no tile's side-list gate is open: each
+      strip's keys are then written only by its own part, after that part
+      has folded, so the kernel reads 0 and culls against its own winners
+      alone, as the serial walk of one block a tile did.
+    A probe for the tests and chip_smoke; it loops over tiles and batches
+    in Python, so keep it to small frames."""
     dev = recs.device
     rs = qbins.starts.shape[0] // (tiles_y * tiles_x + 1)
     strip = tile_h // rs
@@ -937,33 +988,35 @@ def zcull_skips_plain(recs, qbins: QueueBins, *, tile_h: int, tiles_y: int,
     for tile in range(tiles_y * tiles_x):
         ty, tx = divmod(tile, tiles_x)
         xc = (torch.arange(TILE_W, device=dev) + col0 + tx * TILE_W).to(F32)
-        zwin = torch.full((tile_h, TILE_W), DEPTH_CLEAR, dtype=F32,
-                          device=dev)
         for h in range(rs):
             s, n = starts[rs * tile + h], counts[rs * tile + h]
             yf = (torch.arange(strip, device=dev) + row0 + ty * tile_h
                   + h * strip).to(F32)
-            for b0 in range(0, n, batch):
-                ids = qbins.sorted_tri[s + b0:s + min(n, b0 + batch)].long()
-                minx, maxx, xoff, zl, zinc, _, _ = _span_setup(
-                    recs[ids].repeat_interleave(strip, 0),
-                    yf.repeat(ids.shape[0]), w_f, ())
-                z_lo = zl + (xoff + (minx - minx)) * zinc
-                z_hi = zl + (xoff + (maxx - minx)) * zinc
-                zp = maximum(z_lo, z_hi)
-                zp = torch.where(torch.isnan(zp), inf, zp)
-                zmax = torch.where(maxx != -_BIG, zp, -_BIG).max()
-                zmin = zwin[h * strip:(h + 1) * strip].min()
-                if bool(zmax + torch.abs(zmax) * 1e-6 < zmin):
-                    skipped += 1
-                    continue
-                k = xoff[:, None] + (xc[None, :] - minx[:, None])
-                z = zl[:, None] + k * zinc[:, None]
-                keep = ((xc[None, :] >= minx[:, None])
-                        & (xc[None, :] <= maxx[:, None]) & ~torch.isnan(z))
-                z = torch.where(keep, z, -inf).reshape(-1, strip, TILE_W)
-                zwin[h * strip:(h + 1) * strip] = torch.maximum(
-                    zwin[h * strip:(h + 1) * strip], z.amax(dim=0))
+            part = max(n, 1) if part_entries is None else part_entries
+            for p0 in range(0, n, part):
+                zwin = torch.full((strip, TILE_W), DEPTH_CLEAR, dtype=F32,
+                                  device=dev)
+                p1 = min(n, p0 + part)
+                for b0 in range(p0, p1, batch):
+                    ids = qbins.sorted_tri[s + b0:s + min(p1, b0 + batch)]
+                    minx, maxx, xoff, zl, zinc, _, _ = _span_setup(
+                        recs[ids.long()].repeat_interleave(strip, 0),
+                        yf.repeat(ids.shape[0]), w_f, ())
+                    z_lo = zl + (xoff + (minx - minx)) * zinc
+                    z_hi = zl + (xoff + (maxx - minx)) * zinc
+                    zp = maximum(z_lo, z_hi)
+                    zp = torch.where(torch.isnan(zp), inf, zp)
+                    zmax = torch.where(maxx != -_BIG, zp, -_BIG).max()
+                    if bool(zmax + torch.abs(zmax) * 1e-6 < zwin.min()):
+                        skipped += 1
+                        continue
+                    k = xoff[:, None] + (xc[None, :] - minx[:, None])
+                    z = zl[:, None] + k * zinc[:, None]
+                    keep = ((xc[None, :] >= minx[:, None])
+                            & (xc[None, :] <= maxx[:, None])
+                            & ~torch.isnan(z))
+                    z = torch.where(keep, z, -inf).reshape(-1, strip, TILE_W)
+                    zwin = torch.maximum(zwin, z.amax(dim=0))
     return skipped
 
 
