@@ -11,7 +11,8 @@ Phases (any failure raises and the script exits nonzero):
    without a CUDA device the script stops before doing anything else;
 2. build: compiles the CUDA kernels from tpu_renderer_torch/csrc with nvcc,
    one process per source (cached under tpu_renderer_torch/_build by a
-   hash of the sources);
+   hash of the sources), and prints the registers, shared memory and
+   spills of each of K1's four instantiations from ``-Xptxas -v``;
 3. kernels: each kernel against its plain-PyTorch version on the card,
    bit-equal outputs required, with the route of every launch asserted:
    - K1 (setup) and K2 (raster + shade, 8-row tiles, row packing 2) on a
@@ -20,6 +21,9 @@ Phases (any failure raises and the script exits nonzero):
      fields; K5, the texture fetch in the finalize, bilinear);
    - K1 and K3 (8-row tiles, one stream) on config 2's teapot at 512x512,
      with and without a merged large quad, and textured (K5 bilinear);
+   - K1 in its four forms (Phong / Gouraud x textured / not), gid0 = 7,
+     at ragged padded lengths: config 2's teapot at tp = T and T + 1000,
+     the headline sphere at tp = T;
    - K7 (record transpose) on config 4's channel-major table, and K4
      (16-row tiles) on config 4's sphere at 1920x1080, and on config 5's
      objects at 1920x1080 in one launch: the three untextured ones, and
@@ -118,9 +122,14 @@ Phases (any failure raises and the script exits nonzero):
    each kernel at its path's shapes (the headline for K1 and K2, the
    textured 250k point for K1 textured, config 3 for K6), first held
    bit-equal to its plain version on those inputs, then timed beside its
-   plain version's (K7 also beside ``t().contiguous()``, the one PyTorch
-   call that transposes, in turns, and each call's host and device time
-   from a profiler trace); K5, which has no launch of its own, as the
+   plain version's (K1 also on one stack6 object and on deferred 1M's
+   textured mesh, with its device time from a profiler trace and the
+   time of zeroing its outputs, the card's own write of those bytes; K3,
+   K4, K6, K8 and the 32-row K4, K6, K8, whose event times are near the
+   launch floor, also with their device and host time from a profiler
+   trace; K7 also beside ``t().contiguous()``, the one PyTorch call that
+   transposes, in turns, and each call's host and device time from a
+   profiler trace); K5, which has no launch of its own, as the
    device time of the shaded finalize kernel (which samples the texture)
    on the textured 250k path beside the finalize on the same mesh
    untextured and ``grid_sample`` (bilinear, border) on the textured
@@ -145,9 +154,9 @@ Phases (any failure raises and the script exits nonzero):
    (K2 with K5) and through the G-buffer path (K9, shade); each kernel
    with the least time the card could take for the same work (bytes at
    3.35 TB/s against f32 operations at 67 TFLOP/s);
-7. with --profile only: host enqueue time, device time, top kernels and
-   device idle share of 10 frames of each path, from a torch.profiler
-   trace.
+7. with --profile only: host enqueue time, device time, top kernels,
+   K1's device time and share, and device idle share of 10 frames of
+   each path, from a torch.profiler trace.
 
 The line before the last is a JSON object with one entry per kernel
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
@@ -601,6 +610,8 @@ def profile_frames(label, frame, angles, frame_ms):
         by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     dev_ms = busy / 1e3 / n
+    k1_ms = sum(e.time_range.elapsed_us() for e in dev
+                if "setup_kernel" in e.name) / 1e3 / n
     out = {
         "frames": n,
         "host_enqueue_ms_per_frame": round((t1 - t0) * 1e3 / n, 4),
@@ -609,6 +620,8 @@ def profile_frames(label, frame, angles, frame_ms):
         "device_busy_ms_per_frame": round(dev_ms, 4),
         "traced_window_idle_share": round(1.0 - busy / window, 4),
         "idle_share_estimate_vs_frame_ms": round(1.0 - dev_ms / frame_ms, 4),
+        "k1_device_ms_per_frame": round(k1_ms, 4),
+        "k1_share_of_busy": round(k1_ms / dev_ms, 4),
         "top_device_ms_per_frame": {
             k: round(v / 1e3 / n, 4) for k, v in top},
     }
@@ -628,20 +641,50 @@ def phong_mesh_scene(mesh):
     return [(dict(p=(0.0, 0.0, 0.0), **mesh), {"phong": True})]
 
 
-def k1_call(obj, cfg, tr, li, h, w):
-    """(kernel fn, plain fn, work) of K1 on one object."""
+def k1_call(obj, cfg, tr, li, h, w, tp=None, gid0=0):
+    """(kernel fn, plain fn, work) of K1 on one object, padded to ``tp``
+    rows (default: the engine's padding)."""
     from tpu_renderer_torch.ops import setup
 
     T = obj.num_triangles
-    blk = setup._setup_blk(T)
-    tp = -(-T // blk) * blk
+    if tp is None:
+        blk = setup._setup_blk(T)
+        tp = -(-T // blk) * blk
     args = (setup.setup_params(obj.p, tr, li), obj.vertices, obj.colors,
             obj.normals)
-    kw = dict(n_lights=li.count, phong=cfg.phong, gid0=0, frame_height=h,
+    kw = dict(n_lights=li.count, phong=cfg.phong, gid0=gid0, frame_height=h,
               frame_width=w, tp=tp, uvs=obj.uvs if cfg.textured else None)
     return (lambda: setup.setup_kernel(*args, **kw),
             lambda: setup.setup_plain(*args, **kw),
             setup_work(T, tp, cfg.phong, li.count, cfg.textured))
+
+
+def setup_ptxas(build_log):
+    """Registers, shared memory and spills of each ``setup_kernel``
+    instantiation, from the build's ``-Xptxas -v`` lines."""
+    import re
+
+    out, form = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            f = re.match(r"_ZN2tr12setup_kernelILb([01])ELb([01])E", m[1])
+            form = (None if f is None else "setup_kernel<%s, %s>" % tuple(
+                "true" if b == "1" else "false" for b in f.groups()))
+            continue
+        if form is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(form, {}).update(spill_stores=int(m[1]),
+                                            spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.setdefault(form, {}).update(
+                registers=int(m[1]), smem_bytes=int(smem[1]) if smem else 0)
+    return out
 
 
 def rotated(scene, angle, device):
@@ -730,6 +773,11 @@ def main():
     for line in _cuda.build_info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("#   " + line.strip())
+    k1_ptxas = setup_ptxas(_cuda.build_info["log"])
+    if len(k1_ptxas) != 4:
+        raise AssertionError(f"ptxas lines of K1: {k1_ptxas}")
+    for form, info in k1_ptxas.items():
+        log(f"# K1 ptxas {form}: {json.dumps(info)}")
 
     # 3. Each kernel against its plain version on the card.
     max_err = {name: 0.0 for name in KERNELS}
@@ -765,6 +813,28 @@ def main():
         max_err[key] = max(max_err[key], assert_equal(
             f"{key} on {label}", fn(), plain()))
 
+    def check_k1_ragged(label, mesh, tps, h, w):
+        """K1 in its four forms (Phong / Gouraud x textured / not) at each
+        padded length of ``tps(T)``, gid0 = 7: bit-equal to setup_plain,
+        the ragged last warp and the padding rows included."""
+        for phong in (True, False):
+            for textured in (False, True):
+                cfg_d = {"phong": phong}
+                if textured:
+                    cfg_d.update(texture=tex128, filter_mode="bilinear")
+                sc, tr_, li_ = torch_scene(
+                    [(dict(p=(0.0, 0.0, 0.0), **mesh), cfg_d)], h, w, dev)
+                o, c = sc[0]
+                key = "K1 setup textured" if textured else "K1 setup"
+                for tp_ in tps(o.num_triangles):
+                    fn, plain, _ = k1_call(o, c, tr_, li_, h, w, tp_, 7)
+                    max_err[key] = max(max_err[key], assert_equal(
+                        f"{key} (phong {phong}) on {label}, tp {tp_}",
+                        fn(), plain()))
+                    log(f"# {key} (phong {phong}) == plain on {label}: "
+                        f"{o.num_triangles} tris, tp {tp_}, gid0 7, "
+                        "bit-equal")
+
     grid = prim.construct_sphere_grid(160, 160)
     teapot = {k: v for k, v in scenes.baseline_scene(2, 512, 512)[0][0][
         0].items() if k != "p"}
@@ -795,6 +865,8 @@ def main():
                                int(tex))
         if (quad is not None) != (n_large > 0):
             raise AssertionError(f"{label}: n_large {n_large}")
+    check_k1_ragged("config 2 teapot", teapot, lambda n: (n, n + 1000), 512,
+                    512)
 
     H, W = 1080, 1920
     sg4 = scenes.baseline_scene(4, H, W)[0]
@@ -1181,6 +1253,7 @@ def main():
     obj, cfg = head_scene[0]
     T = obj.num_triangles
     assert T == 1_001_112, T
+    check_k1_ragged("the headline sphere", mesh, lambda n: (n,), H, W)
     path_ms["headline"], fb, path_launches["headline"] = drive(
         "headline", head_scene, head_tr, head_li, H, W, n_frames,
         ("K1 setup", "K2 raster+shade"))
@@ -1439,7 +1512,19 @@ def main():
     # kernel, kernel, plain), with its bound.
     timing = {}
 
-    def time_launch(name, label, launch):
+    dev_info = {}  # kernel -> the profiler's device and host ms a call
+
+    def device_time(name, label, launch):
+        """The device time (the sum of the call's device operations) and the
+        host time of ``launch.run``, from a profiler trace of 50 calls: for
+        the kernels whose event time is near the launch floor."""
+        host_ms, dev_ms, ops = profile_calls(launch.run, 50)
+        dev_info.setdefault(name, dict(device_ms=round(dev_ms, 4),
+                                       host_ms=round(host_ms, 4)))
+        log(f"# {name} at {label}, profiler: device {dev_ms:.4f} ms, host "
+            f"{host_ms:.4f} ms a call, {len(ops)} device kernel(s)")
+
+    def time_launch(name, label, launch, device=False):
         key = name.split(" (")[0]
         max_err[key] = max(max_err[key], assert_equal(
             f"{key} at {label}", launch.run(), launch.run_plain()))
@@ -1450,22 +1535,43 @@ def main():
         timing.setdefault(name, (kms, pms, bms, by, None))
         log(f"# {name} at {label}: kernel {kms:.4f} ms, plain {pms:.4f} "
             f"ms, bound {bms:.4f} ms ({by})")
+        if device:
+            device_time(name, label, launch)
         return kms, pms, gid
 
-    def time_k1(name, obj_, cfg_, tr_, li_):
+    k1_paths = {}  # path -> K1's time there; the first of a form is its row
+
+    def time_k1(path, obj_, cfg_, tr_, li_):
+        name = "K1 setup textured" if cfg_.textured else "K1 setup"
         fn, plain, work = k1_call(obj_, cfg_, tr_, li_, H, W)
         n = obj_.num_triangles
         max_err[name] = max(max_err[name], assert_equal(
             f"{name} at {n} tris", fn(), plain()))
         log(f"# {name} == plain at {n} tris {W}x{H}: bit-equal")
         kms, pms = in_turns(fn, plain)
-        bms, by = bound(*work)
-        timing[name] = (kms, pms, bms, by, None)
-        log(f"# {name} at {n} tris {W}x{H}: kernel {kms:.4f} ms, plain "
-            f"{pms:.4f} ms, bound {bms:.4f} ms ({by})")
+        host_ms, dev_ms, _ = profile_calls(fn, 20)
+        recs, bbox = fn()
 
-    time_k1("K1 setup", obj, cfg, head_tr, head_li)
-    time_k1("K1 setup textured", *scene250[0], tr250, li250)
+        def fill():  # the card's own write of K1's output bytes
+            recs.zero_()
+            bbox.zero_()
+        fill_ms = statistics.median([event_ms(fill, 20) for _ in range(2)])
+        bms, by = bound(*work)
+        timing.setdefault(name, (kms, pms, bms, by, None))
+        k1_paths[path] = dict(
+            kernel=name, phong=bool(cfg_.phong), tris=n, ms=round(kms, 4),
+            device_ms=round(dev_ms, 4), host_ms=round(host_ms, 4),
+            plain_ms=round(pms, 4), bound_ms=round(bms, 6), bound_by=by,
+            zero_outputs_ms=round(fill_ms, 4))
+        log(f"# {name} at {path}, {n} tris {W}x{H} (phong {cfg_.phong}): "
+            f"kernel {kms:.4f} ms (profiler: device {dev_ms:.4f}, host "
+            f"{host_ms:.4f}), plain {pms:.4f} ms, bound {bms:.4f} ms "
+            f"({by}); zeroing its outputs {fill_ms:.4f} ms")
+
+    time_k1("headline", obj, cfg, head_tr, head_li)
+    time_k1("textured 250k", *scene250[0], tr250, li250)
+    time_k1("stack6, one object", *scene6[0], tr6, li6)
+    time_k1("deferred 1M", obj_def, cfg_def, tr_def, li_def)
     head_launch = prepare_scene(head_scene, head_tr, head_li, H, W)
     per_tile = head_launch.qbins.counts[:-2].reshape(-1, 2).sum(dim=1)
     log(f"# K2 load: {int((per_tile > 0).sum())} of {per_tile.numel()} "
@@ -1473,14 +1579,14 @@ def main():
         f"{int(per_tile.max())} in one tile")
     time_launch("K2 raster+shade", f"headline {T} tris {W}x{H}", head_launch)
     time_launch("K3 raster+shade rows 1", "config 2 5,428 tris 512x512",
-                prepare_scene(scene2, tr2, li2, 512, 512))
+                prepare_scene(scene2, tr2, li2, 512, 512), device=True)
     time_launch("K4 raster+shade 16-row", "config 4 2,208 tris 1920x1080",
-                prepare_scene(scene4, tr4, li4, H, W))
+                prepare_scene(scene4, tr4, li4, H, W), device=True)
     time_launch("K4 raster+shade 16-row (config 5)",
                 "config 5 3,246 tris 1920x1080",
                 prepare_scene(scene5f, tr5f, li5f, H, W))
     time_launch("K6 raster+shade mask", "config 3 12 tris 512x512",
-                prepare_scene(scene3, tr3, li3, 512, 512))
+                prepare_scene(scene3, tr3, li3, 512, 512), device=True)
     time_launch("K6 raster+shade mask (config 1)",
                 "config 1 12 tris 512x512",
                 prepare_scene(scene1, tr1, li1, 512, 512))
@@ -1567,7 +1673,7 @@ def main():
     # K9's on the same sphere without the quad, its bound the difference
     # of the two launches' work. Library: none (no PyTorch call
     # rasterizes).
-    def time_gbuffer(name, label, launch):
+    def time_gbuffer(name, label, launch, device=False):
         max_err[name] = max(max_err[name], assert_equal(
             f"{name} at {label}", launch.run(), launch.run_plain()))
         kms, pms = in_turns(launch.run, launch.run_plain)
@@ -1575,6 +1681,8 @@ def main():
         bms, by = bound(*work)
         log(f"# {name} at {label}: kernel {kms:.4f} ms, plain {pms:.4f} "
             f"ms, bound {bms:.4f} ms ({by}), bit-equal")
+        if device:
+            device_time(name, label, launch)
         return kms, pms, work
 
     # The split kernels (K9, K2, K4 on 32-row tiles, K11): at P = 16 held
@@ -1644,7 +1752,8 @@ def main():
 
     c3_launch = gbuffer_launch(*scene3avx[0], tr3, li3, 512, 512)
     kms, pms, work = time_gbuffer("K8 G-buffer mask",
-                                  "config 3 avx 12 tris 512x512", c3_launch)
+                                  "config 3 avx 12 tris 512x512", c3_launch,
+                                  device=True)
     timing["K8 G-buffer mask"] = (kms, pms) + bound(*work) + (None,)
     k9_ms, k9_plain, work_q = time_gbuffer(
         "K9 G-buffer sorted", f"deferred 1M {T_def} tris {W}x{H}",
@@ -1719,16 +1828,16 @@ def main():
         f"{per_tile.numel()} tiles hold entries, {int(per_tile.sum())} "
         f"entries, max {int(per_tile.max())} in one tile")
     time_launch("K4 raster+shade 32-row", "config 4 2,208 tris 1920x1080, "
-                "32-row tiles", ab_forms["config 4"][0]["32"])
+                "32-row tiles", ab_forms["config 4"][0]["32"], device=True)
     time_launch("K4 raster+shade 32-row (40k)", f"40k {T40} tris 1920x1080, "
                 "32-row tiles", ab_forms["40k"][0]["32"])
     split_phase("K4 raster+shade 32-row", f"40k {T40} tris 1920x1080, "
                 "32-row tiles", ab_forms["40k"][0]["32"])
     time_launch("K6 raster+shade mask 32-row", "config 3 12 tris 512x512, "
-                "32-row tiles", ab_forms["config 3"][0]["32"])
+                "32-row tiles", ab_forms["config 3"][0]["32"], device=True)
     kms, pms, work = time_gbuffer(
         "K8 G-buffer mask 32-row", "config 3 avx 12 tris 512x512, 32-row "
-        "tiles", ab_forms["config 3 avx"][0]["32"])
+        "tiles", ab_forms["config 3 avx"][0]["32"], device=True)
     timing["K8 G-buffer mask 32-row"] = (kms, pms) + bound(*work) + (None,)
     d40 = ab_forms["deferred 40k"][0]["32"]
     n_large40 = int(d40.qbins.n_large)
@@ -1932,6 +2041,14 @@ def main():
             library_ms=None if lms is None else round(lms, 4))
         if name == "K5 texture sampling":
             entry.update(k5_info)
+        if name in ("K1 setup", "K1 setup textured"):
+            entry["by_path"] = {p_: v for p_, v in k1_paths.items()
+                                if v["kernel"] == name}
+            entry["ptxas"] = {f: v for f, v in k1_ptxas.items()
+                              if f.endswith("true>" if "textured" in name
+                                            else "false>")}
+        if name in dev_info:
+            entry.update(dev_info[name])
         if name == "K10 G-buffer side list":
             entry["k9_without_side_list_ms"] = round(k9s_ms, 4)
         if name == "K10 G-buffer side list 32-row":

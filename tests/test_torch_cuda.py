@@ -221,6 +221,44 @@ def test_textured_k1_equals_plain(cuda, phong):
     assert bool((got[0][:, 7] != 0).any())  # the 1/z lane is written
 
 
+@pytest.mark.parametrize("textured", [False, True])
+@pytest.mark.parametrize("phong", [True, False])
+def test_k1_staged_rows_equal_plain(cuda, phong, textured):
+    """K1 writes its record rows through each warp's stage in shared
+    memory, whole rows a store. Each of its four forms on the 4,140-triangle
+    sphere, at tp = T (a ragged last warp and block) and tp = T + 1,000
+    (padding rows over whole warps), gid0 = 7: recs and bbox bit-equal to
+    setup_plain, one launch counted a call."""
+    h = w = 128
+    tr_d, li_d = ts.baseline_camera_lights(h, w)
+    cfg_d = {"phong": phong}
+    if textured:
+        cfg_d["texture"] = checkerboard(16, 16, 2)
+    sg = [(dict(p=(0.0, 0.0, 0.0), **tp.construct_sphere_grid(46, 45)),
+           cfg_d)]
+    sc, tr, li = ts.to_torch_scene(sg, tr_d, li_d, device=cuda)
+    obj, _ = sc[0]
+    T = obj.num_triangles
+    assert T == 4140 and T % 32
+    args = (tsp.setup_params(obj.p, tr, li), obj.vertices, obj.colors,
+            obj.normals)
+    for tp_ in (T, T + 1000):
+        kw = dict(n_lights=li.count, phong=phong, gid0=7, frame_height=h,
+                  frame_width=w, tp=tp_, uvs=obj.uvs if textured else None)
+        n0 = tsp.setup_kernel.launches
+        got = tsp.setup_kernel(*args, **kw)
+        assert tsp.setup_kernel.launches == n0 + 1
+        want = tsp.setup_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert got[0].shape == (tp_, 128) and got[1].shape == (8, tp_)
+        for a, b in zip(got, want):
+            assert torch.equal(bits(a), bits(b))
+        gids = torch.arange(tp_, device=cuda, dtype=torch.int32) + 7
+        assert torch.equal(got[0][:, 84], gids.float())
+        assert int((got[1][0] > 0.5).sum()) > 1000
+        assert not bool((got[1][0, T:] > 0.5).any())
+
+
 @pytest.mark.parametrize("name", TEXTURED_NAMES)
 def test_textured_route_frame_on_card_equals_cpu(cuda, name):
     """Each route's textured frame through Renderer on the card equals the

@@ -5,11 +5,10 @@
 // (projekt.cpp:3882-4121) on blocks of 1024 triangles in VMEM.
 //
 // Bound on the H100: device memory. Per triangle it reads 30 floats of
-// vertex data (120 B) and writes one 512 B record row plus 32 B of bbox,
-// against ~300 f32 operations, far below the card's ops-per-byte balance:
-// ~0.2 ms for 1M triangles at 3.35 TB/s. Measured 1.1 ms at 1M triangles,
-// because each thread stores its own row, so one warp store touches 32
-// rows.
+// vertex data (120 B; 144 B textured) and writes one 512 B record row and
+// 32 B of bbox: 664 B a triangle, 688 textured, against ~300 f32
+// operations, far below the card's ops-per-byte balance. At 3.35 TB/s
+// that is 0.1985 ms for the 1,001,112-triangle headline.
 //
 // Textured objects (TEXTURED) also read the (2, 3, T) uvs and write the
 // perspective-correct u/z, v/z and 1/z fields with their gradients and the
@@ -17,27 +16,56 @@
 //
 // Design: one thread per triangle runs the whole setup in registers, in the
 // same f32 op order as the Pallas kernel and as setup_plain
-// (ops/setup.py), and writes its record row with 16-byte stores and its
-// bbox column with coalesced 4-byte stores. The inputs stay channel-major
-// (C, 3, T) as the JAX package keeps them, so the loads of a warp are
-// coalesced too; triangles in [T, Tp) read zeros, exactly like the Pallas
-// kernel's padded blocks. Staging the record rows through shared memory to
-// coalesce their writes is left for later work.
+// (ops/setup.py). The inputs stay channel-major (C, 3, T) as the JAX
+// package keeps them, so the loads of a warp are coalesced; triangles in
+// [T, Tp) read zeros, exactly like the Pallas kernel's padded blocks. The
+// bbox columns go out as coalesced 4-byte stores.
+//
+// The record rows are what costs: a row is 512 B, so a thread storing its
+// own row makes each warp store touch 32 rows 512 B apart, 32 half-filled
+// sectors that reach L2 piecemeal (1.1255 ms on the headline, 18% of the
+// bound: NVIDIA H100 80GB HBM3, 700 W). So each thread writes its row's
+// 21 chunks of edge fields into its warp's stage in shared memory
+// (32 rows x 336 B, 43,008 B a 128-thread block), and after __syncwarp
+// the warp writes its rows out one at a time, lane l storing chunk l:
+// every store instruction is one whole row, four full 128-byte lines. The
+// gid and zero chunks (lanes 84..127) are made during the write-out and
+// never staged.
+//
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700 W power
+// limit: 0.2684 ms on the headline (74% of the bound; 1.1255 ms before),
+// 0.1049 ms textured on 250,632 triangles (bound 0.0515 ms). ptxas: 74-83
+// registers, 43,008 B of shared memory, no spill, in all four forms; the
+// stage limits an SM to 5 resident blocks (20 warps; registers allow 6).
 
 #include "common.cuh"
 
 namespace tr {
 
+constexpr int kSetupThreads = 128;
+// A record row in 16-byte chunks: 21 hold the three edges' fields (lanes
+// 0..83), chunk 21 the gid and chunks 22..31 zeros.
+constexpr int kEdgeChunks = kGidLane / 4;
+constexpr int kRowChunks = kRecLanes / 4;
+
 template <bool PHONG, bool TEXTURED>
-__global__ void __launch_bounds__(128) setup_kernel(
+__global__ void __launch_bounds__(kSetupThreads) setup_kernel(
     const float* __restrict__ params, int n_lights,
     const float* __restrict__ verts, const float* __restrict__ cols,
     const float* __restrict__ nrms, const float* __restrict__ uvs, int T,
     int Tp, int gid0, float frame_h,
     float frame_w, float* __restrict__ recs, float* __restrict__ bbox) {
+  // Each warp's 32 rows of edge chunks, row after row. The stride of 21
+  // chunks is odd, so the 8 lanes of a quarter-warp storing one chunk of
+  // their rows, and 8 consecutive chunks of one row read back, fall in 8
+  // distinct 16-byte bank groups.
+  __shared__ float4 stage[kSetupThreads / 32][32 * kEdgeChunks];
+  const int lane = threadIdx.x & 31;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= Tp) return;
+  const int t0 = t - lane;  // the warp's first row
+  if (t0 >= Tp) return;     // whole warps only: the write-out needs them all
   const bool real = t < T;
+  float4* const staged = stage[threadIdx.x >> 5];
   // Element [c][v] of a channel-major (C, 3, T) array; zeros past T.
   auto ld = [&](const float* a, int c, int v) -> float {
     return real ? a[(size_t)(c * 3 + v) * T + t] : 0.0f;
@@ -114,7 +142,6 @@ __global__ void __launch_bounds__(128) setup_kernel(
     }
   }
 
-  float* row = recs + (size_t)t * kRecLanes;
   bool keep[3];
   float e_ymin[3], e_ymax[3], e_x0[3], e_xg[3];
 #pragma unroll
@@ -197,7 +224,7 @@ __global__ void __launch_bounds__(128) setup_kernel(
       f[F_N0 + c] = PHONG ? mn : 0.0f;
       f[F_NG + c] = PHONG ? (mx - mn) / ydiff : 0.0f;
     }
-    float4* dst = reinterpret_cast<float4*>(row + e * kEdgeStride);
+    float4* dst = staged + lane * kEdgeChunks + e * (kEdgeStride / 4);
 #pragma unroll
     for (int q = 0; q < kEdgeStride / 4; ++q) {
       const bool k = keep[e];
@@ -205,13 +232,6 @@ __global__ void __launch_bounds__(128) setup_kernel(
                            k ? f[4 * q + 2] : 0.0f, k ? f[4 * q + 3] : 0.0f);
     }
   }
-  // Lanes 84..127: the gid, then zeros.
-  float4* tail = reinterpret_cast<float4*>(row + kGidLane);
-  tail[0] = make_float4(static_cast<float>(t + gid0), 0.0f, 0.0f, 0.0f);
-#pragma unroll
-  for (int q = 1; q < (kRecLanes - kGidLane) / 4; ++q)
-    tail[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-
   // Binning bbox (tpu_renderer/ops/binning.py:_bbox_core).
   bool valid[3];
   int nvalid = 0;
@@ -243,14 +263,33 @@ __global__ void __launch_bounds__(128) setup_kernel(
   xhi = clip_ieee(nan_to_num(xhi, w1, w1, 0.0f) + 1.0f, 0.0f, w1);
   ylo = clip_ieee(ylo, 0.0f, frame_h);
   yhi = clip_ieee(yhi, 0.0f, frame_h);
-  bbox[0 * (size_t)Tp + t] = tri_valid ? 1.0f : 0.0f;
-  bbox[1 * (size_t)Tp + t] = ylo;
-  bbox[2 * (size_t)Tp + t] = yhi;
-  bbox[3 * (size_t)Tp + t] = xlo;
-  bbox[4 * (size_t)Tp + t] = xhi;
-  bbox[5 * (size_t)Tp + t] = 0.0f;
-  bbox[6 * (size_t)Tp + t] = 0.0f;
-  bbox[7 * (size_t)Tp + t] = 0.0f;
+  if (t < Tp) {
+    bbox[0 * (size_t)Tp + t] = tri_valid ? 1.0f : 0.0f;
+    bbox[1 * (size_t)Tp + t] = ylo;
+    bbox[2 * (size_t)Tp + t] = yhi;
+    bbox[3 * (size_t)Tp + t] = xlo;
+    bbox[4 * (size_t)Tp + t] = xhi;
+    bbox[5 * (size_t)Tp + t] = 0.0f;
+    bbox[6 * (size_t)Tp + t] = 0.0f;
+    bbox[7 * (size_t)Tp + t] = 0.0f;
+  }
+
+  // Write-out: one store instruction a row, lane l writing chunk l, so
+  // each is 512 contiguous bytes (four whole 128-byte lines): the staged
+  // edge chunks, then the gid, then zeros. A ragged last warp stops at Tp.
+  __syncwarp();
+  const float4* src = staged + lane;
+  float4* out = reinterpret_cast<float4*>(recs + (size_t)t0 * kRecLanes) + lane;
+  const int rows = min(32, Tp - t0);
+#pragma unroll 4
+  for (int i = 0; i < rows; ++i) {
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (lane < kEdgeChunks)
+      v = src[i * kEdgeChunks];
+    else if (lane == kEdgeChunks)
+      v.x = static_cast<float>(t0 + i + gid0);
+    out[(size_t)i * kRowChunks] = v;
+  }
 }
 
 }  // namespace tr
@@ -262,7 +301,8 @@ void launch_setup(const float* params, int n_lights, const float* verts,
                   const float* cols, const float* nrms, const float* uvs,
                   int T, int Tp, int gid0, int frame_h, int frame_w,
                   float* recs, float* bbox, cudaStream_t s) {
-  setup_kernel<PHONG, TEXTURED><<<(Tp + 127) / 128, 128, 0, s>>>(
+  setup_kernel<PHONG, TEXTURED>
+      <<<(Tp + kSetupThreads - 1) / kSetupThreads, kSetupThreads, 0, s>>>(
       params, n_lights, verts, cols, nrms, uvs, T, Tp, gid0, (float)frame_h,
       (float)frame_w, recs, bbox);
 }
