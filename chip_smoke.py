@@ -11,8 +11,10 @@ Phases (any failure raises and the script exits nonzero):
    without a CUDA device the script stops before doing anything else;
 2. build: compiles the CUDA kernels from tpu_renderer_torch/csrc with nvcc,
    one process per source (cached under tpu_renderer_torch/_build by a
-   hash of the sources), and prints the registers, shared memory and
-   spills of each of K1's four instantiations from ``-Xptxas -v``;
+   hash of the sources), and prints the registers, shared memory, stack
+   frame and spills of each of K1's four instantiations and of the mask
+   kernel's eight (K6 and K8 at strips of 1, 2, 4 and 8 rows) from
+   ``-Xptxas -v``;
 3. kernels: each kernel against its plain-PyTorch version on the card,
    bit-equal outputs required, with the route of every launch asserted:
    - K1 (setup) and K2 (raster + shade, 8-row tiles, row packing 2) on a
@@ -41,11 +43,13 @@ Phases (any failure raises and the script exits nonzero):
      inside K9's launch with it), and on config 4's sphere at 1920x1080
      (16-row tiles); K8 (mask) on config 3 with 'avx' addressing and on
      config 1 at 512x512;
-   - the 32-row forms (256-thread blocks), the route scenes of
-     models/route_scenes.py forced to 32-row tiles: K4 (sorted) and K6
-     (mask), with and without side-list triangles, textured (K5) and not,
-     one and several objects; K8 and K9 (K10 on the side-list scenes),
-     gid and all 11 planes;
+   - the 32-row forms (256-thread blocks for the split kernels), the
+     route scenes of models/route_scenes.py forced to 32-row tiles: K4
+     (sorted) and K6 (mask), with and without side-list triangles,
+     textured (K5) and not, one and several objects; K8 and K9 (K10 on the
+     side-list scenes), gid and all 11 planes; K6 (K5 bilinear) and K8 on
+     64-row tiles, which only the mask kernels run, on the 528-triangle
+     sphere forced to the mask strategy;
    - K11 (the occlusion skip) on K3's and K2's routes, on the stacks of
      models/route_scenes.py ZCULL_STACKS (six sphere layers at 640x640,
      innermost first), at the default part size, at 256 entries a part
@@ -127,7 +131,13 @@ Phases (any failure raises and the script exits nonzero):
    time of zeroing its outputs, the card's own write of those bytes; K3,
    K4, K6, K8 and the 32-row K4, K6, K8, whose event times are near the
    launch floor, also with their device and host time from a profiler
-   trace; K7 also beside ``t().contiguous()``, the one PyTorch call that
+   trace; K6 and K8, 16 and 32 rows, also beside the card zeroing their
+   outputs, their floor, and over a sweep of the mask strips' height
+   (MASK_STRIP_ROWS: 1, 2, 4, 8 rows) on configs 1 and 3, config 3 avx,
+   their 32-row forms, the 528-triangle sphere forced to the mask strategy
+   and its 64-row tiles, each strip height's frame bit-equal to the plain
+   version, by device time in turns; K7 also beside ``t().contiguous()``,
+   the one PyTorch call that
    transposes, in turns, and each call's host and device time from a
    profiler trace); K5, which has no launch of its own, as the
    device time of the shaded finalize kernel (which samples the texture)
@@ -266,6 +276,7 @@ COUNTER = {"K1 setup textured": "K1 setup", "K5 texture sampling":
 GBUF_BYTES_PER_PX = 48  # gid and 11 f32 planes
 ONE_PART = 2 ** 31 - 1  # a part size that keeps each stream of a tile whole
 K5_ROUNDS = 6  # profiler traces of each K5 call, in turns
+STRIP_ROWS = (1, 2, 4, 8)  # the mask kernels' strip heights
 
 
 def log(*args):
@@ -335,23 +346,31 @@ def bound(nbytes, ops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def trace_calls(fn, n):
+def trace_calls(fn, n, attempts=3):
     """The events of one torch.profiler trace of ``n`` calls of ``fn``
     (after 3 untraced ones), each call in a record_function span named
-    "call"."""
+    "call". The profiler now and then records no device activity at all
+    in a trace of a few hundred microseconds; such a trace is taken again,
+    up to ``attempts`` traces in all, and the callers refuse one that
+    still has none."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
-        for _ in range(n):
-            with record_function("call"):
-                fn()
+    for _ in range(attempts):
         torch.cuda.synchronize()
-    return prof.events()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                with record_function("call"):
+                    fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        if any(e.device_type == DeviceType.CUDA for e in events):
+            break
+    return events
 
 
 def profile_calls(fn, n):
@@ -417,6 +436,21 @@ def with_part_entries(value, fn, wrapper=None, seen=None):
             raster.RASTER_PART_ENTRIES = old
             if seen is not None:
                 seen[value] = wrapper.part_offsets
+    return run
+
+
+def with_strip_rows(value, fn):
+    """``fn`` run with ``ops.raster.MASK_STRIP_ROWS`` (the rows of the mask
+    kernels' strips) set to ``value``."""
+    from tpu_renderer_torch.ops import raster
+
+    def run():
+        old = raster.MASK_STRIP_ROWS
+        raster.MASK_STRIP_ROWS = value
+        try:
+            return fn()
+        finally:
+            raster.MASK_STRIP_ROWS = old
     return run
 
 
@@ -659,26 +693,31 @@ def k1_call(obj, cfg, tr, li, h, w, tp=None, gid0=0):
             setup_work(T, tp, cfg.phong, li.count, cfg.textured))
 
 
-def setup_ptxas(build_log):
-    """Registers, shared memory and spills of each ``setup_kernel``
-    instantiation, from the build's ``-Xptxas -v`` lines."""
+def ptxas_info(build_log, kernel, mangled):
+    """Registers, shared memory, stack frame and spills of each
+    instantiation of ``kernel`` whose mangled name starts with ``mangled``
+    (a regex whose groups are the mangled template arguments: ``Li<n>``
+    ints, ``Lb0`` / ``Lb1`` bools), from the build's ``-Xptxas -v``
+    lines."""
     import re
 
     out, form = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            f = re.match(r"_ZN2tr12setup_kernelILb([01])ELb([01])E", m[1])
-            form = (None if f is None else "setup_kernel<%s, %s>" % tuple(
-                "true" if b == "1" else "false" for b in f.groups()))
+            f = re.match(mangled, m[1])
+            form = (None if f is None else "%s<%s>" % (kernel, ", ".join(
+                {"Lb0": "false", "Lb1": "true"}.get(a, a[2:])
+                for a in f.groups())))
             continue
         if form is None:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m:
-            out.setdefault(form, {}).update(spill_stores=int(m[1]),
-                                            spill_loads=int(m[2]))
+            out.setdefault(form, {}).update(stack_bytes=int(m[1]),
+                                            spill_stores=int(m[2]),
+                                            spill_loads=int(m[3]))
         m = re.search(r"Used (\d+) registers", line)
         if m:
             smem = re.search(r"(\d+) bytes smem", line)
@@ -773,11 +812,17 @@ def main():
     for line in _cuda.build_info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("#   " + line.strip())
-    k1_ptxas = setup_ptxas(_cuda.build_info["log"])
-    if len(k1_ptxas) != 4:
-        raise AssertionError(f"ptxas lines of K1: {k1_ptxas}")
+    k1_ptxas = ptxas_info(_cuda.build_info["log"], "setup_kernel",
+                          r"_ZN2tr12setup_kernelI(Lb[01])E(Lb[01])E")
+    mask_ptxas = ptxas_info(_cuda.build_info["log"], "mask_kernel",
+                            r"_ZN2tr11mask_kernelI(Li\d+)E(Lb[01])E")
+    if len(k1_ptxas) != 4 or len(mask_ptxas) != 2 * len(STRIP_ROWS):
+        raise AssertionError(f"ptxas lines of K1: {k1_ptxas}; of the mask "
+                             f"kernel: {mask_ptxas}")
     for form, info in k1_ptxas.items():
         log(f"# K1 ptxas {form}: {json.dumps(info)}")
+    for form, info in mask_ptxas.items():
+        log(f"# K6/K8 ptxas {form}: {json.dumps(info)}")
 
     # 3. Each kernel against its plain version on the card.
     max_err = {name: 0.0 for name in KERNELS}
@@ -995,6 +1040,22 @@ def main():
         if (variant != "base" and strategy == "sorted") != (n_large > 0):
             raise AssertionError(f"route {name} ({variant}) G-buffer at 32 "
                                  f"rows: n_large {n_large}")
+    # 64-row tiles, which only the mask kernels run (any multiple of 8
+    # rows): K6 with K5 bilinear and K8 on the 528-triangle sphere forced to
+    # the mask strategy, whose longest list outgrows one batch of every
+    # strip height.
+    sg_k4, (h_k4, w_k4) = route_scene("k4", "textured")
+    sg_k4 = [(sg_k4[0][0], dict(sg_k4[0][1], filter_mode="bilinear"))]
+    scene_k4, tr_k4, li_k4 = torch_scene(sg_k4, h_k4, w_k4, dev)
+    mask64 = prepare_scene(scene_k4, tr_k4, li_k4, h_k4, w_k4,
+                           strategy="mask", tile_h=64)
+    check_launch("K6 raster+shade mask", f"route k4 (528 tris, bilinear), "
+                 f"strategy='mask', at {w_k4}x{h_k4}, 64-row tiles", mask64,
+                 (64, 1), 1, 1)
+    gbuf64 = gbuffer_launch(*scene_k4[0], tr_k4, li_k4, h_k4, w_k4,
+                            strategy="mask", tile_h=64)
+    check_gbuffer("K8 G-buffer mask", f"route k4 (528 tris), strategy='mask',"
+                  f" at {w_k4}x{h_k4}, 64-row tiles", gbuf64, ("mask", 64))
 
     # K11 on K3's and K2's routes: bit-equal to its plain version and to the
     # non-culling kernel on the same operands; its skipped batches at least
@@ -1524,6 +1585,26 @@ def main():
         log(f"# {name} at {label}, profiler: device {dev_ms:.4f} ms, host "
             f"{host_ms:.4f} ms a call, {len(ops)} device kernel(s)")
 
+    def mask_floor(name, label, launch):
+        """The card's own write of a mask launch's outputs (z, gid and
+        colour, or gid and the 11 planes): their zeroing, by CUDA events
+        (median of two runs of 20) and by its device time from a profiler
+        trace of 50 calls; the kernel's floor."""
+        outs = launch.run()
+
+        def fill():
+            for t in outs:
+                t.zero_()
+        ev_ms = statistics.median([event_ms(fill, 20) for _ in range(2)])
+        _, fill_dev, _ = profile_calls(fill, 50)
+        dev_info.setdefault(name, {}).update(
+            zero_outputs_ms=round(ev_ms, 4),
+            zero_outputs_device_ms=round(fill_dev, 4),
+            zero_outputs_bytes=sum(t.numel() * t.element_size()
+                                   for t in outs))
+        log(f"# {name} at {label}: zeroing its outputs {ev_ms:.4f} ms "
+            f"(events), device {fill_dev:.4f} ms")
+
     def time_launch(name, label, launch, device=False):
         key = name.split(" (")[0]
         max_err[key] = max(max_err[key], assert_equal(
@@ -1587,6 +1668,8 @@ def main():
                 prepare_scene(scene5f, tr5f, li5f, H, W))
     time_launch("K6 raster+shade mask", "config 3 12 tris 512x512",
                 prepare_scene(scene3, tr3, li3, 512, 512), device=True)
+    mask_floor("K6 raster+shade mask", "config 3 12 tris 512x512",
+               prepare_scene(scene3, tr3, li3, 512, 512))
     time_launch("K6 raster+shade mask (config 1)",
                 "config 1 12 tris 512x512",
                 prepare_scene(scene1, tr1, li1, 512, 512))
@@ -1754,6 +1837,7 @@ def main():
     kms, pms, work = time_gbuffer("K8 G-buffer mask",
                                   "config 3 avx 12 tris 512x512", c3_launch,
                                   device=True)
+    mask_floor("K8 G-buffer mask", "config 3 avx 12 tris 512x512", c3_launch)
     timing["K8 G-buffer mask"] = (kms, pms) + bound(*work) + (None,)
     k9_ms, k9_plain, work_q = time_gbuffer(
         "K9 G-buffer sorted", f"deferred 1M {T_def} tris {W}x{H}",
@@ -1835,10 +1919,52 @@ def main():
                 "32-row tiles", ab_forms["40k"][0]["32"])
     time_launch("K6 raster+shade mask 32-row", "config 3 12 tris 512x512, "
                 "32-row tiles", ab_forms["config 3"][0]["32"], device=True)
+    mask_floor("K6 raster+shade mask 32-row", "config 3 12 tris 512x512, "
+               "32-row tiles", ab_forms["config 3"][0]["32"])
     kms, pms, work = time_gbuffer(
         "K8 G-buffer mask 32-row", "config 3 avx 12 tris 512x512, 32-row "
         "tiles", ab_forms["config 3 avx"][0]["32"], device=True)
+    mask_floor("K8 G-buffer mask 32-row", "config 3 avx 12 tris 512x512, "
+               "32-row tiles", ab_forms["config 3 avx"][0]["32"])
     timing["K8 G-buffer mask 32-row"] = (kms, pms) + bound(*work) + (None,)
+
+    # The mask kernels' strip height: each scene's launch at every height
+    # of STRIP_ROWS, its outputs bit-equal to the plain version, timed by
+    # the mask kernel's device time over two profiler traces of 20 calls
+    # each, the heights in turns (1 2 4 8 8 4 2 1).
+    strip_sweep = {}
+    for key, label, launch in (
+            ("K6 raster+shade mask", "config 1",
+             prepare_scene(scene1, tr1, li1, 512, 512)),
+            ("K6 raster+shade mask", "config 3",
+             prepare_scene(scene3, tr3, li3, 512, 512)),
+            ("K6 raster+shade mask", "route k4 (528 tris, bilinear) "
+             "strategy='mask'",
+             prepare_scene(scene_k4, tr_k4, li_k4, h_k4, w_k4,
+                           strategy="mask")),
+            ("K6 raster+shade mask", "route k4 (528 tris, bilinear) "
+             "strategy='mask', "
+             "64-row tiles", mask64),
+            ("K8 G-buffer mask", "config 3 avx", c3_launch),
+            ("K8 G-buffer mask", "route k4 (528 tris) strategy='mask', "
+             "64-row tiles", gbuf64),
+            ("K6 raster+shade mask 32-row", "config 3 @32",
+             ab_forms["config 3"][0]["32"]),
+            ("K8 G-buffer mask 32-row", "config 3 avx @32",
+             ab_forms["config 3 avx"][0]["32"])):
+        want = launch.run_plain()
+        runs = [with_strip_rows(s_, launch.run) for s_ in STRIP_ROWS]
+        for s_, run in zip(STRIP_ROWS, runs):
+            max_err[key] = max(max_err[key], assert_equal(
+                f"{key} at {label}, strips of {s_} rows", run(), want))
+        got = device_ms_in_turns([(run, "mask_kernel") for run in runs], 20,
+                                 2)
+        row = {s_: round(statistics.median(v), 4)
+               for s_, v in zip(STRIP_ROWS, got)}
+        strip_sweep.setdefault(key, {})[label] = row
+        log(f"# {key} sweep of the strip rows at {label} (tile_h "
+            f"{launch.route.tile_h}; device ms, median of 2 traces in "
+            f"turns; every frame bit-equal): {json.dumps(row)}")
     d40 = ab_forms["deferred 40k"][0]["32"]
     n_large40 = int(d40.qbins.n_large)
     if n_large40 != 2:
@@ -2049,6 +2175,12 @@ def main():
                                             else "false>")}
         if name in dev_info:
             entry.update(dev_info[name])
+        if name in strip_sweep:
+            entry["strip_rows"] = raster.MASK_STRIP_ROWS
+            entry["strip_sweep_device_ms"] = strip_sweep[name]
+            entry["ptxas"] = {f: v for f, v in mask_ptxas.items()
+                              if f.endswith("true>" if "G-buffer" in name
+                                            else "false>")}
         if name == "K10 G-buffer side list":
             entry["k9_without_side_list_ms"] = round(k9s_ms, 4)
         if name == "K10 G-buffer side list 32-row":

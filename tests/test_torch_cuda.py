@@ -1,10 +1,11 @@
 """The port's CUDA kernels against their plain-PyTorch versions on the card:
 K1 (setup, untextured and textured), K2 / K3 / K4 (raster + shade of the
 sorted strategy, single and multi-object; K4 also on 32-row tiles), K6
-(the mask strategy, 8-, 16- and 32-row tiles), K5
+(the mask strategy, 8- to 64-row tiles folded strip by strip, at every
+strip height), K5
 (texture sampling, inside each route's finalize), K7 (record
 transpose), K8 / K9 / K10 (raster into a G-buffer: mask, sorted, side
-list; 8-, 16- and 32-row tiles), K11 (the occlusion skip on K2's and
+list; 8-, 16- and 32-row tiles, K8 also 64), K11 (the occlusion skip on K2's and
 K3's routes), K2 / K3 / K4 and K9 split into parts of 1, 16 and the
 default number of entries merged by the (z, gid) key, and whole frames
 on the card against the CPU run, with the
@@ -561,6 +562,119 @@ def test_32_row_kernel_equals_plain(cuda, name, variant):
     assert int((out_k[1] >= 0).sum()) > 1000
     if variant == "sidelist":
         assert int(launch.qbins.n_large) > 0
+
+
+def k4_mask_scene(filter_mode, device):
+    """(scene, transform, lights, (h, w)) of route k4's 528-triangle sphere
+    at 384 x 384 with its 16 x 16 checkerboard sampled ``filter_mode``."""
+    sg, (h, w) = route_scene("k4", "textured")
+    sg = [(sg[0][0], dict(sg[0][1], filter_mode=filter_mode))]
+    tr_d, li_d = ts.baseline_camera_lights(h, w)
+    return ts.to_torch_scene(sg, tr_d, li_d, device=device) + ((h, w),)
+
+
+def assert_mask_lists(bins, longest):
+    """Some tile's list is longer than ``longest`` entries (more than one
+    batch of a strip) and some tile has none."""
+    assert int(bins.counts.max()) > longest
+    assert int((bins.counts == 0).sum()) > 0
+
+
+def assert_strips_equal_plain(launch, wrapper, monkeypatch):
+    """At every strip height (``MASK_STRIP_ROWS`` 1, 2, 4, 8) one launch
+    counted on ``wrapper``, every output bit-equal to the plain version on
+    the same card tensors; returns the kernel's outputs at the default
+    height."""
+    assert launch.kernel is wrapper
+    out_p = launch.run_plain()
+    for rows in (1, 2, 4, 8, trp.MASK_STRIP_ROWS):
+        with monkeypatch.context() as m:
+            m.setattr(trp, "MASK_STRIP_ROWS", rows)
+            n0 = wrapper.launches
+            out_k = launch.run()
+            assert wrapper.launches == n0 + 1
+        torch.cuda.synchronize()
+        for a, b in zip(out_k, out_p):
+            assert torch.equal(bits(a), bits(b)), rows
+    return out_k
+
+
+MASK_TILE_HEIGHTS = [8, 16, 32, 64]
+SUBRECT = (300, 300, 37, 21)  # rows, cols, row0, col0: off the strip grid
+
+
+@pytest.mark.parametrize("tile_h", MASK_TILE_HEIGHTS)
+@pytest.mark.parametrize("case", ["nearest", "bilinear", "sub-rect"])
+def test_mask_strips_k6_equals_plain(cuda, monkeypatch, tile_h, case):
+    """K6, each tile folded strip by strip at every strip height, on route
+    k4's 528-triangle sphere forced to the mask strategy (lists longer than
+    the 32-entry batches of 4-row strips, the 64 of 1-row ones at 64 rows;
+    empty tiles) with K5 nearest and bilinear, and (bilinear) into a 300 x
+    300 sub-rect at (37, 21), off the strip grid, also equal to the whole
+    frame's crop: z, gid and colour bit-equal to the plain version, one
+    launch counted a call; 64-row tiles too, which only the mask kernels
+    run."""
+    from tpu_renderer_torch.engine.renderer import prepare_scene
+
+    scene, tr, li, (h, w) = k4_mask_scene(
+        "nearest" if case == "nearest" else "bilinear", cuda)
+    hs, ws, r0, c0 = SUBRECT if case == "sub-rect" else (h, w, 0, 0)
+    launch = prepare_scene(scene, tr, li, hs, ws, h, w, r0, c0,
+                           strategy="mask", tile_h=tile_h)
+    assert launch.route.tile_h == tile_h
+    assert_mask_lists(launch.operands[1], 32)
+    out_k = assert_strips_equal_plain(launch, trp.raster_mask_kernel,
+                                      monkeypatch)
+    assert int((out_k[1] >= 0).sum()) > 1000
+    if case == "sub-rect":
+        full = prepare_scene(scene, tr, li, h, w, strategy="mask",
+                             tile_h=tile_h).run()
+        for a, b in zip(out_k, full):
+            assert torch.equal(bits(a[:hs, :ws]),
+                               bits(b[r0:r0 + hs, c0:c0 + ws]))
+
+
+@pytest.mark.parametrize("tile_h", MASK_TILE_HEIGHTS)
+@pytest.mark.parametrize("case", ["frame", "sub-rect"])
+def test_mask_strips_k8_equals_plain(cuda, monkeypatch, tile_h, case):
+    """K8, each tile folded strip by strip at every strip height, on the
+    same forced-mask sphere (its uv fields set), the whole frame and the
+    sub-rect at (37, 21): gid and the 11 planes bit-equal to the plain
+    version, one launch counted a call."""
+    scene, tr, li, (h, w) = k4_mask_scene("nearest", cuda)
+    obj, cfg = scene[0]
+    table = tsp.setup_for_raster(obj, tr, li, cfg, frame_height=h,
+                                 frame_width=w)
+    hs, ws, r0, c0 = SUBRECT if case == "sub-rect" else (h, w, 0, 0)
+    launch = tgb.prepare_gbuffer(table, hs, ws, None, h, w, r0, c0, "mask",
+                                 tile_h)
+    assert (launch.route.strategy, launch.route.tile_h) == ("mask", tile_h)
+    assert_mask_lists(launch.operands[1], 32)
+    out_k = assert_strips_equal_plain(launch, tgb.raster_pass, monkeypatch)
+    assert int((out_k[0] >= 0).sum()) > 1000
+
+
+def test_mask_kernels_refuse_bad_heights(cuda, monkeypatch):
+    """K6 and K8 raise on a tile height that is not a multiple of 8, naming
+    the rule, and on a strip height that does not divide 8."""
+    from tpu_renderer_torch.engine.renderer import prepare_scene
+
+    scene, tr, li, (h, w) = k4_mask_scene("nearest", cuda)
+    obj, cfg = scene[0]
+    table = tsp.setup_for_raster(obj, tr, li, cfg, frame_height=h,
+                                 frame_width=w)
+    for tile_h in (12, 4):
+        with pytest.raises(ValueError, match="multiple of 8 rows on CUDA"):
+            prepare_scene(scene, tr, li, h, w, strategy="mask",
+                          tile_h=tile_h).run()
+        with pytest.raises(ValueError, match="multiple of 8 rows on CUDA"):
+            tgb.rasterize_gbuffer(table, h, w, strategy="mask",
+                                  tile_h=tile_h)
+    monkeypatch.setattr(trp, "MASK_STRIP_ROWS", 3)
+    with pytest.raises(RuntimeError, match="tr_raster_mask launch failed"):
+        prepare_scene(scene, tr, li, h, w, strategy="mask", tile_h=16).run()
+    with pytest.raises(RuntimeError, match="tr_gbuffer_mask launch failed"):
+        tgb.rasterize_gbuffer(table, h, w, strategy="mask", tile_h=16)
 
 
 @pytest.mark.parametrize("name, variant, backend", [

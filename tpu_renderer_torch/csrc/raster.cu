@@ -15,9 +15,10 @@
 //                     form, :2372-2380, _chunk_best :910 per CHUNK_T chunk);
 //   tr_raster_narrow32
 //                     K4 on 32-row tiles (the narrow form at tile_h 32);
-//   tr_raster_mask    K6: mask strategy, 8-, 16- or 32-row tiles, each
-//                     tile's padded triangle list (bin_triangles), no side
-//                     list;
+//   tr_raster_mask    K6: mask strategy, tiles of any multiple of 8 rows,
+//                     each tile's padded triangle list (bin_triangles), no
+//                     side list, folded strip by strip (see "The mask
+//                     strategy" below);
 //   tr_gbuffer_mask   K8: K6's fold, the G-buffer finalize (gbuffer_tile);
 //   tr_gbuffer_queue  K9 + K10: one sorted stream, 8-, 16- or 32-row tiles,
 //                     into a G-buffer;
@@ -58,15 +59,19 @@
 // 7,165. One block walking a tile's entries in series let that tile set the
 // kernel's time while most SMs idled (and a 32-row tile, two 16-row tiles'
 // entries, about doubled it), so the sorted routes split a tile's entries
-// over many blocks; the mask strategy (K6, K8), whose lists hold at most a
-// few thousand small-scene entries, still folds a tile in one block.
+// over many blocks. The mask strategy (K6, K8), whose lists hold at most a
+// few thousand small-scene entries, splits each tile into row strips
+// instead: its frames are small (128 16-row tiles at 512x512), and one block
+// a tile left the card nearly empty, each thread finalizing 16 pixels in
+// series with nothing to hide their latency.
 //
 // Design: the TPU ran a sequential grid of (tile, record block) work items
 // that carried each tile's z / gid / attribute scratch from one item to the
-// next. Here a block of 128 threads (256 for 32-row tiles, see Tile) folds
-// a run of one tile's entries (the mask strategy: all of them; the sorted
-// one: a part) into the winners of that TILE_H x 128 framebuffer tile in
-// registers, reading recs[ids[i]] directly, from the sorted streams
+// next. Here a block of 128 threads (256 for the split kernels' 32-row
+// tiles, see Tile) folds a run of one tile's entries (the mask strategy:
+// all of them, over one strip of its rows; the sorted one: a part) into the
+// winners of those rows' 128 columns in registers, reading recs[ids[i]]
+// directly, from the sorted streams
 // (starts / counts at STREAMS * tile + stream) or the mask strategy's
 // per-tile list (ids at tile * capacity, counts[tile]). Entries go in
 // batches of one (entry, row) pair per thread:
@@ -85,7 +90,7 @@
 // record (row gid of the table) for only the planes that pixel's object
 // reads (colour, normal, u/z v/z 1/z), with the same f32 operations, so
 // the value al + k * inc is the one the fold would have kept. Registers
-// stay at 3 * min(TILE_H, 16) winner values whatever the scene's planes
+// stay at 3 * min(rows, 16) winner values whatever the scene's planes
 // (config 5 needs 10), and one template serves every field set. Every tile
 // is written, so empty tiles need no masking afterwards. Tensor cores and
 // TMA are left for later work.
@@ -97,6 +102,7 @@ namespace tr {
 constexpr int kTileW = 128;
 constexpr int kThreads = 128;    // one thread per tile column
 constexpr int kMaxBatch = 32;    // entries per batch at 4 rows per entry
+constexpr int kMaxStripBatch = 64;  // mask strip batch: 48 KB static smem
 constexpr int kRecLoad = 88;     // lanes 0..87 hold every field and the gid
 constexpr int kRecStride = 92;   // shared row stride: 16 B aligned
 // Depth part of stage A for one (entry, row) pair.
@@ -104,15 +110,17 @@ constexpr int Q_MINX = 0, Q_MAXX = 1, Q_XOFF = 2, Q_ZL = 3, Q_ZINC = 4;
 constexpr int kNumQ = 5;
 constexpr int kMaxRows = 16;     // winner rows a thread keeps in registers
 
-// The block of a TILE_H-row tile. Up to 16 rows one thread owns a column
-// and all of its rows (kThreads threads). Taller tiles give each column
-// TILE_H / 16 threads, thread t owning rows [t / 128 * 16, + 16) of column
-// t % 128: 32-row tiles run 256 threads, and no thread keeps more than 16
-// rows of winners (3 x 16 registers), as the 16-row tiles' threads do.
+// The block of a TILE_H-row tile (or of a mask strip: 1, 2, 4 or 8 rows).
+// Up to 16 rows one thread owns a column and all of its rows (kThreads
+// threads). Taller tiles give each column TILE_H / 16 threads, thread t
+// owning rows [t / 128 * 16, + 16) of column t % 128: the split kernels'
+// 32-row tiles run 256 threads, and no thread keeps more than 16 rows of
+// winners (3 x 16 registers), as the 16-row tiles' threads do.
 template <int TILE_H>
 struct Tile {
-  static_assert(TILE_H % 8 == 0 && (TILE_H <= kMaxRows ||
-                                    TILE_H % kMaxRows == 0), "tile height");
+  static_assert(TILE_H > 0 && (8 % TILE_H == 0 || TILE_H % 8 == 0) &&
+                    (TILE_H <= kMaxRows || TILE_H % kMaxRows == 0),
+                "tile height");
   static constexpr int kThreads =
       TILE_H <= kMaxRows ? tr::kThreads : kTileW * (TILE_H / kMaxRows);
   static constexpr int kRows = TILE_H * kTileW / kThreads;  // per thread
@@ -143,9 +151,10 @@ struct Winners {
   float k[ROWS];
 };
 
-template <int THREADS>
+// A block's batch: BATCH staged records, one (entry, row) pair a thread.
+template <int THREADS, int BATCH = kMaxBatch>
 struct SharedT {
-  float rec[kMaxBatch][kRecStride];
+  float rec[BATCH][kRecStride];
   float span[kNumQ][THREADS];
   int gid[THREADS];
 };
@@ -386,19 +395,18 @@ __device__ __forceinline__ bool batch_occluded(
 
 // Stage the records ids[0..ne), run stage A on their (entry, row) pairs for
 // tile rows [row_lo, row_lo + NROWS), and fold the pairs into the winners
-// of this thread's rows of its column. ne * NROWS <= the block's threads.
-// With CULL (K11) a batch that cannot win a pixel (batch_occluded, against
-// ``keys``) skips its fold and, when ``skipped`` is not null, adds one to
-// it.
-template <int TILE_H, int NROWS, bool CULL = false>
+// of this thread's rows of its column. ne <= BATCH and ne * NROWS <= the
+// block's threads. With CULL (K11) a batch that cannot win a pixel
+// (batch_occluded, against ``keys``) skips its fold and, when ``skipped``
+// is not null, adds one to it.
+template <int TILE_H, int NROWS, bool CULL = false, int BATCH = kMaxBatch>
 __device__ __forceinline__ void fold_batch(
     const float* __restrict__ recs, const int* __restrict__ ids, int ne,
     int row_lo, int row_base, float w_f, float xc,
-    SharedT<Tile<TILE_H>::kThreads>& sh, Winners<Tile<TILE_H>::kRows>& win,
-    int* skipped = nullptr, const unsigned long long* keys = nullptr,
-    size_t key_stride = 0) {
+    SharedT<Tile<TILE_H>::kThreads, BATCH>& sh,
+    Winners<Tile<TILE_H>::kRows>& win, int* skipped = nullptr,
+    const unsigned long long* keys = nullptr, size_t key_stride = 0) {
   constexpr int kBlock = Tile<TILE_H>::kThreads;
-  static_assert(kBlock / NROWS <= kMaxBatch, "batch exceeds shared rows");
   constexpr int kPer = kRecLoad / 4;
   __syncthreads();  // the previous batch has been folded
   for (int i = threadIdx.x; i < ne * kPer; i += kBlock) {
@@ -721,28 +729,78 @@ __device__ __forceinline__ void write_tile(
     finalize_tile<TILE_H>(f, win, ty, tx, row_base, xc);
 }
 
-// K6 (shaded) and K8 (G-buffer): the mask strategy. Tile t's triangles are
-// ids[t * capacity + i] for i < counts[t], in submission order; each covers
-// all of the tile's rows.
-template <int TILE_H, bool GBUF>
-__global__ void __launch_bounds__(Tile<TILE_H>::kThreads) mask_kernel(
+// ---------------------------------------------------------------------------
+// K6 (shaded) and K8 (G-buffer): the mask strategy, one block per (tile,
+// row strip). Tile t's triangles are ids[t * capacity + i] for i <
+// counts[t], in submission order; each covers all of the tile's rows.
+//
+// One block a tile, each thread finalizing its column's TILE_H pixels in
+// series, left the card nearly empty on the frames this strategy draws
+// (128 blocks of 4 warps for config 3's 16-row tiles at 512x512, 64 of 8
+// warps at 32 rows), and each thread's chain of dependent divisions, texel
+// loads and square roots uncovered: the finalize took 0.030 of its 0.037
+// ms there (PERF.md, section 6). Here the frame is cut into strips
+// of S rows (S divides 8, so every tile height the Pallas kernels take,
+// any multiple of 8, is a whole number of strips): strip sy holds frame
+// rows [row0 + sy * S, + S), block (sy, tx) folds the WHOLE list of tile
+// (sy / (tile_h / S), tx) over its strip's rows only, then writes them.
+// 128 threads, one a column, S rows of winners each; a batch stages 128 /
+// S records, at most kMaxStripBatch (64 at S = 1 and 2, 32 at S = 4).
+// Stage A still runs once per (entry, row) pair over the whole tile; only
+// the record staging repeats in each strip, from L2. The wrapper's S is
+// ops.raster.MASK_STRIP_ROWS (1, the fastest of the sweep). Exact: every
+// row lies in one strip, each strip folds the whole list with the fold's
+// (z desc, gid asc) rule, and row sy * S + r of the frame is the int the
+// one-block form computed as row0 + ty * tile_h + r, so every float is the
+// same.
+// ---------------------------------------------------------------------------
+
+template <int S, bool GBUF>
+__global__ void __launch_bounds__(kThreads) mask_kernel(
     const int* __restrict__ ids, const int* __restrict__ counts, int capacity,
-    Finalize f) {
-  __shared__ __align__(16) SharedT<Tile<TILE_H>::kThreads> sh;
-  const int tile = blockIdx.x;
-  const int ty = tile / f.tiles_x, tx = tile - ty * f.tiles_x;
-  const int row_base = f.row0 + ty * TILE_H;
-  const float xc =
-      static_cast<float>(f.col0 + tx * kTileW + tile_col<TILE_H>());
-  Winners<Tile<TILE_H>::kRows> win;
+    int strips, Finalize f) {
+  constexpr int kBatch =
+      kThreads / S < kMaxStripBatch ? kThreads / S : kMaxStripBatch;
+  __shared__ __align__(16) SharedT<kThreads, kBatch> sh;
+  const int sy = blockIdx.x / f.tiles_x, tx = blockIdx.x - sy * f.tiles_x;
+  const int tile = sy / strips * f.tiles_x + tx;
+  const int row_base = f.row0 + sy * S;
+  const float xc = static_cast<float>(f.col0 + tx * kTileW + tile_col<S>());
+  Winners<S> win;
   init_winners(win);
-  constexpr int kBatch = Tile<TILE_H>::kThreads / TILE_H;
   const int* list = ids + (size_t)tile * capacity;
   const int n = counts[tile];
   for (int b0 = 0; b0 < n; b0 += kBatch)
-    fold_batch<TILE_H, TILE_H>(f.recs, list + b0, min(kBatch, n - b0), 0,
-                               row_base, f.w_f, xc, sh, win);
-  write_tile<TILE_H, GBUF>(f, win, ty, tx, row_base, xc);
+    fold_batch<S, S>(f.recs, list + b0, min(kBatch, n - b0), 0, row_base,
+                     f.w_f, xc, sh, win);
+  write_tile<S, GBUF>(f, win, sy, tx, row_base, xc);
+}
+
+// One mask launch: tiles of tile_h rows (a multiple of 8) in strips of
+// strip_rows (1, 2, 4 or 8).
+template <bool GBUF>
+int mask_launch(const int* ids, const int* counts, int capacity, int tile_h,
+                int strip_rows, int tiles_y, const Finalize& f,
+                cudaStream_t s) {
+  if (tile_h < 8 || tile_h % 8 != 0 || strip_rows < 1 || 8 % strip_rows)
+    return 1;  // invalid value
+  const int strips = tile_h / strip_rows;
+  const long long grid = (long long)tiles_y * strips * f.tiles_x;
+  if (grid > 0x7FFFFFFFLL) return 1;
+  const unsigned g = static_cast<unsigned>(grid);
+  if (strip_rows == 1)
+    mask_kernel<1, GBUF><<<g, kThreads, 0, s>>>(ids, counts, capacity,
+                                                strips, f);
+  else if (strip_rows == 2)
+    mask_kernel<2, GBUF><<<g, kThreads, 0, s>>>(ids, counts, capacity,
+                                                strips, f);
+  else if (strip_rows == 4)
+    mask_kernel<4, GBUF><<<g, kThreads, 0, s>>>(ids, counts, capacity,
+                                                strips, f);
+  else
+    mask_kernel<8, GBUF><<<g, kThreads, 0, s>>>(ids, counts, capacity,
+                                                strips, f);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -868,6 +926,7 @@ __device__ __forceinline__ void fold_run(
     Winners<Tile<TILE_H>::kRows>& win, int* skipped,
     const unsigned long long* keys) {
   constexpr int kBatch = Tile<TILE_H>::kThreads / NROWS;
+  static_assert(kBatch <= kMaxBatch, "batch exceeds shared rows");
   for (int b0 = 0; b0 < ne; b0 += kBatch)
     fold_batch<TILE_H, NROWS, CULL>(f.recs, ids + b0, min(kBatch, ne - b0),
                                     row_lo, row_base, f.w_f, xc, sh, win,
@@ -1136,59 +1195,38 @@ TR_RASTER_ENTRY(tr_raster_narrow32, 32, 1) // K4, 32-row tiles
 TR_RASTER_ZCULL_ENTRY(tr_raster_zcull, 2)        // K11 on K2's route
 TR_RASTER_ZCULL_ENTRY(tr_raster_rows1_zcull, 1)  // K11 on K3's route
 
-// K6, 8-, 16- or 32-row tiles.
+// K6: tiles of any multiple of 8 rows, folded in strips of strip_rows (1,
+// 2, 4 or 8) rows.
 extern "C" int tr_raster_mask(const float* recs, const int* ids,
                               const int* counts, const float* params,
                               const int* objs, const int* texs,
                               const unsigned* atlas, int capacity, int tile_h,
-                              int n_obj, int n_lights, int aw, int tiles_y,
-                              int tiles_x, int row0, int col0, int frame_w,
-                              float* z, int* gid, unsigned* color,
-                              void* stream) {
+                              int strip_rows, int n_obj, int n_lights, int aw,
+                              int tiles_y, int tiles_x, int row0, int col0,
+                              int frame_w, float* z, int* gid,
+                              unsigned* color, void* stream) {
   if (n_obj < 1 || tiles_y < 1 || tiles_x < 1 || capacity < 1) return 1;
-  const tr::Finalize f =
+  return tr::mask_launch<false>(
+      ids, counts, capacity, tile_h, strip_rows, tiles_y,
       tr::make_finalize(recs, params, objs, texs, atlas, aw, n_obj, n_lights,
-                        tiles_x, row0, col0, frame_w, z, gid, color);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = tiles_y * tiles_x;
-  if (tile_h == 8)
-    tr::mask_kernel<8, false><<<grid, tr::kThreads, 0, s>>>(ids, counts,
-                                                            capacity, f);
-  else if (tile_h == 16)
-    tr::mask_kernel<16, false><<<grid, tr::kThreads, 0, s>>>(ids, counts,
-                                                             capacity, f);
-  else if (tile_h == 32)
-    tr::mask_kernel<32, false><<<grid, tr::Tile<32>::kThreads, 0, s>>>(
-        ids, counts, capacity, f);
-  else
-    return 1;  // invalid value
-  return static_cast<int>(cudaGetLastError());
+                        tiles_x, row0, col0, frame_w, z, gid, color),
+      static_cast<cudaStream_t>(stream));
 }
 
-// K8: the mask strategy into a G-buffer, 8-, 16- or 32-row tiles; gid (out_h,
-// out_w) i32 and gbuf (11, out_h, out_w) f32, out_h = tiles_y * tile_h.
+// K8: the mask strategy into a G-buffer, as K6 any multiple of 8 rows in
+// strips; gid (out_h, out_w) i32 and gbuf (11, out_h, out_w) f32, out_h =
+// tiles_y * tile_h.
 extern "C" int tr_gbuffer_mask(const float* recs, const int* ids,
                                const int* counts, int capacity, int tile_h,
-                               int tiles_y, int tiles_x, int row0, int col0,
-                               int frame_w, int* gid, float* gbuf,
-                               void* stream) {
+                               int strip_rows, int tiles_y, int tiles_x,
+                               int row0, int col0, int frame_w, int* gid,
+                               float* gbuf, void* stream) {
   if (tiles_y < 1 || tiles_x < 1 || capacity < 1) return 1;
-  const tr::Finalize f = tr::make_gbuffer(recs, tile_h, tiles_y, tiles_x,
-                                          row0, col0, frame_w, gid, gbuf);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = tiles_y * tiles_x;
-  if (tile_h == 8)
-    tr::mask_kernel<8, true><<<grid, tr::kThreads, 0, s>>>(ids, counts,
-                                                           capacity, f);
-  else if (tile_h == 16)
-    tr::mask_kernel<16, true><<<grid, tr::kThreads, 0, s>>>(ids, counts,
-                                                            capacity, f);
-  else if (tile_h == 32)
-    tr::mask_kernel<32, true><<<grid, tr::Tile<32>::kThreads, 0, s>>>(
-        ids, counts, capacity, f);
-  else
-    return 1;  // invalid value
-  return static_cast<int>(cudaGetLastError());
+  return tr::mask_launch<true>(
+      ids, counts, capacity, tile_h, strip_rows, tiles_y,
+      tr::make_gbuffer(recs, tile_h, tiles_y, tiles_x, row0, col0, frame_w,
+                       gid, gbuf),
+      static_cast<cudaStream_t>(stream));
 }
 
 // K9 + K10: the sorted strategy's single stream into a G-buffer, 8-, 16- or

@@ -9,7 +9,8 @@ golden/cpu_reference.py:302); uncovered pixels hold DEPTH_CLEAR and zeros,
 and gid -1. It holds three kernels, in ``csrc/raster.cu``:
 
 - K8, ``raster_pass``: the mask strategy (``_raster_kernel_tilelist``
-  :1756), each tile folding its ``bin_triangles`` list in place;
+  :1756), each tile folding its ``bin_triangles`` list in place, in
+  strips of ``ops.raster.MASK_STRIP_ROWS`` rows that many blocks fold;
 - K9, ``raster_pass_queue``: the sorted strategy's single stream
   (``_raster_kernel_queue`` :1853), each tile's entries split into parts
   of at most ``ops.raster.RASTER_PART_ENTRIES`` that many blocks fold in
@@ -21,10 +22,10 @@ and gid -1. It holds three kernels, in ``csrc/raster.cu``:
 Each wrapper launches its kernel on CUDA tensors and runs its plain
 version on CPU tensors: ``gbuffer_plain``, the plain raster's fragments and
 winners (``ops.raster.raster_fragments``, ``resolve_winners``) over all 10
-attribute planes. The CUDA entries take 8-, 16- and 32-row tiles
+attribute planes. K9's CUDA entry takes 8-, 16- and 32-row tiles
 (``ops.raster.CUDA_TILE_HEIGHTS``: the 'auto' route's heights and the
-Pallas kernels' default of 32, 256-thread blocks); the plain version takes
-any tile height.
+Pallas kernels' default of 32, 256-thread blocks), K8's any multiple of 8
+rows, as the Pallas kernels; the plain version takes any tile height.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from .raster import (
     bin_for_raster,
     bin_stats,
     check_cuda_tile_h,
+    check_mask_tile_h,
     pick_strategy,
     finish_records,
     mask_capacity,
@@ -90,21 +92,23 @@ def _outputs(tiles_y: int, tile_h: int, tiles_x: int, dev):
             torch.empty((GBUF_CHANNELS, hp, wp), dtype=F32, device=dev))
 
 
-def _check_cuda(kernel: str, dev, recs, tile_h: int) -> None:
+def _check_cuda(kernel: str, dev, recs, tile_h: int, check_tile_h) -> None:
     if dev.type != "cuda":
         raise ValueError(f"{kernel} runs on CUDA or CPU tensors, not {dev}")
-    check_cuda_tile_h(kernel, tile_h)
+    check_tile_h(kernel, tile_h)
     _cuda.check_tensor("recs", recs, dev, F32, (recs.shape[0], REC_LANES))
 
 
 def raster_pass(recs, bins: TileBins, *, tile_h: int, tiles_y: int,
                 tiles_x: int, row0: int, col0: int, frame_width: int):
-    """K8, the mask strategy into a G-buffer: each tile folds its list
-    ``bins.ids`` (submission order, ``bins.counts`` entries) over all of
-    its rows, reading the records in place. Returns (gid (hp, wp) i32,
-    gbuf (11, hp, wp) f32) for every tile, hp = tiles_y * tile_h, wp =
-    tiles_x * 128. CUDA tensors launch ``tr_gbuffer_mask`` and count
-    ``raster_pass.launches``; CPU tensors run ``raster_pass_plain``."""
+    """K8, the mask strategy into a G-buffer (tiles of any multiple of 8
+    rows): each tile folds its list ``bins.ids`` (submission order,
+    ``bins.counts`` entries) over all of its rows, reading the records in
+    place, one block a strip of ``ops.raster.MASK_STRIP_ROWS`` rows.
+    Returns (gid (hp, wp) i32, gbuf (11, hp, wp) f32) for every tile, hp =
+    tiles_y * tile_h, wp = tiles_x * 128. CUDA tensors launch
+    ``tr_gbuffer_mask`` and count ``raster_pass.launches``; CPU tensors
+    run ``raster_pass_plain``."""
     dev = recs.device
     kw = dict(tile_h=tile_h, tiles_y=tiles_y, tiles_x=tiles_x, row0=row0,
               col0=col0, frame_width=frame_width)
@@ -113,7 +117,7 @@ def raster_pass(recs, bins: TileBins, *, tile_h: int, tiles_y: int,
                          f"launch of {(tiles_y, tiles_x)}")
     if dev.type == "cpu":
         return raster_pass_plain(recs, bins, **kw)
-    _check_cuda("K8", dev, recs, tile_h)
+    _check_cuda("K8", dev, recs, tile_h, check_mask_tile_h)
     capacity = bins.ids.shape[2]
     _cuda.check_tensor("ids", bins.ids, dev, I32,
                        (tiles_y, tiles_x, capacity))
@@ -121,8 +125,9 @@ def raster_pass(recs, bins: TileBins, *, tile_h: int, tiles_y: int,
     gid, gbuf = _outputs(tiles_y, tile_h, tiles_x, dev)
     rc = _cuda.library().tr_gbuffer_mask(
         recs.data_ptr(), bins.ids.data_ptr(), bins.counts.data_ptr(),
-        capacity, tile_h, tiles_y, tiles_x, row0, col0, frame_width,
-        gid.data_ptr(), gbuf.data_ptr(), _cuda.stream(dev))
+        capacity, tile_h, _raster.MASK_STRIP_ROWS, tiles_y, tiles_x, row0,
+        col0, frame_width, gid.data_ptr(), gbuf.data_ptr(),
+        _cuda.stream(dev))
     _cuda.check_launch("tr_gbuffer_mask", rc)
     raster_pass.launches += 1
     return gid, gbuf
@@ -151,7 +156,7 @@ def raster_pass_queue(recs, qbins: QueueBins, lcounts, *, tile_h: int,
         return gbuffer_plain(recs, qbins, lcounts, tile_h=tile_h,
                              tiles_y=tiles_y, tiles_x=tiles_x, row0=row0,
                              col0=col0, frame_width=frame_width)
-    _check_cuda("K9", dev, recs, tile_h)
+    _check_cuda("K9", dev, recs, tile_h, check_cuda_tile_h)
     for name, t, shape in (
         ("sorted_tri", qbins.sorted_tri, qbins.sorted_tri.shape),
         ("starts", qbins.starts, (nfb + 1,)),
@@ -180,7 +185,7 @@ def raster_pass_queue(recs, qbins: QueueBins, lcounts, *, tile_h: int,
 raster_pass.launches = 0
 raster_pass_queue.launches = 0
 raster_pass_queue.part_offsets = None
-_cuda.declare("tr_gbuffer_mask", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+_cuda.declare("tr_gbuffer_mask", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
               + [ctypes.c_void_p] * 3)
 _cuda.declare("tr_gbuffer_queue", [ctypes.c_void_p] * 7
               + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 5)

@@ -10,7 +10,8 @@ or bilinear, within the fused atlas limits) or not. It holds five kernels:
   (K3, ``raster_rows1_kernel``), 16- or 32-row tiles with one stream (K4,
   ``raster_narrow_kernel``, ``raster_narrow32_kernel``);
 - K6: the Pallas ``_raster_kernel_tilelist_shaded`` (raster_pallas.py:2121),
-  the mask strategy (``raster_mask_kernel``), 8-, 16- or 32-row tiles;
+  the mask strategy (``raster_mask_kernel``), tiles of any multiple of 8
+  rows, each folded in strips of ``MASK_STRIP_ROWS`` rows by many blocks;
 - K5: the texture fetch of their finalize (``_sample_texture_atlas`` :755,
   ``_sample_texture_atlas_bilinear`` :863), a device function of
   ``csrc/raster.cu`` with no launch of its own; its plain version is
@@ -19,8 +20,9 @@ or bilinear, within the fused atlas limits) or not. It holds five kernels:
   channel-major record table to the row-major one (``csrc/records.cu``).
 
 Each wrapper launches its CUDA kernel on CUDA tensors and runs its plain
-version on CPU tensors. The CUDA kernels take 8-, 16- and 32-row tiles
-(``CUDA_TILE_HEIGHTS``); the plain versions any height. On the sorted
+version on CPU tensors. The sorted CUDA kernels take 8-, 16- and 32-row
+tiles (``CUDA_TILE_HEIGHTS``), the mask ones (K6, K8) any multiple of 8
+rows, as the Pallas kernels; the plain versions any height. On the sorted
 routes one wrapper call is four device ops: the CUDA code cuts each
 tile's streams into parts of at most ``RASTER_PART_ENTRIES`` entries (the
 side list one more part), many blocks fold the parts, a 64-bit (z desc,
@@ -113,13 +115,19 @@ LARGE_CAPACITY = 2048  # side-list slots (bin_triangles_queue default)
 CHUNK_T = 8  # the mask strategy's list capacity rounds up to this
 MASK_MAX_CAPACITY = 4096
 STRATEGIES = ("auto", "mask", "sorted")
-CUDA_TILE_HEIGHTS = (8, 16, 32)  # tile heights the CUDA raster kernels run
+CUDA_TILE_HEIGHTS = (8, 16, 32)  # tile heights the sorted CUDA kernels run
 # K2, K3, K4, K9, K11: stream entries per part (csrc/raster.cu, "The
 # sorted strategy, each tile's entries split"), chosen on an H100 by
 # chip_smoke.py's sweeps (PERF.md). It spreads the work and changes no
 # output: any int in [1, 2^31) gives the same frame, bit for bit; 2^31 - 1
 # gives one part a stream of a tile.
 RASTER_PART_ENTRIES = 32
+# K6, K8: rows of the strips each mask tile is folded in, one block a strip
+# (csrc/raster.cu, "the mask strategy, one block per (tile, row strip)"),
+# chosen on an H100 by chip_smoke.py's sweep (PERF.md). Any of 1, 2, 4, 8
+# (the divisors of 8, so every multiple-of-8 tile height is whole strips)
+# gives the same frame, bit for bit.
+MASK_STRIP_ROWS = 1
 _MASK_BLOCK_BYTES_CAP = 4 * 1024 * 1024  # one tile's list of records
 _MASK_TOTAL_BYTES_CAP = 512 * 1024 * 1024  # all tiles' lists of records
 # The f32 gid lane is exact only up to 2**24 triangles per scene.
@@ -558,21 +566,30 @@ def raster_narrow32_kernel(recs, qbins, lcounts, params, objs, texs, atlas,
 
 
 def check_cuda_tile_h(kernel: str, tile_h: int) -> None:
-    """Raise unless the CUDA kernels run ``tile_h``-row tiles."""
+    """Raise unless the sorted CUDA kernels run ``tile_h``-row tiles."""
     if tile_h not in CUDA_TILE_HEIGHTS:
         heights = ", ".join(map(str, CUDA_TILE_HEIGHTS))
         raise ValueError(f"{kernel} runs tiles of {heights} rows on CUDA, "
                          f"not {tile_h}")
 
 
+def check_mask_tile_h(kernel: str, tile_h: int) -> None:
+    """Raise unless ``tile_h`` is a multiple of 8, the heights the mask
+    CUDA kernels (K6, K8) run, as the Pallas kernels."""
+    if tile_h < 8 or tile_h % 8:
+        raise ValueError(f"{kernel} runs tiles of a multiple of 8 rows on "
+                         f"CUDA, not {tile_h}")
+
+
 def raster_mask_kernel(recs, bins: TileBins, params, objs, texs, atlas, *,
                        tile_h: int, tiles_y: int, tiles_x: int, row0: int,
                        col0: int, frame_width: int, n_lights: int):
-    """K6, the mask strategy (8-, 16- or 32-row tiles): each tile folds its
-    list ``bins.ids`` (submission order, ``bins.counts`` entries) over all
-    of its rows, reading the records in place; outputs as K2's. CUDA
-    tensors launch ``tr_raster_mask`` and count
-    ``raster_mask_kernel.launches``; CPU tensors run ``mask_plain``."""
+    """K6, the mask strategy (tiles of any multiple of 8 rows): each tile
+    folds its list ``bins.ids`` (submission order, ``bins.counts`` entries)
+    over all of its rows, reading the records in place, one block a strip
+    of ``MASK_STRIP_ROWS`` rows; outputs as K2's. CUDA tensors launch
+    ``tr_raster_mask`` and count ``raster_mask_kernel.launches``; CPU
+    tensors run ``mask_plain``."""
     dev = recs.device
     kw = dict(tile_h=tile_h, tiles_y=tiles_y, tiles_x=tiles_x, row0=row0,
               col0=col0, frame_width=frame_width, n_lights=n_lights)
@@ -583,7 +600,7 @@ def raster_mask_kernel(recs, bins: TileBins, params, objs, texs, atlas, *,
         return mask_plain(recs, bins, params, objs, texs, atlas, **kw)
     if dev.type != "cuda":
         raise ValueError(f"K6 runs on CUDA or CPU tensors, not {dev}")
-    check_cuda_tile_h("K6", tile_h)
+    check_mask_tile_h("K6", tile_h)
     capacity = bins.ids.shape[2]
     _cuda.check_tensor("ids", bins.ids, dev, I32,
                        (tiles_y, tiles_x, capacity))
@@ -594,9 +611,9 @@ def raster_mask_kernel(recs, bins: TileBins, params, objs, texs, atlas, *,
     rc = _cuda.library().tr_raster_mask(
         recs.data_ptr(), bins.ids.data_ptr(), bins.counts.data_ptr(),
         params.data_ptr(), objs.data_ptr(), texs.data_ptr(), atlas_ptr,
-        capacity, tile_h, n_obj, n_lights, aw, tiles_y, tiles_x, row0, col0,
-        frame_width, z.data_ptr(), gid.data_ptr(), color.data_ptr(),
-        _cuda.stream(dev),
+        capacity, tile_h, MASK_STRIP_ROWS, n_obj, n_lights, aw, tiles_y,
+        tiles_x, row0, col0, frame_width, z.data_ptr(), gid.data_ptr(),
+        color.data_ptr(), _cuda.stream(dev),
     )
     _cuda.check_launch("tr_raster_mask", rc)
     raster_mask_kernel.launches += 1
@@ -644,7 +661,7 @@ for _entry in ("tr_raster", "tr_raster_rows1", "tr_raster_narrow",
 for _entry in ("tr_raster_zcull", "tr_raster_rows1_zcull"):
     _cuda.declare(_entry, [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
                   + [ctypes.c_void_p] * 7)
-_cuda.declare("tr_raster_mask", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+_cuda.declare("tr_raster_mask", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
               + [ctypes.c_void_p] * 4)
 
 RASTER_KERNELS = {  # (tile_h, rows) -> wrapper of the sorted strategy
