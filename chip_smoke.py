@@ -12,9 +12,9 @@ Phases (any failure raises and the script exits nonzero):
 2. build: compiles the CUDA kernels from tpu_renderer_torch/csrc with nvcc,
    one process per source (cached under tpu_renderer_torch/_build by a
    hash of the sources), and prints the registers, shared memory, stack
-   frame and spills of each of K1's four instantiations and of the mask
-   kernel's eight (K6 and K8 at strips of 1, 2, 4 and 8 rows) from
-   ``-Xptxas -v``;
+   frame and spills of each of K1's four instantiations, of the mask
+   kernel's eight (K6 and K8 at strips of 1, 2, 4 and 8 rows) and of the
+   band form's walk (K4 and K9 at other heights) from ``-Xptxas -v``;
 3. kernels: each kernel against its plain-PyTorch version on the card,
    bit-equal outputs required, with the route of every launch asserted:
    - K1 (setup) and K2 (raster + shade, 8-row tiles, row packing 2) on a
@@ -50,6 +50,13 @@ Phases (any failure raises and the script exits nonzero):
      side-list scenes), gid and all 11 planes; K6 (K5 bilinear) and K8 on
      64-row tiles, which only the mask kernels run, on the 528-triangle
      sphere forced to the mask strategy;
+   - the band form (K4, and K9 with K10, on sorted heights without a form
+     of their own) at 24, 40, 48, 56 and 64 rows, at the default part size
+     and at 16 entries a part, the parts read back: K4 on the route
+     scenes' 528-triangle sphere with and without the side list, textured
+     (K5), and their multi-object scenes, K9 on the sphere, its side-list
+     and G-buffer variants, both on a cube with a 16-unit quad behind it
+     at 1408x256, whose quad takes the side list at every height;
    - K11 (the occlusion skip) on K3's and K2's routes, on the stacks of
      models/route_scenes.py ZCULL_STACKS (six sphere layers at 640x640,
      innermost first), at the default part size, at 256 entries a part
@@ -118,11 +125,17 @@ Phases (any failure raises and the script exits nonzero):
      3 avx @32 (K7, K8 at 32 rows, the deferred shade); deferred 40k @32
      (deferred 1M's construction on the 40k sphere: K1, K9 at 32 rows with
      the quad on the side list, K10);
+   - the band paths, the same way: 40k @24 and 40k @64 (K1, K4 in the band
+     form), deferred 40k @24 and @64 (K1, K9 + K10 in the band form, the
+     shade), headline @64 (the headline's sphere forced to 64-row tiles:
+     K1, K4 in the band form), each one's frame 0 also bit-equal to the
+     same scene at 16 rows on the card, its drops reported;
    every frame must drop no entry and cover pixels, and the first frame
-   of each path since config 2 (but deferred 1M and the stacks) must equal
-   the CPU plain run of it bit for bit;
+   of each path since config 2 (but deferred 1M, the stacks and headline
+   @64) must equal the CPU plain run of it bit for bit;
 6. timings: median ms per frame (CUDA events) of each path, the headline's
-   setup / binning / raster split (each stage alone between syncs), and
+   setup / binning / raster split (``utils.profiling.stage_breakdown``,
+   each stage alone between syncs) and its ``FrameTimer`` summary, and
    each kernel at its path's shapes (the headline for K1 and K2, the
    textured 250k point for K1 textured, config 3 for K6), first held
    bit-equal to its plain version on those inputs, then timed beside its
@@ -158,7 +171,12 @@ Phases (any failure raises and the script exits nonzero):
    bench.py's order of the stack (outermost first); the 32-row forms (K4
    on config 4 and 40k, K6 on config 3, K8 on config 3 avx, K9 and K10 on
    deferred 40k), each also beside the 16-row form and the 'auto' route's
-   form on the same scene, in turns, with the same frame; the deferred
+   form on the same scene, in turns, with the same frame; the band form
+   (K4 on 40k @24, 40k @64 and headline @64, frame 0 of that path held to
+   its plain version on the card; K9 on deferred 40k @24 and @64; the
+   split phase at 24 rows; K10 as K9's band form with the quad beside the
+   sphere alone) and the band form at 16 and 32 rows against the 16- and
+   32-row forms on the 40k sphere, in turns, the same frame; the deferred
    shade's time on deferred 1M's frame, and the fused-against-deferred
    A/B: ms per frame of the textured 250k scene through the fused route
    (K2 with K5) and through the G-buffer path (K9, shade); each kernel
@@ -262,21 +280,37 @@ KERNELS = {
         source="tpu_renderer_torch/csrc/raster.cu",
         replaces="tpu_renderer/ops/raster_pallas.py:2018",
         path="deferred 40k @32"),
+    "K4 raster+shade band": dict(
+        source="tpu_renderer_torch/csrc/raster.cu",
+        replaces="tpu_renderer/ops/raster_pallas.py:2372",
+        path="40k @24"),
+    "K9 G-buffer sorted band": dict(
+        source="tpu_renderer_torch/csrc/raster.cu",
+        replaces="tpu_renderer/ops/raster_pallas.py:1853",
+        path="deferred 40k @24"),
+    "K10 G-buffer side list band": dict(
+        source="tpu_renderer_torch/csrc/raster.cu",
+        replaces="tpu_renderer/ops/raster_pallas.py:2018",
+        path="deferred 40k @24"),
 }
 # The wrapper whose launch counter a KERNELS entry reads: K1 textured is
 # K1's wrapper with uvs; K5 runs inside K2's launches on its path, K10
-# inside K9's; the 32-row forms of K6, K8 and K9 are their wrappers at
-# tile_h 32 (K4's has a wrapper of its own).
+# inside K9's; the 32-row forms of K6, K8 and K9 and K9's band form are
+# their wrappers at other heights (K4's 32-row and band forms have
+# wrappers of their own).
 COUNTER = {"K1 setup textured": "K1 setup", "K5 texture sampling":
            "K2 raster+shade", "K10 G-buffer side list": "K9 G-buffer sorted",
            "K6 raster+shade mask 32-row": "K6 raster+shade mask",
            "K8 G-buffer mask 32-row": "K8 G-buffer mask",
            "K9 G-buffer sorted 32-row": "K9 G-buffer sorted",
-           "K10 G-buffer side list 32-row": "K9 G-buffer sorted"}
+           "K10 G-buffer side list 32-row": "K9 G-buffer sorted",
+           "K9 G-buffer sorted band": "K9 G-buffer sorted",
+           "K10 G-buffer side list band": "K9 G-buffer sorted"}
 GBUF_BYTES_PER_PX = 48  # gid and 11 f32 planes
 ONE_PART = 2 ** 31 - 1  # a part size that keeps each stream of a tile whole
 K5_ROUNDS = 6  # profiler traces of each K5 call, in turns
 STRIP_ROWS = (1, 2, 4, 8)  # the mask kernels' strip heights
+BAND_HEIGHTS = (24, 40, 48, 56, 64)  # sorted heights run in the band form
 
 
 def log(*args):
@@ -454,18 +488,24 @@ def with_strip_rows(value, fn):
     return run
 
 
-def kernel_device_ms(fn, n, name_part):
+def kernel_device_ms(fn, n, name_part, attempts=3):
     """Device ms per launch of the one kernel of ``fn`` whose name holds
     ``name_part``, over ``n`` calls, from one torch.profiler trace (the
-    mean over the launches the trace recorded: it may miss one)."""
+    mean over the launches the trace recorded: it may miss one). The
+    profiler now and then loses most of a short trace's device events; a
+    trace holding fewer than half the launches is taken again, up to
+    ``attempts`` traces in all, and refused if none holds them."""
     from torch.autograd import DeviceType
 
-    dev = [e for e in trace_calls(fn, n)
-           if e.device_type == DeviceType.CUDA and name_part in e.name]
-    if not n // 2 <= len(dev) <= n:
-        raise AssertionError(f"profile of {n} calls: {len(dev)} device ops "
-                             f"named like {name_part!r}")
-    return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / len(dev)
+    for _ in range(attempts):
+        dev = [e for e in trace_calls(fn, n)
+               if e.device_type == DeviceType.CUDA and name_part in e.name]
+        if n // 2 <= len(dev) <= n:
+            return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / len(dev)
+        log(f"# profile of {n} calls: {len(dev)} device ops named like "
+            f"{name_part!r}, traced again")
+    raise AssertionError(f"profile of {n} calls: {len(dev)} device ops "
+                         f"named like {name_part!r} in {attempts} traces")
 
 
 def device_ms_in_turns(calls, n, rounds):
@@ -568,8 +608,10 @@ def fold_work(launch, n_fields, px_bytes):
     """(bytes, f32 operations) that every raster launch's data needs: the
     88 record lanes of every distinct triangle it reads, its kept entries,
     tile tables and side list, ``px_bytes`` per output pixel; stage A per
-    (entry, row) pair and the fold per in-span fragment, with
-    ``n_fields`` attribute planes."""
+    (entry, row) pair whose row lies in the triangle's span, and the fold
+    per in-span fragment, with ``n_fields`` attribute planes. Rows of a
+    tile that an entry does not reach are the kernel's own waste, not the
+    frame's work, so the bound does not grow with the tile height."""
     import torch
     from tpu_renderer_torch.ops import raster
 
@@ -587,8 +629,8 @@ def fold_work(launch, n_fields, px_bytes):
               + (qbins.starts.numel() + qbins.counts.numel()
                  + int(qbins.n_large) + lcounts.numel()) * 4
               + n_px * px_bytes)
-    ops = (frags.pair_tri.numel() * (STAGE_A_OPS + STAGE_A_FIELD_OPS
-                                     * n_fields)
+    ops = (int(frags.pair_in_span.sum()) * (STAGE_A_OPS + STAGE_A_FIELD_OPS
+                                            * n_fields)
            + frags.z.numel() * (FRAG_OPS + FRAG_FIELD_OPS * n_fields))
     return nbytes, ops
 
@@ -737,6 +779,7 @@ def rotated(scene, angle, device):
 def main():
     import argparse
 
+    import numpy as np
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -769,6 +812,8 @@ def main():
         route_scene,
         zcull_stack,
     )
+    from tpu_renderer_torch.models.route_scenes import \
+        torch_scene as route_torch_scene
     from tpu_renderer_torch.models.sphere import construct_sphere
     from tpu_renderer_torch.models.textures import checkerboard
     from tpu_renderer_torch.ops import gbuffer, raster, setup
@@ -789,6 +834,7 @@ def main():
         "K11 zcull": raster.raster_zcull_kernel,
         "K11 zcull rows 1": raster.raster_rows1_zcull_kernel,
         "K4 raster+shade 32-row": raster.raster_narrow32_kernel,
+        "K4 raster+shade band": raster.raster_narrow_any_kernel,
     }
 
     # 1. Device.
@@ -816,13 +862,19 @@ def main():
                           r"_ZN2tr12setup_kernelI(Lb[01])E(Lb[01])E")
     mask_ptxas = ptxas_info(_cuda.build_info["log"], "mask_kernel",
                             r"_ZN2tr11mask_kernelI(Li\d+)E(Lb[01])E")
-    if len(k1_ptxas) != 4 or len(mask_ptxas) != 2 * len(STRIP_ROWS):
+    band_ptxas = ptxas_info(_cuda.build_info["log"], "band_walk_kernel",
+                            r"_ZN2tr16band_walk_kernelE")
+    if len(k1_ptxas) != 4 or len(mask_ptxas) != 2 * len(STRIP_ROWS) or \
+            len(band_ptxas) != 1:
         raise AssertionError(f"ptxas lines of K1: {k1_ptxas}; of the mask "
-                             f"kernel: {mask_ptxas}")
+                             f"kernel: {mask_ptxas}; of the band walk: "
+                             f"{band_ptxas}")
     for form, info in k1_ptxas.items():
         log(f"# K1 ptxas {form}: {json.dumps(info)}")
     for form, info in mask_ptxas.items():
         log(f"# K6/K8 ptxas {form}: {json.dumps(info)}")
+    for form, info in band_ptxas.items():
+        log(f"# K4/K9 band form ptxas {form}: {json.dumps(info)}")
 
     # 3. Each kernel against its plain version on the card.
     max_err = {name: 0.0 for name in KERNELS}
@@ -1056,6 +1108,81 @@ def main():
                             strategy="mask", tile_h=64)
     check_gbuffer("K8 G-buffer mask", f"route k4 (528 tris), strategy='mask',"
                   f" at {w_k4}x{h_k4}, 64-row tiles", gbuf64, ("mask", 64))
+
+    # The band form (K4 and K9 + K10 on sorted heights without a form of
+    # their own) at every height of BAND_HEIGHTS, at the default part size
+    # and at 16 entries a part, the parts the kernel counted read back and
+    # held to the bins': K4 on the route scenes with and without the side
+    # list, textured (K5) and not, one and several objects, and on a cube
+    # with a 16-unit quad behind it at 1408x256, whose quad takes the side
+    # list at every height; K9 on the sphere, its side-list and G-buffer
+    # variants and the cube with the quad (K10).
+    def check_band(name, label, launch, want_route, err_key, n_tex=0):
+        """A band-form launch on ``name``'s wrapper and route, bit-equal to
+        its plain version at P = the default and 16, its part offsets equal
+        to the bins' count; the error to ``err_key`` and, where the side
+        list is not empty (K9) or an object textured (K4), K10's / K5's.
+        Returns n_large."""
+        r = launch.route
+        if (r.strategy, r.tile_h, r.rows) != want_route or \
+                launch.kernel is not wrappers[name]:
+            raise AssertionError(f"{label} took route {r} on "
+                                 f"{launch.kernel.__name__}")
+        n_large = int(launch.qbins.n_large)
+        keys = [err_key] + (["K5 texture sampling"] if n_tex else []) + (
+            ["K10 G-buffer side list band"]
+            if n_large and err_key.startswith("K9") else [])
+        want = launch.run_plain()
+        for p_ in (raster.RASTER_PART_ENTRIES, 16):
+            seen = {}
+            out = with_part_entries(p_, launch.run, launch.kernel, seen)()
+            err = assert_equal(f"{name} on {label}, P = {p_}", out, want)
+            for k in keys:
+                max_err[k] = max(max_err[k], err)
+            off, (parts, _) = seen[p_].cpu(), parts_plain(launch, p_)
+            if int(off[0]) != 0 or not torch.equal(off[1:] - off[:-1],
+                                                   parts.int()):
+                raise AssertionError(f"{name} on {label}, P = {p_}: the "
+                                     f"kernel counted {int(off[-1])} parts,"
+                                     f" the bins give {int(parts.sum())}")
+        log(f"# {name} (band form) == plain on {label} (tile_h {r.tile_h},"
+            f" n_large {n_large}): bit-equal at P = "
+            f"{raster.RASTER_PART_ENTRIES} and 16, parts as the bins give")
+        return n_large
+
+    quad16 = prim.construct_quad(16.0, color=(0.3, 0.9, 0.4, 1.0))
+    quad16["vertices"] = quad16["vertices"] + np.float32([0.0, 0.0, -0.5])
+    sg_cq = [(dict(p=(0.0, 0.0, 0.0),
+                   **prim.merge_meshes(prim.construct_cube(), quad16)), {})]
+    sc_cq, tr_cq, li_cq = scenes.to_torch_scene(
+        sg_cq, *scenes.baseline_scene(1, 256, 1408)[1:], device=dev)
+    band_scenes = [("cube + 16-unit quad at 1408x256", sc_cq, tr_cq, li_cq,
+                    256, 1408, 0, True)]
+    for n, v, n_tex, gbuf_ in (("k4", "base", 0, True),
+                               ("k4", "sidelist", 0, True),
+                               ("k4", "textured", 1, False),
+                               ("k4", "gbuffer", 0, True),
+                               ("k4multi", "sidelist", 0, False),
+                               ("k2multi", "textured", 1, False)):
+        sc_, tr_, li_, (h_, w_) = route_torch_scene(n, v, dev)
+        band_scenes.append((f"route {n} ({v}) at {w_}x{h_}", sc_, tr_, li_,
+                            h_, w_, n_tex, gbuf_))
+    for tile_h in BAND_HEIGHTS:
+        sides = 0
+        for label, sc_, tr_, li_, h_, w_, n_tex, gbuf_ in band_scenes:
+            if "gbuffer" not in label:
+                check_band("K4 raster+shade band", label, prepare_scene(
+                    sc_, tr_, li_, h_, w_, strategy="sorted", tile_h=tile_h),
+                    ("sorted", tile_h, 1), "K4 raster+shade band", n_tex)
+            if gbuf_:
+                sides += check_band(
+                    "K9 G-buffer sorted", label, gbuffer_launch(
+                        *sc_[0], tr_, li_, h_, w_, strategy="sorted",
+                        tile_h=tile_h), ("sorted", tile_h, 1),
+                    "K9 G-buffer sorted band") > 0
+        if not sides:
+            raise AssertionError(f"band form at {tile_h} rows: no K9 launch "
+                                 "reached the side list")
 
     # K11 on K3's and K2's routes: bit-equal to its plain version and to the
     # non-culling kernel on the same operands; its skipped batches at least
@@ -1470,11 +1597,16 @@ def main():
         "stack6", scene6, tr6, li6, H, W, n_frames,
         ("K1 setup", "K2 raster+shade"), per_frame={"K1 setup": 6})
 
-    # The 32-row paths, through the ops entry points with the route knobs
-    # (neither package's Renderer takes a tile height): the setup, then
-    # rasterize_shaded (fused) or rasterize_gbuffer + shade + the merge
-    # into a fresh frame (deferred). Frame 0 of each on the card against
-    # the CPU plain run first, then 23 frames each.
+    # The forced-height paths, through the ops entry points with the route
+    # knobs (neither package's Renderer takes a tile height): the setup,
+    # then rasterize_shaded (fused) or rasterize_gbuffer + shade + the
+    # merge into a fresh frame (deferred). The 32-row paths, and the band
+    # form's at 24 and 64 rows (K4 on the 40k sphere and on the headline's
+    # 1M one, K9 + K10 on deferred 40k). Frame 0 of each on the card
+    # against the CPU plain run first (but the headline's, whose kernel is
+    # held to its plain version on the card in 6b), the band paths' also
+    # against the same scene at 16 rows on the card, with their drops;
+    # then 23 frames each.
     def fused_ops_frame(h, w, strategy, tile_h):
         def frame(sc, tr_, li_):
             (o, c), = sc
@@ -1502,7 +1634,7 @@ def main():
     sg40 = phong_mesh_scene(mesh40k)
     sg40d = [(dict(p=(0.0, 0.0, 0.0), **backdrop_mesh(140, 143)),
               sg_def[0][1])]
-    paths32 = (
+    forced_paths = (
         ("config 4 @32", sg4, H, W, fused_ops_frame(H, W, "sorted", 32),
          ("K7 record transpose", "K4 raster+shade 32-row")),
         ("40k @32", sg40, H, W, fused_ops_frame(H, W, "sorted", 32),
@@ -1514,8 +1646,37 @@ def main():
          ("K7 record transpose", "K8 G-buffer mask")),
         ("deferred 40k @32", sg40d, H, W,
          deferred_ops_frame(H, W, "sorted", 32),
-         ("K1 setup", "K9 G-buffer sorted")))
-    for path, sg_, h, w, frame, _ in paths32:
+         ("K1 setup", "K9 G-buffer sorted")),
+        *((f"40k @{t}", sg40, H, W, fused_ops_frame(H, W, "sorted", t),
+           ("K1 setup", "K4 raster+shade band")) for t in (24, 64)),
+        *((f"deferred 40k @{t}", sg40d, H, W,
+           deferred_ops_frame(H, W, "sorted", t),
+           ("K1 setup", "K9 G-buffer sorted")) for t in (24, 64)),
+        ("headline @64", phong_mesh_scene(mesh), H, W,
+         fused_ops_frame(H, W, "sorted", 64),
+         ("K1 setup", "K4 raster+shade band")))
+    band_drops = {}
+    for path, sg_, h, w, frame, _ in forced_paths:
+        if path.endswith("@32"):
+            continue
+        sc, tr_, li_ = torch_scene(sg_, h, w, dev)
+        fb, st = frame(sc, tr_, li_)
+        make16 = (deferred_ops_frame if path.startswith("deferred")
+                  else fused_ops_frame)
+        fb16, st16 = make16(h, w, "sorted", 16)(sc, tr_, li_)
+        assert_equal(f"path {path} frame 0 against 16-row tiles",
+                     (fb.depth, fb.color), (fb16.depth, fb16.color))
+        band_drops[path] = dict(
+            drops=int(st["bins_dropped"]), drops_16=int(st16["bins_dropped"]),
+            real_entries=int(st["bins_real_entries"]),
+            real_entries_16=int(st16["bins_real_entries"]))
+        if band_drops[path]["drops"] or band_drops[path]["drops_16"]:
+            raise AssertionError(f"path {path}: {band_drops[path]}")
+        log(f"# path {path} frame 0 {w}x{h}: == the same scene at 16 rows on "
+            f"the card, bit-equal; {json.dumps(band_drops[path])}")
+    for path, sg_, h, w, frame, _ in forced_paths:
+        if path.startswith("headline"):
+            continue
         outs = []
         for d in ("cpu", dev):
             sc, tr_, li_ = torch_scene(sg_, h, w, d)
@@ -1528,45 +1689,33 @@ def main():
             raise AssertionError(f"path {path} frame 0: {cov} px covered")
         log(f"# path {path} frame 0 {w}x{h}: card == CPU plain, bit-equal, "
             f"{cov} px covered")
-    for path, sg_, h, w, frame, kernels in paths32:
+    for path, sg_, h, w, frame, kernels in forced_paths:
         sc, tr_, li_ = torch_scene(sg_, h, w, dev)
         path_ms[path], _, path_launches[path] = drive(
             path, sc, tr_, li_, h, w, n_frames, kernels,
             render=lambda s_, f=frame, t=tr_, l=li_: f(s_, t, l))
 
-    # 6a. Split of the headline frame: rotate / setup / binning / raster.
-    # Each stage runs alone between two syncs, so its CUDA-event time is
-    # its host enqueue plus its device time; the stages sum to more than a
-    # frame, where the device overlaps one stage with the host's next.
-    split = {"rotate": [], "setup": [], "binning": [], "raster": []}
+    # 6a. The headline's split and frame time through the profiling
+    # module: stage_breakdown (setup / binning / raster, each stage alone
+    # between syncs, CUDA events, host enqueue included, the mean of 10
+    # rotated frames) and FrameTimer around 13 Renderer frames, each tick
+    # waiting for its frame (the summary of the last 10).
+    from tpu_renderer_torch.utils import profiling
 
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = fn()
-        e1.record()
-        torch.cuda.synchronize()
-        split[name].append(e0.elapsed_time(e1))
-        return out
-
-    route = raster.raster_route(T, H, W)
-    specs = (raster.ObjSpec(0, T, True),)
-    for a in [0.06 * i for i in range(10)]:
-        spun = timed("rotate", lambda: rotated(head_scene, a, dev)[0][0])
-        pre = timed("setup", lambda: setup.setup_for_raster(
-            spun, head_tr, head_li, cfg, frame_height=H, frame_width=W))
-        qbins, lcounts = timed("binning", lambda: raster.bin_for_raster(
-            pre.bbox, route, H, W))
-        timed("raster", lambda: raster.raster_kernel(
-            pre.recs, qbins, lcounts, raster.shade_params(head_tr, head_li),
-            raster.obj_table(specs, dev), raster.tex_table(specs, dev), None,
-            tiles_y=H // 8, tiles_x=W // 128, row0=0, col0=0,
-            frame_width=W, n_lights=head_li.count))
-    split_med = {k: round(statistics.median(v), 4) for k, v in split.items()}
-    log("# headline split (ms, each stage alone between syncs, host "
-        f"enqueue included, median of 10): {json.dumps(split_med)}")
+    split = profiling.stage_breakdown(obj, cfg, head_tr, head_li, H, W,
+                                      frames=10, device=dev)
+    log(f"# headline stage_breakdown (ms/frame): {json.dumps(split)}")
+    timer = profiling.FrameTimer()
+    head_renderer = trt.Renderer(H, W, device=dev)
+    for a in [0.05 * i for i in range(WARMUP + 10)]:
+        out = []  # the frame tick waits for
+        with timer.tick(out):
+            out.append(head_renderer.render(rotated(head_scene, a, dev),
+                                            head_tr, head_li))
+    frame_timer = profiling.FrameTimer(samples=timer.samples[WARMUP:]
+                                       ).summary()
+    log(f"# headline FrameTimer (host clock, {WARMUP} warm-up frames "
+        f"left out): {json.dumps(frame_timer)}")
 
     # 6b. Each kernel at its path's shapes: held bit-equal to its plain
     # version on the same inputs, then timed beside it in turns (plain,
@@ -2015,6 +2164,91 @@ def main():
                 f"{ms_o:.4f} ms, same frame")
         ab32[label] = row
 
+    # The band form at its paths' shapes: K4 on 40k @24 (its row), 40k @64
+    # and headline @64 (frame 0 of that path, held to its plain version on
+    # the card), K9 + K10 on deferred 40k @24 (its row) and @64: each held
+    # bit-equal to its plain version, timed beside it, with its bound and
+    # drops; the split phase at 24 rows (P = 16, the parts read back, one
+    # part a stream); K10 as K9's band form with the quad beside the 40k
+    # sphere alone at 24 rows. Then the A/B on the 40k sphere: the band
+    # form at 16 and 32 rows (the band wrapper on the 16- and 32-row
+    # launches' operands) against <16> and <32>, in turns, the same frame.
+    band_info = {"K4 raster+shade band": {}, "K9 G-buffer sorted band": {}}
+    torch.cuda.reset_peak_memory_stats()
+    band_launches = {}
+    for path, name, sc_, tr_, li_, n_tris in (
+            ("40k @24", "K4 raster+shade band", sc40, tr40, li40, T40),
+            ("40k @64", "K4 raster+shade band (40k @64)", sc40, tr40, li40,
+             T40),
+            ("headline @64", "K4 raster+shade band (headline @64)",
+             head_scene, head_tr, head_li, T)):
+        tile_h = int(path.split("@")[1])
+        launch = prepare_scene(sc_, tr_, li_, H, W, strategy="sorted",
+                               tile_h=tile_h)
+        check_route(path, launch, ("sorted", tile_h, 1, 8, 2))
+        band_launches[path] = launch
+        time_launch(name, f"{path} {n_tris} tris {W}x{H}", launch)
+        kms, pms, bms, by, _ = timing[name]
+        band_info["K4 raster+shade band"][path] = dict(
+            ms=round(kms, 4), plain_ms=round(pms, 4), bound_ms=round(bms, 6),
+            bound_by=by, expansion=launch.route.expansion,
+            budget_factor=launch.route.policy_factor,
+            drops=int(launch.stats()["bins_dropped"]),
+            real_entries=int(launch.stats()["bins_real_entries"]),
+            parts=int(raster.raster_narrow_any_kernel.part_offsets[-1]))
+    band_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"# band form: peak device memory of its K4 checks {band_peak_gib:.2f}"
+        " GiB (the plain version's record gather at 64 rows on 1M tris)")
+    split_phase("K4 raster+shade band", f"40k {T40} tris 1920x1080, 24-row "
+                "tiles", band_launches["40k @24"], sweep=False)
+    d40b = {t: gbuffer_launch(*sc40d[0], tr40d, li40d, H, W,
+                              strategy="sorted", tile_h=t) for t in (24, 64)}
+    for t, launch in d40b.items():
+        kms, pms, work = time_gbuffer(
+            "K9 G-buffer sorted band", f"deferred 40k {T40 + 2} tris "
+            f"1920x1080, {t}-row tiles", launch)
+        bms, by = bound(*work)
+        band_info["K9 G-buffer sorted band"][f"deferred 40k @{t}"] = dict(
+            ms=round(kms, 4), plain_ms=round(pms, 4), bound_ms=round(bms, 6),
+            bound_by=by, n_large=int(launch.qbins.n_large),
+            drops=int(launch.stats()["bins_dropped"]),
+            parts=int(gbuffer.raster_pass_queue.part_offsets[-1]))
+        if t == 24:
+            timing["K9 G-buffer sorted band"] = (kms, pms, bms, by, None)
+            k9b_24, k9bp_24, work_b24 = kms, pms, work
+    if d40b[24].qbins.n_large <= 0:
+        raise AssertionError("deferred 40k @24: the quad is not on the side "
+                             "list")
+    split_phase("K9 G-buffer sorted band", f"deferred 40k {T40 + 2} tris "
+                "1920x1080, 24-row tiles", d40b[24], sweep=False)
+    k9s_b, _, work_sb = time_gbuffer(
+        "K9 G-buffer sorted band", f"the 40k sphere alone {T40} tris "
+        "1920x1080, 24-row tiles", gbuffer_launch(
+            *sc40s[0], tr40d, li40d, H, W, strategy="sorted", tile_h=24))
+    bms10c, by10c = bound(*(max(a - b, 0) for a, b in zip(work_b24,
+                                                          work_sb)))
+    timing["K10 G-buffer side list band"] = (k9b_24, k9bp_24, bms10c, by10c,
+                                             None)
+    log(f"# K10 G-buffer side list band ({int(d40b[24].qbins.n_large)} "
+        f"triangles): K9 band with it {k9b_24:.4f} ms against K9 band on "
+        f"the 40k sphere alone {k9s_b:.4f} ms, bound {bms10c:.6f} ms "
+        f"({by10c})")
+    band_ab = {}
+    for t in (16, 32):
+        form = ab_forms["40k"][0][str(t)]
+
+        def band_run(form=form, t=t):
+            return raster.raster_narrow_any_kernel(*form.operands, tile_h=t,
+                                                   **form.options)
+        max_err["K4 raster+shade band"] = max(
+            max_err["K4 raster+shade band"], assert_equal(
+                f"the band form at {t} rows on 40k against <{t}>",
+                band_run(), form.run()))
+        ms_band, ms_form = in_turns(band_run, form.run, 20, 20)
+        band_ab[t] = dict(band_ms=round(ms_band, 4), form_ms=round(ms_form, 4))
+        log(f"# band A/B on 40k at {t} rows: the band form {ms_band:.4f} ms "
+            f"against <{t}> {ms_form:.4f} ms (in turns), same frame")
+
     # K11 on stack6 zcull's first frame: held bit-equal to its plain
     # version and to K2 split on the same operands, timed beside its plain
     # version, beside K2 split and beside itself at one part a stream, in
@@ -2149,7 +2383,7 @@ def main():
                 path, lambda a: renderer.render(rotated(sc, a, dev), tr_,
                                                 li_),
                 [0.06 * i for i in range(10)], path_ms[path])
-        for path, sg_, h, w, frame, _ in paths32:
+        for path, sg_, h, w, frame, _ in forced_paths:
             sc, tr_, li_ = torch_scene(sg_, h, w, dev)
             profile_frames(
                 path, lambda a: frame(rotated(sc, a, dev), tr_, li_),
@@ -2185,6 +2419,13 @@ def main():
             entry["k9_without_side_list_ms"] = round(k9s_ms, 4)
         if name == "K10 G-buffer side list 32-row":
             entry["k9_without_side_list_ms"] = round(k9s_32, 4)
+        if name == "K10 G-buffer side list band":
+            entry["k9_without_side_list_ms"] = round(k9s_b, 4)
+        if name in band_info:
+            entry["by_path"] = band_info[name]
+            entry["ptxas"] = band_ptxas
+        if name == "K4 raster+shade band":
+            entry["against_forms_40k"] = band_ab
         if name in split_info:
             entry.update(split_info[name])
         if name == "K7 record transpose":
@@ -2205,11 +2446,14 @@ def main():
         kernels.append(entry)
     log("# frames: " + json.dumps({
         "ms_per_frame": {k: round(v, 4) for k, v in path_ms.items()},
-        "headline_split_ms": split_med,
+        "headline_split_ms": split,
         "deferred_shade_ms": round(shade_ms, 4),
         "textured_250k_fused_vs_deferred_ms": [round(fused_ms, 4),
                                                round(def_ms, 4)],
         "ab_32_rows": ab32,
+        "band_paths_frame0": band_drops,
+        "band_peak_memory_gib": round(band_peak_gib, 2),
+        "headline_frame_timer": frame_timer,
         "card": smi_line}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ sorted strategy, single and multi-object; K4 also on 32-row tiles), K6
 strip height), K5
 (texture sampling, inside each route's finalize), K7 (record
 transpose), K8 / K9 / K10 (raster into a G-buffer: mask, sorted, side
-list; 8-, 16- and 32-row tiles, K8 also 64), K11 (the occlusion skip on K2's and
+list; 8-, 16- and 32-row tiles, K8 also 64), K4 and K9 + K10 in the band
+form (24 to 64 rows), K11 (the occlusion skip on K2's and
 K3's routes), K2 / K3 / K4 and K9 split into parts of 1, 16 and the
 default number of entries merged by the (z, gid) key, and whole frames
 on the card against the CPU run, with the
@@ -448,8 +449,8 @@ def test_gbuffer_kernel_equals_plain(cuda, name, variant, route):
 
 def test_gbuffer_subrect_and_tile_height_on_card(cuda):
     """K9's row0 / col0 offsets: a sub-rectangle off the tile grid equals
-    the plain version and the full frame's crop; tile_h 24, which no CUDA
-    kernel runs, raises on CUDA tensors, naming the heights that do."""
+    the plain version and the full frame's crop; tile_h 12, not a multiple
+    of 8, raises on CUDA tensors, naming the rule, and launches nothing."""
     scene, tr, li, (h, w) = torch_scene("k4", "sidelist", cuda)
     obj, cfg = scene[0]
     table = tsp.setup_for_raster(obj, tr, li, cfg, frame_height=h,
@@ -462,8 +463,10 @@ def test_gbuffer_subrect_and_tile_height_on_card(cuda):
         assert torch.equal(bits(a), bits(b))
     assert torch.equal(bits(out_k[1][:, :300, :300]),
                        bits(full[:, 37:337, 21:321]))
-    with pytest.raises(ValueError, match="8, 16, 32 rows on CUDA, not 24"):
-        tgb.rasterize_gbuffer(table, h, w, tile_h=24)
+    n0 = tgb.raster_pass_queue.launches
+    with pytest.raises(ValueError, match="multiple of 8 rows on CUDA, not 12"):
+        tgb.rasterize_gbuffer(table, h, w, tile_h=12)
+    assert tgb.raster_pass_queue.launches == n0
 
 
 @pytest.mark.parametrize("part_entries", [1, 16, trp.RASTER_PART_ENTRIES])
@@ -509,6 +512,97 @@ def test_split_k9_equals_plain(cuda, monkeypatch, tile_h, part_entries):
         assert int((out_k[0] >= 0).sum()) > 1000, label
         if label == "doubled":
             assert int(out_k[0].max()) < obj.num_triangles
+
+
+BAND_HEIGHTS = (24, 40, 48, 56, 64)  # heights without a form of their own
+
+
+def band_cases(device):
+    """(label, scene, transform, lights, (h, w)) of the band form's
+    scenes: the k4 route scenes (528 triangles; the 2.2-unit quad on the
+    side list at 24 rows) and a cube with a 16-unit quad behind it at 256
+    x 1408, whose quad takes the side list at every band height."""
+    cases = [(f"k4 {v}",) + torch_scene("k4", v, device)
+             for v in ("base", "sidelist", "textured")]
+    quad = tp.construct_quad(16.0, color=(0.3, 0.9, 0.4, 1.0))
+    quad["vertices"] = quad["vertices"] + np.float32([0.0, 0.0, -0.5])
+    sg = [(dict(p=(0.0, 0.0, 0.0),
+                **tp.merge_meshes(tp.construct_cube(), quad)), {})]
+    _, tr_d, li_d = ts.baseline_scene(1, 256, 1408)
+    cases.append(("cube + 16-unit quad",)
+                 + ts.to_torch_scene(sg, tr_d, li_d, device=device)
+                 + ((256, 1408),))
+    return cases
+
+
+@pytest.mark.parametrize("part_entries", [16, trp.RASTER_PART_ENTRIES])
+@pytest.mark.parametrize("tile_h", BAND_HEIGHTS)
+def test_band_form_equals_plain(cuda, monkeypatch, tile_h, part_entries):
+    """K4 (``raster_narrow_any_kernel``) and K9 + K10 in the band form at
+    24 to 64 rows, parts of 16 and the default entries: z, gid and colour
+    (K5 on the textured sphere), and gid and the 11 planes, bit-equal to
+    the plain version and to the 16-row form's frame; one launch counted,
+    the part offsets as the bins give them, the side list reached."""
+    from tpu_renderer_torch.engine.renderer import prepare_scene
+
+    monkeypatch.setattr(trp, "RASTER_PART_ENTRIES", part_entries)
+    side = False
+    for label, scene, tr, li, (h, w) in band_cases(cuda):
+        fused = prepare_scene(scene, tr, li, h, w, strategy="sorted",
+                              tile_h=tile_h)
+        obj, cfg = scene[0]
+        table = tsp.setup_for_raster(obj, tr, li, cfg, frame_height=h,
+                                     frame_width=w)
+        gbuf = tgb.prepare_gbuffer(table, h, w, strategy="sorted",
+                                   tile_h=tile_h)
+        assert fused.kernel is trp.raster_narrow_any_kernel
+        assert gbuf.kernel is tgb.raster_pass_queue
+        for launch, wrapper, form16 in (
+                (fused, trp.raster_narrow_any_kernel, prepare_scene(
+                    scene, tr, li, h, w, strategy="sorted", tile_h=16)),
+                (gbuf, tgb.raster_pass_queue, tgb.prepare_gbuffer(
+                    table, h, w, strategy="sorted", tile_h=16))):
+            assert (launch.route.tile_h, launch.route.rows) == (tile_h, 1)
+            n0 = wrapper.launches
+            out_k = launch.run()
+            assert wrapper.launches == n0 + 1
+            assert torch.equal(wrapper.part_offsets.long(),
+                               split_parts(launch, part_entries))
+            out_p = launch.run_plain()
+            out_16 = form16.run()
+            torch.cuda.synchronize()
+            for a, b, c in zip(out_k, out_p, out_16):
+                assert torch.equal(bits(a), bits(b)), label
+                assert torch.equal(bits(a[..., :h, :w]),
+                                   bits(c[..., :h, :w])), label
+            assert int(launch.stats()["bins_dropped"]) == 0
+            side |= int(launch.qbins.n_large) > 0
+    assert side
+
+
+def test_band_form_refuses_other_heights(cuda):
+    """On CUDA tensors the sorted kernels refuse a height that is not a
+    multiple of 8, naming the rule, and launch nothing: no other height
+    and no plain fold renders in their place."""
+    from tpu_renderer_torch.engine.renderer import prepare_scene
+
+    scene, tr, li, (h, w) = torch_scene("k4", "base", cuda)
+    obj, cfg = scene[0]
+    table = tsp.setup_for_raster(obj, tr, li, cfg, frame_height=h,
+                                 frame_width=w)
+    n0 = (trp.raster_narrow_any_kernel.launches,
+          tgb.raster_pass_queue.launches)
+    for tile_h in (12, 20, 4):
+        launch = prepare_scene(scene, tr, li, h, w, strategy="sorted",
+                               tile_h=tile_h)
+        assert launch.kernel is trp.raster_narrow_any_kernel
+        with pytest.raises(ValueError, match="multiple of 8 rows on CUDA"):
+            launch.run()
+        with pytest.raises(ValueError, match="multiple of 8 rows on CUDA"):
+            tgb.rasterize_gbuffer(table, h, w, strategy="sorted",
+                                  tile_h=tile_h)
+    assert (trp.raster_narrow_any_kernel.launches,
+            tgb.raster_pass_queue.launches) == n0
 
 
 @pytest.mark.parametrize("name, variant, strategy", [

@@ -49,6 +49,8 @@ from .engine.renderer import (
     render_scene,
 )
 
+__version__ = "0.1.0"
+
 __all__ = [
     "DEPTH_CLEAR",
     "Framebuffer",
@@ -65,4 +67,5 @@ __all__ = [
     "no_lights",
     "render_object",
     "render_scene",
+    "__version__",
 ]

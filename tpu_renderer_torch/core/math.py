@@ -91,6 +91,13 @@ def to_i32(x):
                        safe.to(torch.int32))
 
 
+def round_to_s32(x):
+    """RoundR32ToS32: ``round_half_away`` then f32 -> int32 as ``to_i32``
+    (truncate, saturate at the int32 limits, NaN -> 0), as the JAX
+    package's ``astype(int32)`` converts."""
+    return to_i32(round_half_away(x))
+
+
 def clamp01(x):
     """Clamp01 (projekt.cpp:483), NaN-propagating like jnp.clip."""
     return clip(x, 0.0, 1.0)
@@ -104,6 +111,19 @@ def inner(a, b):
     for i in range(1, n):
         acc = acc + a[..., i] * b[..., i]
     return acc
+
+
+def cross(a, b):
+    """Cross: 3D cross product along the last axis."""
+    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
+    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack(
+        [ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx], dim=-1)
+
+
+def hadamard(a, b):
+    """Hadamard: the elementwise product (kept for the reference's map)."""
+    return a * b
 
 
 def normalize(v):

@@ -15,12 +15,16 @@
 //                     form, :2372-2380, _chunk_best :910 per CHUNK_T chunk);
 //   tr_raster_narrow32
 //                     K4 on 32-row tiles (the narrow form at tile_h 32);
+//   tr_raster_narrow_any
+//                     K4 on tiles of any other multiple of 8 rows, the
+//                     height a runtime value (the band form, below);
 //   tr_raster_mask    K6: mask strategy, tiles of any multiple of 8 rows,
 //                     each tile's padded triangle list (bin_triangles), no
 //                     side list, folded strip by strip (see "The mask
 //                     strategy" below);
 //   tr_gbuffer_mask   K8: K6's fold, the G-buffer finalize (gbuffer_tile);
 //   tr_gbuffer_queue  K9 + K10: one sorted stream, 8-, 16- or 32-row tiles,
+//                     or any other multiple of 8 rows in the band form,
 //                     into a G-buffer;
 //   tr_raster_zcull, tr_raster_rows1_zcull
 //                     K11: K2 and K3 with the zcull branch (zcull and wide,
@@ -933,6 +937,41 @@ __device__ __forceinline__ void fold_run(
                                     skipped, keys, f.out_w);
 }
 
+// The tile of part ``part`` (part_off[tile] <= part < part_off[tile + 1],
+// by binary search), the part's stream h (STREAMS: the side list, numbered
+// after the streams' parts) and its run of entries ids[0..ne).
+template <int STREAMS>
+__device__ __forceinline__ int part_run(
+    int part, const int* __restrict__ part_off, int nfb,
+    const int* __restrict__ sorted_tri, const int* __restrict__ starts,
+    const int* __restrict__ counts, const int* __restrict__ large_ids,
+    const int* __restrict__ n_large, int part_entries, int& h,
+    const int*& ids, int& ne) {
+  int lo = 0, hi = nfb;  // part_off[lo] <= part < part_off[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (part_off[mid] <= part)
+      lo = mid;
+    else
+      hi = mid;
+  }
+  const int tile = lo;
+  int j = part - part_off[lo];
+  for (h = 0; h < STREAMS; ++h) {
+    const int np = stream_parts(counts[STREAMS * tile + h], part_entries);
+    if (j < np) break;
+    j -= np;
+  }
+  ids = large_ids;
+  ne = *n_large;
+  if (h < STREAMS) {
+    const int first = j * part_entries;
+    ids = sorted_tri + starts[STREAMS * tile + h] + first;
+    ne = min(counts[STREAMS * tile + h] - first, part_entries);
+  }
+  return tile;
+}
+
 template <int TILE_H, int STREAMS, bool CULL>
 __global__ void __launch_bounds__(Tile<TILE_H>::kThreads) split_walk_kernel(
     const int* __restrict__ sorted_tri, const int* __restrict__ starts,
@@ -944,31 +983,11 @@ __global__ void __launch_bounds__(Tile<TILE_H>::kThreads) split_walk_kernel(
   constexpr int kStrip = TILE_H / STREAMS;  // rows each stream covers
   const int n = part_off[nfb];
   for (int part = blockIdx.x; part < n; part += gridDim.x) {
-    int lo = 0, hi = nfb;  // part_off[lo] <= part < part_off[hi]
-    while (hi - lo > 1) {
-      const int mid = (lo + hi) >> 1;
-      if (part_off[mid] <= part)
-        lo = mid;
-      else
-        hi = mid;
-    }
-    const int tile = lo;
-    int j = part - part_off[lo];
-    // The part's stream h and its run of entries; h == STREAMS: the side
-    // list, after the streams' parts.
-    int h = 0;
-    for (; h < STREAMS; ++h) {
-      const int np = stream_parts(counts[STREAMS * tile + h], part_entries);
-      if (j < np) break;
-      j -= np;
-    }
-    const int* ids = large_ids;
-    int ne = *n_large;
-    if (h < STREAMS) {
-      const int first = j * part_entries;
-      ids = sorted_tri + starts[STREAMS * tile + h] + first;
-      ne = min(counts[STREAMS * tile + h] - first, part_entries);
-    }
+    int h, ne;
+    const int* ids;
+    const int tile = part_run<STREAMS>(part, part_off, nfb, sorted_tri,
+                                       starts, counts, large_ids, n_large,
+                                       part_entries, h, ids, ne);
     const int ty = tile / f.tiles_x, tx = tile - ty * f.tiles_x;
     const int row_base = f.row0 + ty * TILE_H;
     const float xc =
@@ -1028,13 +1047,14 @@ __global__ void __launch_bounds__(Tile<TILE_H>::kThreads)
   write_tile<TILE_H, GBUF>(f, win, ty, tx, row_base, xc);
 }
 
-// Blocks of split_walk_kernel<TILE_H, STREAMS, CULL> that the current card
-// runs at once, into *blocks. A successful answer is kept for each device
+constexpr int kMaxDevices = 64;
+
+// Blocks of ``kernel`` (``threads`` a block) that the current card runs at
+// once, into *blocks; ``cached`` keeps a successful answer for each device
 // index.
-template <int TILE_H, int STREAMS, bool CULL>
-cudaError_t resident_blocks(int* blocks) {
-  constexpr int kMaxDevices = 64;
-  static int cached[kMaxDevices] = {};
+template <class Kernel>
+cudaError_t occupancy_blocks(Kernel kernel, int threads, int* cached,
+                             int* blocks) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -1045,14 +1065,22 @@ cudaError_t resident_blocks(int* blocks) {
   int sms = 0, per_sm = 0;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, split_walk_kernel<TILE_H, STREAMS, CULL>,
-      Tile<TILE_H>::kThreads, 0);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    0);
   if (e != cudaSuccess) return e;
   if (sms * per_sm < 1) return cudaErrorInvalidConfiguration;
   *blocks = sms * per_sm;
   if (dev < kMaxDevices) cached[dev] = *blocks;
   return cudaSuccess;
+}
+
+// Blocks of split_walk_kernel<TILE_H, STREAMS, CULL> that the current card
+// runs at once.
+template <int TILE_H, int STREAMS, bool CULL>
+cudaError_t resident_blocks(int* blocks) {
+  static int cached[kMaxDevices] = {};
+  return occupancy_blocks(split_walk_kernel<TILE_H, STREAMS, CULL>,
+                          Tile<TILE_H>::kThreads, cached, blocks);
 }
 
 // The four device ops of one split launch: zero the keys, count the parts,
@@ -1083,6 +1111,101 @@ int split_raster(const int* sorted_tri, const int* starts, const int* counts,
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   split_finalize_kernel<TILE_H, GBUF>
       <<<nfb, Tile<TILE_H>::kThreads, 0, s>>>(keys, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The band form: K4 and K9 + K10 at every other multiple of 8 rows (24, 40,
+// 48, 56, 64, ...), the tile height a runtime value. The Pallas kernels take
+// any multiple of 8 rows; the forms above are compiled for 8, 16 and 32.
+// Each tile of tile_h rows is cut into tile_h / kBand bands of kBand = 8
+// rows, and the walk's unit of work is (part, band) in place of part: a
+// block finds its part as split_walk_kernel does (the stream part or the
+// side list of a tile, part_scan_kernel<1> unchanged), folds the part's
+// entries over its band's 8 rows only on a Tile<8> (128 threads, 8 rows of
+// winners each) and atomicMaxes its winners into the same (z desc, gid asc)
+// keys. Band b of tile (ty, tx) is band by = ty * bands + b of the frame,
+// rows row0 + by * 8 + r: the keys, the outputs and their finalize are
+// those of an 8-row tiling of the frame, so split_finalize_kernel<8, GBUF>
+// runs one block per (tile, band). Exact: the merge is per pixel and by the
+// fold's key, so any cut of the rows gives the same winners, and each row's
+// float is made from the same int as in the one-block form. Consecutive
+// items are one part's bands, so a part's records are read from device
+// memory once and then from L2; stage A runs for every (entry, band row)
+// pair, and a band an entry does not reach folds nothing (the span test,
+// ymin <= y < ymax, leaves the pair no span). A simple form: its cost
+// against the 16- and 32-row forms is in PERF.md.
+// ---------------------------------------------------------------------------
+
+constexpr int kBand = 8;
+
+__global__ void __launch_bounds__(kThreads) band_walk_kernel(
+    const int* __restrict__ sorted_tri, const int* __restrict__ starts,
+    const int* __restrict__ counts, const int* __restrict__ large_ids,
+    const int* __restrict__ n_large, const int* __restrict__ part_off,
+    int nfb, int part_entries, int bands, Finalize f,
+    unsigned long long* __restrict__ keys) {
+  __shared__ __align__(16) Shared sh;
+  const long long items = (long long)part_off[nfb] * bands;
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const int part = static_cast<int>(item / bands);
+    const int band = static_cast<int>(item - (long long)part * bands);
+    int h, ne;
+    const int* ids;
+    const int tile = part_run<1>(part, part_off, nfb, sorted_tri, starts,
+                                 counts, large_ids, n_large, part_entries, h,
+                                 ids, ne);
+    const int ty = tile / f.tiles_x, tx = tile - ty * f.tiles_x;
+    const int by = ty * bands + band;
+    const int row_base = f.row0 + by * kBand;
+    const float xc =
+        static_cast<float>(f.col0 + tx * kTileW + tile_col<kBand>());
+    Winners<kBand> win;
+    init_winners(win);
+    fold_run<kBand, kBand, false>(ids, ne, 0, row_base, xc, f, sh, win,
+                                  nullptr, nullptr);
+#pragma unroll
+    for (int r = 0; r < kBand; ++r)
+      if (win.g[r] >= 0)
+        atomicMax(keys + tile_pixel<kBand>(f, by, tx, r),
+                  winner_key(win.z[r], win.g[r]));
+  }
+}
+
+// The band form's four device ops: zero the keys, count the parts, walk the
+// (part, band) items, finalize one block per (tile, band). tile_h: a
+// multiple of 8; part_off: nfb + 1 ints.
+template <bool GBUF>
+int band_raster(int tile_h, const int* sorted_tri, const int* starts,
+                const int* counts, const int* large_ids, const int* n_large,
+                const int* lcounts, int entries, int part_entries,
+                const Finalize& f, int nfb, int* part_off,
+                unsigned long long* keys, size_t n_keys, cudaStream_t s) {
+  if (tile_h < kBand || tile_h % kBand != 0) return 1;  // invalid value
+  const int bands = tile_h / kBand;
+  const long long finals = (long long)nfb * bands;
+  if (finals > 0x7FFFFFFFLL) return 1;
+  static int cached[kMaxDevices] = {};
+  int blocks = 0;
+  cudaError_t e = occupancy_blocks(band_walk_kernel, kThreads, cached,
+                                   &blocks);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if ((e = cudaMemsetAsync(keys, 0, n_keys * sizeof(*keys), s)) != cudaSuccess)
+    return static_cast<int>(e);
+  part_scan_kernel<1><<<1, kScanThreads, 0, s>>>(counts, lcounts, nfb,
+                                                 part_entries, part_off);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  // At most (entries / P + nfb stream parts + nfb side-list parts) x bands.
+  const long long most =
+      ((long long)entries / part_entries + 2LL * nfb) * bands;
+  const int grid = static_cast<int>(most < blocks ? most : blocks);
+  band_walk_kernel<<<grid, kThreads, 0, s>>>(sorted_tri, starts, counts,
+                                             large_ids, n_large, part_off,
+                                             nfb, part_entries, bands, f,
+                                             keys);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  split_finalize_kernel<kBand, GBUF>
+      <<<static_cast<unsigned>(finals), kThreads, 0, s>>>(keys, f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1164,6 +1287,29 @@ TR_RASTER_ENTRY(tr_raster_rows1, 8, 1)     // K3
 TR_RASTER_ENTRY(tr_raster_narrow, 16, 1)   // K4
 TR_RASTER_ENTRY(tr_raster_narrow32, 32, 1) // K4, 32-row tiles
 
+// K4 on tiles of any other multiple of 8 rows, in the band form: K4's
+// operands and tile_h; keys (hp * wp) u64, hp = tiles_y * tile_h.
+extern "C" int tr_raster_narrow_any(
+    const float* recs, const int* sorted_tri, const int* starts,
+    const int* counts, const int* large_ids, const int* n_large,
+    const int* lcounts, const float* params, const int* objs, const int* texs,
+    const unsigned* atlas, int n_obj, int n_lights, int aw, int tile_h,
+    int tiles_y, int tiles_x, int row0, int col0, int frame_w, int entries,
+    int part_entries, unsigned long long* keys, int* part_off, float* z,
+    int* gid, unsigned* color, void* stream) {
+  if (n_obj < 1 || tiles_y < 1 || tiles_x < 1 || entries < 0 ||
+      part_entries < 1 || tile_h < 1)
+    return 1;
+  const int nfb = tiles_y * tiles_x;
+  return tr::band_raster<false>(
+      tile_h, sorted_tri, starts, counts, large_ids, n_large, lcounts,
+      entries, part_entries,
+      tr::make_finalize(recs, params, objs, texs, atlas, aw, n_obj, n_lights,
+                        tiles_x, row0, col0, frame_w, z, gid, color),
+      nfb, part_off, keys, (size_t)nfb * tile_h * tr::kTileW,
+      static_cast<cudaStream_t>(stream));
+}
+
 // K11 on K2's and K3's routes: the same operands as K2's entry, and
 // ``skipped`` (null, or one int the kernel adds its skipped batches to).
 #define TR_RASTER_ZCULL_ENTRY(NAME, STREAMS)                                   \
@@ -1230,7 +1376,8 @@ extern "C" int tr_gbuffer_mask(const float* recs, const int* ids,
 }
 
 // K9 + K10: the sorted strategy's single stream into a G-buffer, 8-, 16- or
-// 32-row tiles, each tile's stream split into parts of at most
+// 32-row tiles, any other multiple of 8 rows in the band form; each tile's
+// stream split into parts of at most
 // part_entries entries, the side list one more part of each tile whose
 // lcounts gate is open. entries: the length of sorted_tri (the parts'
 // bound, for the grid). keys: (hp * wp) u64 scratch, hp = tiles_y *
@@ -1263,5 +1410,7 @@ extern "C" int tr_gbuffer_queue(const float* recs, const int* sorted_tri,
     return tr::split_raster<32, 1, false, true>(
         sorted_tri, starts, counts, large_ids, n_large, lcounts, entries,
         part_entries, f, nfb, part_off, keys, n_keys, nullptr, s);
-  return 1;  // invalid value
+  return tr::band_raster<true>(tile_h, sorted_tri, starts, counts, large_ids,
+                               n_large, lcounts, entries, part_entries, f,
+                               nfb, part_off, keys, n_keys, s);
 }

@@ -205,6 +205,16 @@ def _scene_table(scene, transform: ProjectiveTransform, lights: LightData,
     return table, objspecs, atlas
 
 
+def object_specs(obj: RenderObject, cfg: ObjectConfig):
+    """(objspecs, atlas) of one fusable object drawn alone: its gid range
+    and Phong flag, and its texture as the whole atlas."""
+    atlas, tex = None, None
+    if cfg.textured:
+        atlas, _ = pack_texture_atlas([obj.texture])
+        tex = _tex_spec(0, obj, cfg)
+    return (ObjSpec(0, obj.num_triangles, cfg.phong, tex),), atlas
+
+
 def prepare_scene(scene: Sequence[Tuple[RenderObject, ObjectConfig]],
                   transform: ProjectiveTransform, lights: LightData,
                   height: int, width: int, frame_height: int | None = None,
@@ -235,11 +245,7 @@ def prepare_scene(scene: Sequence[Tuple[RenderObject, ObjectConfig]],
         table = setup_for_raster(obj, transform, lights, cfg,
                                  frame_height=frame_height,
                                  frame_width=frame_width)
-        atlas, tex = None, None
-        if cfg.textured:
-            atlas, _ = pack_texture_atlas([obj.texture])
-            tex = _tex_spec(0, obj, cfg)
-        objspecs = (ObjSpec(0, obj.num_triangles, cfg.phong, tex),)
+        objspecs, atlas = object_specs(obj, cfg)
     else:
         table, objspecs, atlas = _scene_table(scene, transform, lights,
                                               frame_height, frame_width)
@@ -393,26 +399,27 @@ def render_scene(framebuffer: Framebuffer | None,
 class Renderer:
     """Frame renderer for a fixed frame size on one device.
 
+    The JAX package's Renderer's parameters in its order (renderer.py:405),
+    then ``device``: ``backend`` 'kernels' (the default here; the JAX
+    package's 'pallas') or 'reference' (the JAX package's default; both
+    give the same frame within the parity budgets, only the speed
+    differs); ``clear_color``, the u32 ARGB the frame is cleared to (0
+    renders straight into a fresh frame, anything else merges over a
+    cleared one); ``capacity``, the mask strategy's per-tile list length;
+    ``budget_factor``, the sorted strategy's entry budget in place of the
+    policy's (set, or measured by ``calibrate``); ``zcull``, the occlusion
+    skip (K11) on the fused 8-row routes, bit-exact, worth it on
+    depth-complex scenes drawn front to back.
+
     ``device`` is where frames are rendered: 'cuda' (the default) launches
     the kernels and raises when no card is present, 'cpu' runs their plain
     versions. The scene's tensors must live there.
-
-    The knobs of the JAX package's Renderer (renderer.py:405):
-    ``backend`` 'kernels' (the default here; the JAX package's 'pallas')
-    or 'reference' (the JAX package's default); ``clear_color``, the u32
-    ARGB the frame is cleared to (0 renders straight into a fresh frame,
-    anything else merges over a cleared one); ``capacity``, the mask
-    strategy's per-tile list length; ``budget_factor``, the sorted
-    strategy's entry budget in place of the policy's (set, or measured by
-    ``calibrate``); ``zcull``, the occlusion skip (K11) on the fused 8-row
-    routes, bit-exact, worth it on depth-complex scenes drawn front to
-    back.
     """
 
-    def __init__(self, height: int, width: int, device="cuda",
-                 backend: str = "kernels", clear_color: int = 0,
-                 capacity: int | None = None,
-                 budget_factor: float | None = None, zcull: bool = False):
+    def __init__(self, height: int, width: int, backend: str = "kernels",
+                 clear_color: int = 0, capacity: int | None = None,
+                 budget_factor: float | None = None, zcull: bool = False,
+                 device="cuda"):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend: {backend}")
         self.height = height

@@ -1,5 +1,6 @@
 """Model transforms for animated scenes (PyTorch counterpart of
-``tpu_renderer.geometry.transform``, elementwise form only).
+``tpu_renderer.geometry.transform``, elementwise form only): rotations and
+the object's position.
 
 The rotation matrices follow the entry points' device rule: a tensor
 angle keeps its device; a Python number goes to ``device``, the card
@@ -66,3 +67,10 @@ def rotate_object(obj: RenderObject, rot: torch.Tensor) -> RenderObject:
 
     return obj._replace(vertices=rot3(obj.vertices),
                         normals=rot3(obj.normals))
+
+
+def translate_object(obj: RenderObject, p) -> RenderObject:
+    """Set the object's camera-space position (the reference's Object->P):
+    ``p`` as a (3,) f32 tensor on the object's device."""
+    return obj._replace(p=torch.as_tensor(
+        p, dtype=F32, device=obj.vertices.device).reshape(3))

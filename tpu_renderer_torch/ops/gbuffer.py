@@ -22,10 +22,13 @@ and gid -1. It holds three kernels, in ``csrc/raster.cu``:
 Each wrapper launches its kernel on CUDA tensors and runs its plain
 version on CPU tensors: ``gbuffer_plain``, the plain raster's fragments and
 winners (``ops.raster.raster_fragments``, ``resolve_winners``) over all 10
-attribute planes. K9's CUDA entry takes 8-, 16- and 32-row tiles
+attribute planes. Both CUDA entries take any multiple of 8 rows, as the
+Pallas kernels: K9's is compiled for 8-, 16- and 32-row tiles
 (``ops.raster.CUDA_TILE_HEIGHTS``: the 'auto' route's heights and the
-Pallas kernels' default of 32, 256-thread blocks), K8's any multiple of 8
-rows, as the Pallas kernels; the plain version takes any tile height.
+Pallas kernels' default of 32, 256-thread blocks) and runs every other
+multiple of 8 in the band form (8-row bands of a tile folded by many
+blocks, csrc/raster.cu); K8 folds strips. Other heights raise on CUDA
+tensors; the plain version takes any tile height.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import torch
 from .. import _cuda
 from ..geometry.vertex import REC_LANES
 from . import raster as _raster
-from .binning import QueueBins, TileBins, bin_triangles, triangle_bbox_rows
+from .binning import QueueBins, TileBins, bin_triangles
 from .raster import (
     COL_FIELDS,
     F32,
@@ -53,16 +56,13 @@ from .raster import (
     bin_for_raster,
     bin_stats,
     check_cuda_tile_h,
-    check_mask_tile_h,
     pick_strategy,
-    finish_records,
     mask_capacity,
     mask_stream,
     raster_fragments,
-    record_table,
     resolve_winners,
+    setup_out,
 )
-from .setup import SetupOut
 
 GBUF_CHANNELS = 11  # z, rgba, normal xyz, u/z, v/z, 1/z
 ATTR_FIELDS = COL_FIELDS + NRM_FIELDS + UV_FIELDS  # channels 1..10
@@ -92,10 +92,10 @@ def _outputs(tiles_y: int, tile_h: int, tiles_x: int, dev):
             torch.empty((GBUF_CHANNELS, hp, wp), dtype=F32, device=dev))
 
 
-def _check_cuda(kernel: str, dev, recs, tile_h: int, check_tile_h) -> None:
+def _check_cuda(kernel: str, dev, recs, tile_h: int) -> None:
     if dev.type != "cuda":
         raise ValueError(f"{kernel} runs on CUDA or CPU tensors, not {dev}")
-    check_tile_h(kernel, tile_h)
+    check_cuda_tile_h(kernel, tile_h)
     _cuda.check_tensor("recs", recs, dev, F32, (recs.shape[0], REC_LANES))
 
 
@@ -117,7 +117,7 @@ def raster_pass(recs, bins: TileBins, *, tile_h: int, tiles_y: int,
                          f"launch of {(tiles_y, tiles_x)}")
     if dev.type == "cpu":
         return raster_pass_plain(recs, bins, **kw)
-    _check_cuda("K8", dev, recs, tile_h, check_mask_tile_h)
+    _check_cuda("K8", dev, recs, tile_h)
     capacity = bins.ids.shape[2]
     _cuda.check_tensor("ids", bins.ids, dev, I32,
                        (tiles_y, tiles_x, capacity))
@@ -140,7 +140,9 @@ def raster_pass_queue(recs, qbins: QueueBins, lcounts, *, tile_h: int,
     entries, and where ``lcounts`` is open the side list
     ``qbins.large_ids``, folded in parts of at most
     ``ops.raster.RASTER_PART_ENTRIES`` entries (the side list one part)
-    and merged by the (z desc, gid asc) key. Outputs as ``raster_pass``'s.
+    and merged by the (z desc, gid asc) key; tiles of any multiple of 8
+    rows on CUDA tensors (8, 16 and 32 in forms of their own, every other
+    height in the band form). Outputs as ``raster_pass``'s.
     CUDA tensors launch ``tr_gbuffer_queue`` (the key fill, the part count, the
     walk and the finalize are its device ops), count
     ``raster_pass_queue.launches`` once (K10 runs inside that call) and leave
@@ -156,7 +158,7 @@ def raster_pass_queue(recs, qbins: QueueBins, lcounts, *, tile_h: int,
         return gbuffer_plain(recs, qbins, lcounts, tile_h=tile_h,
                              tiles_y=tiles_y, tiles_x=tiles_x, row0=row0,
                              col0=col0, frame_width=frame_width)
-    _check_cuda("K9", dev, recs, tile_h, check_cuda_tile_h)
+    _check_cuda("K9", dev, recs, tile_h)
     for name, t, shape in (
         ("sorted_tri", qbins.sorted_tri, qbins.sorted_tri.shape),
         ("starts", qbins.starts, (nfb + 1,)),
@@ -264,7 +266,8 @@ def prepare_gbuffer(table, height: int, width: int,
     ``table`` is a SetupOut (K1's table and bboxes), the channel-major
     (85, T) table of ``setup_records`` (bboxes from ``triangle_bbox_rows``,
     the row-major form from ``finish_records``, K7) or an EdgeTable
-    (``ops.raster.record_table``). The strategy and tile height follow the
+    (``ops.raster.record_table``), each made a SetupOut by
+    ``ops.raster.setup_out``. The strategy and tile height follow the
     true triangle count; the mask capacity (default ``mask_capacity``) the
     table's rows, padding included; ``budget_override`` the sorted
     budget (``gbuffer_route``). There is no zcull here: the JAX package
@@ -273,14 +276,8 @@ def prepare_gbuffer(table, height: int, width: int,
         frame_height = height
     if frame_width is None:
         frame_width = width
-    table = record_table(table)
-    if isinstance(table, SetupOut):
-        recs, bbox = table.recs, table.bbox
-        T, t_policy = int(recs.shape[0]), table.num_triangles
-    else:
-        T = t_policy = int(table.shape[1])
-        bbox = triangle_bbox_rows(table, frame_height, frame_width)
-        recs = finish_records(table)
+    table, T = setup_out(table, frame_height, frame_width)
+    recs, bbox, t_policy = table.recs, table.bbox, table.num_triangles
     route = gbuffer_route(t_policy, frame_height, frame_width, strategy,
                           tile_h, budget_override)
     tiles_y = -(-height // route.tile_h)

@@ -8,7 +8,9 @@ or bilinear, within the fused atlas limits) or not. It holds five kernels:
   (raster_pallas.py:2192) on the sorted strategy's routes -- 8-row tiles
   with row packing 2 (K2, ``raster_kernel``), 8-row tiles with one stream
   (K3, ``raster_rows1_kernel``), 16- or 32-row tiles with one stream (K4,
-  ``raster_narrow_kernel``, ``raster_narrow32_kernel``);
+  ``raster_narrow_kernel``, ``raster_narrow32_kernel``), and K4 on tiles of
+  any other height (``raster_narrow_any_kernel``: on CUDA any multiple of
+  8 rows, in the band form);
 - K6: the Pallas ``_raster_kernel_tilelist_shaded`` (raster_pallas.py:2121),
   the mask strategy (``raster_mask_kernel``), tiles of any multiple of 8
   rows, each folded in strips of ``MASK_STRIP_ROWS`` rows by many blocks;
@@ -20,14 +22,19 @@ or bilinear, within the fused atlas limits) or not. It holds five kernels:
   channel-major record table to the row-major one (``csrc/records.cu``).
 
 Each wrapper launches its CUDA kernel on CUDA tensors and runs its plain
-version on CPU tensors. The sorted CUDA kernels take 8-, 16- and 32-row
-tiles (``CUDA_TILE_HEIGHTS``), the mask ones (K6, K8) any multiple of 8
-rows, as the Pallas kernels; the plain versions any height. On the sorted
-routes one wrapper call is four device ops: the CUDA code cuts each
-tile's streams into parts of at most ``RASTER_PART_ENTRIES`` entries (the
-side list one more part), many blocks fold the parts, a 64-bit (z desc,
-gid asc) key per pixel merges them, and a finalize block per tile shades
-the winners, as K9 does (``ops.gbuffer``). The raster kernels' plain
+version on CPU tensors. Every CUDA raster kernel takes any multiple of 8
+rows, as the Pallas kernels: the sorted ones are compiled for 8-, 16- and
+32-row tiles (``CUDA_TILE_HEIGHTS``) and run every other multiple of 8 in
+the band form (``tr_raster_narrow_any``, K9's ``tr_gbuffer_queue``: 8-row
+bands of a tile folded by many blocks); the mask ones (K6, K8) fold any
+multiple of 8 in strips. Other heights raise on CUDA tensors
+(``check_cuda_tile_h``); the plain versions take any height. On the
+sorted routes one wrapper call is four device ops: the CUDA code cuts
+each tile's streams into parts of at most ``RASTER_PART_ENTRIES`` entries
+(the side list one more part), many blocks fold the parts (in the band
+form each part once per band), a 64-bit (z desc, gid asc) key per pixel
+merges them, and a finalize block per tile (per band) shades the winners,
+as K9 does (``ops.gbuffer``). The raster kernels' plain
 version, ``raster_plain``, is vectorised over the binned entries (the mask
 strategy's lists go in as one stream, ``mask_plain``); each pixel's winner
 is the lexicographic best (z descending, gid ascending) over fragments
@@ -115,7 +122,9 @@ LARGE_CAPACITY = 2048  # side-list slots (bin_triangles_queue default)
 CHUNK_T = 8  # the mask strategy's list capacity rounds up to this
 MASK_MAX_CAPACITY = 4096
 STRATEGIES = ("auto", "mask", "sorted")
-CUDA_TILE_HEIGHTS = (8, 16, 32)  # tile heights the sorted CUDA kernels run
+# Tile heights the sorted CUDA kernels are compiled for; they run every
+# other multiple of 8 rows in the band form (csrc/raster.cu).
+CUDA_TILE_HEIGHTS = (8, 16, 32)
 # K2, K3, K4, K9, K11: stream entries per part (csrc/raster.cu, "The
 # sorted strategy, each tile's entries split"), chosen on an H100 by
 # chip_smoke.py's sweeps (PERF.md). It spreads the work and changes no
@@ -470,7 +479,7 @@ def _raster(wrapper, entry: str, tile_h: int, streams: int, recs,
             qbins: QueueBins, lcounts, params, objs, texs, atlas, *,
             tiles_y: int, tiles_x: int, row0: int, col0: int,
             frame_width: int, n_lights: int, zcull: bool = False,
-            skipped=None):
+            skipped=None, band: bool = False):
     """Check the operands, launch ``entry`` and count it on ``wrapper``;
     CPU tensors run ``raster_plain``. The entry's device ops are the key
     fill, the part count, the walk over parts of at most
@@ -479,8 +488,12 @@ def _raster(wrapper, entry: str, tile_h: int, streams: int, recs,
     offsets are one scratch tensor, and the offsets ((tiles + 1,) i32, the
     last the total) stay in ``wrapper.part_offsets``. ``zcull`` entries
     (K11) take one more operand, ``skipped``: None, or a (1,) i32 CUDA
-    tensor the kernel adds the number of batches it skipped to."""
+    tensor the kernel adds the number of batches it skipped to. ``band``
+    entries (the band form) take ``tile_h`` as an operand, any multiple of
+    8 on CUDA tensors."""
     dev = recs.device
+    if band and dev.type == "cuda":
+        check_cuda_tile_h(entry, tile_h)
     kw = dict(tile_h=tile_h, tiles_y=tiles_y, tiles_x=tiles_x, row0=row0,
               col0=col0, frame_width=frame_width, n_lights=n_lights)
     nfb = tiles_y * tiles_x
@@ -519,7 +532,8 @@ def _raster(wrapper, entry: str, tile_h: int, streams: int, recs,
         qbins.counts.data_ptr(), qbins.large_ids.data_ptr(),
         qbins.n_large.data_ptr(), lcounts.data_ptr(), params.data_ptr(),
         objs.data_ptr(), texs.data_ptr(), atlas_ptr, n_obj, n_lights, aw,
-        tiles_y, tiles_x, row0, col0, frame_width,
+        *((tile_h,) if band else ()), tiles_y, tiles_x, row0, col0,
+        frame_width,
         qbins.sorted_tri.shape[0], RASTER_PART_ENTRIES,
         scratch.data_ptr(), part_off.data_ptr(), z.data_ptr(),
         gid.data_ptr(), color.data_ptr(), *probe, _cuda.stream(dev),
@@ -565,17 +579,26 @@ def raster_narrow32_kernel(recs, qbins, lcounts, params, objs, texs, atlas,
                    recs, qbins, lcounts, params, objs, texs, atlas, **kw)
 
 
+def raster_narrow_any_kernel(recs, qbins, lcounts, params, objs, texs,
+                             atlas, *, tile_h: int, **kw):
+    """K4 on tiles of any height without a form of its own (24, 40, 48, 64,
+    ...; one stream): outputs (tiles_y * tile_h, tiles_x * 128). CUDA
+    tensors take a multiple of 8 (``check_cuda_tile_h``), launch
+    ``tr_raster_narrow_any`` (the band form: each part folded once per
+    8-row band of its tile, csrc/raster.cu), count
+    ``raster_narrow_any_kernel.launches`` once and leave the parts' offsets
+    in ``raster_narrow_any_kernel.part_offsets``; CPU tensors run
+    ``raster_plain`` at any height, with the bins' own streams."""
+    nfb = kw["tiles_y"] * kw["tiles_x"]
+    streams = 1 if recs.is_cuda else qbins.starts.shape[0] // (nfb + 1)
+    return _raster(raster_narrow_any_kernel, "tr_raster_narrow_any", tile_h,
+                   streams, recs, qbins, lcounts, params, objs, texs, atlas,
+                   band=True, **kw)
+
+
 def check_cuda_tile_h(kernel: str, tile_h: int) -> None:
-    """Raise unless the sorted CUDA kernels run ``tile_h``-row tiles."""
-    if tile_h not in CUDA_TILE_HEIGHTS:
-        heights = ", ".join(map(str, CUDA_TILE_HEIGHTS))
-        raise ValueError(f"{kernel} runs tiles of {heights} rows on CUDA, "
-                         f"not {tile_h}")
-
-
-def check_mask_tile_h(kernel: str, tile_h: int) -> None:
-    """Raise unless ``tile_h`` is a multiple of 8, the heights the mask
-    CUDA kernels (K6, K8) run, as the Pallas kernels."""
+    """Raise unless ``tile_h`` is a multiple of 8, the heights every CUDA
+    raster kernel runs, as the Pallas kernels."""
     if tile_h < 8 or tile_h % 8:
         raise ValueError(f"{kernel} runs tiles of a multiple of 8 rows on "
                          f"CUDA, not {tile_h}")
@@ -600,7 +623,7 @@ def raster_mask_kernel(recs, bins: TileBins, params, objs, texs, atlas, *,
         return mask_plain(recs, bins, params, objs, texs, atlas, **kw)
     if dev.type != "cuda":
         raise ValueError(f"K6 runs on CUDA or CPU tensors, not {dev}")
-    check_mask_tile_h("K6", tile_h)
+    check_cuda_tile_h("K6", tile_h)
     capacity = bins.ids.shape[2]
     _cuda.check_tensor("ids", bins.ids, dev, I32,
                        (tiles_y, tiles_x, capacity))
@@ -647,24 +670,29 @@ def raster_rows1_zcull_kernel(recs, qbins, lcounts, params, objs, texs,
 
 
 for _fn in (raster_kernel, raster_rows1_kernel, raster_narrow_kernel,
-            raster_narrow32_kernel, raster_mask_kernel, raster_zcull_kernel,
+            raster_narrow32_kernel, raster_narrow_any_kernel,
+            raster_mask_kernel, raster_zcull_kernel,
             raster_rows1_zcull_kernel):
     _fn.launches = 0
 for _fn in (raster_kernel, raster_rows1_kernel, raster_narrow_kernel,
-            raster_narrow32_kernel, raster_zcull_kernel,
-            raster_rows1_zcull_kernel):
+            raster_narrow32_kernel, raster_narrow_any_kernel,
+            raster_zcull_kernel, raster_rows1_zcull_kernel):
     _fn.part_offsets = None
 for _entry in ("tr_raster", "tr_raster_rows1", "tr_raster_narrow",
                "tr_raster_narrow32"):
     _cuda.declare(_entry, [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
                   + [ctypes.c_void_p] * 6)
+_cuda.declare("tr_raster_narrow_any", [ctypes.c_void_p] * 11
+              + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 6)
 for _entry in ("tr_raster_zcull", "tr_raster_rows1_zcull"):
     _cuda.declare(_entry, [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
                   + [ctypes.c_void_p] * 7)
 _cuda.declare("tr_raster_mask", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
               + [ctypes.c_void_p] * 4)
 
-RASTER_KERNELS = {  # (tile_h, rows) -> wrapper of the sorted strategy
+# (tile_h, rows) -> wrapper of the sorted strategy; every other height
+# takes raster_narrow_any_kernel.
+RASTER_KERNELS = {
     (8, 2): raster_kernel,
     (8, 1): raster_rows1_kernel,
     (16, 1): raster_narrow_kernel,
@@ -822,6 +850,7 @@ class Fragments(NamedTuple):
     """The fragments of one raster launch (``raster_fragments``)."""
 
     pair_tri: torch.Tensor  # (P,) triangle of each (entry, row) pair
+    pair_in_span: torch.Tensor  # (P,) bool: the row lies in the triangle
     pix: torch.Tensor  # (F,) i64 pixel of each fragment with z > clear
     z: torch.Tensor  # (F,) f32
     gid: torch.Tensor  # (F,) i64 triangle id
@@ -868,8 +897,8 @@ def raster_fragments(recs, qbins: QueueBins, lcounts, *, tile_h: int,
     pix = prow[fp] * wp + (xc.to(I64) - col0)
     live = z > DEPTH_CLEAR
     fp = fp[live]
-    return Fragments(tri, pix[live], z[live], gid[fp].to(I64), k[live], fp,
-                     attrs)
+    return Fragments(tri, maxx != -_BIG, pix[live], z[live],
+                     gid[fp].to(I64), k[live], fp, attrs)
 
 
 def resolve_winners(frags: Fragments, hp: int, wp: int):
@@ -1103,8 +1132,8 @@ class RasterLaunch(NamedTuple):
         """The same outputs from the plain version, on any device."""
         if self.route.strategy == "mask":
             return mask_plain(*self.operands, **self.options)
-        return raster_plain(*self.operands, tile_h=self.route.tile_h,
-                            **self.options)
+        return raster_plain(*self.operands,
+                            **{"tile_h": self.route.tile_h, **self.options})
 
     def stats(self) -> dict:
         return bin_stats(self.route, self.operands[1])
@@ -1154,6 +1183,23 @@ def record_table(table):
     return table
 
 
+def setup_out(table, frame_height: int, frame_width: int):
+    """Any table the raster entry points take -> (SetupOut, T), T the
+    table's rows, which size the mask lists (``mask_capacity``). A
+    SetupOut passes through, T its records' rows; the channel-major
+    (85, T) table of ``setup_records`` (or an EdgeTable, ``record_table``)
+    gets its row-major form from ``finish_records`` (K7, which may pad
+    it) and its bboxes over the (frame_height, frame_width) frame from
+    ``triangle_bbox_rows``, T its columns, the true count."""
+    table = record_table(table)
+    if isinstance(table, SetupOut):
+        return table, int(table.recs.shape[0])
+    T = int(table.shape[1])
+    return SetupOut(finish_records(table),
+                    triangle_bbox_rows(table, frame_height, frame_width),
+                    T), T
+
+
 def prepare_raster(table, objspecs: tuple, transform: ProjectiveTransform,
                    lights: LightData, height: int, width: int,
                    capacity: int | None = None,
@@ -1177,23 +1223,18 @@ def prepare_raster(table, objspecs: tuple, transform: ProjectiveTransform,
     object; ``atlas`` is the scene's ``pack_texture_atlas`` when any object
     is textured. ``capacity`` is the mask strategy's list length (default
     ``mask_capacity``); ``strategy`` and ``tile_h`` force the route
-    (``raster_route``; the sorted strategy has kernels for the heights of
-    ``RASTER_KERNELS``); ``budget_override`` is the sorted strategy's
-    budget factor. ``zcull`` launches K11 in place of K2 or K3 on 8-row
-    tiles; on taller tiles (K4) and the mask strategy (K6) it does
-    nothing, as in the JAX package."""
+    (``raster_route``; on the sorted strategy the routes of
+    ``RASTER_KERNELS`` take their own forms and every other height K4's
+    ``raster_narrow_any_kernel``, whose options carry ``tile_h``);
+    ``budget_override`` is the sorted strategy's budget factor. ``zcull``
+    launches K11 in place of K2 or K3 on 8-row tiles; on taller tiles (K4)
+    and the mask strategy (K6) it does nothing, as in the JAX package."""
     if frame_height is None:
         frame_height = height
     if frame_width is None:
         frame_width = width
-    table = record_table(table)
-    if isinstance(table, SetupOut):
-        recs, bbox = table.recs, table.bbox
-        T, t_policy = int(recs.shape[0]), table.num_triangles
-    else:
-        T = t_policy = int(table.shape[1])
-        bbox = triangle_bbox_rows(table, frame_height, frame_width)
-        recs = finish_records(table)
+    table, T = setup_out(table, frame_height, frame_width)
+    recs, bbox, t_policy = table.recs, table.bbox, table.num_triangles
     assert objspecs[-1].gid_hi <= T, "objspecs beyond the record table"
     assert T <= MAX_SCENE_TRIANGLES, (
         f"scene has {T} triangles; the f32 gid lane is exact only to "
@@ -1223,12 +1264,11 @@ def prepare_raster(table, objspecs: tuple, transform: ProjectiveTransform,
                             (recs, bins) + finalize,
                             dict(tile_h=route.tile_h, **options))
     key = (route.tile_h, route.rows)
-    if key not in RASTER_KERNELS:
-        heights = sorted({h for h, _ in RASTER_KERNELS})
-        raise ValueError(
-            f"the sorted strategy runs tiles of "
-            f"{', '.join(map(str, heights))} rows, not {route.tile_h}")
     qbins, lcounts = bin_for_raster(bbox, route, height, width, row0, col0)
+    if key not in RASTER_KERNELS:
+        return RasterLaunch(route, raster_narrow_any_kernel,
+                            (recs, qbins, lcounts) + finalize,
+                            dict(tile_h=route.tile_h, **options))
     kernel = (ZCULL_KERNELS[key] if zcull and key in ZCULL_KERNELS
               else RASTER_KERNELS[key])
     return RasterLaunch(route, kernel, (recs, qbins, lcounts) + finalize,
