@@ -184,7 +184,18 @@ Phases (any failure raises and the script exits nonzero):
    3.35 TB/s against f32 operations at 67 TFLOP/s);
 7. with --profile only: host enqueue time, device time, top kernels,
    K1's device time and share, and device idle share of 10 frames of
-   each path, from a torch.profiler trace.
+   each path, from a torch.profiler trace;
+8. mesh (``mesh_phase``, tpu_renderer_torch/parallel/mesh.py): a
+   world-size-1 NCCL group renders the headline tiled over a (1, 1) mesh
+   and gathers it; four gloo ranks sharing the card (spawned by
+   ``entry.run_ranks``, the kernels built once before) render the
+   headline at 1920x1080 tiled over ('ty', 'tx') = (2, 2), each rank
+   launching K1 and K2 once (its counts set to 0 just before and read just
+   after), and config 5 object-sharded over ('obj', 'ty') = (2, 2); then
+   ``dryrun_multichip(4)`` on the card. Every frame bit-equal to the
+   unsharded one; a failing rank fails the script. The wall ms of each
+   part go on a line with the card's name and power limit: four ranks
+   time-slice one card, so they measure no scale-out.
 
 The line before the last is a JSON object with one entry per kernel
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
@@ -774,6 +785,132 @@ def rotated(scene, angle, device):
 
     rot = rotation_y(angle, device=device)
     return [(rotate_object(obj, rot), cfg) for obj, cfg in scene]
+
+
+MESH_RANKS = 4  # gloo ranks of the mesh phase, all on cuda:0
+
+
+def mesh_phase(dev, smi_line, head_scene, head_tr, head_li, h, w):
+    """The sharded paths (tpu_renderer_torch/parallel/mesh.py) on the card,
+    each held bit-equal to the unsharded frame; returns their wall ms.
+
+    1. A world-size-1 NCCL group: render_scene_tiled on a (1, 1) mesh and
+       gather_framebuffer (an NCCL all-gather), against Renderer's frame.
+    2. MESH_RANKS gloo ranks sharing the card (entry.run_ranks): the
+       headline at h x w over ('ty', 'tx') = (2, 2), a warm-up frame, then
+       the launch counts set to 0 and one frame: every rank launches K1 and
+       K2 once and nothing else; each rank's rect and the gathered frame
+       against the headline's unsharded frame. In the same ranks, config 5
+       at h x w object-sharded over ('obj', 'ty') = (2, 2), against
+       Renderer's config 5 frame.
+    3. dryrun_multichip(MESH_RANKS) on the card: its four mesh shapes, held
+       in the ranks.
+    Four ranks on one card time-slice it: their ms are no scale-out."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import tpu_renderer_torch as trt
+    from tpu_renderer_torch import entry
+    from tpu_renderer_torch.models import scenes
+    from tpu_renderer_torch.parallel import mesh as pm
+
+    def frame_of(arrays):
+        c, d = arrays
+        return (torch.from_numpy(c.view(np.int32)).to(dev),
+                torch.from_numpy(d).to(dev))
+
+    def planes(fb):
+        return fb.color.view(torch.int32), fb.depth
+
+    torch.cuda.empty_cache()
+    head_want = planes(trt.Renderer(h, w, device=dev).render(
+        head_scene, head_tr, head_li))
+    sg5, tr5_d, li5_d = scenes.baseline_scene(5, h, w)
+    s5, tr5, li5 = scenes.to_torch_scene(sg5, tr5_d, li5_d, device=dev)
+    want5 = planes(trt.Renderer(h, w, device=dev).render(s5, tr5, li5))
+    torch.cuda.synchronize()
+    info = {"card": smi_line, "ranks": MESH_RANKS,
+            "note": f"{MESH_RANKS} ranks on one card: time slicing, not "
+                    "scale-out"}
+
+    # 1. NCCL at world size 1.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tr_nccl_") as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/rdzv",
+                                rank=0, world_size=1)
+        try:
+            mesh = pm.device_mesh((1, 1), ("ty", "tx"), "cuda")
+            # The render, the first gather (it opens NCCL's communicator)
+            # and a second one, each timed alone between syncs.
+            for key in ("render", "gather_first", "gather"):
+                t1 = time.perf_counter()
+                if key == "render":
+                    local = pm.render_scene_tiled(head_scene, head_tr,
+                                                  head_li, h, w, mesh)
+                else:
+                    fb = pm.gather_framebuffer(local, mesh)
+                torch.cuda.synchronize()
+                info[f"nccl_1x1_{key}_ms"] = 1e3 * (time.perf_counter() - t1)
+        finally:
+            dist.destroy_process_group()
+    info["nccl_1x1_wall_ms"] = 1e3 * (time.perf_counter() - t0)
+    assert_equal("NCCL (1, 1) mesh, headline", planes(fb), head_want)
+    log("# mesh NCCL world size 1: headline tiled over (1, 1) and "
+        "gathered == Renderer's frame, bit-equal")
+
+    # 2. Gloo ranks sharing the card.
+    cases = (("headline", "tiled", (2, 2), ("ty", "tx"), "headline",
+              "kernels", h, w),
+             ("config 5 object", "object", (2, 2), ("obj", "ty"), "config5",
+              "kernels", h, w))
+    t0 = time.perf_counter()
+    ranks = entry.run_ranks(entry.mesh_frames, MESH_RANKS, cases, True,
+                            device=dev)
+    info["gloo_ranks_wall_ms"] = 1e3 * (time.perf_counter() - t0)
+    lh, lw = h // 2, w // 2
+    for rank, frames in enumerate(ranks):
+        local, full, ms, gather_ms, launches = frames["headline"]
+        counted = {n: c for n, c in launches.items() if c}
+        if counted != {"setup.setup_kernel": 1, "raster.raster_kernel": 1}:
+            raise AssertionError(f"mesh headline, rank {rank}: launches "
+                                 f"{counted}, want K1 and K2 once")
+        r0, c0 = (rank // 2) * lh, (rank % 2) * lw
+        assert_equal(f"mesh headline, rank {rank}'s rect", frame_of(local),
+                     tuple(p[r0:r0 + lh, c0:c0 + lw] for p in head_want))
+        assert_equal(f"mesh headline, rank {rank} gathered", frame_of(full),
+                     head_want)
+        _, full5, ms5, gather5_ms, launches5 = frames["config 5 object"]
+        assert_equal(f"mesh config 5 object-sharded, rank {rank}",
+                     frame_of(full5), want5)
+        info.setdefault("headline_2x2_rank_render_ms", []).append(ms)
+        info.setdefault("headline_2x2_rank_gather_ms", []).append(gather_ms)
+        info.setdefault("config5_obj_2x2_rank_render_ms", []).append(ms5)
+        info.setdefault("config5_obj_2x2_rank_gather_ms", []).append(
+            gather5_ms)
+        info.setdefault("headline_rank_launches", []).append(counted)
+        info.setdefault("config5_obj_rank_launches", []).append(
+            {n: c for n, c in launches5.items() if c})
+    n_tris = head_scene[0][0].num_triangles
+    log(f"# mesh gloo x{MESH_RANKS} on {dev}: headline ({n_tris} tris) "
+        f"{w}x{h} tiled over (2, 2), {lw}x{lh} a "
+        f"rank, K1 and K2 once on every rank, each rect and the gathered "
+        f"frame == the unsharded frame, bit-equal; config 5 object-sharded "
+        f"over ('obj', 'ty') = (2, 2) == Renderer's frame, bit-equal")
+
+    # 3. The dry run.
+    t0 = time.perf_counter()
+    dry = entry.dryrun_multichip(MESH_RANKS, device=dev)
+    info["dryrun_multichip_wall_ms"] = 1e3 * (time.perf_counter() - t0)
+    info["dryrun_rank_ms"] = dry
+    log(f"# mesh dryrun_multichip({MESH_RANKS}) on the card: tiled, "
+        f"geometry, object and two-level shapes == the unsharded frames, "
+        f"bit-equal")
+    log(f"# mesh wall ms ({smi_line}; {MESH_RANKS} ranks on one card, time "
+        f"slicing, not scale-out): " + json.dumps(info))
+    return info
 
 
 def main():
@@ -2389,6 +2526,9 @@ def main():
                 path, lambda a: frame(rotated(sc, a, dev), tr_, li_),
                 [0.06 * i for i in range(10)], path_ms[path])
 
+    # 8. The sharded paths.
+    mesh_info = mesh_phase(dev, smi_line, head_scene, head_tr, head_li, H, W)
+
     kernels = []
     for name, meta in KERNELS.items():
         kms, pms, bms, by, lms = timing[name]
@@ -2454,6 +2594,7 @@ def main():
         "band_paths_frame0": band_drops,
         "band_peak_memory_gib": round(band_peak_gib, 2),
         "headline_frame_timer": frame_timer,
+        "mesh": mesh_info,
         "card": smi_line}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,7 @@ from tpu_renderer_torch.core import math as tm
 from tpu_renderer_torch.core import types as tt
 from tpu_renderer_torch.geometry import transform as ttf
 from tpu_renderer_torch.models import scenes as ts
+from torch_threads import one_torch_thread  # noqa: F401
 
 H, W = 64, 96
 

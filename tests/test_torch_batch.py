@@ -41,6 +41,7 @@ from tpu_renderer_torch.models import primitives as tp
 from tpu_renderer_torch.models import scenes as ts
 from tpu_renderer_torch.models.sphere import construct_sphere
 from tpu_renderer_torch.models.route_scenes import route_scene
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def port_case(route, variant):

@@ -9,6 +9,7 @@ from test_torch_batch import case  # noqa: F401 (the scenes' fixture)
 from test_torch_render import assert_frame_parity
 from tpu_renderer_torch.engine import renderer as tre
 from tpu_renderer_torch.ops import raster as trp
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_route(case, monkeypatch):

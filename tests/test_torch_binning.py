@@ -26,6 +26,7 @@ from tpu_renderer_torch.models import scenes as ts
 from tpu_renderer_torch.models.sphere import construct_sphere
 from tpu_renderer_torch.ops import binning as tb
 from tpu_renderer_torch.ops import raster as trp
+from torch_threads import one_torch_thread  # noqa: F401
 
 H = W = 128
 F = np.float32

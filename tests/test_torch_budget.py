@@ -29,6 +29,7 @@ from tpu_renderer_torch.models.route_scenes import route_scene
 
 from test_torch_render import assert_frame_parity
 from test_torch_zcull import near_far
+from torch_threads import one_torch_thread  # noqa: F401
 
 F = np.float32
 

@@ -19,6 +19,7 @@ from tpu_renderer.core import math as jm
 from tpu_renderer.core import types as jt
 from tpu_renderer_torch.core import math as tm
 from tpu_renderer_torch.core import types as tt
+from torch_threads import one_torch_thread  # noqa: F401
 
 F = np.float32
 
@@ -172,10 +173,14 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize(
-    "path", ["chip_smoke.py", "tpu_renderer_torch/models/route_scenes.py"])
+    "path", ["chip_smoke.py", "tpu_renderer_torch/models/route_scenes.py",
+             "tpu_renderer_torch/entry.py",
+             "tpu_renderer_torch/examples/demo.py",
+             "tpu_renderer_torch/examples/multichip.py"])
 def test_card_side_scripts_import_no_jax(path):
-    """chip_smoke.py and the route scenes it shares with the tests run
-    where JAX is absent: they import neither jax nor the JAX package."""
+    """chip_smoke.py, the route scenes it shares with the tests, the
+    entry hooks and the demos run where JAX is absent: they import
+    neither jax nor the JAX package."""
     import ast
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -20,6 +20,7 @@ import pytest
 
 from tpu_renderer.geometry import transform as jtf
 from tpu_renderer_torch.geometry import transform as ttf
+from torch_threads import one_torch_thread  # noqa: F401
 
 F = np.float32
 

@@ -27,6 +27,7 @@ from tpu_renderer_torch.models import textures as ttx
 from tpu_renderer_torch.utils import checkpoint as tck
 from tpu_renderer_torch.utils import image as tim
 from test_torch_render import assert_frame_parity
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("axis", ["x", "y", "z"])

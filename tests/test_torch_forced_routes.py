@@ -50,6 +50,7 @@ from tpu_renderer_torch.models.textures import checkerboard
 from tpu_renderer_torch.ops import gbuffer as tgb
 from tpu_renderer_torch.ops import raster as trp
 from tpu_renderer_torch.ops import setup as tsp
+from torch_threads import one_torch_thread  # noqa: F401
 
 # rasterize_pallas_shaded's static parameters: phong, height, width,
 # capacity, frame_height, frame_width, strategy, tile_h, filter_mode.

@@ -57,6 +57,7 @@ from tpu_renderer_torch.models import scenes as ts
 from tpu_renderer_torch.models.route_scenes import route_scene
 from tpu_renderer_torch.ops import gbuffer as tgb
 from tpu_renderer_torch.ops import setup as tsp
+from torch_threads import one_torch_thread  # noqa: F401
 
 H = W = 128
 J_SETUP = jax.jit(jsp.setup_for_raster, static_argnums=(3, 4, 5, 6))

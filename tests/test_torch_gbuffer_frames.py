@@ -13,6 +13,7 @@ from tpu_renderer_torch.engine import renderer as tre
 from tpu_renderer_torch.models import scenes as ts
 from tpu_renderer_torch.ops import gbuffer as tgb
 from tpu_renderer_torch.ops import setup as tsp
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 FRAMES = {  # name -> scene, the kernel of each object's draw

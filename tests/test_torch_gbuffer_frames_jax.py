@@ -13,6 +13,7 @@ from tpu_renderer.engine.renderer import Renderer as JRenderer
 from tpu_renderer.models import scenes as js
 import tpu_renderer_torch as trt
 from tpu_renderer_torch.models import scenes as ts
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("name", JAX_FRAMES)

@@ -6,6 +6,7 @@ the cases, so that each file keeps under ten cases.)"""
 import numpy as np
 
 from test_torch_gbuffer import gcase  # noqa: F401 (the cases' fixture)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_gbuffer_vs_golden(gcase):

@@ -10,6 +10,7 @@ import pytest
 from test_torch_gbuffer import JAX_CASES, jax_case
 from test_torch_render import assert_depth_parity
 from tpu_renderer_torch.ops import gbuffer as tgb
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("case", JAX_CASES)

@@ -16,6 +16,7 @@ from tpu_renderer_torch.core.math import pack_argb
 from tpu_renderer_torch.engine import renderer as tre
 from tpu_renderer_torch.ops import gbuffer as tgb
 from tpu_renderer_torch.ops import shading as tsh
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("strategy", ["mask", "sorted"])

@@ -18,6 +18,7 @@ from tpu_renderer_torch.core.math import pack_argb
 from tpu_renderer_torch.core.types import ObjectConfig
 from tpu_renderer_torch.models import scenes as ts
 from tpu_renderer_torch.ops import shading as tsh
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("filter_mode", ["nearest", "bilinear"])

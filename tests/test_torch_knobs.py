@@ -22,6 +22,7 @@ from tpu_renderer_torch.models.textures import checkerboard
 
 from test_torch_budget import assert_stats_equal, both
 from test_torch_render import assert_color_parity, assert_depth_parity
+from torch_threads import one_torch_thread  # noqa: F401
 
 CLEAR = 0xFF203040
 

@@ -32,6 +32,7 @@ from tpu_renderer_torch.models import scenes as ts
 from tpu_renderer_torch.models.route_scenes import route_scene
 from tpu_renderer_torch.ops import raster as trp
 from tpu_renderer_torch.ops import setup as tsp
+from torch_threads import one_torch_thread  # noqa: F401
 
 H = W = 128
 F = np.float32

@@ -16,6 +16,7 @@ from tpu_renderer.ops import binning as jbin
 from tpu_renderer.ops import raster_pallas as jrp
 from tpu_renderer_torch.ops import binning as tbin
 from tpu_renderer_torch.ops import raster as trp
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def seeded_bboxes(T, h, w, seed):

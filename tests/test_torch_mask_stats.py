@@ -12,6 +12,7 @@ from tpu_renderer.golden import cpu_reference as gold
 from tpu_renderer_torch.engine import renderer as tre
 from tpu_renderer_torch.models import primitives as tp
 from tpu_renderer_torch.models import scenes as ts
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("order", ["mask-first", "sorted-first"])

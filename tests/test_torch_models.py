@@ -24,6 +24,7 @@ from tpu_renderer_torch.models import scenes as ts
 from tpu_renderer_torch.models import sphere as tsph
 from tpu_renderer_torch.models import teapot as ttea
 from tpu_renderer_torch.models import textures as ttex
+from torch_threads import one_torch_thread  # noqa: F401
 
 F = np.float32
 

@@ -18,6 +18,7 @@ from tpu_renderer_torch.models.route_scenes import torch_scene
 from tpu_renderer_torch.ops import gbuffer as tgb
 from tpu_renderer_torch.ops import raster as trp
 from tpu_renderer_torch.utils import profiling as prof
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def jax_stage_keys():

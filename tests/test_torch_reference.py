@@ -32,6 +32,7 @@ from tpu_renderer_torch.ops import raster as trp
 from tpu_renderer_torch.ops import spans as tsp
 
 from test_torch_render import assert_depth_parity
+from torch_threads import one_torch_thread  # noqa: F401
 
 H, W = 96, 128
 FIELDS = ("ymin", "ymax", "x0", "xg", "z0", "zg", "oz0", "ozg", "u0", "ug",

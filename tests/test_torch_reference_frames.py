@@ -24,6 +24,7 @@ from test_torch_render import (
     assert_depth_parity,
     assert_frame_parity,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 H, W = 96, 128
 

@@ -27,6 +27,7 @@ from tpu_renderer_torch.geometry import vertex as tvx
 from tpu_renderer_torch.ops import gbuffer as tgb
 from tpu_renderer_torch.ops import raster_reference as trr
 from tpu_renderer_torch.ops import spans as tsp
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("config", [1, 3, 4])

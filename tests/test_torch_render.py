@@ -40,6 +40,7 @@ from tpu_renderer_torch.ops import raster as trp
 from tpu_renderer_torch.ops import setup as tsp
 from tpu_renderer_torch.ops import shading as tsh
 from tpu_renderer_torch.ops.setup import SetupOut
+from torch_threads import one_torch_thread  # noqa: F401
 
 H = W = 128
 F = np.float32

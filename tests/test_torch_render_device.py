@@ -10,6 +10,7 @@ import tpu_renderer_torch as trt
 from tpu_renderer_torch.core import types as tt
 from tpu_renderer_torch.models import primitives as tp
 from tpu_renderer_torch.models import scenes as ts
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):

@@ -29,6 +29,7 @@ from tpu_renderer_torch.ops import gbuffer as tgb
 from tpu_renderer_torch.ops import raster as trp
 from tpu_renderer_torch.ops import raster_reference as trr
 from tpu_renderer_torch.ops import setup as tsp
+from torch_threads import one_torch_thread  # noqa: F401
 
 SUB = (37, 21, 60, 100)  # row0, col0, height, width of the sub-rects
 

@@ -39,6 +39,7 @@ from tpu_renderer_torch.models import scenes as ts
 from tpu_renderer_torch.ops import raster as trp
 from tpu_renderer_torch.ops import setup as tsp
 from tpu_renderer_torch.models.route_scenes import route_scene
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def port_case(route, variant):

@@ -4,6 +4,7 @@ file. (Split from it so that each file keeps under ten cases.)"""
 
 from test_torch_render import assert_frame_parity
 from test_torch_routes import case  # noqa: F401 (the scenes' fixture)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_frame_vs_golden(case):

@@ -10,6 +10,7 @@ from test_torch_routes import case  # noqa: F401 (the scenes' fixture)
 from tpu_renderer_torch.engine import renderer as tre
 from tpu_renderer_torch.ops import raster as trp
 from tpu_renderer_torch.ops import setup as tsp
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -5,6 +5,7 @@ from that file so that each file keeps under ten cases.)"""
 import tpu_renderer_torch as trt
 from test_torch_routes import case  # noqa: F401 (the scenes' fixture)
 from tpu_renderer_torch.ops import raster as trp
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_plain_versions_touch_no_launch_counter(case):

@@ -41,6 +41,7 @@ from tpu_renderer_torch.models import scenes as ts
 from tpu_renderer_torch.models import sphere as tsm
 from tpu_renderer_torch.ops import binning as tbin
 from tpu_renderer_torch.ops import setup as tsp
+from torch_threads import one_torch_thread  # noqa: F401
 
 H = W = 128
 EDGE_FIELDS = ["valid", "ymin", "ymax", "x0", "xg", "z0", "zg", "oz0", "ozg",

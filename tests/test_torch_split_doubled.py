@@ -7,6 +7,7 @@ cases.)"""
 import pytest
 
 from test_torch_split import check_split_fold
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("part_entries", [1, 3, 16])

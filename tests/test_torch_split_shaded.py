@@ -38,6 +38,7 @@ from tpu_renderer_torch.models.route_scenes import (
 from tpu_renderer_torch.ops import raster as trp
 
 from test_torch_split import doubled, split_merge, split_parts
+from torch_threads import one_torch_thread  # noqa: F401
 
 PART_SIZES = (1, 3, 16)
 

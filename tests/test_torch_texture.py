@@ -45,6 +45,7 @@ from tpu_renderer_torch.models import primitives as tp
 from tpu_renderer_torch.models import scenes as ts
 from tpu_renderer_torch.models.route_scenes import route_scene
 from tpu_renderer_torch.models.textures import checkerboard
+from torch_threads import one_torch_thread  # noqa: F401
 
 H = W = 128
 F = np.float32

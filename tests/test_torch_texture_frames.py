@@ -26,6 +26,7 @@ from tpu_renderer_torch.engine import renderer as tre
 from tpu_renderer_torch.models import primitives as tp
 from tpu_renderer_torch.models import scenes as ts
 from tpu_renderer_torch.models.textures import checkerboard
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module", params=list(FRAMES)[3:])

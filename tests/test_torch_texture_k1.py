@@ -30,6 +30,7 @@ from tpu_renderer_torch.geometry import vertex as tvx
 from tpu_renderer_torch.models import scenes as ts
 from tpu_renderer_torch.ops import setup as tsp
 from tpu_renderer_torch.ops import shading as tsh
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module", params=[True, False], ids=["phong", "gouraud"])

@@ -14,6 +14,7 @@ from tpu_renderer.ops import raster_pallas as jrp
 from tpu_renderer_torch.core import math as tm
 from tpu_renderer_torch.models.textures import checkerboard
 from tpu_renderer_torch.ops import raster as trp
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_to_i32_saturates_like_xla():

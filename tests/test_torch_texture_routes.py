@@ -9,6 +9,7 @@ from tpu_renderer.golden import cpu_reference as gold
 import tpu_renderer_torch as trt
 from tpu_renderer_torch.models import scenes as ts
 from tpu_renderer_torch.models.route_scenes import TEXTURED_NAMES, route_scene
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("name", TEXTURED_NAMES)

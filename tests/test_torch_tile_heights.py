@@ -36,6 +36,7 @@ from test_torch_forced_routes import (
 from test_torch_render import assert_color_parity
 from tpu_renderer_torch.ops import gbuffer as tgb
 from tpu_renderer_torch.ops import raster as trp
+from torch_threads import one_torch_thread  # noqa: F401
 
 HW = (64, 256)  # the 528-triangle spheres' frame
 

@@ -35,6 +35,7 @@ from tpu_renderer_torch.models.sphere import construct_sphere
 from tpu_renderer_torch.ops import raster as trp
 
 from test_torch_render import assert_frame_parity
+from torch_threads import one_torch_thread  # noqa: F401
 
 SIZES = {2: (128, 128), 1: (192, 320)}  # rows -> (H, W)
 

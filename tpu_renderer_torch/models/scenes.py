@@ -178,3 +178,24 @@ def stack_scene(lat: int, lon: int, layers: int, height: int, width: int,
     _, tr_d, li_d = baseline_scene(4, height, width)
     sg = [(dict(p=(0.0, 0.0, 0.0), **m), {"phong": True}) for m in meshes]
     return to_torch_scene(sg, tr_d, li_d, device=device)
+
+
+def sphere_cluster_scene(n: int, height: int, width: int, device="cuda",
+                         twins: bool = False):
+    """(scene, transform, lights) of ``n`` overlapping
+    ``construct_sphere(12)`` spheres, one untextured Gouraud config, at
+    staggered positions and depths, with ``baseline_scene(1)``'s camera and
+    lights: occlusion between objects, the scene that holds the
+    object-sharded fold to the submission order (tests/test_parallel.py's
+    ``_multi_sphere_scene``). ``twins`` submits each sphere twice, the
+    second time Phong-shaded: the twins' surfaces coincide, so every pixel
+    they cover is a depth tie between two objects of two configs, which
+    the first of the two must win."""
+    mesh = construct_sphere(12)
+    _, tr_d, li_d = baseline_scene(1, height, width)
+    sg = []
+    for i in range(n):
+        obj = dict(p=(-0.6 + 0.3 * i, 0.15 * (i % 3) - 0.15, 0.2 * (i % 2)),
+                   **mesh)
+        sg += [(obj, {}), (obj, {"phong": True})] if twins else [(obj, {})]
+    return to_torch_scene(sg, tr_d, li_d, device=device)
