@@ -185,7 +185,26 @@ Phases (any failure raises and the script exits nonzero):
 7. with --profile only: host enqueue time, device time, top kernels,
    K1's device time and share, and device idle share of 10 frames of
    each path, from a torch.profiler trace;
-8. mesh (``mesh_phase``, tpu_renderer_torch/parallel/mesh.py): a
+8. golden (``golden_phase``): frame 0 of each path (no rotation), rendered
+   on the card through the path's own entry, held to the port's NumPy spec
+   (tpu_renderer_torch/golden/cpu_reference.py), which the CPU tests hold
+   bit-equal to the JAX package's: whole, bit-equal in colour and depth
+   bits, for configs 1, 2, 3, 3 avx at 512x512, configs 4, 5 untextured
+   and 5 at 1920x1080, config 4 @32, config 3 @32 and config 3 avx @32;
+   in GOLDEN_WINDOWS windows of 32x32 (the frame's centre, a silhouette
+   pixel, the rest centred on covered pixels drawn by a seeded generator),
+   bit-equal in each, for the paths whose whole golden frame is too slow:
+   headline and headline @64, textured 250k, deferred 1M, stack6 and stack6
+   zcull, 40k (the Renderer's route, @24, @32, @64) and deferred 40k (@24,
+   @32, @64). A window's golden renders only the triangles whose projected
+   bbox meets it (``window_scene``); the spec draws one triangle at a time,
+   so that is the whole frame's inside the window. The golden renders run
+   in spawned processes, one a core. Then the native C++ golden
+   (golden/native.py, built with g++ for this host) of each path's scene,
+   at one thread and at all the host's, as the CPU baseline beside the
+   path's ms/frame, with its agreement with the card's frame (not a gate:
+   it steps attributes sequentially);
+9. mesh (``mesh_phase``, tpu_renderer_torch/parallel/mesh.py): a
    world-size-1 NCCL group renders the headline tiled over a (1, 1) mesh
    and gathers it; four gloo ranks sharing the card (spawned by
    ``entry.run_ranks``, the kernels built once before) render the
@@ -785,6 +804,275 @@ def rotated(scene, angle, device):
 
     rot = rotation_y(angle, device=device)
     return [(rotate_object(obj, rot), cfg) for obj, cfg in scene]
+
+
+WINDOW = 32  # side of a golden window, px
+WINDOW_MARGIN = 2  # px a triangle's bbox may lie off a window and be drawn
+GOLDEN_WINDOWS = 8  # windows a frame: the centre, the silhouette, 6 drawn
+GOLDEN_SEED = 13
+NATIVE_REPS = 5  # timed native golden frames, after one warm-up
+
+
+def place_windows(covered, n, seed):
+    """(row0, col0) of ``n`` >= 2 WINDOW x WINDOW windows inside the frame of
+    ``covered`` (an (H, W) bool mask): one centred on the frame, one
+    centred on a silhouette pixel (covered, with an uncovered 4-neighbour)
+    and n - 2 centred on covered pixels, so within the covered bbox, both
+    drawn by ``numpy.random.default_rng(seed)``."""
+    import numpy as np
+
+    h, w = covered.shape
+    rng = np.random.default_rng(seed)
+
+    def at(r, c):
+        return (int(min(max(r - WINDOW // 2, 0), h - WINDOW)),
+                int(min(max(c - WINDOW // 2, 0), w - WINDOW)))
+
+    inner = covered.copy()
+    inner[1:] &= covered[:-1]
+    inner[:-1] &= covered[1:]
+    inner[:, 1:] &= covered[:, :-1]
+    inner[:, :-1] &= covered[:, 1:]
+    edge = np.argwhere(covered & ~inner)
+    if not len(edge):
+        raise AssertionError("place_windows: the frame has no silhouette")
+    inside = np.argwhere(covered)
+    return [at(h // 2, w // 2), at(*edge[rng.integers(len(edge))])] + [
+        at(*inside[i]) for i in rng.integers(len(inside), size=n - 2)]
+
+
+def window_scene(scene, transform, height, width, windows):
+    """(sub-scene, triangles a window) of a golden-form scene: of each
+    object, in order, the triangles whose projected bbox
+    (``cpu_reference.project_vertex`` over the (T, 3, 3) vertices, clamped
+    to the frame, where a span off its left or right edge is drawn) meets
+    one of the windows grown by WINDOW_MARGIN px, or whose projection is not
+    finite. The spec draws one triangle at a time, so the sub-scene's frame
+    equals the whole scene's inside every window, bit for bit."""
+    import numpy as np
+
+    from tpu_renderer_torch.golden import cpu_reference as gold
+
+    sub, counts = [], np.zeros(len(windows), np.int64)
+    for obj, cfg in scene:
+        verts = np.asarray(obj["vertices"], np.float32).reshape(-1, 3, 3)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            proj = gold.project_vertex(
+                verts + np.asarray(obj["p"], np.float32), transform)
+        odd = ~np.isfinite(proj[..., :2]).all(axis=(1, 2))
+        x = np.clip(proj[..., 0], 0, width - 1)
+        y = np.clip(proj[..., 1], 0, height - 1)
+        x0, x1, y0, y1 = x.min(1), x.max(1), y.min(1), y.max(1)
+        keep = odd.copy()
+        lo, hi = WINDOW_MARGIN, WINDOW - 1 + WINDOW_MARGIN
+        for i, (r0, c0) in enumerate(windows):
+            hit = odd | ((x1 >= c0 - lo) & (x0 <= c0 + hi) & (y1 >= r0 - lo)
+                         & (y0 <= r0 + hi))
+            counts[i] += int(hit.sum())
+            keep |= hit
+        idx = np.nonzero(keep)[0]
+        if not len(idx):
+            continue
+        part = dict(obj)
+        for k in ("vertices", "colors", "normals", "uvs"):
+            a = np.asarray(obj[k])
+            d = a.shape[-1]
+            part[k] = a.reshape(-1, 3, d)[idx].reshape(-1, d)
+        sub.append((part, cfg))
+    return sub, [int(c) for c in counts]
+
+
+def golden_windows(scene, transform, lights, height, width, windows):
+    """(color, depth, triangles a window): the spec's render of
+    ``window_scene``'s sub-scene at the full height x width, equal to the
+    whole scene's golden frame inside each window."""
+    from tpu_renderer_torch.golden import cpu_reference as gold
+
+    sub, counts = window_scene(scene, transform, height, width, windows)
+    color, depth = gold.render(sub, transform, lights, height, width)
+    return color, depth, counts
+
+
+def frame_arrays(fb):
+    """(color u32, depth f32) NumPy arrays of a framebuffer on any
+    device."""
+    import numpy as np
+    import torch
+
+    return (fb.color.view(torch.int32).cpu().numpy().view(np.uint32),
+            fb.depth.cpu().numpy())
+
+
+def golden_diff(what, got, want):
+    """Raise unless colour and depth bits are equal; ``got`` and ``want``
+    are (color, depth) NumPy pairs of one shape."""
+    import numpy as np
+
+    bad = (got[0] != want[0]) | (got[1].view(np.int32)
+                                 != want[1].view(np.int32))
+    if bad.any():
+        r, c = np.argwhere(bad)[0]
+        raise AssertionError(
+            f"{what}: {int(bad.sum())} px differ from the golden, first at "
+            f"row {r}, col {c}: color {got[0][r, c]:#010x} against "
+            f"{want[0][r, c]:#010x}, depth {got[1][r, c]!r} against "
+            f"{want[1][r, c]!r}")
+
+
+def host_cpu():
+    """The host CPU as /proc/cpuinfo names it: model name, vendor, family,
+    model, stepping and MHz of its first processor, and whether it has
+    AVX2 and AVX-512F (the native golden is built for this host)."""
+    import platform
+
+    from tpu_renderer_torch.golden.native import cpu_info
+
+    info = cpu_info()
+    flags = info.get("flags", "").split()
+    return (f"{info.get('model name', platform.processor())} "
+            f"({info.get('vendor_id', platform.machine())}, family "
+            f"{info.get('cpu family', '?')}, model {info.get('model', '?')}, "
+            f"stepping {info.get('stepping', '?')}, "
+            f"{info.get('cpu MHz', '?')} MHz, avx2 {'avx2' in flags}, "
+            f"avx512f {'avx512f' in flags})")
+
+
+def golden_phase(smi_line, paths, path_ms):
+    """Each path's frame 0 on the card held to the port's NumPy spec at
+    full size; the native golden timed as the CPU baseline.
+
+    ``paths``: (path, scene key, golden-form scene, transform dict, lights
+    dict, h, w, whole, frame) tuples; ``frame()`` renders the path's frame
+    0 (no rotation) on the card through the path's own entry. Paths of one
+    scene key share one golden render:
+    - whole: the golden frame of the whole scene, against which every
+      such path is bit-equal (colour and depth bits, hence coverage);
+    - else GOLDEN_WINDOWS WINDOW x WINDOW windows (``place_windows`` on the
+      key's first path's coverage, seeded GOLDEN_SEED), the golden of
+      ``window_scene`` (the union of the windows' triangles), every such
+      path bit-equal inside every window.
+    The golden renders run in spawned processes, one a core. Then each
+    scene's native golden (golden/native.py, built here if need be) at one
+    thread and at all the host's threads, the median of NATIVE_REPS after a
+    warm-up, with its agreement with the card's frame, for information.
+    Raises on any difference; returns the phase's record."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    from tpu_renderer_torch.golden import cpu_reference as gold
+    from tpu_renderer_torch.golden import native
+
+    t_phase = time.perf_counter()
+    frames, scenes_, info = {}, {}, {"windows": {}, "whole": {}}
+    for path, key, sg, tr_d, li_d, h, w, whole, frame in paths:
+        frames[path] = frame_arrays(frame())
+        if key not in scenes_:
+            scenes_[key] = dict(sg=sg, tr=tr_d, li=li_d, h=h, w=w,
+                                whole=whole, first=path, paths=[])
+        scenes_[key]["paths"].append(path)
+    card_s = time.perf_counter() - t_phase
+
+    jobs = {}
+    for key, s in scenes_.items():
+        if s["whole"]:
+            jobs[key] = (s["sg"], sum(len(o["vertices"]) for o, _ in s["sg"]))
+            continue
+        cov = frames[s["first"]][1] > gold.DEPTH_CLEAR
+        s["windows"] = place_windows(cov, GOLDEN_WINDOWS, GOLDEN_SEED)
+        sub, s["counts"] = window_scene(s["sg"], s["tr"], s["h"], s["w"],
+                                        s["windows"])
+        jobs[key] = (sub, sum(len(o["vertices"]) for o, _ in sub))
+    t_gold = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    workers = min(len(jobs) + 1, os.cpu_count() or 1)
+    with ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as pool:
+        built = pool.submit(native.build)  # g++, beside the golden renders
+        futures = {key: pool.submit(gold.render, sg_, scenes_[key]["tr"],
+                                    scenes_[key]["li"], scenes_[key]["h"],
+                                    scenes_[key]["w"])
+                   for key, (sg_, _) in sorted(jobs.items(),
+                                               key=lambda kv: -kv[1][1])}
+        golden = {key: f.result() for key, f in futures.items()}
+        library = built.result()
+    gold_s = time.perf_counter() - t_gold
+
+    for key, s in scenes_.items():
+        want = golden[key]
+        tris = jobs[key][1] // 3
+        if s["whole"]:
+            cov = int((want[1] > gold.DEPTH_CLEAR).sum())
+            if cov < 1000:
+                raise AssertionError(f"golden {key}: {cov} px covered")
+            for path in s["paths"]:
+                golden_diff(f"path {path} frame 0, whole", frames[path], want)
+            info["whole"][key] = dict(paths=s["paths"], tris=tris,
+                                      covered=cov)
+            log(f"# golden {key} {s['w']}x{s['h']} ({tris} tris): whole "
+                f"frame 0 == the NumPy spec, bit-equal, {cov} px covered, "
+                f"paths {s['paths']}")
+            continue
+        cov = []
+        for r0, c0 in s["windows"]:
+            win = (slice(r0, r0 + WINDOW), slice(c0, c0 + WINDOW))
+            cov.append(int((want[1][win] > gold.DEPTH_CLEAR).sum()))
+            for path in s["paths"]:
+                golden_diff(f"path {path} frame 0, window at ({r0}, {c0})",
+                            tuple(a[win] for a in frames[path]),
+                            tuple(a[win] for a in want))
+        info["windows"][key] = dict(
+            paths=s["paths"], windows=s["windows"], tris=s["counts"],
+            union_tris=tris, covered=cov)
+        log(f"# golden {key} {s['w']}x{s['h']}: frame 0 == the NumPy spec "
+            f"in {len(s['windows'])} windows of {WINDOW}x{WINDOW}, "
+            f"bit-equal; windows (row0, col0) {s['windows']}, triangles a "
+            f"window {s['counts']} ({tris} in their union), px covered a "
+            f"window {cov}; paths {s['paths']}")
+
+    cpu, threads = host_cpu(), os.cpu_count() or 1
+    t_nat = time.perf_counter()
+    native_ms = {}
+    for key, s in scenes_.items():
+        args = (s["sg"], s["tr"], s["li"], s["h"], s["w"])
+        ms = {}
+        for nt in (1, threads):
+            native.render(*args, num_threads=nt)
+            times = []
+            for _ in range(NATIVE_REPS):
+                t0 = time.perf_counter()
+                out = native.render(*args, num_threads=nt)
+                times.append(1e3 * (time.perf_counter() - t0))
+            ms[nt] = statistics.median(times)
+        card = frames[s["first"]]
+        cov_n, cov_c = out[1] > gold.DEPTH_CLEAR, card[1] > gold.DEPTH_CLEAR
+        both = cov_n & cov_c
+        agree = dict(
+            coverage=float((cov_n == cov_c).mean()),
+            color_on_both=float((out[0] == card[0])[both].mean()),
+            depth_bits_on_both=float((out[1].view(np.int32)
+                                      == card[1].view(np.int32))[both]
+                                     .mean()))
+        native_ms[key] = dict(ms_1_thread=ms[1], ms_all_threads=ms[threads],
+                              agreement_with_card=agree)
+        for path in s["paths"]:
+            card_ms = path_ms.get(path)
+            log(f"# golden native {path} ({s['w']}x{s['h']}; {smi_line}; "
+                f"host CPU {cpu}, {threads} threads): card "
+                + (f"{card_ms:.4f}" if card_ms is not None else "not driven")
+                + f" ms/frame; native golden {ms[1]:.4f} ms at 1 thread, "
+                f"{ms[threads]:.4f} ms at {threads} threads (median of "
+                f"{NATIVE_REPS}); agreement with the card's frame (not a "
+                f"gate): {json.dumps(agree)}")
+    info.update(
+        native_ms=native_ms, native_library=str(library),
+        host_cpu=cpu, host_threads=threads, card=smi_line,
+        seconds=dict(card_frames=card_s, golden_renders=gold_s,
+                     golden_workers=workers,
+                     native=time.perf_counter() - t_nat,
+                     phase=time.perf_counter() - t_phase))
+    log(f"# golden phase: {json.dumps(info['seconds'])} s")
+    return info
 
 
 MESH_RANKS = 4  # gloo ranks of the mesh phase, all on cuda:0
@@ -2526,7 +2814,50 @@ def main():
                 path, lambda a: frame(rotated(sc, a, dev), tr_, li_),
                 [0.06 * i for i in range(10)], path_ms[path])
 
-    # 8. The sharded paths.
+    # 8. Each path's frame 0 against the NumPy spec, whole or in windows,
+    # through the path's own entry; the native golden as the CPU baseline.
+    forced = {p_: fn for p_, _, _, _, fn, _ in forced_paths}
+
+    def card_frame(path, sg_, h, w):
+        def frame():
+            sc, tr_, li_ = torch_scene(sg_, h, w, dev)
+            if path in forced:
+                return forced[path](sc, tr_, li_)[0]
+            return trt.Renderer(h, w, device=dev,
+                                zcull=path == "stack6 zcull").render(
+                sc, tr_, li_)
+        return frame
+
+    sg6 = scenes.stack_scene_golden(409, 409, 6, H, W, inner_first=True)[0]
+    golden_paths = []
+    for path, key, sg_, h, w in (
+            ("config 1", "config 1", sg1, 512, 512),
+            ("config 2", "config 2", sg2, 512, 512),
+            *((p_, "config 3", sg3, 512, 512)
+              for p_ in ("config 3", "config 3 @32")),
+            *((p_, "config 4", sg4, H, W) for p_ in ("config 4",
+                                                     "config 4 @32")),
+            ("config 5 untextured", "config 5 untextured", sg5, H, W),
+            ("config 5", "config 5", sg5full, H, W),
+            *((p_, "config 3 avx", sg3avx, 512, 512)
+              for p_ in ("config 3 avx", "config 3 avx @32")),
+            *((p_, "headline", phong_mesh_scene(mesh), H, W)
+              for p_ in ("headline", "headline @64")),
+            ("textured 250k", "textured 250k", sg250, H, W),
+            ("deferred 1M", "deferred 1M", sg_def, H, W),
+            *((p_, "stack6", sg6, H, W) for p_ in ("stack6 zcull", "stack6")),
+            *((p_, "40k", sg40, H, W)
+              for p_ in ("40k", "40k @24", "40k @32", "40k @64")),
+            *((f"deferred 40k @{t}", "deferred 40k", sg40d, H, W)
+              for t in (24, 32, 64))):
+        # The small-object scenes' whole golden frames take seconds; the
+        # others are held in windows.
+        golden_paths.append((path, key, sg_, *scenes.baseline_camera_lights(
+            h, w), h, w, key.startswith("config"), card_frame(path, sg_, h,
+                                                              w)))
+    golden_info = golden_phase(smi_line, golden_paths, path_ms)
+
+    # 9. The sharded paths.
     mesh_info = mesh_phase(dev, smi_line, head_scene, head_tr, head_li, H, W)
 
     kernels = []
@@ -2594,6 +2925,7 @@ def main():
         "band_paths_frame0": band_drops,
         "band_peak_memory_gib": round(band_peak_gib, 2),
         "headline_frame_timer": frame_timer,
+        "golden": golden_info,
         "mesh": mesh_info,
         "card": smi_line}))
     log(json.dumps({"kernels": kernels}))

@@ -153,7 +153,16 @@ def to_torch_scene(scene_golden, tr_dict, lights_dict, device="cuda"):
 
 def stack_scene(lat: int, lon: int, layers: int, height: int, width: int,
                 device="cuda", inner_first: bool = False):
-    """(scene, transform, lights) of ``layers`` concentric
+    """(scene, transform, lights) on ``device`` of ``stack_scene_golden``'s
+    scene."""
+    return to_torch_scene(*stack_scene_golden(lat, lon, layers, height,
+                                              width, inner_first),
+                          device=device)
+
+
+def stack_scene_golden(lat: int, lon: int, layers: int, height: int,
+                       width: int, inner_first: bool = False):
+    """(scene_golden, transform_dict, lights_dict) of ``layers`` concentric
     ``construct_sphere_grid(lat, lon)`` spheres, layer i's vertices scaled
     by 1 - 0.1 i, each a Phong object at the origin, with
     ``baseline_scene(4)``'s camera and lights (bench.py:350-365;
@@ -177,7 +186,7 @@ def stack_scene(lat: int, lon: int, layers: int, height: int, width: int,
         meshes.reverse()
     _, tr_d, li_d = baseline_scene(4, height, width)
     sg = [(dict(p=(0.0, 0.0, 0.0), **m), {"phong": True}) for m in meshes]
-    return to_torch_scene(sg, tr_d, li_d, device=device)
+    return sg, tr_d, li_d
 
 
 def sphere_cluster_scene(n: int, height: int, width: int, device="cuda",
