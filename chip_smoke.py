@@ -1,9 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port (tpu_renderer_torch) once on one GPU.
+"""Drive the PyTorch + CUDA port (tpu_renderer_torch) once on one GPU,
+and its sharded paths on four where the machine has them.
 
-Run from the root of the repository, on a machine with one NVIDIA GPU:
+Run from the root of the repository, on a machine with NVIDIA GPUs:
 
     python3 chip_smoke.py
+
+Phases 1-9 use cuda:0 (the mesh phase's ranks spread over the cards where
+there are more); phase 10 needs four cards and says so when it does not
+run.
 
 Phases (any failure raises and the script exits nonzero):
 
@@ -181,7 +186,11 @@ Phases (any failure raises and the script exits nonzero):
    A/B: ms per frame of the textured 250k scene through the fused route
    (K2 with K5) and through the G-buffer path (K9, shade); each kernel
    with the least time the card could take for the same work (bytes at
-   3.35 TB/s against f32 operations at 67 TFLOP/s);
+   3.35 TB/s against f32 operations at 67 TFLOP/s); and the launch
+   guard's cost: config 5's ms/frame through Renderer with every C entry
+   called through ``_cuda.launch`` (its tensors' card made current) and
+   called as before it, frame by frame in turns, frames bit-equal, and
+   the guard's device query alone (``launch_guard_ab``);
 7. with --profile only: host enqueue time, device time, top kernels,
    K1's device time and share, and device idle share of 10 frames of
    each path, from a torch.profiler trace;
@@ -206,15 +215,27 @@ Phases (any failure raises and the script exits nonzero):
    it steps attributes sequentially);
 9. mesh (``mesh_phase``, tpu_renderer_torch/parallel/mesh.py): a
    world-size-1 NCCL group renders the headline tiled over a (1, 1) mesh
-   and gathers it; four gloo ranks sharing the card (spawned by
-   ``entry.run_ranks``, the kernels built once before) render the
-   headline at 1920x1080 tiled over ('ty', 'tx') = (2, 2), each rank
-   launching K1 and K2 once (its counts set to 0 just before and read just
-   after), and config 5 object-sharded over ('obj', 'ty') = (2, 2); then
-   ``dryrun_multichip(4)`` on the card. Every frame bit-equal to the
-   unsharded one; a failing rank fails the script. The wall ms of each
-   part go on a line with the card's name and power limit: four ranks
-   time-slice one card, so they measure no scale-out.
+   and gathers it; four gloo ranks (spawned by ``entry.run_ranks`` with
+   backend="gloo", the kernels built once before; on one card they share
+   it) render the headline at 1920x1080 tiled over ('ty', 'tx') = (2, 2),
+   each rank launching K1 and K2 once (its counts set to 0 just before
+   and read just after), and config 5 object-sharded over ('obj', 'ty') =
+   (2, 2); then ``dryrun_multichip(4)`` on gloo. Every frame bit-equal to
+   the unsharded one; a failing rank fails the script. The wall ms of
+   each part go on a line with the card's name and power limit: four
+   ranks time-slice one card, so they measure no scale-out;
+10. cards (``cards_phase``), with four cards or more: four NCCL ranks,
+   rank r on cuda:r, each a warm-up and one timed frame at 1920x1080 of
+   the headline tiled over ('ty', 'tx') = (2, 2) (K1 and K2 once a rank
+   and nothing else), the headline over ('tr',) = 4 (250,278 triangles a
+   card, then one all-gather of the (z, colour, key) planes), stack6 over
+   ('host', 'ty') = (2, 2) and config 5 over ('obj', 'ty') = (2, 2), then
+   ``dryrun_multichip(4)`` on NCCL. Every rank's rect and every gathered
+   or folded frame bit-equal to cuda:0's unsharded frame through
+   Renderer. Each rank's render and gather ms (host clock between syncs)
+   and the one-card ms go on a line with every card's name and power
+   limit: information, not a claim. With fewer cards one line says how
+   many it found and that the phase did not run.
 
 The line before the last is a JSON object with one entry per kernel
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
@@ -1075,7 +1096,8 @@ def golden_phase(smi_line, paths, path_ms):
     return info
 
 
-MESH_RANKS = 4  # gloo ranks of the mesh phase, all on cuda:0
+MESH_RANKS = 4  # gloo ranks of the mesh phase, all on cuda:0 on one card
+CARD_RANKS = 4  # NCCL ranks of the cards phase, one a card
 
 
 def mesh_phase(dev, smi_line, head_scene, head_tr, head_li, h, w):
@@ -1084,16 +1106,19 @@ def mesh_phase(dev, smi_line, head_scene, head_tr, head_li, h, w):
 
     1. A world-size-1 NCCL group: render_scene_tiled on a (1, 1) mesh and
        gather_framebuffer (an NCCL all-gather), against Renderer's frame.
-    2. MESH_RANKS gloo ranks sharing the card (entry.run_ranks): the
-       headline at h x w over ('ty', 'tx') = (2, 2), a warm-up frame, then
+    2. MESH_RANKS gloo ranks (entry.run_ranks with backend="gloo"), on one
+       card sharing it, on more spread over them (cuda:(rank % cards)):
+       the headline at h x w over ('ty', 'tx') = (2, 2), a warm-up frame,
+       then
        the launch counts set to 0 and one frame: every rank launches K1 and
        K2 once and nothing else; each rank's rect and the gathered frame
        against the headline's unsharded frame. In the same ranks, config 5
        at h x w object-sharded over ('obj', 'ty') = (2, 2), against
        Renderer's config 5 frame.
-    3. dryrun_multichip(MESH_RANKS) on the card: its four mesh shapes, held
-       in the ranks.
-    Four ranks on one card time-slice it: their ms are no scale-out."""
+    3. dryrun_multichip(MESH_RANKS, backend="gloo") on the card: its four
+       mesh shapes, held in the ranks.
+    Four ranks on one card time-slice it: their ms are no scale-out (the
+    cards phase runs NCCL, one rank a card)."""
     import tempfile
 
     import numpy as np
@@ -1120,9 +1145,11 @@ def mesh_phase(dev, smi_line, head_scene, head_tr, head_li, h, w):
     s5, tr5, li5 = scenes.to_torch_scene(sg5, tr5_d, li5_d, device=dev)
     want5 = planes(trt.Renderer(h, w, device=dev).render(s5, tr5, li5))
     torch.cuda.synchronize()
-    info = {"card": smi_line, "ranks": MESH_RANKS,
-            "note": f"{MESH_RANKS} ranks on one card: time slicing, not "
-                    "scale-out"}
+    cards = torch.cuda.device_count()
+    shared = (f"{MESH_RANKS} gloo ranks on {cards} card(s)"
+              + (", time slicing, not scale-out" if cards < MESH_RANKS
+                 else ""))
+    info = {"card": smi_line, "ranks": MESH_RANKS, "note": shared}
 
     # 1. NCCL at world size 1.
     t0 = time.perf_counter()
@@ -1156,7 +1183,7 @@ def mesh_phase(dev, smi_line, head_scene, head_tr, head_li, h, w):
               "kernels", h, w))
     t0 = time.perf_counter()
     ranks = entry.run_ranks(entry.mesh_frames, MESH_RANKS, cases, True,
-                            device=dev)
+                            device=dev, backend="gloo")
     info["gloo_ranks_wall_ms"] = 1e3 * (time.perf_counter() - t0)
     lh, lw = h // 2, w // 2
     for rank, frames in enumerate(ranks):
@@ -1190,14 +1217,188 @@ def mesh_phase(dev, smi_line, head_scene, head_tr, head_li, h, w):
 
     # 3. The dry run.
     t0 = time.perf_counter()
-    dry = entry.dryrun_multichip(MESH_RANKS, device=dev)
+    dry = entry.dryrun_multichip(MESH_RANKS, device=dev, backend="gloo")
     info["dryrun_multichip_wall_ms"] = 1e3 * (time.perf_counter() - t0)
     info["dryrun_rank_ms"] = dry
     log(f"# mesh dryrun_multichip({MESH_RANKS}) on the card: tiled, "
         f"geometry, object and two-level shapes == the unsharded frames, "
         f"bit-equal")
-    log(f"# mesh wall ms ({smi_line}; {MESH_RANKS} ranks on one card, time "
-        f"slicing, not scale-out): " + json.dumps(info))
+    log(f"# mesh wall ms ({smi_line}; {shared}): " + json.dumps(info))
+    return info
+
+
+def launch_guard_ab(dev, smi_line, scene, tr, li, h, w, frames=200,
+                    queries=100_000):
+    """Config 5's ms/frame through Renderer with the launch guard
+    (``_cuda.launch``: the C entry called with its tensors' card current)
+    and without it (the C entry called as before the guard, with the
+    stream of the tensors' card, whatever card is current), frame by frame
+    in turns (without, with, with, without, ...; ``frames`` frames, each
+    timed alone by CUDA events), medians of each; both frames bit-equal.
+    The scene lies on the current card, so the guard adds one device query
+    a launch: its host cost is timed alone too, over ``queries`` calls."""
+    import torch
+
+    import tpu_renderer_torch as trt
+    from tpu_renderer_torch import _cuda
+
+    guarded = _cuda.launch
+
+    def unguarded(name, device, *args):
+        index = (torch.cuda.current_device() if device.index is None
+                 else device.index)
+        _cuda.check_launch(name, getattr(_cuda.library(), name)(
+            *args, torch._C._cuda_getCurrentRawStream(index)))
+
+    renderer = trt.Renderer(h, w, device=dev)
+    ms = {"with": [], "without": []}
+    out = {}
+    try:
+        for key in ("without", "with"):
+            _cuda.launch = guarded if key == "with" else unguarded
+            for _ in range(3):
+                out[key] = renderer.render(scene, tr, li)
+        assert_equal("config 5 with and without the launch guard",
+                     (out["with"].color, out["with"].depth),
+                     (out["without"].color, out["without"].depth))
+        for i in range(frames):
+            key = "with" if i % 4 in (1, 2) else "without"
+            _cuda.launch = guarded if key == "with" else unguarded
+            ms[key].append(event_ms(lambda: renderer.render(scene, tr, li),
+                                    1))
+    finally:
+        _cuda.launch = guarded
+    t0 = time.perf_counter()
+    for _ in range(queries):
+        torch._C._cuda_getDevice()
+    query_us = 1e6 * (time.perf_counter() - t0) / queries
+    info = {k: statistics.median(v) for k, v in ms.items()}
+    info.update(frames=frames, quartiles={
+        k: statistics.quantiles(v, n=4) for k, v in ms.items()},
+        device_query_us=query_us)
+    log(f"# launch guard A/B, config 5 at {w}x{h} through Renderer "
+        f"({smi_line}), ms/frame, {frames} frames in turns, medians: with "
+        f"the guard {info['with']}, without {info['without']} (quartiles "
+        f"{info['quartiles']}); the guard's device query "
+        f"{query_us} us a call; frames bit-equal")
+    return info
+
+
+def cards_phase(smi_lines, h, w):
+    """The sharded paths with one NCCL rank a card (entry.run_ranks with
+    backend="nccl": rank r on cuda:r, the collectives on the cards), where
+    the machine has CARD_RANKS cards; returns what it measured.
+
+    Cases, each at h x w, a warm-up frame then one timed frame a rank
+    (entry.mesh_frames; the launch counts set to 0 just before it):
+    - the headline tiled over ('ty', 'tx') = (2, 2): every rank launches
+      K1 and K2 once and nothing else, then gather_framebuffer;
+    - the headline geometry-sharded over ('tr',) = 4: 250,278 triangles a
+      card through K1, K9 + K10 and the shade, then the fold's one
+      all-gather of the (z, colour, key) planes (its gather ms: that
+      collective run again alone);
+    - stack6 over ('host', 'ty') = (2, 2): each 'host' coordinate draws
+      one half of every object's triangles into its rank's half frame
+      (K1, K9 + K10, the shade), the fold's all-gather runs over 'host',
+      then gather_framebuffer over 'ty';
+    - config 5 object-sharded over ('obj', 'ty') = (2, 2).
+    Every rank's rect and every gathered or folded frame is held bit-equal
+    to the unsharded frame of the same scene that cuda:0 renders through
+    Renderer (warm-up, then one timed frame: the one-card ms). Then
+    dryrun_multichip(CARD_RANKS) on NCCL. A mismatch raises."""
+    import numpy as np
+    import torch
+
+    import tpu_renderer_torch as trt
+    from tpu_renderer_torch import entry
+
+    cards = torch.cuda.device_count()
+    if cards < CARD_RANKS:
+        log(f"# cards phase: {cards} card(s) found, {CARD_RANKS} needed "
+            f"for one NCCL rank a card: not run")
+        return {"cards": cards, "ran": False}
+    dev = torch.device("cuda", 0)
+    lh, lw = h // 2, w // 2
+    # name: (mode, mesh shape, dim names, scene, rank r's rect (row0, col0,
+    # rows, cols))
+    cases = {
+        "headline tiled": ("tiled", (2, 2), ("ty", "tx"), "headline",
+                           lambda r: ((r // 2) * lh, (r % 2) * lw, lh, lw)),
+        "headline tr": ("geometry", (CARD_RANKS,), ("tr",), "headline",
+                        lambda r: (0, 0, h, w)),
+        "stack6 host": ("2level", (2, 2), ("host", "ty"), "stack6",
+                        lambda r: ((r % 2) * lh, 0, lh, w)),
+        "config 5 object": ("object", (2, 2), ("obj", "ty"), "config5",
+                            lambda r: ((r % 2) * lh, 0, lh, w)),
+    }
+    info = {"cards": cards, "ran": True, "card_lines": smi_lines,
+            "ranks": CARD_RANKS, "backend": "nccl", "one_card_ms": {}}
+    want = {}
+    for scene_name in ("headline", "stack6", "config5"):
+        scene, tr, li = entry.scene_by_name(scene_name, h, w, dev)
+        renderer = trt.Renderer(h, w, device=dev)
+        renderer.render(scene, tr, li)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fb = renderer.render(scene, tr, li)
+        torch.cuda.synchronize(dev)
+        info["one_card_ms"][scene_name] = 1e3 * (time.perf_counter() - t0)
+        want[scene_name] = entry.host_frame(fb)
+        del scene, fb
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = entry.run_ranks(
+        entry.mesh_frames, CARD_RANKS,
+        tuple((name, mode, shape, names, scene_name, "kernels", h, w)
+              for name, (mode, shape, names, scene_name, _)
+              in cases.items()),
+        True, device=dev, backend="nccl")
+    info["ranks_wall_ms"] = 1e3 * (time.perf_counter() - t0)
+    for name, (mode, shape, names, scene_name, rect) in cases.items():
+        whole = want[scene_name]
+        per = info[name] = {"mesh": dict(zip(names, shape)),
+                            "render_ms": [], "gather_ms": [],
+                            "launches": []}
+        for rank, frames in enumerate(ranks):
+            local, full, ms, gather_ms, launches = frames[name]
+            r0, c0, rh, rw = rect(rank)
+            for what, got, ref in (
+                    ("rect", local, tuple(a[r0:r0 + rh, c0:c0 + rw]
+                                          for a in whole)),
+                    ("gathered frame", full, whole)):
+                diff = entry.frame_difference(got, ref)
+                if diff:
+                    raise AssertionError(f"cards phase, {name}, rank "
+                                         f"{rank}'s {what}: {diff}")
+            counted = {n: c for n, c in launches.items() if c}
+            if mode == "tiled" and counted != {"setup.setup_kernel": 1,
+                                               "raster.raster_kernel": 1}:
+                raise AssertionError(f"cards phase, {name}, rank {rank}: "
+                                     f"launches {counted}, want K1 and K2 "
+                                     f"once")
+            per["render_ms"].append(ms)
+            per["gather_ms"].append(gather_ms)
+            per["launches"].append(counted)
+        covered = int((whole[1] > np.float32(-3.0e38)).sum())
+        log(f"# cards {name}: {CARD_RANKS} NCCL ranks, one a card, mesh "
+            f"{per['mesh']}, {w}x{h}; every rank's rect and gathered frame "
+            f"== cuda:0's unsharded frame ({covered} px covered), "
+            f"bit-equal; render ms a rank {per['render_ms']}, gather ms a "
+            f"rank {per['gather_ms']}; one card "
+            f"{info['one_card_ms'][scene_name]} ms; launches a rank "
+            f"{per['launches']}")
+
+    t0 = time.perf_counter()
+    info["dryrun_rank_ms"] = entry.dryrun_multichip(CARD_RANKS, device=dev,
+                                                    backend="nccl")
+    info["dryrun_multichip_wall_ms"] = 1e3 * (time.perf_counter() - t0)
+    log(f"# cards dryrun_multichip({CARD_RANKS}) on NCCL, one rank a card: "
+        f"tiled, geometry, object and two-level shapes == the unsharded "
+        f"frames, bit-equal")
+    log(f"# cards wall ms ({'; '.join(smi_lines)}; {CARD_RANKS} NCCL "
+        f"ranks, one a card, host clock between syncs; information, not a "
+        f"claim): " + json.dumps(info))
     return info
 
 
@@ -1271,7 +1472,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    smi_line = smi.stdout.strip().splitlines()[0]
+    smi_lines = smi.stdout.strip().splitlines()
+    smi_line = smi_lines[0]
     log(smi_line)
 
     # 2. Build.
@@ -2788,6 +2990,8 @@ def main():
         f"turns), plain {pms:.4f} ms, bound {bms:.6f} ms ({by}); profiler "
         f"per call: " + json.dumps(k7_prof))
 
+    guard_ab = launch_guard_ab(dev, smi_line, scene5f, tr5f, li5f, H, W)
+
     if args.profile:
         for path, (sc, tr_, li_, h, w) in (
                 ("headline", (head_scene, head_tr, head_li, H, W)),
@@ -2857,8 +3061,9 @@ def main():
                                                               w)))
     golden_info = golden_phase(smi_line, golden_paths, path_ms)
 
-    # 9. The sharded paths.
+    # 9. The sharded paths; 10. one NCCL rank a card.
     mesh_info = mesh_phase(dev, smi_line, head_scene, head_tr, head_li, H, W)
+    cards_info = cards_phase(smi_lines, H, W)
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -2927,6 +3132,8 @@ def main():
         "headline_frame_timer": frame_timer,
         "golden": golden_info,
         "mesh": mesh_info,
+        "cards": cards_info,
+        "launch_guard_ab": guard_ab,
         "card": smi_line}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,10 @@ K3's routes), K2 / K3 / K4 and K9 split into parts of 1, 16 and the
 default number of entries merged by the (z, gid) key, and whole frames
 on the card against the CPU run, with the
 Renderer's knobs (clear_color, capacity, budget_factor, calibrate,
-zcull), the 'reference' backend and sub-rects at an origin.
+zcull), the 'reference' backend and sub-rects at an origin; with two
+cards or more, frames rendered on cuda:1 while cuda:0 is current (the
+K1 + K2, K7 + K4, K8 and K9 + K10 routes) against cuda:0's, and
+``dryrun_multichip`` over NCCL, one rank a card.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports no JAX, so it also runs on a machine that has only torch; there,
@@ -983,3 +986,102 @@ def test_calibrate_on_card_equals_cpu(cuda):
         got.append((r.calibrate(sc, tr, li), r.budget_factor))
     assert got[0] == got[1]
     assert got[0][0] is not None
+
+
+# ---------------------------------------------------------------------------
+# Several cards: every launch on its tensors' own card; NCCL ranks
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    torch.cuda.set_device(0)
+    yield
+    torch.cuda.set_device(0)
+
+
+def deferred40k_scene(h, w, device):
+    """Chip_smoke's deferred 40k: the 40,040-triangle sphere with a
+    2.2-unit quad 0.6 behind it, one mesh, Phong, a 1024x1024 checkerboard
+    sampled bilinearly (over the fused atlas limit): the G-buffer path."""
+    quad = tp.construct_quad(2.2)
+    quad["vertices"][:, 2] -= 0.6
+    mesh = tp.merge_meshes(tp.construct_sphere_grid(140, 143), quad)
+    tr_d, li_d = ts.baseline_camera_lights(h, w)
+    sg = [(dict(p=(0.0, 0.0, 0.0), **mesh),
+           {"phong": True, "texture": checkerboard(1024, 1024, 64),
+            "filter_mode": "bilinear"})]
+    return ts.to_torch_scene(sg, tr_d, li_d, device=device)
+
+
+def config3_avx_scene(h, w, device):
+    sg, tr_d, li_d = ts.baseline_scene(3, h, w)
+    sg = [(sg[0][0], dict(sg[0][1], uv_mode="avx"))]
+    return ts.to_torch_scene(sg, tr_d, li_d, device=device)
+
+
+def baseline_torch_scene(n, h, w, device):
+    sg, tr_d, li_d = ts.baseline_scene(n, h, w)
+    return ts.to_torch_scene(sg, tr_d, li_d, device=device)
+
+
+# name: (scene function, (h, w), the kernels one frame launches)
+CROSS_CARD = {
+    "headline (K1 + K2)": (
+        lambda h, w, dev: ts.stack_scene(708, 707, 1, h, w, device=dev),
+        (1080, 1920), {"setup.setup_kernel": 1, "raster.raster_kernel": 1}),
+    "config 5 (K7 + K4)": (
+        lambda h, w, dev: baseline_torch_scene(5, h, w, dev), (1080, 1920),
+        {"raster.finish_records": 1, "raster.raster_narrow_kernel": 1}),
+    "config 3 avx (K8)": (
+        config3_avx_scene, (512, 512),
+        {"raster.finish_records": 1, "gbuffer.raster_pass": 1}),
+    "deferred 40k (K9 + K10)": (
+        deferred40k_scene, (1080, 1920),
+        {"setup.setup_kernel": 1, "gbuffer.raster_pass_queue": 1}),
+}
+
+
+@pytest.mark.parametrize("name", list(CROSS_CARD))
+def test_frame_on_another_card_equals_cuda0(two_cards, name):
+    """Renderer(device="cuda:1") with its scene on cuda:1, while cuda:0
+    stays the current device, launches the route's kernels on cuda:1 and
+    renders cuda:0's frame bit for bit. Every C entry launches on the
+    current device, so each wrapper has to make its tensors' card current
+    for the call (``_cuda.launch``)."""
+    from tpu_renderer_torch import entry
+
+    build, (h, w), want = CROSS_CARD[name]
+    counters = entry.launch_counters()
+    frames = []
+    for dev in (torch.device("cuda", 0), torch.device("cuda", 1)):
+        scene, tr, li = build(h, w, dev)
+        before = {n: f.launches for n, f in counters.items()}
+        fb = trt.Renderer(h, w, device=dev).render(scene, tr, li)
+        torch.cuda.synchronize(dev)
+        launched = {n: f.launches - before[n] for n, f in counters.items()
+                    if f.launches != before[n]}
+        assert launched == want, (dev, launched)
+        assert torch.cuda.current_device() == 0
+        assert fb.color.device == fb.depth.device == dev
+        frames.append((fb.color.cpu(), fb.depth.cpu()))
+    (c0, d0), (c1, d1) = frames
+    assert torch.equal(bits(c1), bits(c0))
+    assert torch.equal(bits(d1), bits(d0))
+    assert int((d0 > -3.0e38).sum()) > 1000
+
+
+def test_dryrun_multichip_on_nccl_one_rank_a_card(two_cards):
+    """dryrun_multichip over NCCL, rank r on cuda:r: every mesh shape held
+    bit-equal to the unsharded frame inside the ranks."""
+    from tpu_renderer_torch import entry
+
+    n = min(4, torch.cuda.device_count())
+    per_rank = entry.dryrun_multichip(n, backend="nccl")
+    assert len(per_rank) == n
+    shapes = {"tiled"} | ({"geometry", "object", "2level"} if n % 2 == 0
+                          else set())
+    for ms in per_rank:
+        assert set(ms) == shapes

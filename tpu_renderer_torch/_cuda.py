@@ -3,8 +3,10 @@
 The kernels (``csrc/*.cu``) are compiled at first use by ``nvcc``, one
 process per source, all started together, and linked into one shared
 library with a plain C interface, loaded with ctypes. Each C entry
-launches on the stream it is given and returns ``cudaGetLastError()``; the
-Python wrappers raise when that is not 0.
+launches on the stream it is given, on the current device, and returns
+``cudaGetLastError()``; every wrapper calls it through ``launch``, which
+makes the tensors' card current for the call and raises when that is not
+0.
 
 - Target: ``sm_90a`` (Hopper).
 - Float flags: ``-fmad=false -prec-div=true -prec-sqrt=true -ftz=false``
@@ -19,8 +21,9 @@ Nothing here runs at import time: a CPU-only machine (no nvcc, no card)
 imports the package and runs the plain versions.
 
 A launch's host work is kept small, since a small kernel's time is
-mostly its launch: ``stream`` gives the current stream's raw handle
-without building a ``torch.cuda.Stream`` object, ``check_tensor`` costs
+mostly its launch: ``launch`` passes the current stream's raw handle
+without building a ``torch.cuda.Stream`` object and switches the current
+device only when the tensors lie on another card, ``check_tensor`` costs
 one expression when the tensor is right, and ctypes caches each C entry
 on the library after its first lookup.
 """
@@ -134,11 +137,26 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def stream(device) -> int:
-    """The raw handle of ``device``'s current stream."""
-    index = device.index
-    return torch._C._cuda_getCurrentRawStream(
-        torch.cuda.current_device() if index is None else index)
+def launch(name: str, device, *args) -> None:
+    """Call C entry ``name`` with ``args`` and the raw handle of
+    ``device``'s current stream, with ``device`` the current card; raise
+    unless it returns 0.
+
+    The C entries launch on the CUDA runtime's current device (and size
+    their grids by its occupancy), while the stream and the pointers
+    belong to the tensors' card. So the call runs under that card: when
+    it is already current (every call on one card, every rank bound to
+    its card) that costs one device query; otherwise the card is made
+    current for the call and the caller's restored after."""
+    fn = getattr(library(), name)
+    current = torch._C._cuda_getDevice()
+    index = current if device.index is None else device.index
+    if index == current:
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    check_launch(name, rc)
 
 
 def check_tensor(name, t, device, dtype, shape) -> None:

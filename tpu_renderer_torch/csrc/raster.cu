@@ -1051,7 +1051,8 @@ constexpr int kMaxDevices = 64;
 
 // Blocks of ``kernel`` (``threads`` a block) that the current card runs at
 // once, into *blocks; ``cached`` keeps a successful answer for each device
-// index.
+// index. The current card is the tensors' own: every C entry is called
+// through ``_cuda.launch``, which makes it current for the call.
 template <class Kernel>
 cudaError_t occupancy_blocks(Kernel kernel, int threads, int* cached,
                              int* blocks) {

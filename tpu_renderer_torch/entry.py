@@ -6,22 +6,29 @@ PyTorch counterpart of the repository's ``__graft_entry__.py``:
 - ``entry(device)`` returns ``(fn, args)``; ``fn(*args)`` renders config 5
   at 256x256 through ``render_scene`` on the card and returns (color,
   depth);
-- ``dryrun_multichip(n, device)`` spawns ``n`` gloo ranks in place of the
-  JAX package's virtual XLA devices and renders the four mesh shapes of
+- ``dryrun_multichip(n, device, backend)`` spawns ``n`` ranks in place of
+  the JAX package's XLA devices and renders the four mesh shapes of
   ``__graft_entry__.py``, each held bit-equal to the unsharded frame.
 
 The multi-rank helpers live here so that a spawned rank imports only this
-package: ``run_ranks(body, n, *args, device=...)`` starts ``n`` processes
-with the spawn method, joins them in one gloo group (rendezvous through a
-file in a fresh temporary directory, so concurrent calls never collide),
-runs ``body(rank, n, device, *args)`` in each and returns what each rank
-returned. A rank that raises fails the call: the others are stopped and
-the parent raises. On the card every rank uses cuda:(rank % cards), so
-several ranks share one card (NCCL refuses that; gloo takes it), each
-running the kernels and exchanging its collectives through gloo; on the
-CPU every rank runs the kernels' plain versions single-threaded.
+package: ``run_ranks(body, n, *args, device=..., backend=...)`` starts
+``n`` processes with the spawn method, joins them in one process group
+(rendezvous through a file in a fresh temporary directory, so concurrent
+calls never collide), runs ``body(rank, n, device, *args)`` in each and
+returns what each rank returned. A rank that raises fails the call: the
+others are stopped and the parent raises. The group
+(``process_group_backend``):
 
-    python -m tpu_renderer_torch.entry [--devices 4] [--device cuda]
+- at least ``n`` cards: NCCL, rank r bound to cuda:r, the collectives on
+  the cards (over NVLink where the cards have it), as the JAX package's
+  run on its devices;
+- fewer cards: gloo, rank r on cuda:(r % cards), several ranks sharing a
+  card (NCCL refuses that), the collectives staged through host memory;
+- the CPU: gloo, every rank running the kernels' plain versions
+  single-threaded.
+
+    python -m tpu_renderer_torch.entry [--devices 4] [--device cuda] \\
+        [--backend nccl|gloo]
 """
 
 from __future__ import annotations
@@ -67,42 +74,84 @@ def entry(device="cuda"):
     return fn, (objs, transform, lights)
 
 
+BACKENDS = ("nccl", "gloo")
+
+
+def process_group_backend(device_type: str, world_size: int, cards: int,
+                          backend: str | None = None) -> str:
+    """The process group backend of ``world_size`` ranks on ``device_type``
+    with ``cards`` cards: NCCL where every rank has a card of its own, gloo
+    where ranks share a card (NCCL refuses two ranks on one card) or run
+    on the CPU. ``backend`` asks for one: 'gloo' is always taken, 'nccl'
+    raises where it cannot run rather than fall back."""
+    if backend is not None and backend not in BACKENDS:
+        raise ValueError(f"unknown process group backend: {backend}")
+    nccl_ok = device_type == "cuda" and cards >= world_size
+    if backend == "nccl" and not nccl_ok:
+        where = ("on the CPU" if device_type != "cuda" else
+                 f"on {cards} card(s)")
+        raise ValueError(f"backend 'nccl' needs a card for each rank, not "
+                         f"{world_size} ranks {where}")
+    if backend is not None:
+        return backend
+    return "nccl" if nccl_ok else "gloo"
+
+
+def rank_device(rank: int, cards: int) -> torch.device:
+    """The device of ``rank`` with ``cards`` cards: cuda:(rank % cards),
+    so rank r on cuda:r where the cards suffice; the CPU without cards."""
+    if not cards:
+        return torch.device("cpu")
+    return torch.device("cuda", rank % cards)
+
+
 def _rank_main(rank: int, world_size: int, rdzv_dir: str, device: str,
-               body, args) -> None:
-    """One spawned rank: its device, the gloo group, ``body``, and its
+               backend: str, body, args) -> None:
+    """One spawned rank: its device, the process group, ``body``, and its
     result saved for the parent."""
-    dev = torch.device(device)
+    dev = rank_device(rank, torch.cuda.device_count()
+                      if device == "cuda" else 0)
     if dev.type == "cuda":
-        dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
     # The ranks share the host's cores (and the test workers' cores).
     torch.set_num_threads(1)
-    # All ranks are on this host: gloo talks over the loopback device.
+    # All ranks are on this host: gloo, and NCCL's bootstrap, talk over the
+    # loopback device (another interface may be down and hang the join).
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     torch.distributed.init_process_group(
-        "gloo", init_method="file://" + os.path.join(rdzv_dir, "rendezvous"),
-        rank=rank, world_size=world_size, timeout=RANK_TIMEOUT)
+        backend,
+        init_method="file://" + os.path.join(rdzv_dir, "rendezvous"),
+        rank=rank, world_size=world_size, timeout=RANK_TIMEOUT,
+        device_id=dev if backend == "nccl" else None)
     out = body(rank, world_size, dev, *args)
     torch.distributed.destroy_process_group()
     torch.save(out, os.path.join(rdzv_dir, f"rank{rank}.pt"))
 
 
-def run_ranks(body, world_size: int, *args, device="cuda") -> list:
+def run_ranks(body, world_size: int, *args, device="cuda",
+              backend: str | None = None) -> list:
     """``body(rank, world_size, device, *args)`` in ``world_size`` spawned
-    processes joined in one gloo group; returns the ranks' return values in
-    rank order. ``body`` must be importable from this package (a spawned
-    child imports it by name). The kernels are built once, here, before
-    any rank starts. A failing rank fails the call."""
+    processes joined in one process group; returns the ranks' return
+    values in rank order. The group is ``process_group_backend``'s: NCCL
+    with rank r on cuda:r where there are at least ``world_size`` cards,
+    else gloo (ranks sharing cards, cuda:(r % cards), or on the CPU);
+    ``backend`` asks for one, and a 'nccl' that cannot run raises here,
+    before any rank starts. ``body`` must be importable from this package
+    (a spawned child imports it by name). The kernels are built once,
+    here, before any rank starts. A failing rank fails the call."""
     import torch.multiprocessing as mp
 
     device = resolve_device(device)
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    backend = process_group_backend(device.type, world_size, cards, backend)
     if device.type == "cuda":
         from . import _cuda
 
         _cuda.build()
     with tempfile.TemporaryDirectory(prefix="tr_ranks_") as rdzv_dir:
-        mp.spawn(_rank_main, args=(world_size, rdzv_dir, device.type, body,
-                                   args),
+        mp.spawn(_rank_main, args=(world_size, rdzv_dir, device.type,
+                                   backend, body, args),
                  nprocs=world_size, join=True, start_method="spawn")
         return [torch.load(os.path.join(rdzv_dir, f"rank{r}.pt"),
                            weights_only=False) for r in range(world_size)]
@@ -111,11 +160,16 @@ def run_ranks(body, world_size: int, *args, device="cuda") -> list:
 def scene_by_name(name: str, height: int, width: int, device):
     """(scene, transform, lights) of 'config<N>' (``baseline_scene``),
     'spheres<N>' or 'twins<N>' (``sphere_cluster_scene``, the second with
-    each sphere twice) or 'headline' (the 1,001,112
-    triangle Phong sphere, ``construct_sphere_grid(708, 707)``) at
-    (height, width)."""
+    each sphere twice), 'headline' (the 1,001,112 triangle Phong sphere,
+    ``construct_sphere_grid(708, 707)``) or 'stack6' (six nested spheres
+    of ``construct_sphere_grid(409, 409)``, 2,007,372 triangles, innermost
+    first: ``stack_scene(409, 409, 6, inner_first=True)``) at (height,
+    width)."""
     if name == "headline":
         return scenes.stack_scene(708, 707, 1, height, width, device=device)
+    if name == "stack6":
+        return scenes.stack_scene(409, 409, 6, height, width, device=device,
+                                  inner_first=True)
     if name.startswith("config"):
         sg, tr_d, li_d = scenes.baseline_scene(int(name[6:]), height, width)
         return scenes.to_torch_scene(sg, tr_d, li_d, device=device)
@@ -147,6 +201,7 @@ SHARDED = {"tiled": pm.render_scene_tiled,
            "geometry": pm.render_scene_geometry_sharded,
            "2level": pm.render_scene_2level,
            "object": pm.render_scene_object_sharded}
+FOLD_AXIS = {"geometry": "tr", "2level": "host", "object": "obj"}
 
 
 def mesh_frames(rank: int, world_size: int, device, cases,
@@ -157,9 +212,13 @@ def mesh_frames(rank: int, world_size: int, device, cases,
     tiles -> {name: (this rank's frame, the whole frame, render ms, gather
     ms, launches)}: frames as host (color, depth) arrays; the wall ms of
     the sharded render (its fold included) and of the gather on this
-    rank, each to the card's end, the render's from a barrier; the kernel
+    rank, each from a barrier to the card's end; the kernel
     launches of that run ({wrapper: count}, the counts set to 0 just
-    before it). ``warmup`` runs each case once more before."""
+    before it). Where the mesh has no tile dim, the frame needs no gather,
+    and the gather ms are those of the fold's one collective (the
+    all-gather of this rank's (z, color, key) planes over ``FOLD_AXIS``),
+    run again alone after the frame, from a barrier. ``warmup`` runs each
+    case once more before."""
     counters = launch_counters()
 
     def sync():
@@ -179,11 +238,23 @@ def mesh_frames(rank: int, world_size: int, device, cases,
             t0 = sync()
             local = SHARDED[mode](scene, tr, li, h, w, mesh, backend)
             t1 = sync()
-            full = pm.gather_framebuffer(local, mesh) if tiles else local
+            # The gather starts from a barrier too: its ms are the
+            # collective's, not the wait for a slower rank's render.
+            torch.distributed.barrier()
             t2 = sync()
+            full = pm.gather_framebuffer(local, mesh) if tiles else local
+            t3 = sync()
         launches = {n: f.launches for n, f in counters.items()}
-        out[name] = (host_frame(local), host_frame(full), 1e3 * (t1 - t0),
-                     1e3 * (t2 - t1), launches)
+        render_ms, gather_ms = 1e3 * (t1 - t0), 1e3 * (t3 - t2)
+        if not tiles:
+            planes = torch.empty((3, *local.depth.shape), dtype=torch.int32,
+                                 device=device)
+            torch.distributed.barrier()
+            t1 = sync()
+            pm._all_gather(planes, mesh, FOLD_AXIS[mode])
+            gather_ms = 1e3 * (sync() - t1)
+        out[name] = (host_frame(local), host_frame(full), render_ms,
+                     gather_ms, launches)
     return out
 
 
@@ -254,13 +325,17 @@ def _dryrun_rank(rank: int, world_size: int, device) -> dict:
     return {name: frames[name][2:4] for name in frames}
 
 
-def dryrun_multichip(n_devices: int, device="cuda") -> list:
-    """Render every sharding mode over ``n_devices`` spawned gloo ranks on
-    small frames and hold each to the unsharded render, bit for bit
-    (``__graft_entry__.dryrun_multichip``'s four shapes). On the card the
-    ranks share it; ``device="cpu"`` runs the plain versions. Raises when
-    any rank fails. Returns each rank's {shape: (render ms, gather ms)}."""
-    return run_ranks(_dryrun_rank, n_devices, device=device)
+def dryrun_multichip(n_devices: int, device="cuda",
+                     backend: str | None = None) -> list:
+    """Render every sharding mode over ``n_devices`` spawned ranks on small
+    frames and hold each to the unsharded render, bit for bit
+    (``__graft_entry__.dryrun_multichip``'s four shapes). The ranks join
+    ``run_ranks``' group: NCCL, one rank a card, where the cards suffice,
+    else gloo (ranks sharing cards); ``backend`` asks for one;
+    ``device="cpu"`` runs the plain versions. Raises when any rank fails.
+    Returns each rank's {shape: (render ms, gather ms)}."""
+    return run_ranks(_dryrun_rank, n_devices, device=device,
+                     backend=backend)
 
 
 def main(argv=None) -> None:
@@ -270,12 +345,20 @@ def main(argv=None) -> None:
     ap.add_argument("--devices", type=int, default=4,
                     help="ranks of the dry run")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--backend", choices=BACKENDS, default=None,
+                    help="the ranks' process group (default: NCCL where "
+                         "every rank has a card, else gloo)")
     args = ap.parse_args(argv)
     fn, fn_args = entry(args.device)
     color, _ = fn(*fn_args)
     print("entry ok:", tuple(color.shape), color.dtype)
-    dryrun_multichip(args.devices, args.device)
-    print(f"dryrun_multichip({args.devices}) ok")
+    device = resolve_device(args.device)
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    backend = process_group_backend(device.type, args.devices, cards,
+                                    args.backend)
+    per_rank = dryrun_multichip(args.devices, device, backend)
+    print(f"dryrun_multichip({args.devices}) ok on {backend}, {cards} "
+          f"card(s); render and gather ms a rank: {per_rank}")
 
 
 if __name__ == "__main__":

@@ -1,10 +1,12 @@
 """Multi-rank rendering example: a tile mesh and a two-level mesh over
-spawned gloo ranks (``entry.run_ranks``), each gathered into the whole
-frame with ``gather_framebuffer``; rank 0 writes the tiled frame as a PNG.
+spawned ranks (``entry.run_ranks``), each gathered into the whole frame
+with ``gather_framebuffer``; rank 0 writes the tiled frame as a PNG.
 
-On one card the ranks share it (cuda:0 for every rank): that shows the
-sharded code paths working, and measures time slicing, not scale-out.
-``--device cpu`` runs the kernels' plain versions.
+With a card for every rank, the ranks join NCCL, rank r on cuda:r. With
+fewer cards they join gloo and share them (on one card, cuda:0 for every
+rank): that shows the sharded code paths working, and measures time
+slicing, not scale-out. ``--device cpu`` runs the kernels' plain
+versions on gloo ranks.
 
     python -m tpu_renderer_torch.examples.multichip [--devices 4] \\
         [--device cuda] [--out multichip.png]
@@ -62,7 +64,8 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--devices", type=int, default=4,
-                    help="ranks to spawn (on one card they share it)")
+                    help="ranks to spawn (one a card where the cards "
+                         "suffice, else sharing them)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="multichip.png")
     args = ap.parse_args(argv)

@@ -123,12 +123,11 @@ def raster_pass(recs, bins: TileBins, *, tile_h: int, tiles_y: int,
                        (tiles_y, tiles_x, capacity))
     _cuda.check_tensor("counts", bins.counts, dev, I32, (tiles_y, tiles_x))
     gid, gbuf = _outputs(tiles_y, tile_h, tiles_x, dev)
-    rc = _cuda.library().tr_gbuffer_mask(
+    _cuda.launch(
+        "tr_gbuffer_mask", dev,
         recs.data_ptr(), bins.ids.data_ptr(), bins.counts.data_ptr(),
         capacity, tile_h, _raster.MASK_STRIP_ROWS, tiles_y, tiles_x, row0,
-        col0, frame_width, gid.data_ptr(), gbuf.data_ptr(),
-        _cuda.stream(dev))
-    _cuda.check_launch("tr_gbuffer_mask", rc)
+        col0, frame_width, gid.data_ptr(), gbuf.data_ptr())
     raster_pass.launches += 1
     return gid, gbuf
 
@@ -171,14 +170,14 @@ def raster_pass_queue(recs, qbins: QueueBins, lcounts, *, tile_h: int,
     gid, gbuf = _outputs(tiles_y, tile_h, tiles_x, dev)
     keys = torch.empty(gid.shape, dtype=torch.int64, device=dev)
     part_off = torch.empty((nfb + 1,), dtype=I32, device=dev)
-    rc = _cuda.library().tr_gbuffer_queue(
+    _cuda.launch(
+        "tr_gbuffer_queue", dev,
         recs.data_ptr(), qbins.sorted_tri.data_ptr(), qbins.starts.data_ptr(),
         qbins.counts.data_ptr(), qbins.large_ids.data_ptr(),
         qbins.n_large.data_ptr(), lcounts.data_ptr(), tile_h, tiles_y,
         tiles_x, row0, col0, frame_width, qbins.sorted_tri.shape[0],
         _raster.RASTER_PART_ENTRIES, keys.data_ptr(), part_off.data_ptr(),
-        gid.data_ptr(), gbuf.data_ptr(), _cuda.stream(dev))
-    _cuda.check_launch("tr_gbuffer_queue", rc)
+        gid.data_ptr(), gbuf.data_ptr())
     raster_pass_queue.launches += 1
     raster_pass_queue.part_offsets = part_off
     return gid, gbuf

@@ -426,9 +426,8 @@ def finish_records(rec_t: torch.Tensor) -> torch.Tensor:
     if rec_t.dtype is not F32 or not rec_t.is_contiguous():
         _cuda.check_tensor("rec_t", rec_t, dev, F32, (R, T))
     out = rec_t.new_empty((tp, REC_LANES))
-    rc = _cuda.library().tr_records(rec_t.data_ptr(), R, T, tp,
-                                    out.data_ptr(), _cuda.stream(dev))
-    _cuda.check_launch("tr_records", rc)
+    _cuda.launch("tr_records", dev, rec_t.data_ptr(), R, T, tp,
+                 out.data_ptr())
     finish_records.launches += 1
     return out
 
@@ -527,7 +526,8 @@ def _raster(wrapper, entry: str, tile_h: int, streams: int, recs,
     # u64 keys, then the part offsets.
     scratch = torch.empty((2 * n_keys + nfb + 1,), dtype=I32, device=dev)
     part_off = scratch[2 * n_keys:2 * n_keys + nfb + 1]
-    rc = getattr(_cuda.library(), entry)(
+    _cuda.launch(
+        entry, dev,
         recs.data_ptr(), qbins.sorted_tri.data_ptr(), qbins.starts.data_ptr(),
         qbins.counts.data_ptr(), qbins.large_ids.data_ptr(),
         qbins.n_large.data_ptr(), lcounts.data_ptr(), params.data_ptr(),
@@ -536,9 +536,8 @@ def _raster(wrapper, entry: str, tile_h: int, streams: int, recs,
         frame_width,
         qbins.sorted_tri.shape[0], RASTER_PART_ENTRIES,
         scratch.data_ptr(), part_off.data_ptr(), z.data_ptr(),
-        gid.data_ptr(), color.data_ptr(), *probe, _cuda.stream(dev),
+        gid.data_ptr(), color.data_ptr(), *probe,
     )
-    _cuda.check_launch(entry, rc)
     wrapper.launches += 1
     wrapper.part_offsets = part_off
     return z, gid, color.view(torch.uint32)
@@ -631,14 +630,14 @@ def raster_mask_kernel(recs, bins: TileBins, params, objs, texs, atlas, *,
     n_obj, atlas_ptr, aw = _check_finalize(dev, recs, params, objs, texs,
                                            atlas, n_lights)
     z, gid, color = _outputs(tiles_y, tile_h, tiles_x, dev)
-    rc = _cuda.library().tr_raster_mask(
+    _cuda.launch(
+        "tr_raster_mask", dev,
         recs.data_ptr(), bins.ids.data_ptr(), bins.counts.data_ptr(),
         params.data_ptr(), objs.data_ptr(), texs.data_ptr(), atlas_ptr,
         capacity, tile_h, MASK_STRIP_ROWS, n_obj, n_lights, aw, tiles_y,
         tiles_x, row0, col0, frame_width, z.data_ptr(), gid.data_ptr(),
-        color.data_ptr(), _cuda.stream(dev),
+        color.data_ptr(),
     )
-    _cuda.check_launch("tr_raster_mask", rc)
     raster_mask_kernel.launches += 1
     return z, gid, color.view(torch.uint32)
 

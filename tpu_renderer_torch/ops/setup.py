@@ -141,15 +141,14 @@ def setup_kernel(params, verts, cols, nrms, *, n_lights: int, phong: bool,
         raise ValueError(f"bad padded length {tp} for {T} triangles")
     recs = torch.empty((tp, REC_LANES), dtype=F32, device=verts.device)
     bbox = torch.empty((8, tp), dtype=F32, device=verts.device)
-    lib = _cuda.library()
-    rc = lib.tr_setup(
+    _cuda.launch(
+        "tr_setup", verts.device,
         params.data_ptr(), n_lights, int(bool(phong)),
         verts.data_ptr(), cols.data_ptr(), nrms.data_ptr(),
         None if uvs is None else uvs.data_ptr(), T, tp,
         int(gid0), int(frame_height), int(frame_width),
-        recs.data_ptr(), bbox.data_ptr(), _cuda.stream(verts.device),
+        recs.data_ptr(), bbox.data_ptr(),
     )
-    _cuda.check_launch("tr_setup", rc)
     setup_kernel.launches += 1
     return recs, bbox
 

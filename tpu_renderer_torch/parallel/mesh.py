@@ -30,8 +30,13 @@ the rank's coordinate on that dim and the folds run in shard order.
 
 Collectives move int32 tensors only: a ``Framebuffer``'s color is int32
 storage viewed as uint32 (``core.types.make_framebuffer``), which gloo
-refuses, and z travels as its int32 bits in the same tensor as the color
-and the key, one collective for the three planes.
+refuses and NCCL has no use for, and z travels as its int32 bits in the
+same tensor as the color and the key, one collective for the three
+planes. The functions take whatever process groups the mesh has: NCCL
+with one rank a card, the collectives on the cards, or gloo (ranks
+sharing a card, or on the CPU); ``entry.run_ranks`` picks between them.
+The folds run on the ranks' devices in a fixed order, so both give the
+same bits.
 """
 
 from __future__ import annotations
@@ -80,10 +85,17 @@ def _coord(mesh, name: str) -> int:
         else 0
 
 
-def _all_gather(t: torch.Tensor, mesh, name: str) -> list:
-    """Every rank's ``t`` along dim ``name``, in coordinate order."""
-    out = [torch.empty_like(t) for _ in range(_size(mesh, name))]
-    dist.all_gather(out, t.contiguous(), group=mesh.get_group(name))
+def _all_gather(t: torch.Tensor, mesh, name: str) -> torch.Tensor:
+    """Every rank's ``t`` along dim ``name``, in coordinate order, stacked:
+    (size along ``name``, *t.shape). NCCL gathers into the one buffer;
+    gloo into views of it, one a rank (the list form gloo takes)."""
+    group = mesh.get_group(name)
+    t = t.contiguous()
+    out = t.new_empty((_size(mesh, name), *t.shape))
+    if dist.get_backend(group) == dist.Backend.NCCL:
+        dist.all_gather_into_tensor(out, t, group=group)
+    else:
+        dist.all_gather(list(out.unbind(0)), t, group=group)
     return out
 
 
@@ -352,7 +364,12 @@ def gather_framebuffer(fb: Framebuffer, mesh) -> Framebuffer:
     planes = torch.stack([fb.color.view(I32), fb.depth.view(I32)])
     for axis, dim in (("ty", 1), ("tx", 2)):
         if axis in (mesh.mesh_dim_names or ()):
-            planes = torch.cat(_all_gather(planes, mesh, axis), dim=dim)
+            # (n, 2, h, w) -> (2, h, w) with the n ranks' rects side by
+            # side along ``dim``.
+            parts = _all_gather(planes, mesh, axis).movedim(0, dim)
+            shape = list(planes.shape)
+            shape[dim] *= parts.shape[dim]
+            planes = parts.reshape(shape)
     return Framebuffer(color=planes[0].view(torch.uint32),
                        depth=planes[1].view(torch.float32))
 
@@ -361,9 +378,11 @@ def gather_framebuffer(fb: Framebuffer, mesh) -> Framebuffer:
 def device_mesh(shape, names, device_type: str = "cuda"):
     """A DeviceMesh of ``prod(shape)`` ranks in rank order along every dim
     (the order the folds need), over the default process group, which the
-    caller has initialised. On one card every rank's device is cuda:0:
-    the mesh is built from ranks, not from devices, so several ranks may
-    share it (set each rank's device before calling)."""
+    caller has initialised, with a subgroup a dim of that group's backend.
+    The mesh is built from ranks, not from devices: each rank's device is
+    the one it set before calling. With one rank a card (NCCL) rank r is
+    on cuda:r; where ranks share cards (gloo) several ranks have one
+    device, e.g. cuda:0 for every rank on a one-card host."""
     from torch.distributed.device_mesh import DeviceMesh
 
     n = 1
