@@ -6,9 +6,9 @@ Run from the root of the repository, on a machine with NVIDIA GPUs:
 
     python3 chip_smoke.py
 
-Phases 1-9 use cuda:0 (the mesh phase's ranks spread over the cards where
-there are more); phase 10 needs four cards and says so when it does not
-run.
+Phases 1-9 and 11 use cuda:0 (the mesh phase's ranks spread over the
+cards where there are more); phase 10 needs four cards and says so when
+it does not run.
 
 Phases (any failure raises and the script exits nonzero):
 
@@ -235,7 +235,26 @@ Phases (any failure raises and the script exits nonzero):
    Renderer. Each rank's render and gather ms (host clock between syncs)
    and the one-card ms go on a line with every card's name and power
    limit: information, not a claim. With fewer cards one line says how
-   many it found and that the phase did not run.
+   many it found and that the phase did not run;
+11. sweep (``sweep_phase``, on cuda:0): the seeded boundary scenes of
+   tpu_renderer_torch/models/sweep_scenes.py, every family at each of its
+   SEEDS: T across 512 and 4096 and frames across the 8-row and packing
+   thresholds; a tile's stream at k * 32 - 1, k * 32 and k * 32 + 1
+   entries (k = 1, 2, 5) beside empty and side-list-only tiles; exact
+   depth ties that only the gid breaks, in different parts and objects;
+   2047 / 2048 / 2049 side-list triangles; ragged frames, sub-rects and
+   forced tile heights 8-64; budgets and mask capacities that drop;
+   textures 511 / 512 / 513 texels on a side; zcull stacks innermost
+   first and last. Each form's launch takes the route and C entry its
+   scene was built for, with the claimed stream counts, side list and
+   drops; its outputs (z, gid, colour; the G-buffer's gid and 11 planes)
+   are bit-equal to its plain version on the card, its stats to the CPU's;
+   K11's skipped batches equal the serial replay; K1 and K7 against their
+   plain versions; scenes that drop nothing (up to 10,000 triangles) are
+   bit-equal to the NumPy spec, each fused form and the whole frame. One
+   line per family; every kernel form (K1-K11, K4 and K9 at 16, 32 and
+   the band form) launched. ``python3 chip_smoke.py --sweep-only
+   [FAMILY ...]`` runs the device, build and sweep phases alone.
 
 The line before the last is a JSON object with one entry per kernel
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
@@ -914,14 +933,20 @@ def golden_windows(scene, transform, lights, height, width, windows):
     return color, depth, counts
 
 
-def frame_arrays(fb):
-    """(color u32, depth f32) NumPy arrays of a framebuffer on any
+def host_frame(color, depth):
+    """(color u32, depth f32) NumPy arrays of a frame's planes on any
     device."""
     import numpy as np
     import torch
 
-    return (fb.color.view(torch.int32).cpu().numpy().view(np.uint32),
-            fb.depth.cpu().numpy())
+    return (color.contiguous().view(torch.int32).cpu().numpy().view(
+        np.uint32), depth.cpu().numpy())
+
+
+def frame_arrays(fb):
+    """(color u32, depth f32) NumPy arrays of a framebuffer on any
+    device."""
+    return host_frame(fb.color, fb.depth)
 
 
 def golden_diff(what, got, want):
@@ -1402,6 +1427,355 @@ def cards_phase(smi_lines, h, w):
     return info
 
 
+# (C entry) -> the kernel a sweep launch counts as
+SWEEP_KERNELS = {
+    "tr_setup": "K1", "tr_records": "K7", "tr_raster": "K2",
+    "tr_raster_rows1": "K3", "tr_raster_narrow": "K4 <16>",
+    "tr_raster_narrow32": "K4 <32>", "tr_raster_narrow_any": "K4 band",
+    "tr_raster_mask": "K6", "tr_gbuffer_mask": "K8",
+    "tr_raster_zcull": "K11 rows 2", "tr_raster_rows1_zcull": "K11 rows 1"}
+# every kernel form the sweep must launch at least once
+SWEEP_MUST = ("K1", "K2", "K3", "K4 <16>", "K4 <32>", "K4 band", "K5", "K6",
+              "K7", "K8", "K9 + K10 <8>", "K9 + K10 <16>", "K9 + K10 <32>",
+              "K9 + K10 band", "K10", "K11 rows 1", "K11 rows 2")
+SWEEP_GOLDEN_MAX_TRIS = 10000  # larger scenes are held to the plain versions
+
+
+def sweep_wrappers():
+    """{C entry: its wrapper}, for the launch counters."""
+    from tpu_renderer_torch.ops import gbuffer, raster, setup
+
+    return {
+        "tr_setup": setup.setup_kernel,
+        "tr_records": raster.finish_records,
+        "tr_raster": raster.raster_kernel,
+        "tr_raster_rows1": raster.raster_rows1_kernel,
+        "tr_raster_narrow": raster.raster_narrow_kernel,
+        "tr_raster_narrow32": raster.raster_narrow32_kernel,
+        "tr_raster_narrow_any": raster.raster_narrow_any_kernel,
+        "tr_raster_mask": raster.raster_mask_kernel,
+        "tr_raster_zcull": raster.raster_zcull_kernel,
+        "tr_raster_rows1_zcull": raster.raster_rows1_zcull_kernel,
+        "tr_gbuffer_mask": gbuffer.raster_pass,
+        "tr_gbuffer_queue": gbuffer.raster_pass_queue,
+    }
+
+
+def sweep_kernel(entry, tile_h):
+    """The kernel form a launch of ``entry`` counts as in the sweep: K9's
+    by its tile height (8, 16, 32 or the band form)."""
+    if entry == "tr_gbuffer_queue":
+        return ("K9 + K10 band" if tile_h not in (8, 16, 32)
+                else f"K9 + K10 <{tile_h}>")
+    return SWEEP_KERNELS[entry]
+
+
+def sweep_launch(sc, form, scene, tr, li):
+    """The launch of a sweep scene's form (``models.sweep_scenes``) on the
+    scene's tensors (any device): 'fused' through
+    ``engine.renderer.prepare_scene``, 'gbuffer' through
+    ``setup_for_raster`` and ``ops.gbuffer.prepare_gbuffer``, with the
+    scene's rect, origin, capacity and budget and the form's knobs."""
+    from tpu_renderer_torch.engine.renderer import prepare_scene
+    from tpu_renderer_torch.ops import gbuffer, setup
+
+    (h, w), (fh, fw), (row0, col0) = sc.hw, sc.frame, sc.origin
+    if form.path == "fused":
+        return prepare_scene(scene, tr, li, h, w, fh, fw, row0, col0,
+                             sc.capacity, sc.budget_override, form.zcull,
+                             form.strategy, form.tile_h)
+    (obj, cfg), = scene
+    table = setup.setup_for_raster(obj, tr, li, cfg, frame_height=fh,
+                                   frame_width=fw)
+    return gbuffer.prepare_gbuffer(table, h, w, sc.capacity, fh, fw, row0,
+                                   col0, form.strategy, form.tile_h,
+                                   sc.budget_override)
+
+
+def sweep_stats(launch):
+    """A launch's binning stats as Python numbers (f32 values exactly)."""
+    return {k: v.item() if hasattr(v, "item") else v
+            for k, v in launch.stats().items()}
+
+
+def sweep_check_form(what, form, launch, exact):
+    """Raise unless ``launch`` takes the form's route and C entry and its
+    bins hold the form's claims (a stream's entries, the side list's
+    length, the drops); an ``exact`` scene drops nothing. Returns the
+    launch's stats."""
+    r = launch.route
+    got_entry = {v: k for k, v in sweep_wrappers().items()}.get(
+        launch.kernel)
+    if (r.strategy, r.tile_h, r.rows) != tuple(form.route) or \
+            got_entry != form.entry:
+        raise AssertionError(f"{what}: route {tuple(r[:3])} on {got_entry}, "
+                             f"built for {form.route} on {form.entry}")
+    stats = sweep_stats(launch)
+    claims = form.claims
+    got = {"dropped": int(stats["bins_dropped"])}
+    if "stream" in claims:
+        got["stream"] = (claims["stream"][0], int(
+            launch.qbins.counts[claims["stream"][0]]))
+    if "n_large" in claims:
+        got["n_large"] = int(launch.qbins.n_large)
+    for key in ("stream", "n_large", "dropped"):
+        if key in claims and got[key] != claims[key]:
+            raise AssertionError(f"{what}: {key} {got[key]}, built for "
+                                 f"{claims[key]}")
+    if got["dropped"] < claims.get("dropped_min", 0) or (
+            exact and got["dropped"]):
+        raise AssertionError(f"{what}: {got['dropped']} entries dropped")
+    return stats
+
+
+def sweep_bits_differ(what, names, got, want, origin):
+    """Raise at the first element whose bits differ between two output
+    tuples (a tile-padded local rect each; ``names`` of the outputs),
+    naming its pixel in the rect and in the frame."""
+    import torch
+
+    for name, a, b in zip(names, got, want):
+        a = a.contiguous().view(torch.int32)
+        b = b.to(a.device).contiguous().view(torch.int32)
+        if a.shape != b.shape:
+            raise AssertionError(f"{what}: {name} of shape {tuple(a.shape)}"
+                                 f" against {tuple(b.shape)}")
+        bad = a != b
+        if bool(bad.any()):
+            idx = tuple(int(v) for v in bad.nonzero()[0])
+            r, c = idx[-2:]
+            raise AssertionError(
+                f"{what}: {name} differs at {idx}, rect pixel (row {r}, col "
+                f"{c}), frame pixel ({origin[0] + r}, {origin[1] + c}): bits "
+                f"{int(a[idx]):#010x} against {int(b[idx]):#010x}; "
+                f"{int(bad.sum())} elements differ")
+
+
+def sweep_skips(what, launch, want):
+    """K11's skipped batches on a form's operands: at one part a stream
+    equal to ``zcull_skips_plain``'s serial replay (on host copies of the
+    operands, the same f32 operations) where no side-list gate is open, at
+    least it otherwise; at the default part size at most the stream
+    batches (the per-part replay's floor is 0 at 32 entries a part: a part
+    holds one or two batches, and its first never skips). Both launches
+    bit-equal to the plain version ``want``. Returns (skipped at P, at one
+    part a stream, the replay, batches)."""
+    import torch
+
+    from tpu_renderer_torch.ops import raster
+
+    names = ("z", "gid", "color")
+    out = {}
+    for p in (raster.RASTER_PART_ENTRIES, ONE_PART):
+        sk = torch.zeros(1, dtype=torch.int32, device=launch.operands[0].device)
+        got = with_part_entries(p, lambda: launch.kernel(
+            *launch.operands, **launch.options, skipped=sk))()
+        sweep_bits_differ(f"{what}, P = {p}", names, got, want,
+                          (launch.options["row0"], launch.options["col0"]))
+        out[p] = int(sk)
+    # The replay loops over batches in Python: on host copies of the
+    # operands each batch's few small ops take microseconds, where on the
+    # card each waits for a launch and a sync.
+    recs = launch.operands[0].cpu()
+    qbins = type(launch.operands[1])(*(t.cpu() for t in launch.operands[1]))
+    serial = raster.zcull_skips_plain(recs, qbins, tile_h=launch.route.tile_h,
+                                      **launch.options)
+    batches = stream_batches(launch, raster.RASTER_PART_ENTRIES)
+    side = bool((launch.operands[2] > 0).any())
+    one, at_p = out[ONE_PART], out[raster.RASTER_PART_ENTRIES]
+    if (one != serial if not side else one < serial) or not (
+            0 <= at_p <= batches):
+        raise AssertionError(
+            f"{what}: skipped {one} at one part a stream against the serial "
+            f"replay's {serial} (side list {side}), {at_p} at P = "
+            f"{raster.RASTER_PART_ENTRIES}, outside [0, {batches}]")
+    return at_p, one, serial, batches
+
+
+def sweep_phase(dev, smi_line, families=None, seeds=None):
+    """Phase 11: every kernel route on the seeded boundary scenes of
+    ``models.sweep_scenes`` (all families, ``SEEDS``), on one card.
+
+    For each scene and each of its forms: the launch on the card takes the
+    route and C entry the scene was built for, with the stream counts,
+    side-list length and drops it claims, and its setup launches K1 / K7
+    as claimed; its outputs (z, gid and colour; gid and all 11 G-buffer
+    planes) are bit-equal to its plain version on the same operands on the
+    card, and its stats (drops, real entries, budget utilization) to the
+    same form's on CPU tensors; a K11 form's skipped batches equal the
+    serial replay (``sweep_skips``). Per scene, K1 and K7 against their
+    plain versions on its inputs, and for scenes that drop nothing and
+    hold at most SWEEP_GOLDEN_MAX_TRIS triangles, every fused form's frame
+    and the whole frame through ``render_scene`` (the rect at the scene's
+    origin) bit-equal to the NumPy spec, rendered in spawned processes
+    while the card works. The first difference raises, naming the family,
+    seed, scene, form, route, kernel and pixel. One line per family
+    (seeds, routes hit, launches per kernel, seconds); every kernel form
+    of SWEEP_MUST launched. Returns the phase's record."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from tpu_renderer_torch.core.types import make_framebuffer
+    from tpu_renderer_torch.engine.renderer import render_scene
+    from tpu_renderer_torch.geometry.vertex import setup_records
+    from tpu_renderer_torch.golden import cpu_reference as gold
+    from tpu_renderer_torch.models import scenes, sweep_scenes
+    from tpu_renderer_torch.ops import raster
+
+    families = tuple(families or sweep_scenes.FAMILIES)
+    seeds = tuple(seeds or sweep_scenes.SEEDS)
+    wrappers = sweep_wrappers()
+    t_phase = time.perf_counter()
+    todo = [(fam, seed, sc) for fam in families for seed in seeds
+            for sc in sweep_scenes.family_scenes(fam, seed)]
+    ctx = multiprocessing.get_context("spawn")
+    info = {"card": smi_line, "families": {}}
+    pool = ProcessPoolExecutor(max_workers=max(1, (os.cpu_count() or 2) - 1),
+                               mp_context=ctx)
+    try:
+        golden = {}
+        for i, (_, _, sc) in sorted(enumerate(todo),
+                                    key=lambda t: -t[1][2].triangles):
+            if sc.exact and sc.triangles <= SWEEP_GOLDEN_MAX_TRIS:
+                golden[i] = pool.submit(gold.render, sc.sg, *sc.camera(),
+                                        *sc.frame)
+        frames = {}
+        for fam in families:
+            t_fam = time.perf_counter()
+            counts, routes, n_forms, n_scenes, skips = {}, set(), 0, 0, []
+            spent = dict(cpu_stats=0.0, k11_replay=0.0)
+            for i, (fam_, seed, sc) in enumerate(todo):
+                if fam_ != fam:
+                    continue
+                n_scenes += 1
+                label = f"sweep {fam}, seed {seed}, {sc.name}"
+                tr_d, li_d = sc.camera()
+                scene, tr, li = scenes.to_torch_scene(sc.sg, tr_d, li_d,
+                                                      device=dev)
+                cpu = scenes.to_torch_scene(sc.sg, tr_d, li_d, device="cpu")
+                fh, fw = sc.frame
+                for obj, cfg in scene:  # K1 / K7 on this scene's inputs
+                    if "tr_setup" in sc.setup and obj.num_triangles >= \
+                            sweep_scenes.FUSED_SETUP_MIN:
+                        fn, plain, _ = k1_call(obj, cfg, tr, li, fh, fw)
+                        assert_equal(f"{label}: K1", fn(), plain())
+                        counts["K1"] = counts.get("K1", 0) + 1
+                    elif "tr_records" in sc.setup:
+                        table = setup_records(obj, tr, li, cfg)
+                        assert_equal(f"{label}: K7",
+                                     (raster.finish_records(table),),
+                                     (raster.finish_records_plain(table),))
+                        counts["K7"] = counts.get("K7", 0) + 1
+                        break
+                for form in sc.forms:
+                    n_forms += 1
+                    what = (f"{label}, {form.path} {form.strategy} tile_h "
+                            f"{form.tile_h} zcull {form.zcull} (route "
+                            f"{form.route}, {form.entry})")
+                    before = {k: w.launches for k, w in wrappers.items()}
+                    launch = sweep_launch(sc, form, scene, tr, li)
+                    mid = {k: w.launches for k, w in wrappers.items()}
+                    setup_got = {k: mid[k] - before[k] for k in mid
+                                 if mid[k] != before[k]}
+                    setup_want = (sc.setup if form.path == "fused" else
+                                  sweep_scenes.setup_launches(sc.sg))
+                    if setup_got != setup_want:
+                        raise AssertionError(f"{what}: setup launched "
+                                             f"{setup_got}, want {setup_want}")
+                    stats = sweep_check_form(what, form, launch, sc.exact)
+                    got = launch.run()
+                    after = {k: w.launches for k, w in wrappers.items()}
+                    ran = {k: after[k] - mid[k] for k in after
+                           if after[k] != mid[k]}
+                    if ran != {form.entry: 1}:
+                        raise AssertionError(f"{what}: launched {ran}")
+                    want = launch.run_plain()
+                    names = (("gid", "G-buffer") if form.path == "gbuffer"
+                             else ("z", "gid", "color"))
+                    sweep_bits_differ(what, names, got, want, sc.origin)
+                    t0 = time.perf_counter()
+                    cpu_stats = sweep_stats(sweep_launch(sc, form, *cpu))
+                    spent["cpu_stats"] += time.perf_counter() - t0
+                    if stats != cpu_stats:
+                        raise AssertionError(f"{what}: stats {stats} on the "
+                                             f"card, {cpu_stats} on the CPU")
+                    for k, n in list(setup_got.items()) + list(ran.items()):
+                        key = sweep_kernel(k, launch.route.tile_h)
+                        counts[key] = counts.get(key, 0) + n
+                    if form.path == "fused" and int((
+                            launch.texs[:, 1] > 0).sum()):
+                        counts["K5"] = counts.get("K5", 0) + 1
+                    if launch.route.strategy == "sorted" and bool(
+                            (launch.operands[2] > 0).any()):
+                        key = ("K10" if form.path == "gbuffer" else
+                               "side list in K2-K4, K11")
+                        counts[key] = counts.get(key, 0) + 1
+                    if form.entry.endswith("_zcull"):
+                        t0 = time.perf_counter()
+                        skips.append(sweep_skips(what, launch, want))
+                        spent["k11_replay"] += time.perf_counter() - t0
+                        key = sweep_kernel(form.entry, 8)
+                        counts[key] += 2
+                    if form.path == "fused" and i in golden:
+                        h, w = sc.hw
+                        frames.setdefault(i, []).append((what, host_frame(
+                            want[2][:h, :w], want[0][:h, :w])))
+                    routes.add((form.path,) + tuple(form.route))
+                # the whole frame, as Renderer draws it, into the rect
+                fb = render_scene(make_framebuffer(*sc.hw, device=dev),
+                                  scene, tr, li, frame_height=fh,
+                                  frame_width=fw, row0=sc.origin[0],
+                                  col0=sc.origin[1], capacity=sc.capacity,
+                                  budget_override=sc.budget_override,
+                                  zcull=sc.zcull)
+                if i in golden:
+                    frames.setdefault(i, []).append((
+                        f"{label}: render_scene", frame_arrays(fb)))
+            info["families"][fam] = dict(
+                seeds=list(seeds), scenes=n_scenes, forms=n_forms,
+                routes=sorted(" ".join(map(str, r)) for r in routes),
+                launches=dict(sorted(counts.items())), golden_scenes=0,
+                k11_skips=skips,
+                seconds=round(time.perf_counter() - t_fam, 2),
+                **{k + "_seconds": round(v, 2) for k, v in spent.items()})
+        # The spec's frames, rendered meanwhile on the host's cores.
+        t0 = time.perf_counter()
+        for i, held in sorted(frames.items()):
+            color, depth = golden[i].result()
+            fam, _, sc = todo[i]
+            (h, w), (r0, c0) = sc.hw, sc.origin
+            want = (color[r0:r0 + h, c0:c0 + w], depth[r0:r0 + h, c0:c0 + w])
+            for what, got in held:
+                golden_diff(what + " against the NumPy spec", got, want)
+            info["families"][fam]["golden_scenes"] += 1
+        info["golden_wait_seconds"] = round(time.perf_counter() - t0, 2)
+    finally:  # a failure leaves no golden render running
+        pool.shutdown(wait=True, cancel_futures=True)
+    total = {}
+    for fam, rec in info["families"].items():
+        for k, n in rec["launches"].items():
+            total[k] = total.get(k, 0) + n
+        log(f"# sweep {fam} ({smi_line}): seeds {rec['seeds']}, "
+            f"{rec['scenes']} scenes, {rec['forms']} forms, every launch == "
+            f"its plain version and the CPU's stats, bit-equal; "
+            f"{rec['golden_scenes']} scenes == the NumPy spec; routes hit "
+            f"{rec['routes']}; launches {json.dumps(rec['launches'])}; K11 "
+            f"skips (P, one part, replay, batches) {rec['k11_skips']}; "
+            f"{rec['seconds']} s on the card (of it CPU stats "
+            f"{rec['cpu_stats_seconds']}, K11 replays "
+            f"{rec['k11_replay_seconds']})")
+    missing = [k for k in SWEEP_MUST if not total.get(k)]
+    info["launches"] = total
+    info["seconds"] = round(time.perf_counter() - t_phase, 2)
+    if missing and families == sweep_scenes.FAMILIES:
+        raise AssertionError(f"sweep: no launch of {missing}")
+    log(f"# sweep phase: {info['seconds']} s ({smi_line}), launches "
+        f"{json.dumps(total)}")
+    return info
+
+
 def main():
     import argparse
 
@@ -1413,6 +1787,10 @@ def main():
                     help="also trace 10 frames of each path with "
                          "torch.profiler and print host enqueue time, device "
                          "time and idle share per frame")
+    ap.add_argument("--sweep-only", nargs="*", metavar="FAMILY",
+                    help="run the device, build and sweep phases only (the "
+                         "named families of models/sweep_scenes.py, or "
+                         "all), then print the sweep's record")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
@@ -1502,6 +1880,10 @@ def main():
         log(f"# K6/K8 ptxas {form}: {json.dumps(info)}")
     for form, info in band_ptxas.items():
         log(f"# K4/K9 band form ptxas {form}: {json.dumps(info)}")
+    if args.sweep_only is not None:
+        log(json.dumps({"sweep": sweep_phase(dev, smi_line,
+                                             args.sweep_only)}))
+        return
 
     # 3. Each kernel against its plain version on the card.
     max_err = {name: 0.0 for name in KERNELS}
@@ -3064,6 +3446,8 @@ def main():
     # 9. The sharded paths; 10. one NCCL rank a card.
     mesh_info = mesh_phase(dev, smi_line, head_scene, head_tr, head_li, H, W)
     cards_info = cards_phase(smi_lines, H, W)
+    # 11. Every kernel route on the seeded boundary scenes.
+    sweep_info = sweep_phase(dev, smi_line)
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -3133,6 +3517,7 @@ def main():
         "golden": golden_info,
         "mesh": mesh_info,
         "cards": cards_info,
+        "sweep": sweep_info,
         "launch_guard_ab": guard_ab,
         "card": smi_line}))
     log(json.dumps({"kernels": kernels}))

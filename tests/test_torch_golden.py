@@ -5,9 +5,10 @@ golden windows against the whole golden frame.
   bit-equal to ``tpu_renderer.golden.cpu_reference`` on configs 1-5;
 - ``aet_reference`` is a copy of the model-level AET walk;
 - ``golden.native`` builds ``tpu_renderer_torch/native/golden.cpp`` under
-  ``tpu_renderer_torch/_build/`` with the JAX binding's flags, so the two
-  libraries render bit for bit alike (skipped where there is no g++, as
-  tests/test_native.py is);
+  ``tpu_renderer_torch/_build/`` with the JAX binding's flags, so it
+  renders bit for bit as a library of the JAX package's source built with
+  those flags (skipped where there is no g++, as tests/test_native.py
+  is);
 - ``chip_smoke.window_scene`` picks the triangles whose projected bbox
   meets a window; their golden equals the whole scene's in every window.
 """
@@ -21,7 +22,6 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 from tpu_renderer.golden import aet_reference as aet_jax
 from tpu_renderer.golden import cpu_reference as gold_jax
-from tpu_renderer.golden import native as native_jax
 from tpu_renderer.models import scenes as scenes_jax
 from tpu_renderer_torch.golden import aet_reference as aet
 from tpu_renderer_torch.golden import cpu_reference as gold
@@ -31,6 +31,7 @@ from tpu_renderer_torch.models import scenes
 from tpu_renderer_torch.models.sphere import construct_sphere
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_NATIVE_SRC = os.path.join(ROOT, "tpu_renderer", "native", "golden.cpp")
 needs_gxx = pytest.mark.skipif(not native.available(), reason="no g++")
 
 
@@ -62,18 +63,31 @@ def _files(root):
 
 
 @needs_gxx
-def test_native_equals_jax_native():
+def test_native_equals_jax_native(tmp_path):
     """The port's library, built under tpu_renderer_torch/_build/ and
-    keyed by the host's CPU, renders config 5 as the JAX binding's does;
-    building it writes nothing under tpu_renderer/."""
+    keyed by the host's CPU, renders config 5 as a library of the JAX
+    package's own source does; building it writes nothing under
+    tpu_renderer/.
+
+    The JAX package's source is built here into this test's own
+    directory, never through ``tpu_renderer.golden.native``: that module
+    builds ``tpu_renderer/native/libgolden.so`` in place at its first
+    use and keeps its first error for the life of the process, so with
+    six test workers collecting tests/test_native.py at once, a worker
+    that loads the file while another is still writing it cannot render
+    with it at all."""
     sg, tr, li = scenes.baseline_scene(5, 128, 128)
     before = _files(os.path.join(ROOT, "tpu_renderer"))
     got = native.render(sg, tr, li, 128, 128)
+    jax_lib = native.build(JAX_NATIVE_SRC, tmp_path)
+    want = native.render(sg, tr, li, 128, 128,
+                         library=native.open_library(jax_lib))
     assert _files(os.path.join(ROOT, "tpu_renderer")) == before
     lib = native.library_path()
     assert lib.exists() and lib.parent == native.BUILD_DIR
     assert lib.parent.parent.name == "tpu_renderer_torch"
-    assert_bits_equal(got, native_jax.render(sg, tr, li, 128, 128))
+    assert jax_lib.parent == tmp_path and jax_lib != lib
+    assert_bits_equal(got, want)
     assert (got[1] > gold.DEPTH_CLEAR).sum() > 500
 
 

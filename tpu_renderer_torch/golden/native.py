@@ -35,6 +35,7 @@ import numpy as np
 SRC = Path(__file__).resolve().parent.parent / "native" / "golden.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC"]
+NATIVE_VERSION = 2  # tr_native_version() of the C interface bound below
 
 _lock = threading.Lock()
 _lib = None
@@ -56,28 +57,33 @@ def cpu_info() -> dict:
     return info
 
 
-def library_path() -> Path:
-    """Where the library for this source, these flags and this host CPU
-    (the machine, model name and flags) lives, built or not."""
+def library_path(src: Path = SRC, build_dir: Path | None = None) -> Path:
+    """Where the library of ``src`` (this package's golden.cpp by default)
+    for these flags and this host CPU (the machine, model name and flags)
+    lives in ``build_dir`` (default ``BUILD_DIR``), built or not."""
     info = cpu_info()
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SRC.read_bytes())
+    h.update(Path(src).read_bytes())
     for part in (platform.machine(), info.get("model name", ""),
                  info.get("flags", "")):
         h.update(b"\0" + part.encode())
-    return BUILD_DIR / f"libgolden_{h.hexdigest()[:16]}.so"
+    build_dir = BUILD_DIR if build_dir is None else Path(build_dir)
+    return build_dir / f"libgolden_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the library unless this key's is there; returns its path.
-    Raises RuntimeError with the compiler's output when g++ fails."""
-    out = library_path()
+def build(src: Path = SRC, build_dir: Path | None = None) -> Path:
+    """Compile ``src`` into ``library_path(src, build_dir)`` unless that
+    key's library is there; returns its path. g++ writes a name of this
+    process and thread, renamed into place when whole, so any number of
+    processes may build one key at once. Raises RuntimeError with the
+    compiler's output when g++ fails."""
+    out = library_path(src, build_dir)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}"
                         ".tmp.so")
-    cmd = ["g++"] + CXX_FLAGS + ["-o", str(tmp), str(SRC), "-lpthread"]
+    cmd = ["g++"] + CXX_FLAGS + ["-o", str(tmp), str(src), "-lpthread"]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -87,23 +93,37 @@ def build() -> Path:
     return out
 
 
+def open_library(path) -> ctypes.CDLL:
+    """Load a built golden.cpp and declare its C interface. Any source of
+    that interface loads (this package's copy or the JAX package's
+    ``tpu_renderer/native/golden.cpp``): both export ``tr_native_version()
+    == 2``, checked here."""
+    lib = ctypes.CDLL(str(path))
+    lib.tr_native_version.argtypes = []
+    lib.tr_native_version.restype = ctypes.c_int
+    version = lib.tr_native_version()
+    if version != NATIVE_VERSION:
+        raise RuntimeError(f"{path}: tr_native_version() is {version}, "
+                           f"not {NATIVE_VERSION}")
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    lib.tr_render_object.argtypes = [
+        u32p, f32p, ctypes.c_int, ctypes.c_int,  # color, depth, H, W
+        f32p, f32p, f32p, f32p, ctypes.c_int,  # verts..uvs, count
+        f32p, f32p, f32p, ctypes.c_int, f32p,  # p, tr, amb, nl, lights
+        u32p, ctypes.c_int, ctypes.c_int,  # texture, th, tw
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # phong, nt, avx
+        ctypes.c_int,  # filter_bilinear
+    ]
+    lib.tr_render_object.restype = None
+    return lib
+
+
 def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            u32p = ctypes.POINTER(ctypes.c_uint32)
-            f32p = ctypes.POINTER(ctypes.c_float)
-            lib.tr_render_object.argtypes = [
-                u32p, f32p, ctypes.c_int, ctypes.c_int,  # color, depth, H, W
-                f32p, f32p, f32p, f32p, ctypes.c_int,  # verts..uvs, count
-                f32p, f32p, f32p, ctypes.c_int, f32p,  # p, tr, amb, nl, lights
-                u32p, ctypes.c_int, ctypes.c_int,  # texture, th, tw
-                ctypes.c_int, ctypes.c_int, ctypes.c_int,  # phong, nt, avx
-                ctypes.c_int,  # filter_bilinear
-            ]
-            lib.tr_render_object.restype = None
-            _lib = lib
+            _lib = open_library(build())
         return _lib
 
 
@@ -123,13 +143,15 @@ def _u32p(a):
 
 
 def render(scene, transform, lights, height, width, clear_color=0,
-           num_threads=0, use_avx=-1):
+           num_threads=0, use_avx=-1, library=None):
     """Native end-to-end render; the same scene / transform / lights dicts
     as ``cpu_reference.render``. ``num_threads`` 0 is the hardware
     concurrency; ``use_avx`` -1 auto, 0 scalar (the reference's exact
-    semantics), 1 force AVX. Returns (color (H, W) u32, depth (H, W) f32).
+    semantics), 1 force AVX; ``library`` an ``open_library`` result to
+    render with (default: this package's, built at first use). Returns
+    (color (H, W) u32, depth (H, W) f32).
     """
-    lib = _load()
+    lib = _load() if library is None else library
     color = np.full((height, width), np.uint32(clear_color), np.uint32)
     depth = np.full((height, width), np.float32(-3.4028235e38), np.float32)
 
