@@ -19,7 +19,8 @@ Phases (any failure raises and the script exits nonzero):
    hash of the sources), and prints the registers, shared memory, stack
    frame and spills of each of K1's four instantiations, of the mask
    kernel's eight (K6 and K8 at strips of 1, 2, 4 and 8 rows) and of the
-   band form's walk (K4 and K9 at other heights) from ``-Xptxas -v``;
+   band form's walk (K4 and K9 at other heights: one instantiation, which
+   must report its registers and spills) from ``-Xptxas -v``;
 3. kernels: each kernel against its plain-PyTorch version on the card,
    bit-equal outputs required, with the route of every launch asserted:
    - K1 (setup) and K2 (raster + shade, 8-row tiles, row packing 2) on a
@@ -178,10 +179,13 @@ Phases (any failure raises and the script exits nonzero):
    deferred 40k), each also beside the 16-row form and the 'auto' route's
    form on the same scene, in turns, with the same frame; the band form
    (K4 on 40k @24, 40k @64 and headline @64, frame 0 of that path held to
-   its plain version on the card; K9 on deferred 40k @24 and @64; the
-   split phase at 24 rows; K10 as K9's band form with the quad beside the
-   sphere alone) and the band form at 16 and 32 rows against the 16- and
-   32-row forms on the 40k sphere, in turns, the same frame; the deferred
+   its plain version on the card; K9 on deferred 40k @24 and @64; each
+   with the walk's device time and its stage A pairs and empty (part,
+   band) items against a per-band walk's, counted from the launch's data;
+   the split phase at 24 rows; K10 as K9's band form with the quad beside
+   the sphere alone) and the band form at 16 and 32 rows against the 16-
+   and 32-row forms on 40k, config 4, config 5 untextured and textured
+   and deferred 40k, in turns, the same frame; the deferred
    shade's time on deferred 1M's frame, and the fused-against-deferred
    A/B: ms per frame of the textured 250k scene through the fused route
    (K2 with K5) and through the G-buffer path (K9, shade); each kernel
@@ -245,16 +249,29 @@ Phases (any failure raises and the script exits nonzero):
    2047 / 2048 / 2049 side-list triangles; ragged frames, sub-rects and
    forced tile heights 8-64; budgets and mask capacities that drop;
    textures 511 / 512 / 513 texels on a side; zcull stacks innermost
-   first and last. Each form's launch takes the route and C entry its
-   scene was built for, with the claimed stream counts, side list and
-   drops; its outputs (z, gid, colour; the G-buffer's gid and 11 planes)
-   are bit-equal to its plain version on the card, its stats to the CPU's;
+   first and last; the band walk's edges (rows ending and starting on
+   band boundaries, parts reaching a tile's first and last band only,
+   entries reaching in from above and below, zero heights, spans of one
+   and of 128 columns, exact ties across parts, one pixel under many
+   fragments, the side list among small triangles) at 24-64 rows. Each
+   form's launch takes the route and C entry its scene was built for,
+   with the claimed stream counts, side list and drops; its outputs (z,
+   gid, colour; the G-buffer's gid and 11 planes) are bit-equal to its
+   plain version on the card, its stats to the CPU's;
    K11's skipped batches equal the serial replay; K1 and K7 against their
    plain versions; scenes that drop nothing (up to 10,000 triangles) are
    bit-equal to the NumPy spec, each fused form and the whole frame. One
    line per family; every kernel form (K1-K11, K4 and K9 at 16, 32 and
    the band form) launched. ``python3 chip_smoke.py --sweep-only
    [FAMILY ...]`` runs the device, build and sweep phases alone.
+
+``python3 chip_smoke.py --band-ab OTHER`` runs the device and build
+phases, then times the band form's paths with the package of the
+repository copy at OTHER (``git archive`` of an earlier commit, or a
+variant of the band walk, unpacked inside this one) and with this one's,
+back to back (other, this, this, other; ``--band-times TREE`` in a
+process each, every band launch first held bit-equal to its plain
+version), and prints both.
 
 The line before the last is a JSON object with one entry per kernel
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
@@ -705,6 +722,127 @@ def fold_work(launch, n_fields, px_bytes):
     return nbytes, ops
 
 
+def band_reach(recs, tri, row_base, tile_h):
+    """[lo, hi) of each entry's reach in its tile, as the band walk finds
+    it (csrc/raster.cu, ``entry_reach``): per edge the run of tile rows r
+    where valid && ymin <= (f32)(row_base + r) < ymax, by the same binary
+    searches, then the hull of the three runs' pairwise overlaps. ``tri``
+    (E,) records' rows, ``row_base`` (E,) i64 the frame row of each
+    entry's tile row 0."""
+    import torch
+    from tpu_renderer_torch.geometry.vertex import (EDGE_STRIDE, F_VALID,
+                                                    F_YMAX, F_YMIN)
+
+    rec = recs[tri]
+    n = tile_h
+
+    def first_row(y, after):
+        lo = torch.zeros_like(row_base)
+        hi = torch.full_like(row_base, n)
+        for _ in range(n.bit_length() + 1):
+            mid = (lo + hi) // 2
+            yf = (row_base + mid).to(torch.float32)
+            ok = ~(yf < y) if after else (y <= yf)
+            live = lo < hi
+            hi = torch.where(live & ok, mid, hi)
+            lo = torch.where(live & ~ok, mid + 1, lo)
+        return lo
+
+    a, b = [], []
+    for e in range(3):
+        valid = rec[:, e * EDGE_STRIDE + F_VALID] > 0.5
+        a.append(torch.where(valid, first_row(
+            rec[:, e * EDGE_STRIDE + F_YMIN], False), n))
+        b.append(torch.where(valid, first_row(
+            rec[:, e * EDGE_STRIDE + F_YMAX], True), 0))
+    lo = torch.full_like(row_base, n)
+    hi = torch.zeros_like(row_base)
+    for i, j in ((0, 1), (0, 2), (1, 2)):
+        l, h = torch.maximum(a[i], a[j]), torch.minimum(b[i], b[j])
+        lo = torch.where(l < h, torch.minimum(lo, l), lo)
+        hi = torch.where(l < h, torch.maximum(hi, h), hi)
+    return lo, hi
+
+
+def band_entries(launch, part_entries=None):
+    """Every entry a band walk launch (one stream a tile) folds, in the
+    order of ``raster_fragments``' pairs (each tile's stream, then each
+    open tile's side list): ``tile``, ``tri`` (its record), ``part`` (its
+    part, numbered over the launch: stream parts of at most
+    ``part_entries`` (default ``ops.raster.RASTER_PART_ENTRIES``) entries,
+    then the side lists), ``parts`` (their number), the reach ``lo``,
+    ``hi`` (``band_reach``), ``span`` (E, tile_h) bool, the rows whose
+    pair has a span, as ``fold_work`` counts them, and ``frags``
+    (``raster_fragments``, no planes). Raises unless every in-span pair
+    lies in its entry's reach."""
+    import torch
+    from tpu_renderer_torch.ops import raster
+
+    recs, qbins, o = launch.operands[0], launch.qbins, launch.options
+    lcounts = launch.operands[2]
+    th = launch.route.tile_h
+    p = part_entries or raster.RASTER_PART_ENTRIES
+    nfb = o["tiles_y"] * o["tiles_x"]
+    dev = recs.device
+    if qbins.starts.shape[0] != nfb + 1:
+        raise ValueError("band_entries takes one stream a tile")
+    cn = qbins.counts[:nfb].long()
+    tile = torch.repeat_interleave(torch.arange(nfb, device=dev), cn)
+    first = torch.cumsum(cn, 0) - cn
+    pos = torch.arange(tile.shape[0], device=dev) - first[tile]
+    tri = qbins.sorted_tri.long()[qbins.starts[:nfb].long()[tile] + pos]
+    sparts = (cn + p - 1) // p
+    part = (torch.cumsum(sparts, 0) - sparts)[tile] + pos // p
+    nl = int(qbins.n_large)
+    ltiles = torch.nonzero(lcounts > 0).reshape(-1)
+    tile = torch.cat([tile, ltiles.repeat_interleave(nl)])
+    tri = torch.cat([tri, qbins.large_ids[:nl].long().repeat(
+        ltiles.shape[0])])
+    part = torch.cat([part, int(sparts.sum()) + torch.arange(
+        ltiles.shape[0], device=dev).repeat_interleave(nl)])
+    lo, hi = band_reach(recs, tri, o["row0"] + tile // o["tiles_x"] * th,
+                        th)
+    frags = raster.raster_fragments(
+        recs, qbins, lcounts, tile_h=th, tiles_y=o["tiles_y"],
+        tiles_x=o["tiles_x"], row0=o["row0"], col0=o["col0"],
+        frame_width=o["frame_width"], fields=())
+    span = frags.pair_in_span.reshape(-1, th)
+    rows = torch.arange(th, device=dev)
+    outside = span & ~((rows >= lo[:, None]) & (rows < hi[:, None]))
+    if span.shape[0] != tri.shape[0] or bool(outside.any()):
+        raise AssertionError(f"band walk: {int(outside.sum())} in-span "
+                             "pairs outside their entry's reach")
+    return dict(tile=tile, tri=tri, part=part,
+                parts=int(sparts.sum()) + ltiles.shape[0], lo=lo, hi=hi,
+                span=span, frags=frags)
+
+
+def band_pairs(launch, part_entries=None):
+    """The band walk's work on a sorted launch against a per-band walk's
+    (one that folds every part once per 8-row band of its tile),
+    counted on the launch's own data (``band_entries``): ``entries``,
+    ``pairs_old`` (stage A on every (entry, tile row) pair: every band of
+    every part), ``pairs_new`` (the rows of each entry's reach),
+    ``pairs_in_span`` (``fold_work``'s count), ``items`` (the per-band walk's
+    (part, band) items) and ``items_empty`` (those holding no in-span
+    pair)."""
+    import torch
+
+    be = band_entries(launch, part_entries)
+    th = launch.route.tile_h
+    bands = th // 8
+    lit = be["span"].reshape(-1, bands, 8).any(-1)
+    item = be["part"][:, None] * bands + torch.arange(
+        bands, device=lit.device)
+    n = be["tri"].shape[0]
+    return dict(entries=n, pairs_old=n * th,
+                pairs_new=int((be["hi"] - be["lo"]).clamp(min=0).sum()),
+                pairs_in_span=int(be["span"].sum()),
+                items=be["parts"] * bands,
+                items_empty=be["parts"] * bands - int(
+                    torch.unique(item[lit]).numel()))
+
+
 def backdrop_mesh(lat, lon):
     """A sphere grid with a 2.2-unit quad moved to z = -0.6 behind it as a
     backdrop, merged into one mesh (the quad's two triangles take the side
@@ -714,6 +852,86 @@ def backdrop_mesh(lat, lon):
     quad = prim.construct_quad(2.2)
     quad["vertices"][:, 2] -= 0.6
     return prim.merge_meshes(prim.construct_sphere_grid(lat, lon), quad)
+
+
+BAND_PATHS = ("40k @24", "40k @64", "headline @64", "deferred 40k @24",
+              "deferred 40k @64")
+
+
+def band_times(dev, reps=20):
+    """{path: ms, walk_device_ms} of the band form's launch on each of
+    BAND_PATHS (frame 0, no rotation), through the package first on
+    ``sys.path``: K4's band form through ``prepare_scene`` with the route
+    knobs, K9 + K10's through ``setup_for_raster`` and ``prepare_gbuffer``
+    (the entry points every tree since the band form came in has); ms by
+    CUDA events (median of two runs of ``reps`` launches), the walk's
+    device time from a profiler trace of ``reps`` launches."""
+    from tpu_renderer_torch.engine.renderer import prepare_scene
+    from tpu_renderer_torch.models import primitives as prim
+    from tpu_renderer_torch.models.textures import checkerboard
+    from tpu_renderer_torch.ops import gbuffer, setup
+
+    h, w = 1080, 1920
+    launches = {}
+    sg40 = phong_mesh_scene(prim.construct_sphere_grid(140, 143))
+    for path, sg in (("40k", sg40), ("headline", phong_mesh_scene(
+            prim.construct_sphere_grid(708, 707)))):
+        sc, tr, li = torch_scene(sg, h, w, dev)
+        for th in ((24, 64) if path == "40k" else (64,)):
+            launches[f"{path} @{th}"] = prepare_scene(
+                sc, tr, li, h, w, strategy="sorted", tile_h=th)
+    sg40d = [(dict(p=(0.0, 0.0, 0.0), **backdrop_mesh(140, 143)),
+              {"phong": True, "texture": checkerboard(1024, 1024, 64),
+               "filter_mode": "bilinear"})]
+    sc, tr, li = torch_scene(sg40d, h, w, dev)
+    (obj, cfg), = sc
+    table = setup.setup_for_raster(obj, tr, li, cfg, frame_height=h,
+                                   frame_width=w)
+    for th in (24, 64):
+        launches[f"deferred 40k @{th}"] = gbuffer.prepare_gbuffer(
+            table, h, w, strategy="sorted", tile_h=th)
+    out = {}
+    for path in BAND_PATHS:
+        run = launches[path].run
+        assert_equal(f"the band form at {path}", run(),
+                     launches[path].run_plain())
+        out[path] = dict(
+            ms=round(statistics.median([event_ms(run, reps)
+                                        for _ in range(2)]), 4),
+            walk_device_ms=round(kernel_device_ms(run, reps,
+                                                  "band_walk_kernel"), 4))
+    return out
+
+
+def band_ab(other, smi_line):
+    """The band rows' times of the repository copy at ``other`` (an
+    earlier commit, or a variant of the band walk) and of this one, back
+    to back on one card: ``python3 chip_smoke.py --band-times TREE`` in a
+    process each, in the order other, this, this, other, each holding
+    every band launch bit-equal to its plain version first; each row's
+    pair of readings beside the card's name and power limit. Returns
+    {"other" / "this": {path: [reading, reading]}}."""
+    got = {"other": {}, "this": {}}
+    for tag, tree in (("other", other), ("this", ROOT), ("this", ROOT),
+                      ("other", other)):
+        r = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--band-times", os.path.abspath(tree)],
+            capture_output=True, text=True, timeout=900)
+        if r.returncode != 0:
+            raise AssertionError(f"--band-times {tree}: exit {r.returncode}"
+                                 f"\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        times = json.loads(r.stdout.strip().splitlines()[-1])["band_times"]
+        for path, v in times.items():
+            got[tag].setdefault(path, []).append(v)
+    for path in BAND_PATHS:
+        log(f"# band A/B, {path}: kernel ms {other} "
+            f"{[v['ms'] for v in got['other'][path]]}, this tree "
+            f"{[v['ms'] for v in got['this'][path]]}; the walk's device ms "
+            f"{[v['walk_device_ms'] for v in got['other'][path]]} against "
+            f"{[v['walk_device_ms'] for v in got['this'][path]]} "
+            f"({smi_line})")
+    return got
 
 
 def profile_frames(label, frame, angles, frame_ms):
@@ -1791,10 +2009,19 @@ def main():
                     help="run the device, build and sweep phases only (the "
                          "named families of models/sweep_scenes.py, or "
                          "all), then print the sweep's record")
+    ap.add_argument("--band-times", metavar="TREE",
+                    help="run the device and build phases and time the "
+                         "band form's paths (BAND_PATHS) with the package "
+                         "of the repository copy at TREE, then print them")
+    ap.add_argument("--band-ab", metavar="OTHER",
+                    help="run the device and build phases, then time the "
+                         "band paths of the repository copy at OTHER and "
+                         "of this one back to back (--band-times of each, "
+                         "other, this, this, other) and print both")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.band_times or ROOT))
     import tpu_renderer_torch as trt
     from tpu_renderer_torch import _cuda
     from tpu_renderer_torch.core.math import pack_argb, unpack_argb
@@ -1870,7 +2097,9 @@ def main():
     band_ptxas = ptxas_info(_cuda.build_info["log"], "band_walk_kernel",
                             r"_ZN2tr16band_walk_kernelE")
     if len(k1_ptxas) != 4 or len(mask_ptxas) != 2 * len(STRIP_ROWS) or \
-            len(band_ptxas) != 1:
+            len(band_ptxas) != 1 or not all(
+                {"registers", "spill_stores"} <= set(v)
+                for v in band_ptxas.values()):
         raise AssertionError(f"ptxas lines of K1: {k1_ptxas}; of the mask "
                              f"kernel: {mask_ptxas}; of the band walk: "
                              f"{band_ptxas}")
@@ -1883,6 +2112,12 @@ def main():
     if args.sweep_only is not None:
         log(json.dumps({"sweep": sweep_phase(dev, smi_line,
                                              args.sweep_only)}))
+        return
+    if args.band_times is not None:
+        log(json.dumps({"band_times": band_times(dev)}))
+        return
+    if args.band_ab is not None:
+        log(json.dumps({"band_ab": band_ab(args.band_ab, smi_line)}))
         return
 
     # 3. Each kernel against its plain version on the card.
@@ -3177,12 +3412,34 @@ def main():
     # and headline @64 (frame 0 of that path, held to its plain version on
     # the card), K9 + K10 on deferred 40k @24 (its row) and @64: each held
     # bit-equal to its plain version, timed beside it, with its bound and
-    # drops; the split phase at 24 rows (P = 16, the parts read back, one
-    # part a stream); K10 as K9's band form with the quad beside the 40k
-    # sphere alone at 24 rows. Then the A/B on the 40k sphere: the band
-    # form at 16 and 32 rows (the band wrapper on the 16- and 32-row
-    # launches' operands) against <16> and <32>, in turns, the same frame.
+    # drops, the walk's device time (a profiler trace of 20 launches) and
+    # its work against a per-band walk's (``band_pairs``: stage A pairs,
+    # and the (part, band) items that held no in-span pair); the split
+    # phase at 24 rows (P = 16, the parts read back, one part a stream);
+    # K10 as K9's band form with the quad beside the 40k sphere alone at
+    # 24 rows. Then the A/B at 16 and 32 rows: the band form (K4's band
+    # wrapper, K9's ``band=True``) on the operands of the <16> and <32>
+    # launches of 40k, config 4, config 5 untextured and textured and
+    # deferred 40k, in turns, the same frame.
     band_info = {"K4 raster+shade band": {}, "K9 G-buffer sorted band": {}}
+
+    def band_walk(path, launch):
+        """The band walk's device ms a launch and its work against a
+        per-band walk's on ``launch``, logged and returned."""
+        walk_ms = kernel_device_ms(launch.run, 20, "band_walk_kernel")
+        bp = band_pairs(launch)
+        share = bp["items_empty"] / max(bp["items"], 1)
+        log(f"# band walk at {path}: device {walk_ms:.4f} ms a launch; "
+            f"stage A on {bp['pairs_new']} (entry, row) pairs against the "
+            f"per-band walk's {bp['pairs_old']} (every entry x band row; "
+            f"{bp['entries']} entries, {bp['pairs_in_span']} pairs in "
+            f"span)")
+        log(f"# band walk at {path}: {bp['items_empty']} of a per-band "
+            f"walk's {bp['items']} (part, band) items held no in-span pair "
+            f"({share:.4f})")
+        return dict(walk_device_ms=round(walk_ms, 4), **bp,
+                    items_empty_share=round(share, 4))
+
     torch.cuda.reset_peak_memory_stats()
     band_launches = {}
     for path, name, sc_, tr_, li_, n_tris in (
@@ -3204,7 +3461,8 @@ def main():
             budget_factor=launch.route.policy_factor,
             drops=int(launch.stats()["bins_dropped"]),
             real_entries=int(launch.stats()["bins_real_entries"]),
-            parts=int(raster.raster_narrow_any_kernel.part_offsets[-1]))
+            parts=int(raster.raster_narrow_any_kernel.part_offsets[-1]),
+            **band_walk(path, launch))
     band_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"# band form: peak device memory of its K4 checks {band_peak_gib:.2f}"
         " GiB (the plain version's record gather at 64 rows on 1M tris)")
@@ -3221,7 +3479,8 @@ def main():
             ms=round(kms, 4), plain_ms=round(pms, 4), bound_ms=round(bms, 6),
             bound_by=by, n_large=int(launch.qbins.n_large),
             drops=int(launch.stats()["bins_dropped"]),
-            parts=int(gbuffer.raster_pass_queue.part_offsets[-1]))
+            parts=int(gbuffer.raster_pass_queue.part_offsets[-1]),
+            **band_walk(f"deferred 40k @{t}", launch))
         if t == 24:
             timing["K9 G-buffer sorted band"] = (kms, pms, bms, by, None)
             k9b_24, k9bp_24, work_b24 = kms, pms, work
@@ -3230,33 +3489,61 @@ def main():
                              "list")
     split_phase("K9 G-buffer sorted band", f"deferred 40k {T40 + 2} tris "
                 "1920x1080, 24-row tiles", d40b[24], sweep=False)
+    launch40s = gbuffer_launch(*sc40s[0], tr40d, li40d, H, W,
+                               strategy="sorted", tile_h=24)
     k9s_b, _, work_sb = time_gbuffer(
         "K9 G-buffer sorted band", f"the 40k sphere alone {T40} tris "
-        "1920x1080, 24-row tiles", gbuffer_launch(
-            *sc40s[0], tr40d, li40d, H, W, strategy="sorted", tile_h=24))
+        "1920x1080, 24-row tiles", launch40s)
     bms10c, by10c = bound(*(max(a - b, 0) for a, b in zip(work_b24,
                                                           work_sb)))
     timing["K10 G-buffer side list band"] = (k9b_24, k9bp_24, bms10c, by10c,
                                              None)
+    walk10 = kernel_device_ms(launch40s.run, 20, "band_walk_kernel")
+    walk_q = band_info["K9 G-buffer sorted band"]["deferred 40k @24"][
+        "walk_device_ms"]
+    band_info["K10 G-buffer side list band"] = {"deferred 40k @24": dict(
+        with_quad_ms=round(k9b_24, 4), sphere_alone_ms=round(k9s_b, 4),
+        walk_with_quad_device_ms=walk_q,
+        walk_sphere_alone_device_ms=round(walk10, 4))}
     log(f"# K10 G-buffer side list band ({int(d40b[24].qbins.n_large)} "
         f"triangles): K9 band with it {k9b_24:.4f} ms against K9 band on "
-        f"the 40k sphere alone {k9s_b:.4f} ms, bound {bms10c:.6f} ms "
+        f"the 40k sphere alone {k9s_b:.4f} ms (the walk's device time "
+        f"{walk_q:.4f} against {walk10:.4f}), bound {bms10c:.6f} ms "
         f"({by10c})")
-    band_ab = {}
-    for t in (16, 32):
-        form = ab_forms["40k"][0][str(t)]
-
-        def band_run(form=form, t=t):
-            return raster.raster_narrow_any_kernel(*form.operands, tile_h=t,
-                                                   **form.options)
-        max_err["K4 raster+shade band"] = max(
-            max_err["K4 raster+shade band"], assert_equal(
-                f"the band form at {t} rows on 40k against <{t}>",
+    band_vs_forms = {}
+    ab_cells = {
+        "40k": ab_forms["40k"][0],
+        "config 4": ab_forms["config 4"][0],
+        "config 5 untextured": fused_forms(scene5, tr5, li5, H, W, "sorted"),
+        "config 5": fused_forms(scene5f, tr5f, li5f, H, W, "sorted"),
+        "deferred 40k": ab_forms["deferred 40k"][0],
+    }
+    for cell, forms in ab_cells.items():
+        band_vs_forms[cell] = {}
+        for t in (16, 32):
+            form = forms[str(t)]
+            if isinstance(form, gbuffer.GBufferLaunch):
+                def band_run(form=form):
+                    return gbuffer.raster_pass_queue(
+                        *form.operands, band=True, **form.options)
+                key = "K9 G-buffer sorted band"
+            else:
+                def band_run(form=form, t=t):
+                    return raster.raster_narrow_any_kernel(
+                        *form.operands, tile_h=t, **form.options)
+                key = "K4 raster+shade band"
+            if form.route.tile_h != t or int(
+                    form.stats()["bins_dropped"]) != 0:
+                raise AssertionError(f"{cell} at {t} rows: {form.route}")
+            max_err[key] = max(max_err[key], assert_equal(
+                f"the band form at {t} rows on {cell} against <{t}>",
                 band_run(), form.run()))
-        ms_band, ms_form = in_turns(band_run, form.run, 20, 20)
-        band_ab[t] = dict(band_ms=round(ms_band, 4), form_ms=round(ms_form, 4))
-        log(f"# band A/B on 40k at {t} rows: the band form {ms_band:.4f} ms "
-            f"against <{t}> {ms_form:.4f} ms (in turns), same frame")
+            ms_band, ms_form = in_turns(band_run, form.run, 20, 20)
+            band_vs_forms[cell][t] = dict(band_ms=round(ms_band, 4),
+                                    form_ms=round(ms_form, 4))
+            log(f"# band A/B on {cell} at {t} rows: the band form "
+                f"{ms_band:.4f} ms against <{t}> {ms_form:.4f} ms (in "
+                "turns), same frame")
 
     # K11 on stack6 zcull's first frame: held bit-equal to its plain
     # version and to K2 split on the same operands, timed beside its plain
@@ -3483,9 +3770,10 @@ def main():
             entry["k9_without_side_list_ms"] = round(k9s_b, 4)
         if name in band_info:
             entry["by_path"] = band_info[name]
+        if name.endswith(" band"):
             entry["ptxas"] = band_ptxas
         if name == "K4 raster+shade band":
-            entry["against_forms_40k"] = band_ab
+            entry["against_forms"] = band_vs_forms
         if name in split_info:
             entry.update(split_info[name])
         if name == "K7 record transpose":

@@ -583,6 +583,104 @@ def test_band_form_equals_plain(cuda, monkeypatch, tile_h, part_entries):
     assert side
 
 
+@pytest.mark.parametrize("part_entries",
+                         [16, trp.RASTER_PART_ENTRIES, 2 ** 31 - 1])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_band_walk_on_the_bands_family(cuda, monkeypatch, seed,
+                                       part_entries):
+    """The band walk on the boundary sweep's ``bands`` scenes (rows
+    ending and starting on band boundaries, parts reaching only a tile's
+    first and last band, entries reaching in from above and below, zero
+    heights, spans of one and of 128 columns, exact ties across parts, the
+    side list), every form at every height, parts of 16, the default and
+    one a stream (several staged batches a part): bit-equal to the plain
+    version, one launch counted, the parts as the bins give them."""
+    from tpu_renderer_torch.engine.renderer import prepare_scene
+    from tpu_renderer_torch.models import sweep_scenes as ss
+
+    monkeypatch.setattr(trp, "RASTER_PART_ENTRIES", part_entries)
+    for sc in ss.bands(seed):
+        scene_, tr, li = ts.to_torch_scene(sc.sg, *sc.camera(), device=cuda)
+        (h, w) = sc.frame
+        obj, cfg = scene_[0]
+        table = tsp.setup_for_raster(obj, tr, li, cfg, frame_height=h,
+                                     frame_width=w)
+        for form in sc.forms:
+            if form.path == "fused":
+                launch = prepare_scene(scene_, tr, li, h, w,
+                                       strategy="sorted", tile_h=form.tile_h)
+                wrapper = trp.raster_narrow_any_kernel
+            else:
+                launch = tgb.prepare_gbuffer(table, h, w, strategy="sorted",
+                                             tile_h=form.tile_h)
+                wrapper = tgb.raster_pass_queue
+            assert launch.kernel is wrapper
+            n0 = wrapper.launches
+            out_k = launch.run()
+            assert wrapper.launches == n0 + 1
+            assert torch.equal(wrapper.part_offsets.long(),
+                               split_parts(launch, part_entries))
+            out_p = launch.run_plain()
+            torch.cuda.synchronize()
+            for a, b in zip(out_k, out_p):
+                assert torch.equal(bits(a), bits(b)), (form, sc.name)
+            assert int(launch.stats()["bins_dropped"]) == 0
+
+
+def test_binning_on_card_equals_cpu_at_every_height(cuda):
+    """The sorted binning on the card lists exactly the CPU's entries at
+    heights whose reciprocal is not exact (24, 40, 48, 56): the bbox rows
+    divide by a tile height held as a device tensor, where a host float
+    made torch multiply by its rounded reciprocal and list a triangle
+    whose bbox ends on a tile boundary in one tile more."""
+    from tpu_renderer_torch.engine.renderer import prepare_scene
+    from tpu_renderer_torch.models import sweep_scenes as ss
+
+    sc, = ss.bands(0)
+    h, w = sc.frame
+    on = {d: ts.to_torch_scene(sc.sg, *sc.camera(), device=d)
+          for d in (cuda, "cpu")}
+    for tile_h in ss.BAND_HEIGHTS:
+        got = {d: prepare_scene(*on[d], h, w, strategy="sorted",
+                                tile_h=tile_h) for d in on}
+        for a, b in zip(got[cuda].qbins, got["cpu"].qbins):
+            assert torch.equal(a.cpu(), b), tile_h
+        assert torch.equal(got[cuda].operands[2].cpu(),
+                           got["cpu"].operands[2]), tile_h
+
+
+@pytest.mark.parametrize("tile_h", [16, 32])
+def test_band_form_at_16_and_32_rows(cuda, tile_h):
+    """The band form asked for at the heights of forms of their own (K4's
+    band wrapper, K9's ``band=True``): bit-equal to the plain version and
+    to ``<16>`` / ``<32>`` on the same operands, one launch counted."""
+    from tpu_renderer_torch.engine.renderer import prepare_scene
+
+    for label, scene, tr, li, (h, w) in band_cases(cuda):
+        fused = prepare_scene(scene, tr, li, h, w, strategy="sorted",
+                              tile_h=tile_h)
+        obj, cfg = scene[0]
+        table = tsp.setup_for_raster(obj, tr, li, cfg, frame_height=h,
+                                     frame_width=w)
+        gbuf = tgb.prepare_gbuffer(table, h, w, strategy="sorted",
+                                   tile_h=tile_h)
+        for launch, band, wrapper in (
+                (fused, lambda: trp.raster_narrow_any_kernel(
+                    *fused.operands, tile_h=tile_h, **fused.options),
+                 trp.raster_narrow_any_kernel),
+                (gbuf, lambda: tgb.raster_pass_queue(
+                    *gbuf.operands, band=True, **gbuf.options),
+                 tgb.raster_pass_queue)):
+            n0 = wrapper.launches
+            out_b = band()
+            assert wrapper.launches == n0 + 1
+            out_f, out_p = launch.run(), launch.run_plain()
+            torch.cuda.synchronize()
+            for a, b, c in zip(out_b, out_f, out_p):
+                assert torch.equal(bits(a), bits(b)), label
+                assert torch.equal(bits(a), bits(c)), label
+
+
 def test_band_form_refuses_other_heights(cuda):
     """On CUDA tensors the sorted kernels refuse a height that is not a
     multiple of 8, naming the rule, and launch nothing: no other height

@@ -105,6 +105,7 @@ def test_scenes_take_their_routes(family):
                      "tr_gbuffer_mask", "tr_gbuffer_queue", "tr_raster"},
         "zcull": {"tr_raster_zcull", "tr_raster_rows1_zcull", "tr_raster",
                   "tr_raster_rows1"},
+        "bands": {"tr_raster_narrow_any", "tr_gbuffer_queue"},
     }[family]
     assert want <= entries, want - entries
 

@@ -1119,63 +1119,221 @@ int split_raster(const int* sorted_tri, const int* starts, const int* counts,
 // The band form: K4 and K9 + K10 at every other multiple of 8 rows (24, 40,
 // 48, 56, 64, ...), the tile height a runtime value. The Pallas kernels take
 // any multiple of 8 rows; the forms above are compiled for 8, 16 and 32.
-// Each tile of tile_h rows is cut into tile_h / kBand bands of kBand = 8
-// rows, and the walk's unit of work is (part, band) in place of part: a
-// block finds its part as split_walk_kernel does (the stream part or the
-// side list of a tile, part_scan_kernel<1> unchanged), folds the part's
-// entries over its band's 8 rows only on a Tile<8> (128 threads, 8 rows of
-// winners each) and atomicMaxes its winners into the same (z desc, gid asc)
-// keys. Band b of tile (ty, tx) is band by = ty * bands + b of the frame,
-// rows row0 + by * 8 + r: the keys, the outputs and their finalize are
-// those of an 8-row tiling of the frame, so split_finalize_kernel<8, GBUF>
-// runs one block per (tile, band). Exact: the merge is per pixel and by the
-// fold's key, so any cut of the rows gives the same winners, and each row's
-// float is made from the same int as in the one-block form. Consecutive
-// items are one part's bands, so a part's records are read from device
-// memory once and then from L2; stage A runs for every (entry, band row)
-// pair, and a band an entry does not reach folds nothing (the span test,
-// ymin <= y < ymax, leaves the pair no span). A simple form: its cost
-// against the 16- and 32-row forms is in PERF.md.
+//
+// The walk's unit of work is the part (part_scan_kernel<1> unchanged: a
+// stream part of at most P entries, or a tile's side list), and a block
+// folds it over only the rows its entries reach, fragment by fragment:
+//   1. the block stages a batch of at most kMaxBatch of the part's records
+//      in shared memory once (88 lanes a record, 16-byte loads);
+//   2. each entry's reach: the tile rows [lo, hi) covering every row where
+//      two or more of its edges are active. An edge is active on row yf
+//      when valid && ymin <= yf && yf < ymax (row_span's comparisons on the
+//      same f32 yf); over the tile's rows that holds on one run of rows,
+//      found by two binary searches, and the reach is the hull of the
+//      pairwise overlaps of the three runs. A NaN end leaves its edge no
+//      row, and rows past the frame are tile rows like any other, so the
+//      reach holds every row where stage A gives a span (nact >= 2) and
+//      folds nothing the old walk did not;
+//   3. one warp's exclusive scan of the batch's reach lengths numbers its
+//      (entry, row) pairs; rounds of kThreads pairs, a thread each, run
+//      stage A on them (row_span, span_cols, attr_span for z): a band no
+//      entry reaches, or a row outside an entry's reach, costs nothing;
+//   4. each warp shares out its pairs' fragments (the span's columns
+//      within the tile, [minx, maxx], the column test of fold_batch kept
+//      as it is) over its 32 lanes by a scan of their counts, so a
+//      128-column span of the side list is 4 rounds of the warp, not 128
+//      steps of one thread; each fragment computes k and z with the fold's
+//      operations and, where z > DEPTH_CLEAR (the fold's start: that also
+//      rejects a NaN z), raises the pixel's key by atomicMax.
+// Every fragment the per-thread fold of fold_batch could take goes into
+// its pixel's key, and the final key is the largest one, the fold's
+// (z desc, gid asc) winner over all fragments: exact in any order. There
+// are no winners in registers; split_finalize_kernel<8, GBUF> recomputes k
+// and z from the key's gid (fold_kz) one block per (tile, 8-row band) of
+// an 8-row tiling of the frame, band b of tile (ty, tx) being rows row0 +
+// (ty * bands + b) * 8 + r, the same ints as the walk's rows.
+// Why fragments and not column threads: on the sorted heights a part's
+// entries are runs of nearby small triangles that reach one or two of the
+// tile's bands; a column-thread fold (each of 128 threads testing every
+// pair of a batch on its column) spends 128 tests a pair for the one to
+// three fragments a small triangle has. Here the work is a scan and one
+// atomic a fragment (PERF.md, section 6).
 // ---------------------------------------------------------------------------
 
 constexpr int kBand = 8;
+
+// The first row r in [0, n) with ymin <= (float)(row_base + r), n if none
+// (NaN ymin: none); with AFTER, the first row with !((float)(row_base + r)
+// < y). Both tests turn from false to true once as r grows, since a row's
+// float does not decrease.
+template <bool AFTER>
+__device__ __forceinline__ int first_row(float y, int row_base, int n) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const float yf = static_cast<float>(row_base + mid);
+    if (AFTER ? !(yf < y) : (y <= yf))
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  return lo;
+}
+
+// An entry's reach in a tile of n rows from row_base: [lo, hi), empty when
+// hi <= lo.
+__device__ __forceinline__ void entry_reach(const float* rec, int row_base,
+                                            int n, int& lo, int& hi) {
+  int a[3], b[3];
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    const float* r = rec + e * kEdgeStride;
+    const bool valid = r[F_VALID] > 0.5f;
+    a[e] = valid ? first_row<false>(r[F_YMIN], row_base, n) : n;
+    b[e] = valid ? first_row<true>(r[F_YMAX], row_base, n) : 0;
+  }
+  lo = n;
+  hi = 0;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = i + 1; j < 3; ++j) {
+      const int l = max(a[i], a[j]), h = min(b[i], b[j]);
+      if (l < h) {
+        lo = min(lo, l);
+        hi = max(hi, h);
+      }
+    }
+}
+
+struct BandShared {
+  float rec[kMaxBatch][kRecStride];
+  int reach_lo[kMaxBatch];
+  int pair_off[kMaxBatch + 1];  // exclusive scan of the reach lengths
+};
 
 __global__ void __launch_bounds__(kThreads) band_walk_kernel(
     const int* __restrict__ sorted_tri, const int* __restrict__ starts,
     const int* __restrict__ counts, const int* __restrict__ large_ids,
     const int* __restrict__ n_large, const int* __restrict__ part_off,
-    int nfb, int part_entries, int bands, Finalize f,
+    int nfb, int part_entries, int tile_h, Finalize f,
     unsigned long long* __restrict__ keys) {
-  __shared__ __align__(16) Shared sh;
-  const long long items = (long long)part_off[nfb] * bands;
-  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
-    const int part = static_cast<int>(item / bands);
-    const int band = static_cast<int>(item - (long long)part * bands);
+  __shared__ __align__(16) BandShared sh;
+  constexpr int kPer = kRecLoad / 4;
+  const int lane = threadIdx.x & 31;
+  const int n = part_off[nfb];
+  for (int part = blockIdx.x; part < n; part += gridDim.x) {
     int h, ne;
     const int* ids;
     const int tile = part_run<1>(part, part_off, nfb, sorted_tri, starts,
                                  counts, large_ids, n_large, part_entries, h,
                                  ids, ne);
     const int ty = tile / f.tiles_x, tx = tile - ty * f.tiles_x;
-    const int by = ty * bands + band;
-    const int row_base = f.row0 + by * kBand;
-    const float xc =
-        static_cast<float>(f.col0 + tx * kTileW + tile_col<kBand>());
-    Winners<kBand> win;
-    init_winners(win);
-    fold_run<kBand, kBand, false>(ids, ne, 0, row_base, xc, f, sh, win,
-                                  nullptr, nullptr);
+    const int row_base = f.row0 + ty * tile_h;
+    const int xbase = f.col0 + tx * kTileW;
+    unsigned long long* tile_keys =
+        keys + (size_t)ty * tile_h * f.out_w + tx * kTileW;
+    for (int b0 = 0; b0 < ne; b0 += kMaxBatch) {
+      const int nb = min(kMaxBatch, ne - b0);
+      __syncthreads();  // the previous batch's pairs are set up
+      for (int i = threadIdx.x; i < nb * kPer; i += kThreads) {
+        const int e = i / kPer, q = i - e * kPer;
+        const float4* src = reinterpret_cast<const float4*>(
+            f.recs + (size_t)ids[b0 + e] * kRecLanes);
+        *reinterpret_cast<float4*>(&sh.rec[e][4 * q]) = __ldg(src + q);
+      }
+      __syncthreads();
+      if (threadIdx.x < 32) {
+        int lo = 0, hi = 0;
+        if (lane < nb) entry_reach(sh.rec[lane], row_base, tile_h, lo, hi);
+        const int len = hi > lo ? hi - lo : 0;
+        int v = len;  // inclusive scan over the batch's entries
 #pragma unroll
-    for (int r = 0; r < kBand; ++r)
-      if (win.g[r] >= 0)
-        atomicMax(keys + tile_pixel<kBand>(f, by, tx, r),
-                  winner_key(win.z[r], win.g[r]));
+        for (int o = 1; o < 32; o <<= 1) {
+          const int u = __shfl_up_sync(0xffffffffu, v, o);
+          if (lane >= o) v += u;
+        }
+        sh.reach_lo[lane] = lo;
+        sh.pair_off[lane + 1] = v;
+        if (lane == 0) sh.pair_off[0] = 0;
+      }
+      __syncthreads();
+      const int pairs = sh.pair_off[nb];
+      for (int p0 = 0; p0 < pairs; p0 += kThreads) {
+        const int p = p0 + threadIdx.x;
+        // This thread's pair: stage A's depth part, and its columns within
+        // the tile, [c0, c0 + cn).
+        float minx = 0.0f, maxx = -kBig, xoff = 0.0f, zl = 0.0f, zinc = 0.0f;
+        int g = 0, row = 0, c0 = 0, cn = 0;
+        if (p < pairs) {
+          int lo = 0, hi = nb - 1;  // the last entry with pair_off <= p
+          while (lo < hi) {
+            const int mid = (lo + hi + 1) >> 1;
+            if (sh.pair_off[mid] <= p)
+              lo = mid;
+            else
+              hi = mid - 1;
+          }
+          const float* rec = sh.rec[lo];
+          row = sh.reach_lo[lo] + (p - sh.pair_off[lo]);
+          RowSpan s;
+          row_span(rec, static_cast<float>(row_base + row), s);
+          span_cols(s, f.w_f, minx, maxx, xoff);
+          if (s.nact >= 2 && minx <= maxx) {  // coverage gate; no NaN end
+            c0 = max(0, static_cast<int>(minx) - xbase);
+            cn = min(kTileW - 1, static_cast<int>(maxx) - xbase) - c0 + 1;
+            if (cn > 0) {
+              attr_span(rec, s, F_Z0, F_ZG, zl, zinc);
+              g = to_i32(rec[kGidLane]);
+            } else {
+              cn = 0;
+            }
+          }
+        }
+        int end = cn;  // inclusive scan of the warp's fragment counts
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int u = __shfl_up_sync(0xffffffffu, end, o);
+          if (lane >= o) end += u;
+        }
+        const int frags = __shfl_sync(0xffffffffu, end, 31);
+        for (int q0 = 0; q0 < frags; q0 += 32) {
+          const int q = q0 + lane;
+          int src = 0;  // the first lane whose inclusive count exceeds q
+#pragma unroll
+          for (int step = 16; step > 0; step >>= 1) {
+            const int e = __shfl_sync(0xffffffffu, end, src + step - 1);
+            if (e <= q) src += step;
+          }
+          const int first = __shfl_sync(0xffffffffu, end - cn, src);
+          const float s_minx = __shfl_sync(0xffffffffu, minx, src);
+          const float s_maxx = __shfl_sync(0xffffffffu, maxx, src);
+          const float s_xoff = __shfl_sync(0xffffffffu, xoff, src);
+          const float s_zl = __shfl_sync(0xffffffffu, zl, src);
+          const float s_zinc = __shfl_sync(0xffffffffu, zinc, src);
+          const int s_g = __shfl_sync(0xffffffffu, g, src);
+          const int s_row = __shfl_sync(0xffffffffu, row, src);
+          const int s_c0 = __shfl_sync(0xffffffffu, c0, src);
+          if (q < frags) {
+            const int c = s_c0 + (q - first);
+            const float xc = static_cast<float>(xbase + c);
+            if (xc >= s_minx && xc <= s_maxx) {
+              const float k = s_xoff + (xc - s_minx);
+              const float z = s_zl + k * s_zinc;
+              if (z > kDepthClear)
+                atomicMax(tile_keys + (size_t)s_row * f.out_w + c,
+                          winner_key(z, s_g));
+            }
+          }
+        }
+      }
+    }
   }
 }
 
-// The band form's four device ops: zero the keys, count the parts, walk the
-// (part, band) items, finalize one block per (tile, band). tile_h: a
-// multiple of 8; part_off: nfb + 1 ints.
+// The band form's four device ops: zero the keys, count the parts, walk
+// them, finalize one block per (tile, band). tile_h: a multiple of 8;
+// part_off: nfb + 1 ints.
 template <bool GBUF>
 int band_raster(int tile_h, const int* sorted_tri, const int* starts,
                 const int* counts, const int* large_ids, const int* n_large,
@@ -1183,8 +1341,7 @@ int band_raster(int tile_h, const int* sorted_tri, const int* starts,
                 const Finalize& f, int nfb, int* part_off,
                 unsigned long long* keys, size_t n_keys, cudaStream_t s) {
   if (tile_h < kBand || tile_h % kBand != 0) return 1;  // invalid value
-  const int bands = tile_h / kBand;
-  const long long finals = (long long)nfb * bands;
+  const long long finals = (long long)nfb * (tile_h / kBand);
   if (finals > 0x7FFFFFFFLL) return 1;
   static int cached[kMaxDevices] = {};
   int blocks = 0;
@@ -1196,13 +1353,12 @@ int band_raster(int tile_h, const int* sorted_tri, const int* starts,
   part_scan_kernel<1><<<1, kScanThreads, 0, s>>>(counts, lcounts, nfb,
                                                  part_entries, part_off);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  // At most (entries / P + nfb stream parts + nfb side-list parts) x bands.
-  const long long most =
-      ((long long)entries / part_entries + 2LL * nfb) * bands;
+  // At most entries / P + nfb stream parts and nfb side-list parts.
+  const long long most = (long long)entries / part_entries + 2LL * nfb;
   const int grid = static_cast<int>(most < blocks ? most : blocks);
   band_walk_kernel<<<grid, kThreads, 0, s>>>(sorted_tri, starts, counts,
                                              large_ids, n_large, part_off,
-                                             nfb, part_entries, bands, f,
+                                             nfb, part_entries, tile_h, f,
                                              keys);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   split_finalize_kernel<kBand, GBUF>
@@ -1384,12 +1540,14 @@ extern "C" int tr_gbuffer_mask(const float* recs, const int* ids,
 // bound, for the grid). keys: (hp * wp) u64 scratch, hp = tiles_y *
 // tile_h, wp = tiles_x * 128. part_off: (tiles_y * tiles_x + 1) i32, left
 // holding each tile's first part and, last, the parts' total.
+// band != 0: the band form at every height, 8, 16 and 32 too (beside the
+// forms of those heights; the routes pass 0).
 extern "C" int tr_gbuffer_queue(const float* recs, const int* sorted_tri,
                                 const int* starts, const int* counts,
                                 const int* large_ids, const int* n_large,
-                                const int* lcounts, int tile_h, int tiles_y,
-                                int tiles_x, int row0, int col0, int frame_w,
-                                int entries, int part_entries,
+                                const int* lcounts, int tile_h, int band,
+                                int tiles_y, int tiles_x, int row0, int col0,
+                                int frame_w, int entries, int part_entries,
                                 unsigned long long* keys, int* part_off,
                                 int* gid, float* gbuf, void* stream) {
   if (tiles_y < 1 || tiles_x < 1 || entries < 0 || part_entries < 1)
@@ -1399,15 +1557,15 @@ extern "C" int tr_gbuffer_queue(const float* recs, const int* sorted_tri,
   const int nfb = tiles_y * tiles_x;
   const size_t n_keys = f.plane;  // hp * wp
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile_h == 8)
+  if (!band && tile_h == 8)
     return tr::split_raster<8, 1, false, true>(
         sorted_tri, starts, counts, large_ids, n_large, lcounts, entries,
         part_entries, f, nfb, part_off, keys, n_keys, nullptr, s);
-  if (tile_h == 16)
+  if (!band && tile_h == 16)
     return tr::split_raster<16, 1, false, true>(
         sorted_tri, starts, counts, large_ids, n_large, lcounts, entries,
         part_entries, f, nfb, part_off, keys, n_keys, nullptr, s);
-  if (tile_h == 32)
+  if (!band && tile_h == 32)
     return tr::split_raster<32, 1, false, true>(
         sorted_tri, starts, counts, large_ids, n_large, lcounts, entries,
         part_entries, f, nfb, part_off, keys, n_keys, nullptr, s);

@@ -65,7 +65,7 @@ TILE_W = 128
 OBJ_PAD = 128  # engine.renderer: objects of a launch pad to this
 
 FAMILIES = ("thresholds", "part_edges", "ties", "side_list", "ragged",
-            "budgets", "textures", "zcull")
+            "budgets", "textures", "zcull", "bands")
 SEEDS = (0, 1)  # the card's sweep
 
 
@@ -705,9 +705,140 @@ def zcull(seed):
     return out
 
 
+BAND = 8  # the band form's rows a band (csrc/raster.cu)
+BAND_HEIGHTS = (24, 40, 48, 56, 64)  # sorted heights the band form runs
+# A vertex row's offset from a band boundary 8k: the records round it half
+# away from zero, to 8k - 1 (below -0.5), 8k, or 8k + 1 (above +0.5).
+EDGE_OFFSETS = (-0.501, -0.499, -0.001, 0.0, 0.001, 0.499, 0.501)
+
+
+def _band_px(rng, y_top, y_bot, x, width):
+    """(3, 2) pixel corners: a triangle with its top corner at row
+    ``y_top`` and a ``width`` px base at row ``y_bot`` (or the reverse)."""
+    return np.array([[x, y_top], [x + width, y_bot], [x - width, y_bot]], F)
+
+
+def bands(seed, heights=BAND_HEIGHTS, rows=320):
+    """Scenes at the band walk's edges (the sorted route at heights
+    without a form of their own): a frame of ``rows`` rows and 128-column
+    tile columns, laid out left to right:
+
+    - columns 0-1: at every band boundary 8k of the frame, triangles
+      ending just above it and starting just below it, their corners at
+      8k + EDGE_OFFSETS (records at 8k - 1, 8k, 8k + 1: the half-open
+      row rule on both sides of the boundary);
+    - one column per height H of ``heights``: 18 triangles in the first
+      8 rows and 18 in the last 8 rows of every H-row tile, nothing in
+      between, in alternating order, so each of the tile's two parts
+      reaches its first and last band only;
+    - a column of exact depth ties: 64 small triangles in the band of rows
+      [8 * (rows // 16), + 8) (inside one tile at every height) and 24
+      copies right after them, each copy 40 or more stream entries from
+      its original (another part), and 40 triangles all covering one
+      pixel, 8 of them copies of one;
+    - a last column of tall slivers crossing tile boundaries and the
+      frame's top and bottom edges (entries that reach into a tile from
+      above or below) and zero-height triangles (three corners rounding to
+      one row);
+    - one-column slivers on columns 0 and 127 of the first and the last
+      tile column, and a triangle wider than a tile in each of them (spans
+      of all 128 columns);
+    - one large triangle over the whole frame but its corners: on the
+      side list among the small ones where its bbox covers more tiles than
+      the route's expansion (32), its spans all 128 columns wide.
+    Forms: the fused sorted route (K4's band form) and the G-buffer one
+    (K9 + K10's) at every height, each claiming no drop and, where the
+    frame's tiles make it certain, the side list's length."""
+    rng = np.random.default_rng([9, seed])
+    cols = 4 + len(heights)
+    frame = (rows, cols * TILE_W)
+    tr_d = ts.baseline_camera_lights(*frame)[0]
+    tris = []
+
+    def add(px, z=None):
+        px = np.asarray(px, F).reshape(-1, 3, 2)
+        tris.append(triangles(px, depths(rng, len(px)) if z is None else z,
+                              tr_d))
+
+    # Columns 0-1: both sides of every band boundary.
+    for k in range(1, rows // BAND):
+        y = float(k * BAND)
+        for d in EDGE_OFFSETS:
+            xa, xb = rng.uniform(8.0, 2 * TILE_W - 8.0, 2)
+            add([_band_px(rng, y - float(rng.uniform(2, 6)), y + d, xa,
+                          float(rng.uniform(1.5, 4))),
+                 _band_px(rng, y + 2 * float(rng.uniform(1, 3)), y + d, xb,
+                          float(rng.uniform(1.5, 4)))])
+    # One column per height: the first and last band of each tile.
+    for i, th in enumerate(heights):
+        x0 = (2 + i) * TILE_W
+        for t0 in range(0, rows - th + 1, th):
+            a, b = (small_px(rng, 18, (r0 + 0.3, r0 + BAND - 0.7),
+                             (x0 + 2.0, x0 + TILE_W - 3.0), 6.0)
+                    for r0 in (t0, t0 + th - BAND))
+            add(np.stack([a, b], 1))  # alternating: both in every part
+    # Exact depth ties in other parts; one pixel under many fragments.
+    x0 = (2 + len(heights)) * TILE_W
+    yt = float(BAND * (rows // 16))
+    base = small_px(rng, 64, (yt + 0.3, yt + 6.6),
+                    (x0 + 2.0, x0 + TILE_W - 3.0), 7.0)
+    zb = depths(rng, 64)
+    src = np.sort(rng.choice(64, 24, replace=False))
+    add(np.concatenate([base, base[src]]), np.concatenate([zb, zb[src]]))
+    cy, cx = 105.5, x0 + 64.5
+    a = rng.uniform(0, 2 * np.pi, 32)
+    fan = np.stack([np.stack([cx + 6 * np.cos(a), cy + 6 * np.sin(a)], -1),
+                    np.stack([cx + 6 * np.cos(a + 2.2),
+                              cy + 6 * np.sin(a + 2.2)], -1),
+                    np.stack([cx + 6 * np.cos(a + 4.2),
+                              cy + 6 * np.sin(a + 4.2)], -1)], 1)
+    zf = depths(rng, 32)
+    add(np.concatenate([fan, np.repeat(fan[:1], 8, 0)]),
+        np.concatenate([zf, np.repeat(zf[:1], 8, 0)]))
+    # Tall slivers, frame edges, zero height, one column, whole tiles.
+    x0 = (3 + len(heights)) * TILE_W
+    for _ in range(12):
+        y0 = float(rng.uniform(-30, rows - 90))
+        add(_band_px(rng, y0, y0 + float(rng.uniform(40, 90)),
+                     x0 + float(rng.uniform(8, 120)),
+                     float(rng.uniform(1, 3))))
+    for y_top, y_bot in ((-25.0, 14.6), (rows - 12.4, rows + 30.0)):
+        add(_band_px(rng, y_top, y_bot, x0 + float(rng.uniform(20, 100)),
+                     6.0))
+    for _ in range(8):
+        y = float(BAND * rng.integers(2, rows // BAND - 2))
+        x = x0 + float(rng.uniform(10, 110))
+        add([[x, y + 0.2], [x + 9, y - 0.3], [x + 4, y + 0.4]])
+    for c in (0, 127):
+        for tc in (0, 3 + len(heights)):
+            x = tc * TILE_W + c + 0.1
+            y = float(rng.uniform(20, rows - 40))
+            add([[x, y], [x + 0.3, y + 14.2], [x + 0.2, y + 3.0]])
+    for tc in (0, 3 + len(heights)):
+        y = float(rng.uniform(30, rows - 40))
+        x = tc * TILE_W
+        add([[x - 6.0, y], [x + TILE_W + 6.0, y + 0.6],
+             [x + 40.0, y + 17.0]])
+    # The large triangle, behind everything else.
+    add([[10.0, 5.0], [frame[1] - 12.0, 40.0], [300.0, rows - 5.0]],
+        np.full((1, 3), -0.45, F))
+    sg = [(obj(mesh(rng, merged(*tris))), {"phong": bool(rng.integers(2))})]
+    forms = []
+    for th in heights:
+        # the large triangle's tiles against the expansion, with a margin
+        tiles = ((rows - 5) // th + 1) * cols
+        claims = dict(dropped=0)
+        if not 24 <= tiles <= 40:
+            claims["n_large"] = int(tiles > 32)
+        for path in ("fused", "gbuffer"):
+            forms.append(form(sg, frame, path, "sorted", th, **claims))
+    return [scene("bands", f"{rows}x{frame[1]} at {heights}", seed, sg,
+                  frame, forms)]
+
+
 FAMILY_SCENES = dict(thresholds=thresholds, part_edges=part_edges, ties=ties,
                      side_list=side_list, ragged=ragged, budgets=budgets,
-                     textures=textures, zcull=zcull)
+                     textures=textures, zcull=zcull, bands=bands)
 
 
 def family_scenes(family, seed):
@@ -741,4 +872,6 @@ def cpu_scenes(family, seed=0) -> list:
         return [scene("zcull", "rows 1 3x(10, 10) innermost first", seed,
                       sg, (128, 128), [form(sg, (128, 128), zcull=True)],
                       zcull=True)]
+    if family == "bands":
+        return bands(seed, heights=(24, 64), rows=192)
     raise ValueError(family)

@@ -107,10 +107,11 @@ def count_subset_per_tile(subset_ids, height: int, width: int, tile_h: int,
     xlo = xlo[safe] - float(col0)
     xhi = xhi[safe] - float(col0)
 
-    ty_lo = to_i32(torch.floor(ylo / float(tile_h)))
-    ty_hi = to_i32(torch.ceil(yhi / float(tile_h)))
-    tx_lo = to_i32(torch.floor(xlo / float(tile_w)))
-    tx_hi = to_i32(torch.floor(xhi / float(tile_w))) + 1
+    th_f, tw_f = scalar(tile_h, dev), scalar(tile_w, dev)
+    ty_lo = to_i32(torch.floor(ylo / th_f))
+    ty_hi = to_i32(torch.ceil(yhi / th_f))
+    tx_lo = to_i32(torch.floor(xlo / tw_f))
+    tx_hi = to_i32(torch.floor(xhi / tw_f)) + 1
 
     ty_ids = torch.arange(tiles_y, dtype=I32, device=dev)
     tx_ids = torch.arange(tiles_x, dtype=I32, device=dev)
@@ -255,11 +256,11 @@ def _bin_queue_rows(bbox, height, width, tile_h, tile_w, blk, budget_factor,
     xlo = xlo - float(col0)
     xhi = xhi - float(col0)
 
-    sy_lo = torch.clamp(to_i32(torch.floor(ylo / float(strip_h))), 0, n_strips)
-    sy_hi = torch.clamp(to_i32(torch.ceil(yhi / float(strip_h))), 0, n_strips)
-    tx_lo = torch.clamp(to_i32(torch.floor(xlo / float(tile_w))), 0, tiles_x)
-    tx_hi = torch.clamp(to_i32(torch.floor(xhi / float(tile_w))) + 1, 0,
-                        tiles_x)
+    sh_f, tw_f = scalar(strip_h, dev), scalar(tile_w, dev)
+    sy_lo = torch.clamp(to_i32(torch.floor(ylo / sh_f)), 0, n_strips)
+    sy_hi = torch.clamp(to_i32(torch.ceil(yhi / sh_f)), 0, n_strips)
+    tx_lo = torch.clamp(to_i32(torch.floor(xlo / tw_f)), 0, tiles_x)
+    tx_hi = torch.clamp(to_i32(torch.floor(xhi / tw_f)) + 1, 0, tiles_x)
     sy_lo, sy_hi, tx_lo, tx_hi = (a.to(I64) for a in (sy_lo, sy_hi, tx_lo,
                                                       tx_hi))
     wx = torch.clamp(tx_hi - tx_lo, min=0)
@@ -350,11 +351,11 @@ def _bin_queue_single(bbox, height, width, tile_h, tile_w, blk, expansion,
     xlo = xlo - float(col0)
     xhi = xhi - float(col0)
 
-    ty_lo = torch.clamp(to_i32(torch.floor(ylo / float(tile_h))), 0, tiles_y)
-    ty_hi = torch.clamp(to_i32(torch.ceil(yhi / float(tile_h))), 0, tiles_y)
-    tx_lo = torch.clamp(to_i32(torch.floor(xlo / float(tile_w))), 0, tiles_x)
-    tx_hi = torch.clamp(to_i32(torch.floor(xhi / float(tile_w))) + 1, 0,
-                        tiles_x)
+    th_f, tw_f = scalar(tile_h, dev), scalar(tile_w, dev)
+    ty_lo = torch.clamp(to_i32(torch.floor(ylo / th_f)), 0, tiles_y)
+    ty_hi = torch.clamp(to_i32(torch.ceil(yhi / th_f)), 0, tiles_y)
+    tx_lo = torch.clamp(to_i32(torch.floor(xlo / tw_f)), 0, tiles_x)
+    tx_hi = torch.clamp(to_i32(torch.floor(xhi / tw_f)) + 1, 0, tiles_x)
     ty_lo, ty_hi, tx_lo, tx_hi = (a.to(I64) for a in (ty_lo, ty_hi, tx_lo,
                                                       tx_hi))
     wy = torch.clamp(ty_hi - ty_lo, min=0)

@@ -26,9 +26,10 @@ attribute planes. Both CUDA entries take any multiple of 8 rows, as the
 Pallas kernels: K9's is compiled for 8-, 16- and 32-row tiles
 (``ops.raster.CUDA_TILE_HEIGHTS``: the 'auto' route's heights and the
 Pallas kernels' default of 32, 256-thread blocks) and runs every other
-multiple of 8 in the band form (8-row bands of a tile folded by many
-blocks, csrc/raster.cu); K8 folds strips. Other heights raise on CUDA
-tensors; the plain version takes any tile height.
+multiple of 8 in the band form (each part folded over only the rows its
+entries reach, fragment by fragment, csrc/raster.cu); K8 folds strips.
+Other heights raise on CUDA tensors; the plain version takes any tile
+height.
 """
 
 from __future__ import annotations
@@ -134,7 +135,7 @@ def raster_pass(recs, bins: TileBins, *, tile_h: int, tiles_y: int,
 
 def raster_pass_queue(recs, qbins: QueueBins, lcounts, *, tile_h: int,
                       tiles_y: int, tiles_x: int, row0: int, col0: int,
-                      frame_width: int):
+                      frame_width: int, band: bool = False):
     """K9 + K10, the sorted strategy into a G-buffer: each tile's stream
     entries, and where ``lcounts`` is open the side list
     ``qbins.large_ids``, folded in parts of at most
@@ -147,7 +148,9 @@ def raster_pass_queue(recs, qbins: QueueBins, lcounts, *, tile_h: int,
     ``raster_pass_queue.launches`` once (K10 runs inside that call) and leave
     the parts' offsets on the device in ``raster_pass_queue.part_offsets``
     ((tiles + 1,) i32, tile t's parts from [t] to [t + 1], the last the total);
-    CPU tensors run ``gbuffer_plain``."""
+    CPU tensors run ``gbuffer_plain``. ``band`` runs the band form at
+    every height, 8, 16 and 32 too (the routes never ask for it: it
+    measures the band form beside those heights' forms)."""
     dev = recs.device
     nfb = tiles_y * tiles_x
     if qbins.starts.shape[0] != nfb + 1:
@@ -174,8 +177,8 @@ def raster_pass_queue(recs, qbins: QueueBins, lcounts, *, tile_h: int,
         "tr_gbuffer_queue", dev,
         recs.data_ptr(), qbins.sorted_tri.data_ptr(), qbins.starts.data_ptr(),
         qbins.counts.data_ptr(), qbins.large_ids.data_ptr(),
-        qbins.n_large.data_ptr(), lcounts.data_ptr(), tile_h, tiles_y,
-        tiles_x, row0, col0, frame_width, qbins.sorted_tri.shape[0],
+        qbins.n_large.data_ptr(), lcounts.data_ptr(), tile_h, int(band),
+        tiles_y, tiles_x, row0, col0, frame_width, qbins.sorted_tri.shape[0],
         _raster.RASTER_PART_ENTRIES, keys.data_ptr(), part_off.data_ptr(),
         gid.data_ptr(), gbuf.data_ptr())
     raster_pass_queue.launches += 1
@@ -189,7 +192,7 @@ raster_pass_queue.part_offsets = None
 _cuda.declare("tr_gbuffer_mask", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
               + [ctypes.c_void_p] * 3)
 _cuda.declare("tr_gbuffer_queue", [ctypes.c_void_p] * 7
-              + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 5)
+              + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 5)
 
 
 def gbuffer_plain(recs, qbins: QueueBins, lcounts, *, tile_h: int,

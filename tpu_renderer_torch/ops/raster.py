@@ -25,15 +25,17 @@ Each wrapper launches its CUDA kernel on CUDA tensors and runs its plain
 version on CPU tensors. Every CUDA raster kernel takes any multiple of 8
 rows, as the Pallas kernels: the sorted ones are compiled for 8-, 16- and
 32-row tiles (``CUDA_TILE_HEIGHTS``) and run every other multiple of 8 in
-the band form (``tr_raster_narrow_any``, K9's ``tr_gbuffer_queue``: 8-row
-bands of a tile folded by many blocks); the mask ones (K6, K8) fold any
+the band form (``tr_raster_narrow_any``, K9's ``tr_gbuffer_queue``: each
+part folded over only the rows its entries reach, fragment by fragment);
+the mask ones (K6, K8) fold any
 multiple of 8 in strips. Other heights raise on CUDA tensors
 (``check_cuda_tile_h``); the plain versions take any height. On the
 sorted routes one wrapper call is four device ops: the CUDA code cuts
 each tile's streams into parts of at most ``RASTER_PART_ENTRIES`` entries
 (the side list one more part), many blocks fold the parts (in the band
-form each part once per band), a 64-bit (z desc, gid asc) key per pixel
-merges them, and a finalize block per tile (per band) shades the winners,
+form one atomic merge a fragment), a 64-bit (z desc, gid asc) key per
+pixel merges them, and a finalize block per tile (per 8-row band in the
+band form) shades the winners,
 as K9 does (``ops.gbuffer``). The raster kernels' plain
 version, ``raster_plain``, is vectorised over the binned entries (the mask
 strategy's lists go in as one stream, ``mask_plain``); each pixel's winner
@@ -582,9 +584,10 @@ def raster_narrow_any_kernel(recs, qbins, lcounts, params, objs, texs,
                              atlas, *, tile_h: int, **kw):
     """K4 on tiles of any height without a form of its own (24, 40, 48, 64,
     ...; one stream): outputs (tiles_y * tile_h, tiles_x * 128). CUDA
-    tensors take a multiple of 8 (``check_cuda_tile_h``), launch
-    ``tr_raster_narrow_any`` (the band form: each part folded once per
-    8-row band of its tile, csrc/raster.cu), count
+    tensors take a multiple of 8 (``check_cuda_tile_h``; 16 and 32 too,
+    beside those heights' own forms), launch ``tr_raster_narrow_any`` (the
+    band form: each part folded over only the rows its entries reach,
+    fragment by fragment, csrc/raster.cu), count
     ``raster_narrow_any_kernel.launches`` once and leave the parts' offsets
     in ``raster_narrow_any_kernel.part_offsets``; CPU tensors run
     ``raster_plain`` at any height, with the bins' own streams."""
