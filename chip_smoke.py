@@ -140,8 +140,8 @@ Phases (any failure raises and the script exits nonzero):
    of each path since config 2 (but deferred 1M, the stacks and headline
    @64) must equal the CPU plain run of it bit for bit;
 6. timings: median ms per frame (CUDA events) of each path, the headline's
-   setup / binning / raster split (``utils.profiling.stage_breakdown``,
-   each stage alone between syncs) and its ``FrameTimer`` summary, and
+   host ms a frame by span (``utils.profiling.spans``, each layer's self
+   time) and its ``FrameTimer`` summary, and
    each kernel at its path's shapes (the headline for K1 and K2, the
    textured 250k point for K1 textured, config 3 for K6), first held
    bit-equal to its plain version on those inputs, then timed beside its
@@ -2939,23 +2939,32 @@ def main():
             path, sc, tr_, li_, h, w, n_frames, kernels,
             render=lambda s_, f=frame, t=tr_, l=li_: f(s_, t, l))
 
-    # 6a. The headline's split and frame time through the profiling
-    # module: stage_breakdown (setup / binning / raster, each stage alone
-    # between syncs, CUDA events, host enqueue included, the mean of 10
-    # rotated frames) and FrameTimer around 13 Renderer frames, each tick
-    # waiting for its frame (the summary of the last 10).
+    # 6a. The headline's frame time and host time a layer through the
+    # profiling module: FrameTimer around 13 Renderer frames, each tick
+    # waiting for its frame (the summary of the last 10), and the spans'
+    # self time over those 10 frames (each layer's span less its
+    # children's, host clock).
     from tpu_renderer_torch.utils import profiling
 
-    split = profiling.stage_breakdown(obj, cfg, head_tr, head_li, H, W,
-                                      frames=10, device=dev)
-    log(f"# headline stage_breakdown (ms/frame): {json.dumps(split)}")
     timer = profiling.FrameTimer()
     head_renderer = trt.Renderer(H, W, device=dev)
-    for a in [0.05 * i for i in range(WARMUP + 10)]:
+
+    def tick(angle):
         out = []  # the frame tick waits for
         with timer.tick(out):
-            out.append(head_renderer.render(rotated(head_scene, a, dev),
+            out.append(head_renderer.render(rotated(head_scene, angle, dev),
                                             head_tr, head_li))
+
+    angles = [0.05 * i for i in range(WARMUP + 10)]
+    for a in angles[:WARMUP]:
+        tick(a)
+    with profiling.spans() as records:
+        for a in angles[WARMUP:]:
+            tick(a)
+    span_ms = {k: round(v / 10, 4)
+               for k, v in profiling.self_ms(records).items()}
+    log(f"# headline host ms a frame by span (self time, 10 frames): "
+        f"{json.dumps(span_ms)}")
     frame_timer = profiling.FrameTimer(samples=timer.samples[WARMUP:]
                                        ).summary()
     log(f"# headline FrameTimer (host clock, {WARMUP} warm-up frames "
@@ -3794,7 +3803,7 @@ def main():
         kernels.append(entry)
     log("# frames: " + json.dumps({
         "ms_per_frame": {k: round(v, 4) for k, v in path_ms.items()},
-        "headline_split_ms": split,
+        "headline_span_ms": span_ms,
         "deferred_shade_ms": round(shade_ms, 4),
         "textured_250k_fused_vs_deferred_ms": [round(fused_ms, 4),
                                                round(def_ms, 4)],

@@ -1,12 +1,9 @@
 """``tpu_renderer_torch.utils.profiling`` against the JAX package's
 ``tpu_renderer.utils.profiling``: FrameTimer's statistics on the same
-samples, stage_breakdown's keys and route on the CPU (its times are the
-CPU's here, only checked to be finite and non-negative), and trace /
-annotate writing a trace.
+samples, and trace / annotate writing a trace (the spans themselves:
+tests/test_torch_spans.py).
 """
 
-import ast
-import math
 import os
 
 import pytest
@@ -15,21 +12,8 @@ import torch
 import tpu_renderer_torch as trt
 from tpu_renderer.utils import profiling as jprof
 from tpu_renderer_torch.models.route_scenes import torch_scene
-from tpu_renderer_torch.ops import gbuffer as tgb
-from tpu_renderer_torch.ops import raster as trp
 from tpu_renderer_torch.utils import profiling as prof
 from torch_threads import one_torch_thread  # noqa: F401
-
-
-def jax_stage_keys():
-    """The keys of the dict JAX's stage_breakdown returns, read from its
-    source (running it would compile five scans of the Pallas pipeline)."""
-    with open(jprof.__file__) as f:
-        tree = ast.parse(f.read())
-    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
-              and n.name == "stage_breakdown")
-    ret, = [n for n in fn.body if isinstance(n, ast.Return)]
-    return [k.value for k in ret.value.keys]
 
 
 def test_frame_timer_summary_equals_jax():
@@ -50,39 +34,6 @@ def test_frame_timer_summary_equals_jax():
             pass
         assert out["seconds"] >= 0.0
     assert len(t.samples) == 5 and t.summary()["frames"] == 5
-
-
-@pytest.mark.parametrize("name, variant", [
-    ("k4", "base"),      # sorted, fused (K7, K4)
-    ("k6", "base"),      # mask, fused (K7, K6)
-    ("k6", "gbuffer"),   # mask, G-buffer (K7, K8, the deferred shade)
-])
-def test_stage_breakdown_keys_and_route(name, variant):
-    """JAX's keys in JAX's order; the strategy and tile height the port's
-    route picks (raster_route, or gbuffer_route on the G-buffer path);
-    finite, non-negative stage times that sum to total_ms; stream_ms 0."""
-    scene, tr, li, (h, w) = torch_scene(name, variant, "cpu")
-    (obj, cfg), = scene
-    got = prof.stage_breakdown(obj, cfg, tr, li, h, w, frames=2,
-                               device="cpu")
-    assert list(got) == jax_stage_keys()
-    fused = variant != "gbuffer"
-    route = (trp.raster_route if fused else tgb.gbuffer_route)(
-        obj.num_triangles, h, w)
-    assert (got["strategy"], got["tile_h"], got["fused_shading"]) == (
-        route.strategy, route.tile_h, fused)
-    stages = [got[k] for k in ("setup_ms", "binning_ms", "stream_ms",
-                               "raster_ms", "shade_ms")]
-    assert all(math.isfinite(v) and v >= 0.0 for v in stages)
-    assert got["stream_ms"] == 0.0 and (got["shade_ms"] > 0.0) == (not fused)
-    assert got["total_ms"] == pytest.approx(sum(stages))
-
-
-def test_stage_breakdown_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
-    scene, tr, li, (h, w) = torch_scene("k6", "base", "cpu")
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        prof.stage_breakdown(*scene[0], tr, li, h, w, frames=1)
 
 
 def test_trace_writes_a_file_and_annotate_names_a_span(tmp_path):

@@ -61,6 +61,7 @@ from ..ops.raster import (
 from ..ops.raster_reference import rasterize_reference
 from ..ops.setup import FUSED_SETUP_MIN, SetupOut, setup_for_raster
 from ..ops.shading import shade
+from ..utils.profiling import annotate
 
 _OBJ_PAD = 128  # each object's table pads its triangle axis to this
 BACKENDS = ("kernels", "reference")
@@ -317,9 +318,10 @@ def _draw_deferred(framebuffer: Framebuffer | None, obj: RenderObject,
             table, height, width, capacity, frame_height, frame_width, row0,
             col0, budget_override=budget_override)
         _merge_stats(stats, rstats)
-    rgba, covered = shade(covered, gbuf, transform, lights, cfg, obj.texture,
-                          row0, col0)
-    return _merge_into(framebuffer, covered, gbuf[0], pack_argb(rgba))
+    with annotate("tr.shade"):
+        rgba, covered = shade(covered, gbuf, transform, lights, cfg,
+                              obj.texture, row0, col0)
+        return _merge_into(framebuffer, covered, gbuf[0], pack_argb(rgba))
 
 
 def render_object(framebuffer: Framebuffer | None, obj: RenderObject,
@@ -438,19 +440,22 @@ class Renderer:
         ('bins_dropped' > 0 means entries past the static budget or the
         list capacity were dropped, counted, never silently; the
         'reference' backend bins nothing and reports nothing)."""
-        for obj, _ in scene:
-            if obj.vertices.device.type != self.device.type:
-                raise ValueError(
-                    f"scene on {obj.vertices.device}, renderer on "
-                    f"{self.device}")
-        fb = (None if self.clear_color == 0 else make_framebuffer(
-            self.height, self.width, self.clear_color, device=self.device))
-        stats: dict = {}
-        fb = render_scene(fb, list(scene), transform, lights, self.backend,
-                          self.height, self.width, capacity=self.capacity,
-                          stats=stats, budget_override=self.budget_factor,
-                          zcull=self.zcull)
-        return (fb, stats) if with_stats else fb
+        with annotate("tr.render"):
+            for obj, _ in scene:
+                if obj.vertices.device.type != self.device.type:
+                    raise ValueError(
+                        f"scene on {obj.vertices.device}, renderer on "
+                        f"{self.device}")
+            fb = (None if self.clear_color == 0 else make_framebuffer(
+                self.height, self.width, self.clear_color,
+                device=self.device))
+            stats: dict = {}
+            fb = render_scene(fb, list(scene), transform, lights,
+                              self.backend, self.height, self.width,
+                              capacity=self.capacity, stats=stats,
+                              budget_override=self.budget_factor,
+                              zcull=self.zcull)
+            return (fb, stats) if with_stats else fb
 
     def calibrate(self, scene: Sequence[Tuple[RenderObject, ObjectConfig]],
                   transform: ProjectiveTransform, lights: LightData,

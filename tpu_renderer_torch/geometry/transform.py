@@ -12,6 +12,7 @@ import torch
 
 from ..core.math import scalar
 from ..core.types import RenderObject, resolve_device
+from ..utils.profiling import annotate
 
 F32 = torch.float32
 
@@ -65,8 +66,9 @@ def rotate_object(obj: RenderObject, rot: torch.Tensor) -> RenderObject:
             for i in range(3)
         ])
 
-    return obj._replace(vertices=rot3(obj.vertices),
-                        normals=rot3(obj.normals))
+    with annotate("tr.geometry"):
+        return obj._replace(vertices=rot3(obj.vertices),
+                            normals=rot3(obj.normals))
 
 
 def translate_object(obj: RenderObject, p) -> RenderObject:

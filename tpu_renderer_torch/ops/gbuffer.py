@@ -41,6 +41,7 @@ import torch
 
 from .. import _cuda
 from ..geometry.vertex import REC_LANES
+from ..utils.profiling import annotate
 from . import raster as _raster
 from .binning import QueueBins, TileBins, bin_triangles
 from .raster import (
@@ -279,22 +280,23 @@ def prepare_gbuffer(table, height: int, width: int,
     if frame_width is None:
         frame_width = width
     table, T = setup_out(table, frame_height, frame_width)
-    recs, bbox, t_policy = table.recs, table.bbox, table.num_triangles
-    route = gbuffer_route(t_policy, frame_height, frame_width, strategy,
-                          tile_h, budget_override)
-    tiles_y = -(-height // route.tile_h)
-    tiles_x = -(-width // TILE_W)
-    options = dict(tile_h=route.tile_h, tiles_y=tiles_y, tiles_x=tiles_x,
-                   row0=row0, col0=col0, frame_width=frame_width)
-    if route.strategy == "mask":
-        capacity = mask_capacity(T) if capacity is None else capacity
-        _mask_guard(capacity, tiles_y, tiles_x)
-        bins = bin_triangles(height, width, route.tile_h, TILE_W, capacity,
-                             row0, col0, bbox)
-        return GBufferLaunch(route, raster_pass, (recs, bins), options)
-    qbins, lcounts = bin_for_raster(bbox, route, height, width, row0, col0)
-    return GBufferLaunch(route, raster_pass_queue, (recs, qbins, lcounts),
-                         options)
+    with annotate("tr.binning"):
+        recs, bbox, t_policy = table.recs, table.bbox, table.num_triangles
+        route = gbuffer_route(t_policy, frame_height, frame_width, strategy,
+                              tile_h, budget_override)
+        tiles_y = -(-height // route.tile_h)
+        tiles_x = -(-width // TILE_W)
+        options = dict(tile_h=route.tile_h, tiles_y=tiles_y, tiles_x=tiles_x,
+                       row0=row0, col0=col0, frame_width=frame_width)
+        if route.strategy == "mask":
+            capacity = mask_capacity(T) if capacity is None else capacity
+            _mask_guard(capacity, tiles_y, tiles_x)
+            bins = bin_triangles(height, width, route.tile_h, TILE_W, capacity,
+                                 row0, col0, bbox)
+            return GBufferLaunch(route, raster_pass, (recs, bins), options)
+        qbins, lcounts = bin_for_raster(bbox, route, height, width, row0, col0)
+        return GBufferLaunch(route, raster_pass_queue, (recs, qbins, lcounts),
+                             options)
 
 
 def rasterize_gbuffer(table, height: int, width: int,
@@ -313,6 +315,7 @@ def rasterize_gbuffer(table, height: int, width: int,
     launch = prepare_gbuffer(table, height, width, capacity, frame_height,
                              frame_width, row0, col0, strategy, tile_h,
                              budget_override)
-    gid, gbuf = launch.run()
-    return (gid[:height, :width] >= 0, gbuf[:, :height, :width],
-            launch.stats())
+    with annotate("tr.raster"):
+        gid, gbuf = launch.run()
+        return (gid[:height, :width] >= 0, gbuf[:, :height, :width],
+                launch.stats())

@@ -95,6 +95,7 @@ from ..geometry.vertex import (
     GID_LANE,
     REC_LANES,
 )
+from ..utils.profiling import annotate
 from .binning import (
     QueueBins,
     TileBins,
@@ -1193,13 +1194,14 @@ def setup_out(table, frame_height: int, frame_width: int):
     gets its row-major form from ``finish_records`` (K7, which may pad
     it) and its bboxes over the (frame_height, frame_width) frame from
     ``triangle_bbox_rows``, T its columns, the true count."""
-    table = record_table(table)
     if isinstance(table, SetupOut):
         return table, int(table.recs.shape[0])
-    T = int(table.shape[1])
-    return SetupOut(finish_records(table),
-                    triangle_bbox_rows(table, frame_height, frame_width),
-                    T), T
+    with annotate("tr.setup"):
+        table = record_table(table)
+        T = int(table.shape[1])
+        return SetupOut(finish_records(table),
+                        triangle_bbox_rows(table, frame_height, frame_width),
+                        T), T
 
 
 def prepare_raster(table, objspecs: tuple, transform: ProjectiveTransform,
@@ -1236,45 +1238,47 @@ def prepare_raster(table, objspecs: tuple, transform: ProjectiveTransform,
     if frame_width is None:
         frame_width = width
     table, T = setup_out(table, frame_height, frame_width)
-    recs, bbox, t_policy = table.recs, table.bbox, table.num_triangles
-    assert objspecs[-1].gid_hi <= T, "objspecs beyond the record table"
-    assert T <= MAX_SCENE_TRIANGLES, (
-        f"scene has {T} triangles; the f32 gid lane is exact only to "
-        f"{MAX_SCENE_TRIANGLES}"
-    )
-    if any(o.tex is not None for o in objspecs):
-        assert atlas is not None, "textured objects need the scene atlas"
-        assert texture_fits_fused(*_atlas_dims(objspecs)), (
-            "texture atlas too large for the fused path")
-    else:
-        atlas = None
-    route = raster_route(t_policy, frame_height, frame_width, len(objspecs),
-                         budget_override, strategy, tile_h)
-    tiles_y = -(-height // route.tile_h)
-    tiles_x = -(-width // TILE_W)
-    finalize = (shade_params(transform, lights),
-                obj_table(objspecs, recs.device),
-                tex_table(objspecs, recs.device), atlas)
-    options = dict(tiles_y=tiles_y, tiles_x=tiles_x, row0=row0, col0=col0,
-                   frame_width=frame_width, n_lights=lights.count)
-    if route.strategy == "mask":
-        capacity = mask_capacity(T) if capacity is None else capacity
-        _mask_guard(capacity, tiles_y, tiles_x)
-        bins = bin_triangles(height, width, route.tile_h, TILE_W, capacity,
-                             row0, col0, bbox)
-        return RasterLaunch(route, raster_mask_kernel,
-                            (recs, bins) + finalize,
-                            dict(tile_h=route.tile_h, **options))
-    key = (route.tile_h, route.rows)
-    qbins, lcounts = bin_for_raster(bbox, route, height, width, row0, col0)
-    if key not in RASTER_KERNELS:
-        return RasterLaunch(route, raster_narrow_any_kernel,
-                            (recs, qbins, lcounts) + finalize,
-                            dict(tile_h=route.tile_h, **options))
-    kernel = (ZCULL_KERNELS[key] if zcull and key in ZCULL_KERNELS
-              else RASTER_KERNELS[key])
-    return RasterLaunch(route, kernel, (recs, qbins, lcounts) + finalize,
-                        options)
+    with annotate("tr.binning"):
+        recs, bbox, t_policy = table.recs, table.bbox, table.num_triangles
+        assert objspecs[-1].gid_hi <= T, "objspecs beyond the record table"
+        assert T <= MAX_SCENE_TRIANGLES, (
+            f"scene has {T} triangles; the f32 gid lane is exact only to "
+            f"{MAX_SCENE_TRIANGLES}"
+        )
+        if any(o.tex is not None for o in objspecs):
+            assert atlas is not None, "textured objects need the scene atlas"
+            assert texture_fits_fused(*_atlas_dims(objspecs)), (
+                "texture atlas too large for the fused path")
+        else:
+            atlas = None
+        route = raster_route(t_policy, frame_height, frame_width,
+                             len(objspecs), budget_override, strategy,
+                             tile_h)
+        tiles_y = -(-height // route.tile_h)
+        tiles_x = -(-width // TILE_W)
+        finalize = (shade_params(transform, lights),
+                    obj_table(objspecs, recs.device),
+                    tex_table(objspecs, recs.device), atlas)
+        options = dict(tiles_y=tiles_y, tiles_x=tiles_x, row0=row0, col0=col0,
+                       frame_width=frame_width, n_lights=lights.count)
+        if route.strategy == "mask":
+            capacity = mask_capacity(T) if capacity is None else capacity
+            _mask_guard(capacity, tiles_y, tiles_x)
+            bins = bin_triangles(height, width, route.tile_h, TILE_W, capacity,
+                                 row0, col0, bbox)
+            return RasterLaunch(route, raster_mask_kernel,
+                                (recs, bins) + finalize,
+                                dict(tile_h=route.tile_h, **options))
+        key = (route.tile_h, route.rows)
+        qbins, lcounts = bin_for_raster(bbox, route, height, width, row0, col0)
+        if key not in RASTER_KERNELS:
+            return RasterLaunch(route, raster_narrow_any_kernel,
+                                (recs, qbins, lcounts) + finalize,
+                                dict(tile_h=route.tile_h, **options))
+        kernel = (ZCULL_KERNELS[key] if zcull and key in ZCULL_KERNELS
+                  else RASTER_KERNELS[key])
+        return RasterLaunch(route, kernel, (recs, qbins, lcounts) + finalize,
+                            options)
 
 
 def rasterize_scene_shaded(table, objspecs: tuple,
@@ -1301,8 +1305,9 @@ def rasterize_scene_shaded(table, objspecs: tuple,
 def run_shaded(launch: RasterLaunch, height: int, width: int):
     """Run a prepared launch and crop its tiles to (height, width) ->
     (covered, z, color u32, stats), as ``rasterize_scene_shaded``."""
-    z, gid, color = (a[:height, :width] for a in launch.run())
-    return gid >= 0, z, color, launch.stats()
+    with annotate("tr.raster"):
+        z, gid, color = (a[:height, :width] for a in launch.run())
+        return gid >= 0, z, color, launch.stats()
 
 
 def rasterize_shaded(table, transform: ProjectiveTransform,

@@ -40,6 +40,7 @@ from ..geometry.vertex import (
     setup_params,
     setup_records,
 )
+from ..utils.profiling import annotate
 from .binning import _bbox_core
 
 F32 = torch.float32
@@ -82,13 +83,14 @@ def setup_for_raster(obj: RenderObject, transform: ProjectiveTransform,
     kernel from FUSED_SETUP_MIN triangles up (a SetupOut), the small-object
     chain below it (the channel-major (85, T) table of setup_records)."""
     T = obj.num_triangles
-    if T < FUSED_SETUP_MIN or frame_height is None:
-        return setup_records(obj, transform, lights, cfg, gid0)
-    recs, bbox = setup_records_fused(
-        obj, transform, lights, cfg, gid0, frame_height, frame_width,
-        _setup_blk(T),
-    )
-    return SetupOut(recs, bbox, T)
+    with annotate("tr.setup"):
+        if T < FUSED_SETUP_MIN or frame_height is None:
+            return setup_records(obj, transform, lights, cfg, gid0)
+        recs, bbox = setup_records_fused(
+            obj, transform, lights, cfg, gid0, frame_height, frame_width,
+            _setup_blk(T),
+        )
+        return SetupOut(recs, bbox, T)
 
 
 def setup_records_fused(obj: RenderObject, transform: ProjectiveTransform,

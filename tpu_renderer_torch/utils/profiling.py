@@ -3,11 +3,14 @@
 
 - FrameTimer: wall-clock frame statistics, waiting for the card at the end
   of each frame.
-- stage_breakdown: the time of each stage of one object's frame, on the
-  route the port takes.
-- trace(): a torch.profiler trace of a block (host and card), written for
-  TensorBoard's profiler plugin or chrome://tracing.
-- annotate(): a named span inside a trace.
+- annotate(): the program's span. Each layer of a frame runs inside one,
+  at the function where its work starts: ``tr.render`` (the engine,
+  ``Renderer.render``), ``tr.geometry`` (``rotate_object``), ``tr.setup``,
+  ``tr.binning``, ``tr.raster`` and ``tr.shade`` (the deferred shade, pack
+  and merge). Off, a span costs one flag test; ``spans()`` turns them on
+  and hands back what they recorded, and ``self_ms`` reads it.
+- trace(): a torch.profiler trace of a block (host and card), the spans
+  in it, written for TensorBoard's profiler plugin or chrome://tracing.
 """
 
 from __future__ import annotations
@@ -19,14 +22,11 @@ from typing import List
 
 import torch
 
-from ..core.math import pack_argb
-from ..core.types import resolve_device
-from ..engine.renderer import _obj_fusable, object_specs
-from ..geometry.transform import rotate_object, rotation_y
-from ..ops.gbuffer import prepare_gbuffer
-from ..ops.raster import mask_capacity, prepare_raster, setup_out
-from ..ops.setup import setup_for_raster
-from ..ops.shading import shade
+RENDER = "tr.render"  # the span whose calls number the frames (render_seq)
+_OFF = contextlib.nullcontext()  # every span while spans are off
+_records = None  # the list that spans() fills; None while spans are off
+_stack: List[int] = []  # indices in _records of the open spans, innermost last
+_renders = 0  # RENDER spans opened in this spans() block
 
 
 def _tensors(result):
@@ -96,110 +96,94 @@ class FrameTimer:
         }
 
 
-def _stage_clock(device: torch.device):
-    """``run(fn) -> (fn(), ms)``: ``fn`` alone between two synchronisations,
-    timed by CUDA events on the card and by the host clock on the CPU."""
-    if device.type != "cuda":
-        def run(fn):
-            t0 = time.perf_counter()
-            out = fn()
-            return out, (time.perf_counter() - t0) * 1e3
-        return run
+class _Span:
+    """One span while spans are on: its record, (name, parent, render_seq,
+    start_ns, end_ns), is appended when it opens and completed when it
+    closes; it also enters ``record_function(name)`` when a torch.profiler
+    is running, so the profiler's trace holds it on its own clock."""
 
-    def run(fn):
-        stream = torch.cuda.current_stream(device)
-        stream.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record(stream)
-        out = fn()
-        e1.record(stream)
-        e1.synchronize()
-        return out, e0.elapsed_time(e1)
-    return run
+    __slots__ = ("name", "index", "annotation")
 
+    def __init__(self, name: str):
+        self.name = name
 
-def _setup(obj, cfg, transform, lights, height: int, width: int):
-    """The setup stage as the engine runs it: setup_for_raster (K1 from
-    4096 triangles, else the small-object chain), then ``setup_out`` (K7
-    and the bboxes where the chain ran) -> (SetupOut, the mask capacity
-    the engine gives the table)."""
-    table, T = setup_out(setup_for_raster(obj, transform, lights, cfg,
-                                          frame_height=height,
-                                          frame_width=width), height, width)
-    return table, mask_capacity(T)
-
-
-def stage_breakdown(obj, cfg, transform, lights, height: int, width: int,
-                    frames: int = 30, strategy: str = "auto",
-                    device="cuda") -> dict:
-    """Per-stage time (ms per frame) of one object's frame on the route
-    the port takes, the JAX package's keys (utils/profiling.py:65).
-
-    The stages: setup (``_setup``); binning (``prepare_raster`` on the
-    fused route, ``prepare_gbuffer`` on the G-buffer one: the route from
-    ``raster_route`` / ``gbuffer_route`` with ``strategy`` forced and the
-    tile height picked, the bins); raster (the launch's kernel: raster and
-    shade in one on the fused route, the G-buffer on the other); shade
-    (the deferred shade and pack; 0 on the fused route). ``fused_shading``
-    is the engine's choice (``_obj_fusable``: untextured, or textured
-    within the fused limits). ``stream_ms`` is 0.0: the port has no
-    ``_queue_stream`` gather, its kernels read the records in place.
-
-    Each stage runs alone between two synchronisations, timed by CUDA
-    events on the card (the host clock on the CPU), over ``frames``
-    frames rotated about y from 0 to 0.7 rad after one untimed frame; each
-    stage's ms is the mean over the frames and includes its own host
-    enqueue, so the stages sum to more than a frame whose host work
-    overlaps the card's. ``obj`` must lie on ``device``."""
-    device = resolve_device(device)
-    if obj.vertices.device.type != device.type:
-        raise ValueError(f"object on {obj.vertices.device}, stages timed "
-                         f"on {device}")
-    fused = _obj_fusable(obj, cfg)
-    objspecs, atlas = object_specs(obj, cfg) if fused else (None, None)
-    clock = _stage_clock(device)
-    total = {"setup": 0.0, "binning": 0.0, "raster": 0.0, "shade": 0.0}
-    angles = [0.7 * i / max(frames - 1, 1) for i in range(frames)]
-    for i, angle in enumerate([0.0] + angles):
-        spun = rotate_object(obj, rotation_y(angle, device=device))
-        ms = {}
-        (table, capacity), ms["setup"] = clock(
-            lambda: _setup(spun, cfg, transform, lights, height, width))
-        if fused:
-            launch, ms["binning"] = clock(lambda: prepare_raster(
-                table, objspecs, transform, lights, height, width,
-                capacity, strategy=strategy, atlas=atlas))
-            _, ms["raster"] = clock(launch.run)
+    def __enter__(self):
+        global _renders
+        parent = _stack[-1] if _stack else None
+        if self.name == RENDER:
+            seq, _renders = _renders, _renders + 1
         else:
-            launch, ms["binning"] = clock(lambda: prepare_gbuffer(
-                table, height, width, capacity, strategy=strategy))
-            (gid, gbuf), ms["raster"] = clock(launch.run)
-            _, ms["shade"] = clock(lambda: pack_argb(shade(
-                gid[:height, :width] >= 0, gbuf[:, :height, :width],
-                transform, lights, cfg, obj.texture)[0]))
-        if i:  # frame 0 warms up
-            for k, v in ms.items():
-                total[k] += v
-    mean = {k: v / frames for k, v in total.items()}
-    return {
-        "strategy": launch.route.strategy,
-        "tile_h": launch.route.tile_h,
-        "fused_shading": fused,
-        "setup_ms": mean["setup"],
-        "binning_ms": mean["binning"],
-        "stream_ms": 0.0,
-        "raster_ms": mean["raster"],
-        "shade_ms": mean["shade"],
-        "total_ms": sum(mean.values()),
-    }
+            seq = None if parent is None else _records[parent][2]
+        self.annotation = None
+        if torch.autograd.profiler._is_profiler_enabled:
+            self.annotation = torch.profiler.record_function(self.name)
+            self.annotation.__enter__()
+        self.index = len(_records)
+        _stack.append(self.index)
+        _records.append((self.name, parent, seq, time.perf_counter_ns(),
+                         None))
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        name, parent, seq, start, _ = _records[self.index]
+        _records[self.index] = (name, parent, seq, start, end)
+        _stack.pop()
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        return False
+
+
+def annotate(name: str):
+    """The program's span: ``with annotate('tr.raster'): ...``. While spans
+    are off (the default) it returns one shared no-op context and records
+    nothing; inside ``spans()`` it records the block's host time."""
+    if _records is None:
+        return _OFF
+    return _Span(name)
+
+
+@contextlib.contextmanager
+def spans():
+    """Turns the spans on for the block: ``with spans() as records:``.
+    Each span the block runs appends ``(name, parent, render_seq, start_ns,
+    end_ns)`` to ``records``, in the order the spans open: ``parent`` the
+    index of the enclosing span (None at the root), ``render_seq`` the
+    number of the ``tr.render`` call it belongs to in this block (None
+    outside one), the times from ``time.perf_counter_ns``. One thread, one
+    stack; nothing is written to disk. Blocks do not nest."""
+    global _records, _renders
+    if _records is not None:
+        raise RuntimeError("spans are on already")
+    records: list = []
+    _records, _renders = records, 0
+    try:
+        yield records
+    finally:
+        _records = None
+        _stack.clear()
+
+
+def self_ms(records) -> dict:
+    """{span name: ms} over ``records`` (a ``spans()`` block's): each
+    span's time less the part its child spans cover, summed by name, so
+    the values add up to the root spans' time."""
+    out: dict = {}
+    for name, parent, _, start, end in records:
+        ms = (end - start) / 1e6
+        out[name] = out.get(name, 0.0) + ms
+        if parent is not None:
+            pname = records[parent][0]
+            out[pname] = out.get(pname, 0.0) - ms
+    return out
 
 
 @contextlib.contextmanager
 def trace(logdir: str):
     """Capture a torch.profiler trace of the block, the host's activity and
-    the card's where there is one, written into ``logdir`` as a
-    ``*.pt.trace.json`` (TensorBoard's profiler plugin, chrome://tracing)."""
+    the card's where there is one, with the program's spans on, written
+    into ``logdir`` as a ``*.pt.trace.json`` (TensorBoard's profiler
+    plugin, chrome://tracing)."""
     from torch.profiler import (
         ProfilerActivity,
         profile,
@@ -211,9 +195,5 @@ def trace(logdir: str):
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(str(logdir))):
-        yield
-
-
-def annotate(name: str):
-    """Named span inside a trace: ``with annotate('raster'): ...``."""
-    return torch.profiler.record_function(name)
+        with spans():
+            yield
