@@ -110,10 +110,12 @@ Phases (any failure raises and the script exits nonzero):
      merged in, 1,001,114 triangles, Phong, a 1024x1024 checkerboard
      sampled bilinearly, over the fused limits, at 1920x1080: K1 and K9
      (the quad's two triangles on the side list, K10) into a G-buffer,
-     then the deferred shade; K9 held bit-equal to its plain version at
-     that shape first, the last frame held to the scene's depth range,
-     colours and alpha;
-   - config 3 avx: config 3 with 'avx' addressing at 512x512: K7 and K8;
+     then the deferred shade (K12); K9 held bit-equal to its plain version
+     at that shape first, and K12 to its plain chain on that G-buffer at
+     1920x1080 and at 3840x2160, over a fresh frame and a cleared one; the
+     last frame held to the scene's depth range, colours and alpha;
+   - config 3 avx: config 3 with 'avx' addressing at 512x512: K7, K8 and
+     K12;
    - stack6 zcull: bench.py's 2,007,372-triangle stack
      (stack_scene(409, 409, 6)), innermost layer first, at 1920x1080
      through Renderer(zcull=True): six K1 launches and one K11 per frame,
@@ -123,7 +125,7 @@ Phases (any failure raises and the script exits nonzero):
    - stack6: the same scene without zcull (K1 six times, K2), the A/B
      partner;
    - the 32-row paths, through the ops entry points with the route knobs
-     (rasterize_shaded, or rasterize_gbuffer + shade + merge): config 4
+     (rasterize_shaded, or rasterize_gbuffer + shade_merge): config 4
      @32 (K7, K4 on 32-row tiles, expansion 32, budget 4); 40k @32
      (construct_sphere_grid(140, 143), 40,040 Phong triangles, bench.py
      --scale's first point, at 1920x1080: K1, K4 at 32 rows, expansion 8,
@@ -185,10 +187,12 @@ Phases (any failure raises and the script exits nonzero):
    the split phase at 24 rows; K10 as K9's band form with the quad beside
    the sphere alone) and the band form at 16 and 32 rows against the 16-
    and 32-row forms on 40k, config 4, config 5 untextured and textured
-   and deferred 40k, in turns, the same frame; the deferred
-   shade's time on deferred 1M's frame, and the fused-against-deferred
+   and deferred 40k, in turns, the same frame; K12, the deferred shade,
+   on deferred 1M's G-buffer at 1920x1080 and 3840x2160 beside its plain
+   chain (shade, pack, merge), by events and by device time from profiler
+   traces, with its byte bound, and the fused-against-deferred
    A/B: ms per frame of the textured 250k scene through the fused route
-   (K2 with K5) and through the G-buffer path (K9, shade); each kernel
+   (K2 with K5) and through the G-buffer path (K9, K12); each kernel
    with the least time the card could take for the same work (bytes at
    3.35 TB/s against f32 operations at 67 TFLOP/s); and the launch
    guard's cost: config 5's ms/frame through Renderer with every C entry
@@ -379,6 +383,10 @@ KERNELS = {
         source="tpu_renderer_torch/csrc/raster.cu",
         replaces="tpu_renderer/ops/raster_pallas.py:2018",
         path="deferred 40k @24"),
+    "K12 deferred shade": dict(
+        source="tpu_renderer_torch/csrc/shade.cu",
+        replaces="none: tpu_renderer/ops/shading.py:182 shade is XLA ops",
+        path="deferred 1M"),
 }
 # The wrapper whose launch counter a KERNELS entry reads: K1 textured is
 # K1's wrapper with uvs; K5 runs inside K2's launches on its path, K10
@@ -2024,11 +2032,10 @@ def main():
     sys.path.insert(0, os.path.abspath(args.band_times or ROOT))
     import tpu_renderer_torch as trt
     from tpu_renderer_torch import _cuda
-    from tpu_renderer_torch.core.math import pack_argb, unpack_argb
+    from tpu_renderer_torch.core.math import unpack_argb
     from tpu_renderer_torch.core.types import Framebuffer
     from tpu_renderer_torch.engine.renderer import (
         _draw_deferred,
-        _merge_into,
         _obj_fusable,
         prepare_scene,
     )
@@ -2048,7 +2055,7 @@ def main():
     from tpu_renderer_torch.models.sphere import construct_sphere
     from tpu_renderer_torch.models.textures import checkerboard
     from tpu_renderer_torch.ops import gbuffer, raster, setup
-    from tpu_renderer_torch.ops.shading import shade
+    from tpu_renderer_torch.ops.shading import shade_merge, shade_merge_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2066,6 +2073,7 @@ def main():
         "K11 zcull rows 1": raster.raster_rows1_zcull_kernel,
         "K4 raster+shade 32-row": raster.raster_narrow32_kernel,
         "K4 raster+shade band": raster.raster_narrow_any_kernel,
+        "K12 deferred shade": shade_merge,
     }
 
     # 1. Device.
@@ -2768,7 +2776,7 @@ def main():
     # shape.
     path_ms["config 3 avx"], _, path_launches["config 3 avx"] = drive(
         "config 3 avx", scene3avx, tr3, li3, 512, 512, n_frames,
-        ("K7 record transpose", "K8 G-buffer mask"))
+        ("K7 record transpose", "K8 G-buffer mask", "K12 deferred shade"))
     tex1024 = checkerboard(1024, 1024, 64)
     sg_def = [(dict(p=(0.0, 0.0, 0.0), **backdrop_mesh(708, 707)),
                {"phong": True, "texture": tex1024,
@@ -2784,9 +2792,29 @@ def main():
                             ("sorted", 8))
     if n_large != 2:
         raise AssertionError(f"deferred 1M: n_large {n_large}, not 2")
+    # K12 on deferred 1M's G-buffer at both of the benchmark's sizes,
+    # before any frame of the path runs it.
+    k12_shapes = {(W, H): (obj_def, cfg_def, tr_def, li_def)}
+    scene_uhd, tr_uhd, li_uhd = torch_scene(sg_def, 2 * H, 2 * W, dev)
+    k12_shapes[(2 * W, 2 * H)] = (*scene_uhd[0], tr_uhd, li_uhd)
+    k12_inputs = {}
+    for (w_, h_), (o_, c_, t_, l_) in k12_shapes.items():
+        gid_, gbuf_ = gbuffer_launch(o_, c_, t_, l_, h_, w_).run()
+        k12_inputs[(w_, h_)] = args_ = (
+            gid_[:h_, :w_] >= 0, gbuf_[:, :h_, :w_], t_, l_, c_, o_.texture)
+        cleared = trt.make_framebuffer(h_, w_, 0xFF204060, device=dev)
+        for label, fb_ in (("a fresh frame", None), ("a cleared one",
+                                                     cleared)):
+            max_err["K12 deferred shade"] = max(
+                max_err["K12 deferred shade"], assert_equal(
+                    f"K12 deferred shade at deferred 1M {w_}x{h_} over "
+                    f"{label}", shade_merge(*args_, 0, 0, fb_),
+                    shade_merge_plain(*args_, 0, 0, fb_)))
+        log(f"# K12 deferred shade == plain chain at deferred 1M {w_}x{h_}"
+            f", over a fresh frame and a cleared one: bit-equal")
     path_ms["deferred 1M"], fb_def, path_launches["deferred 1M"] = drive(
         "deferred 1M", scene_def, tr_def, li_def, H, W, n_frames,
-        ("K1 setup", "K9 G-buffer sorted"))
+        ("K1 setup", "K9 G-buffer sorted", "K12 deferred shade"))
     # The last frame (0.6 rad): the sphere within [-0.5, 0.5], the quad's
     # plane 0.6 behind the centre, its corners at -0.6 cos 0.6 +- 1.1 sin
     # 0.6, so z within [-1.2, 0.5]; opaque texels, Phong-lit.
@@ -2869,9 +2897,7 @@ def main():
                                            frame_width=w)
             cov, gbuf, st = gbuffer.rasterize_gbuffer(
                 table, h, w, None, h, w, 0, 0, strategy, tile_h)
-            rgba, cov = shade(cov, gbuf, tr_, li_, c, o.texture)
-            fb = trt.make_framebuffer(h, w, device=o.vertices.device)
-            return _merge_into(fb, cov, gbuf[0], pack_argb(rgba)), st
+            return shade_merge(cov, gbuf, tr_, li_, c, o.texture), st
         return frame
 
     mesh40k = prim.construct_sphere_grid(140, 143)
@@ -2887,15 +2913,16 @@ def main():
          ("K7 record transpose", "K6 raster+shade mask")),
         ("config 3 avx @32", sg3avx, 512, 512,
          deferred_ops_frame(512, 512, "auto", 32),
-         ("K7 record transpose", "K8 G-buffer mask")),
+         ("K7 record transpose", "K8 G-buffer mask", "K12 deferred shade")),
         ("deferred 40k @32", sg40d, H, W,
          deferred_ops_frame(H, W, "sorted", 32),
-         ("K1 setup", "K9 G-buffer sorted")),
+         ("K1 setup", "K9 G-buffer sorted", "K12 deferred shade")),
         *((f"40k @{t}", sg40, H, W, fused_ops_frame(H, W, "sorted", t),
            ("K1 setup", "K4 raster+shade band")) for t in (24, 64)),
         *((f"deferred 40k @{t}", sg40d, H, W,
            deferred_ops_frame(H, W, "sorted", t),
-           ("K1 setup", "K9 G-buffer sorted")) for t in (24, 64)),
+           ("K1 setup", "K9 G-buffer sorted", "K12 deferred shade"))
+          for t in (24, 64)),
         ("headline @64", phong_mesh_scene(mesh), H, W,
          fused_ops_frame(H, W, "sorted", 64),
          ("K1 setup", "K4 raster+shade band")))
@@ -3608,14 +3635,42 @@ def main():
         f"{int(skipped6b)} batches skipped, kernel {k11b_ms:.4f} ms, K2 "
         f"{k2b_ms:.4f} ms (in turns)")
 
-    # The deferred shade of deferred 1M's frame (torch ops, no kernel).
-    gid_q, gbuf_q = launch_def.run()
-    cov_q, gbuf_q = gid_q[:H, :W] >= 0, gbuf_q[:, :H, :W]
-    shade_ms = statistics.median([event_ms(lambda: pack_argb(shade(
-        cov_q, gbuf_q, tr_def, li_def, cfg_def, obj_def.texture)[0]), 20)
-        for _ in range(2)])
-    log(f"# deferred shade + pack on deferred 1M's frame: {shade_ms:.4f} "
-        "ms (torch ops)")
+    # K12, the deferred shade, on deferred 1M's G-buffer at both sizes
+    # (bit-equal to its plain chain above): in turns beside the plain
+    # chain by events, each one's device and host time a call from
+    # profiler traces, and its bound: every pixel's coverage, z and
+    # written colour and depth, each winner's normal and u/z, v/z, 1/z, the
+    # texture once; the winners' shading, texture and pack operations.
+    k12_info = {}
+    for (w_, h_), args_ in k12_inputs.items():
+        def k12(a_=args_):
+            return shade_merge(*a_)
+
+        def k12_plain(a_=args_):
+            return shade_merge_plain(*a_)
+        kms, pms = in_turns(k12, k12_plain)
+        k_dev = kernel_device_ms(k12, 50, "deferred_shade_kernel")
+        k_host, k_all, k_ops = profile_calls(k12, 50)
+        p_host, p_dev, p_ops = profile_calls(k12_plain, 10)
+        _, _, _, li_, _, tex_ = args_
+        winners = int((k12().depth > -3.0e38).sum())
+        px = h_ * w_
+        nbytes = px * 13 + winners * (12 + 12) + tex_.numel() * 4
+        ops = winners * (PACK_OPS + PHONG_OPS + li_.count * PHONG_LIGHT_OPS
+                         + TEX_OPS)
+        bms, by = bound(nbytes, ops)
+        k12_info[f"{w_}x{h_}"] = dict(
+            ms=round(kms, 4), kernel_device_ms=round(k_dev, 4),
+            device_ms=round(k_all, 4), host_ms=round(k_host, 4),
+            device_ops=k_ops, plain_ms=round(pms, 4),
+            plain_device_ms=round(p_dev, 4), plain_host_ms=round(p_host, 4),
+            plain_op_names=len(p_ops), bound_ms=round(bms, 6),
+            bound_by=by, winners=winners, pixels=px,
+            roofline=round(bms / k_dev, 4))
+        if (w_, h_) == (W, H):
+            timing["K12 deferred shade"] = (kms, pms, bms, by, None)
+        log(f"# K12 deferred shade at deferred 1M {w_}x{h_}: "
+            + json.dumps(k12_info[f"{w_}x{h_}"]))
 
     # Fused against deferred on the textured 250k scene: whole frames
     # (rotate, setup, binning, raster, and for the G-buffer path shade
@@ -3771,6 +3826,8 @@ def main():
             entry["ptxas"] = {f: v for f, v in mask_ptxas.items()
                               if f.endswith("true>" if "G-buffer" in name
                                             else "false>")}
+        if name == "K12 deferred shade":
+            entry["by_shape"] = k12_info
         if name == "K10 G-buffer side list":
             entry["k9_without_side_list_ms"] = round(k9s_ms, 4)
         if name == "K10 G-buffer side list 32-row":
@@ -3804,7 +3861,6 @@ def main():
     log("# frames: " + json.dumps({
         "ms_per_frame": {k: round(v, 4) for k, v in path_ms.items()},
         "headline_span_ms": span_ms,
-        "deferred_shade_ms": round(shade_ms, 4),
         "textured_250k_fused_vs_deferred_ms": [round(fused_ms, 4),
                                                round(def_ms, 4)],
         "ab_32_rows": ab32,

@@ -176,6 +176,17 @@ def check_tensor(name, t, device, dtype, shape) -> None:
         raise ValueError(f"{name} is not contiguous")
 
 
+def check_rows(name, t, device, dtype, shape) -> None:
+    """Raise unless ``t`` is a ``dtype`` tensor of ``shape`` on ``device``
+    whose rows are contiguous (a crop of a padded plane will do)."""
+    if (t.device == device and t.dtype is dtype and t.shape == shape
+            and t.stride(-1) == 1):
+        return
+    raise ValueError(f"{name} must be {dtype} {tuple(shape)} on {device} "
+                     f"with contiguous rows, got {t.dtype} {tuple(t.shape)} "
+                     f"strides {t.stride()} on {t.device}")
+
+
 def check_launch(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")

@@ -15,15 +15,17 @@ PyTorch counterpart of ``tpu_renderer.engine.renderer``, both branches of
   object from the winner's id;
 - G-buffer: a textured object the fused path cannot take (``uv_mode=
   'avx'``, a texture over the atlas limits) rasterizes into a G-buffer
-  (``ops.gbuffer``: K8, or K9 with K10), then ``ops.shading.shade``
-  samples, shades and packs it, and the strict '>' merge lays it over the
-  frame. A scene that holds such an object draws object by object.
+  (``ops.gbuffer``: K8, or K9 with K10), then ``ops.shading.shade_merge``
+  samples, shades and packs it and lays it over the frame with the strict
+  '>' merge, one kernel on the card. A scene that holds such an object
+  draws object by object.
 
 ``backend`` names the draw path: 'kernels' (the default, the JAX
 package's 'pallas') is the two branches above; 'reference' (the JAX
 package's default) is the pure-tensor oracle: ``setup_triangles`` ->
 ``ops.raster_reference.rasterize_reference`` -> ``shade`` -> pack ->
-merge, object by object, O(T * H * W).
+merge (``ops.shading.shade_merge_plain``), object by object, O(T * H *
+W).
 
 The device of the scene's tensors picks the implementation: CUDA tensors
 launch the kernels, CPU tensors run their plain versions. PyTorch runs
@@ -45,7 +47,6 @@ from ..core.types import (
     make_framebuffer,
     resolve_device,
 )
-from ..core.math import pack_argb
 from ..geometry.vertex import setup_records, setup_triangles
 from ..ops.binning import triangle_bbox_rows
 from ..ops.gbuffer import rasterize_gbuffer
@@ -60,7 +61,7 @@ from ..ops.raster import (
 )
 from ..ops.raster_reference import rasterize_reference
 from ..ops.setup import FUSED_SETUP_MIN, SetupOut, setup_for_raster
-from ..ops.shading import shade
+from ..ops.shading import merge_over, shade_merge, shade_merge_plain
 from ..utils.profiling import annotate
 
 _OBJ_PAD = 128  # each object's table pads its triangle axis to this
@@ -73,11 +74,7 @@ def _merge_into(framebuffer: Framebuffer | None, covered, z, packed):
     ``framebuffer`` with the strict '>' depth test."""
     if framebuffer is None:
         return Framebuffer(color=packed, depth=z)
-    win = covered & (z > framebuffer.depth)
-    color = torch.where(win, packed.view(torch.int32),
-                        framebuffer.color.view(torch.int32))
-    return Framebuffer(color=color.view(torch.uint32),
-                       depth=torch.where(win, z, framebuffer.depth))
+    return merge_over(framebuffer, covered, z, packed)
 
 
 def _merge_stats(stats: dict | None, rstats: dict) -> None:
@@ -292,20 +289,17 @@ def _draw_deferred(framebuffer: Framebuffer | None, obj: RenderObject,
                    budget_override: float | None = None, row0: int = 0,
                    col0: int = 0) -> Framebuffer:
     """render_object's deferred branch (renderer.py:167-198): a G-buffer,
-    ``shade``, ``pack_argb``, then the strict '>' merge of the covered
-    pixels over ``framebuffer`` (a fresh zero-cleared frame on the
-    object's device when None: 'avx' narrows the coverage after shading,
-    so the G-buffer cannot stand for the frame), the rect at (row0, col0)
-    of the frame. The G-buffer comes from setup_for_raster +
-    ``rasterize_gbuffer`` (K8, or K9 with K10; with ``capacity`` and
-    ``budget_override``; no zcull, as in the JAX package) or, on the
-    'reference' backend, from ``setup_triangles`` +
-    ``rasterize_reference``."""
+    then ``shade_merge``: shade, pack and the strict '>' merge of the
+    covered pixels over ``framebuffer`` (a fresh zero-cleared frame when
+    None: 'avx' narrows the coverage after shading, so the G-buffer cannot
+    stand for the frame), the rect at (row0, col0) of the frame. The
+    G-buffer comes from setup_for_raster + ``rasterize_gbuffer`` (K8, or K9
+    with K10; with ``capacity`` and ``budget_override``; no zcull, as in
+    the JAX package) and is shaded by the kernel on the card or, on the
+    'reference' backend, from ``setup_triangles`` + ``rasterize_reference``
+    and shaded by the plain chain (``shade_merge_plain``)."""
     height, width, frame_height, frame_width = _local_rect(
         framebuffer, frame_height, frame_width)
-    if framebuffer is None:
-        framebuffer = make_framebuffer(height, width,
-                                       device=obj.vertices.device)
     if backend == "reference":
         covered, gbuf = rasterize_reference(
             setup_triangles(obj, transform, lights, cfg), height, width,
@@ -318,10 +312,10 @@ def _draw_deferred(framebuffer: Framebuffer | None, obj: RenderObject,
             table, height, width, capacity, frame_height, frame_width, row0,
             col0, budget_override=budget_override)
         _merge_stats(stats, rstats)
+    merge = shade_merge_plain if backend == "reference" else shade_merge
     with annotate("tr.shade"):
-        rgba, covered = shade(covered, gbuf, transform, lights, cfg,
-                              obj.texture, row0, col0)
-        return _merge_into(framebuffer, covered, gbuf[0], pack_argb(rgba))
+        return merge(covered, gbuf, transform, lights, cfg, obj.texture,
+                     row0, col0, framebuffer)
 
 
 def render_object(framebuffer: Framebuffer | None, obj: RenderObject,

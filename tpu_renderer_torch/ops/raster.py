@@ -16,7 +16,7 @@ or bilinear, within the fused atlas limits) or not. It holds five kernels:
   rows, each folded in strips of ``MASK_STRIP_ROWS`` rows by many blocks;
 - K5: the texture fetch of their finalize (``_sample_texture_atlas`` :755,
   ``_sample_texture_atlas_bilinear`` :863), a device function of
-  ``csrc/raster.cu`` with no launch of its own; its plain version is
+  ``csrc/shade.cuh`` with no launch of its own; its plain version is
   ``ops.shading.sample_atlas``;
 - K7: ``finish_records`` (raster_pallas.py:449), the transpose of a
   channel-major record table to the row-major one (``csrc/records.cu``).
@@ -105,7 +105,12 @@ from .binning import (
     triangle_bbox_rows,
 )
 from .setup import SetupOut
-from .shading import pack_argb_planes, sample_atlas, shade_planes
+from .shading import (
+    pack_argb_planes,
+    sample_atlas,
+    shade_params,
+    shade_planes,
+)
 
 F32 = torch.float32
 I32 = torch.int32
@@ -190,23 +195,6 @@ def _pick_tile_h(num_triangles: int, height: int = 1080,
                  width: int = 1920) -> int:
     """8-row tiles for dense scenes, 16-row for sparse ones."""
     return 8 if num_triangles * TILE8_PX_PER_TRI > height * width else 16
-
-
-def shade_params(transform: ProjectiveTransform,
-                 lights: LightData) -> torch.Tensor:
-    """Flat f32 vector for the shader: [dat, fl, m2p, cx, cy, ambient*4,
-    (light_p*3, light_I*4) per light]."""
-    parts = [
-        transform.distance_above_target.reshape(1),
-        transform.focal_length.reshape(1),
-        transform.meters_to_pixels.reshape(1),
-        transform.screen_center.reshape(2),
-        lights.ambient.reshape(4),
-    ]
-    for k in range(lights.count):
-        parts.append(lights.light_p[k].reshape(3))
-        parts.append(lights.light_intensity[k].reshape(4))
-    return torch.cat([p.to(F32) for p in parts])
 
 
 class ObjSpec(NamedTuple):

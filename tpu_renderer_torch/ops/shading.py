@@ -1,27 +1,39 @@
-"""Texture sampling, Blinn-Phong shading and ARGB packing.
+"""Texture sampling, Blinn-Phong shading, ARGB packing and the deferred
+shade.
 
 PyTorch counterpart of ``tpu_renderer.ops.shading``, same f32 op order:
 
 - ``sample_texture`` ('scalar' and 'avx' addressing, nearest and
   bilinear), ``phong_shade`` and ``shade``, the deferred shading of a
-  channel-first (11, H, W) G-buffer that the G-buffer path of
-  ``engine.renderer.render_object`` runs after ``ops.gbuffer``;
+  channel-first (11, H, W) G-buffer;
+- ``shade_merge``, the deferred shade that the G-buffer path of
+  ``engine.renderer.render_object`` runs after ``ops.gbuffer``: shade,
+  pack and the strict '>' merge over the framebuffer in one pass. CUDA
+  tensors launch ``deferred_shade_kernel`` (``csrc/shade.cu``); CPU
+  tensors run its plain version, ``shade_merge_plain`` (``shade``, then
+  ``core.math.pack_argb``, then ``merge_over``);
 - ``shade_planes`` and ``pack_argb_planes``, the same shading with the
   channel axis unrolled into planes, which the fused raster kernels'
-  finalize (``csrc/raster.cu``) computes per pixel; ``sample_atlas`` is
-  the plain version of its texel fetch, K5.
+  finalize (``csrc/raster.cu``, its math in ``csrc/shade.cuh``) computes
+  per pixel; ``sample_atlas`` is the plain version of its texel fetch,
+  K5; ``shade_params`` the scalars both kernels read.
 
-These are torch ops, as the JAX package's are XLA ops: no kernel here.
+The JAX package's deferred shade is XLA ops; the kernel replaces no
+Pallas kernel.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from .. import _cuda
 from ..core.math import (
     clamp01,
     inner,
     normalize,
+    pack_argb,
     pack_channels,
     pow16,
     round_half_away,
@@ -29,10 +41,17 @@ from ..core.math import (
     to_i32,
     unpack_argb,
 )
-from ..core.types import LightData, ObjectConfig, ProjectiveTransform
+from ..core.types import (
+    Framebuffer,
+    LightData,
+    ObjectConfig,
+    ProjectiveTransform,
+    make_framebuffer,
+)
 from ..geometry.vertex import unproject_vertices
 
 F32 = torch.float32
+I32 = torch.int32
 I64 = torch.int64
 
 
@@ -163,6 +182,138 @@ def shade(covered, gbuf, transform: ProjectiveTransform, lights: LightData,
     nrm = normalize(gbuf[5:8].permute(1, 2, 0))  # divergence #3
     final = phong_shade(pos, nrm, col, lights)
     return torch.where(covered[..., None], final, col), covered
+
+
+def shade_params(transform: ProjectiveTransform,
+                 lights: LightData) -> torch.Tensor:
+    """Flat f32 vector for the shader: [dat, fl, m2p, cx, cy, ambient*4,
+    (light_p*3, light_I*4) per light]."""
+    parts = [
+        transform.distance_above_target.reshape(1),
+        transform.focal_length.reshape(1),
+        transform.meters_to_pixels.reshape(1),
+        transform.screen_center.reshape(2),
+        lights.ambient.reshape(4),
+    ]
+    for k in range(lights.count):
+        parts.append(lights.light_p[k].reshape(3))
+        parts.append(lights.light_intensity[k].reshape(4))
+    return torch.cat([p.to(F32) for p in parts])
+
+
+def merge_over(framebuffer: Framebuffer, covered, z, packed) -> Framebuffer:
+    """The strict '>' depth merge of a draw's covered pixels (z, packed
+    u32 ARGB) over ``framebuffer``."""
+    win = covered & (z > framebuffer.depth)
+    color = torch.where(win, packed.view(torch.int32),
+                        framebuffer.color.view(torch.int32))
+    return Framebuffer(color=color.view(torch.uint32),
+                       depth=torch.where(win, z, framebuffer.depth))
+
+
+def shade_merge_plain(covered, gbuf, transform: ProjectiveTransform,
+                      lights: LightData, cfg: ObjectConfig, texture=None,
+                      row0: int = 0, col0: int = 0,
+                      framebuffer: Framebuffer | None = None) -> Framebuffer:
+    """Plain ``shade_merge``: ``shade``, ``pack_argb``, then ``merge_over``
+    the framebuffer (a fresh zero-cleared frame on the G-buffer's device
+    when None). Runs on any device."""
+    if framebuffer is None:
+        framebuffer = make_framebuffer(*covered.shape, device=gbuf.device)
+    rgba, covered = shade(covered, gbuf, transform, lights, cfg, texture,
+                          row0, col0)
+    return merge_over(framebuffer, covered, gbuf[0], pack_argb(rgba))
+
+
+def _tex_mode(cfg: ObjectConfig) -> int:
+    """The kernel's TexMode (csrc/shade.cu) of ``cfg``, with
+    ``sample_texture``'s errors for an unknown mode."""
+    if not cfg.textured:
+        return 0
+    if cfg.filter_mode == "bilinear":
+        return 4 if cfg.uv_mode == "avx" else 2
+    if cfg.filter_mode != "nearest":
+        raise ValueError(f"unknown filter_mode: {cfg.filter_mode}")
+    if cfg.uv_mode == "scalar":
+        return 1
+    if cfg.uv_mode != "avx":
+        raise ValueError(f"unknown uv_mode: {cfg.uv_mode}")
+    return 3
+
+
+def shade_merge(covered, gbuf, transform: ProjectiveTransform,
+                lights: LightData, cfg: ObjectConfig, texture=None,
+                row0: int = 0, col0: int = 0,
+                framebuffer: Framebuffer | None = None) -> Framebuffer:
+    """The deferred shade of the local (H, W) rect at (row0, col0) of the
+    frame: covered (H, W) bool and the (11, H, W) f32 G-buffer shaded as
+    ``shade``, packed and merged over ``framebuffer`` with the strict '>'
+    depth test; None is a fresh zero-cleared frame. The inputs may be
+    crops of padded planes (each row contiguous). Returns a new
+    Framebuffer.
+
+    CUDA tensors launch ``tr_deferred_shade`` (csrc/shade.cu) and count
+    the launch in ``shade_merge.launches``; CPU tensors run
+    ``shade_merge_plain``."""
+    dev = gbuf.device
+    if dev.type == "cpu":
+        return shade_merge_plain(covered, gbuf, transform, lights, cfg,
+                                 texture, row0, col0, framebuffer)
+    if dev.type != "cuda":
+        raise ValueError(f"the deferred shade runs on CUDA or CPU tensors, "
+                         f"not {dev}")
+    height, width = covered.shape
+    mode = _tex_mode(cfg)
+    _cuda.check_rows("covered", covered, dev, torch.bool, (height, width))
+    _cuda.check_rows("gbuf", gbuf, dev, F32, (11, height, width))
+    planes = [covered, gbuf]
+    fb_color = fb_depth = tex = params = None
+    th = tw = 0
+    if framebuffer is not None:
+        fb_color = framebuffer.color.view(I32)
+        fb_depth = framebuffer.depth
+        _cuda.check_rows("framebuffer color", fb_color, dev, I32,
+                         (height, width))
+        _cuda.check_rows("framebuffer depth", fb_depth, dev, F32,
+                         (height, width))
+        planes += [fb_color, fb_depth]
+    if mode:
+        if texture is None:
+            raise ValueError("a textured object needs its texture")
+        tex = texture.view(I32)
+        th, tw = tex.shape
+        _cuda.check_tensor("texture", tex, dev, I32, (th, tw))
+    if cfg.phong:
+        params = shade_params(transform, lights)
+    color = torch.empty((height, width), dtype=I32, device=dev)
+    depth = torch.empty((height, width), dtype=F32, device=dev)
+    vec = (width % 4 == 0 and gbuf.stride(0) % 4 == 0
+           and covered.data_ptr() % 4 == 0
+           and all(t.stride(-2) % 4 == 0 for t in planes)
+           and all(t.data_ptr() % 16 == 0 for t in planes[1:]))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def row(t):
+        return 0 if t is None else t.stride(-2)
+    _cuda.launch(
+        "tr_deferred_shade", dev,
+        covered.data_ptr(), row(covered), gbuf.data_ptr(), gbuf.stride(0),
+        row(gbuf), ptr(fb_color), row(fb_color), ptr(fb_depth), row(fb_depth),
+        ptr(tex), th, tw, ptr(params), lights.count, int(bool(cfg.phong)),
+        mode, height, width, int(row0), int(col0), int(vec),
+        color.data_ptr(), depth.data_ptr(),
+    )
+    shade_merge.launches += 1
+    return Framebuffer(color=color.view(torch.uint32), depth=depth)
+
+
+shade_merge.launches = 0
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_cuda.declare("tr_deferred_shade",
+              [_P, _L, _P, _L, _L, _P, _L, _P, _L, _P, _I, _I, _P]
+              + [_I] * 8 + [_P] * 3)
 
 
 def _inner3_planes(a, b):
