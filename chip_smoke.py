@@ -86,8 +86,9 @@ Phases (any failure raises and the script exits nonzero):
    tile grid, on the fused, G-buffer and reference branches, also against
    the crop of the card's whole frame;
 5. paths, each through Renderer(device="cuda") for 3 warm-up and 20 timed
-   frames, every object rotated about y each frame, the launch counts set
-   to 0 just before the path and read just after:
+   frames, every object rotated about y each frame (K13, once an object a
+   frame), the launch counts set to 0 just before the path and read just
+   after:
    - headline: a 1,001,112-triangle dense Phong sphere
      (construct_sphere_grid(708, 707)) at 1920x1080: K1 and K2 once per
      frame; its last frame is held to the sphere's analytic silhouette
@@ -118,11 +119,11 @@ Phases (any failure raises and the script exits nonzero):
      K12;
    - stack6 zcull: bench.py's 2,007,372-triangle stack
      (stack_scene(409, 409, 6)), innermost layer first, at 1920x1080
-     through Renderer(zcull=True): six K1 launches and one K11 per frame,
-     no K2; its first frame bit-equal to the same frame without zcull,
+     through Renderer(zcull=True): one launch of K1's grouped form (the
+     six objects, one kind) and one K11 per frame, no K2; its first frame bit-equal to the same frame without zcull,
      and K11 skipping batches on it at the default part size (the probe
      counter);
-   - stack6: the same scene without zcull (K1 six times, K2), the A/B
+   - stack6: the same scene without zcull (K1 grouped, K2), the A/B
      partner;
    - the 32-row paths, through the ops entry points with the route knobs
      (rasterize_shaded, or rasterize_gbuffer + shade_merge): config 4
@@ -147,9 +148,11 @@ Phases (any failure raises and the script exits nonzero):
    each kernel at its path's shapes (the headline for K1 and K2, the
    textured 250k point for K1 textured, config 3 for K6), first held
    bit-equal to its plain version on those inputs, then timed beside its
-   plain version's (K1 also on one stack6 object and on deferred 1M's
-   textured mesh, with its device time from a profiler trace and the
-   time of zeroing its outputs, the card's own write of those bytes; K3,
+   plain version's (K1 also on deferred 1M's textured mesh, with its
+   device time from a profiler trace and the time of zeroing its outputs,
+   the card's own write of those bytes; K1's grouped form on stack6's six
+   objects, also bit-equal to and timed beside one K1 launch an object at
+   the same rows; K13 on the headline's planes; K3,
    K4, K6, K8 and the 32-row K4, K6, K8, whose event times are near the
    launch floor, also with their device and host time from a profiler
    trace; K6 and K8, 16 and 32 rows, also beside the card zeroing their
@@ -387,6 +390,13 @@ KERNELS = {
         source="tpu_renderer_torch/csrc/shade.cu",
         replaces="none: tpu_renderer/ops/shading.py:182 shade is XLA ops",
         path="deferred 1M"),
+    "K1 grouped": dict(
+        source="tpu_renderer_torch/csrc/setup.cu",
+        replaces="tpu_renderer/ops/setup_pallas.py:174", path="stack6"),
+    "K13 rotate": dict(
+        source="tpu_renderer_torch/csrc/transform.cu",
+        replaces="none: tpu_renderer/geometry/transform.py rotate_object "
+                 "is XLA ops", path="headline"),
 }
 # The wrapper whose launch counter a KERNELS entry reads: K1 textured is
 # K1's wrapper with uvs; K5 runs inside K2's launches on its path, K10
@@ -1655,15 +1665,17 @@ def cards_phase(smi_lines, h, w):
 
 # (C entry) -> the kernel a sweep launch counts as
 SWEEP_KERNELS = {
-    "tr_setup": "K1", "tr_records": "K7", "tr_raster": "K2",
+    "tr_setup": "K1", "tr_setup_grouped": "K1 grouped", "tr_records": "K7",
+    "tr_raster": "K2",
     "tr_raster_rows1": "K3", "tr_raster_narrow": "K4 <16>",
     "tr_raster_narrow32": "K4 <32>", "tr_raster_narrow_any": "K4 band",
     "tr_raster_mask": "K6", "tr_gbuffer_mask": "K8",
     "tr_raster_zcull": "K11 rows 2", "tr_raster_rows1_zcull": "K11 rows 1"}
 # every kernel form the sweep must launch at least once
-SWEEP_MUST = ("K1", "K2", "K3", "K4 <16>", "K4 <32>", "K4 band", "K5", "K6",
-              "K7", "K8", "K9 + K10 <8>", "K9 + K10 <16>", "K9 + K10 <32>",
-              "K9 + K10 band", "K10", "K11 rows 1", "K11 rows 2")
+SWEEP_MUST = ("K1", "K1 grouped", "K2", "K3", "K4 <16>", "K4 <32>",
+              "K4 band", "K5", "K6", "K7", "K8", "K9 + K10 <8>",
+              "K9 + K10 <16>", "K9 + K10 <32>", "K9 + K10 band", "K10",
+              "K11 rows 1", "K11 rows 2")
 SWEEP_GOLDEN_MAX_TRIS = 10000  # larger scenes are held to the plain versions
 
 
@@ -1673,6 +1685,7 @@ def sweep_wrappers():
 
     return {
         "tr_setup": setup.setup_kernel,
+        "tr_setup_grouped": setup.setup_scene_kernel,
         "tr_records": raster.finish_records,
         "tr_raster": raster.raster_kernel,
         "tr_raster_rows1": raster.raster_rows1_kernel,
@@ -1829,9 +1842,9 @@ def sweep_phase(dev, smi_line, families=None, seeds=None):
     planes) are bit-equal to its plain version on the same operands on the
     card, and its stats (drops, real entries, budget utilization) to the
     same form's on CPU tensors; a K11 form's skipped batches equal the
-    serial replay (``sweep_skips``). Per scene, K1 and K7 against their
-    plain versions on its inputs, and for scenes that drop nothing and
-    hold at most SWEEP_GOLDEN_MAX_TRIS triangles, every fused form's frame
+    serial replay (``sweep_skips``). Per scene, K1, its grouped form and
+    K7 against their plain versions on its inputs, and for scenes that
+    drop nothing and hold at most SWEEP_GOLDEN_MAX_TRIS triangles, every fused form's frame
     and the whole frame through ``render_scene`` (the rect at the scene's
     origin) bit-equal to the NumPy spec, rendered in spawned processes
     while the card works. The first difference raises, naming the family,
@@ -1845,10 +1858,13 @@ def sweep_phase(dev, smi_line, families=None, seeds=None):
 
     from tpu_renderer_torch.core.types import make_framebuffer
     from tpu_renderer_torch.engine.renderer import render_scene
-    from tpu_renderer_torch.geometry.vertex import setup_records
+    from tpu_renderer_torch.geometry.vertex import (
+        scene_setup_params,
+        setup_records,
+    )
     from tpu_renderer_torch.golden import cpu_reference as gold
     from tpu_renderer_torch.models import scenes, sweep_scenes
-    from tpu_renderer_torch.ops import raster
+    from tpu_renderer_torch.ops import raster, setup
 
     families = tuple(families or sweep_scenes.FAMILIES)
     seeds = tuple(seeds or sweep_scenes.SEEDS)
@@ -1882,6 +1898,16 @@ def sweep_phase(dev, smi_line, families=None, seeds=None):
                                                       device=dev)
                 cpu = scenes.to_torch_scene(sc.sg, tr_d, li_d, device="cpu")
                 fh, fw = sc.frame
+                if "tr_setup_grouped" in sc.setup:  # K1 grouped, its inputs
+                    plan = setup.plan_scene_setup(scene, li.count)
+                    params = scene_setup_params(torch.stack(
+                        [o.p for o, _ in scene]), tr, li)
+                    kw = dict(n_lights=li.count, frame_height=fh,
+                              frame_width=fw)
+                    assert_equal(f"{label}: K1 grouped",
+                                 setup.setup_scene_kernel(params, plan, **kw),
+                                 setup.setup_scene_plain(params, plan, **kw))
+                    counts["K1 grouped"] = counts.get("K1 grouped", 0) + 1
                 for obj, cfg in scene:  # K1 / K7 on this scene's inputs
                     if "tr_setup" in sc.setup and obj.num_triangles >= \
                             sweep_scenes.FUSED_SETUP_MIN:
@@ -2056,12 +2082,17 @@ def main():
     from tpu_renderer_torch.models.textures import checkerboard
     from tpu_renderer_torch.ops import gbuffer, raster, setup
     from tpu_renderer_torch.ops.shading import shade_merge, shade_merge_plain
+    from tpu_renderer_torch.geometry.transform import (rotate_kernel,
+                                                       rotate_plain,
+                                                       rotation_y)
+    from tpu_renderer_torch.geometry.vertex import scene_setup_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     wrappers = {
         "K1 setup": setup.setup_kernel,
+        "K1 grouped": setup.setup_scene_kernel,
         "K2 raster+shade": raster.raster_kernel,
         "K3 raster+shade rows 1": raster.raster_rows1_kernel,
         "K4 raster+shade 16-row": raster.raster_narrow_kernel,
@@ -2074,6 +2105,7 @@ def main():
         "K4 raster+shade 32-row": raster.raster_narrow32_kernel,
         "K4 raster+shade band": raster.raster_narrow_any_kernel,
         "K12 deferred shade": shade_merge,
+        "K13 rotate": rotate_kernel,
     }
 
     # 1. Device.
@@ -2104,13 +2136,19 @@ def main():
                             r"_ZN2tr11mask_kernelI(Li\d+)E(Lb[01])E")
     band_ptxas = ptxas_info(_cuda.build_info["log"], "band_walk_kernel",
                             r"_ZN2tr16band_walk_kernelE")
+    k1g_ptxas = ptxas_info(_cuda.build_info["log"], "setup_kernel_grouped",
+                           r"_ZN2tr20setup_kernel_groupedI(Lb[01])E(Lb[01])E")
+    k13_ptxas = ptxas_info(_cuda.build_info["log"], "rotate_kernel",
+                           r"_ZN2tr13rotate_kernelE")
     if len(k1_ptxas) != 4 or len(mask_ptxas) != 2 * len(STRIP_ROWS) or \
-            len(band_ptxas) != 1 or not all(
+            len(band_ptxas) != 1 or len(k1g_ptxas) != 4 or \
+            len(k13_ptxas) != 1 or not all(
                 {"registers", "spill_stores"} <= set(v)
                 for v in band_ptxas.values()):
         raise AssertionError(f"ptxas lines of K1: {k1_ptxas}; of the mask "
                              f"kernel: {mask_ptxas}; of the band walk: "
-                             f"{band_ptxas}")
+                             f"{band_ptxas}; of K1 grouped: {k1g_ptxas}; "
+                             f"of K13: {k13_ptxas}")
     for form, info in k1_ptxas.items():
         log(f"# K1 ptxas {form}: {json.dumps(info)}")
     for form, info in mask_ptxas.items():
@@ -2629,15 +2667,14 @@ def main():
             f"bit-equal, {cov} px covered")
 
     # 5. Paths.
-    def drive(path, scene, tr, li, h, w, n_frames, kernels, per_frame=None,
-              render=None, **knobs):
+    def drive(path, scene, tr, li, h, w, n_frames, kernels, render=None,
+              **knobs):
         """Render n_frames of the scene, rotated a little each frame,
         through Renderer(**knobs) on the card (or ``render(scene)`` ->
         (framebuffer, stats)), the launch counts set to 0 just before and
-        read just after: each of ``kernels`` launched once a frame (or
-        ``per_frame[name]`` times), the others never. Returns (ms per
-        frame, the last framebuffer, launches)."""
-        per_frame = per_frame or {}
+        read just after: each of ``kernels`` launched once a frame, K13
+        once an object a frame (``rotated``), the others never. Returns (ms per frame, the last framebuffer,
+        launches)."""
         if render is None:
             renderer = trt.Renderer(h, w, device=dev, **knobs)
 
@@ -2659,8 +2696,8 @@ def main():
                                 st.get("bins_real_entries", -1)))
         torch.cuda.synchronize()
         launches = {n: wr.launches for n, wr in wrappers.items()}
-        want = {n: (n_frames * per_frame.get(n, 1) if n in kernels else 0)
-                for n in wrappers}
+        want = {n: n_frames if n in kernels else 0 for n in wrappers}
+        want["K13 rotate"] = n_frames * len(scene)
         if launches != want:
             raise AssertionError(f"{path}: launches {launches} in "
                                  f"{n_frames} frames, want {want}")
@@ -2864,10 +2901,10 @@ def main():
         f"{int((fb6[0].depth > -3.0e38).sum())} px covered")
     path_ms["stack6 zcull"], _, path_launches["stack6 zcull"] = drive(
         "stack6 zcull", scene6, tr6, li6, H, W, n_frames,
-        ("K1 setup", "K11 zcull"), per_frame={"K1 setup": 6}, zcull=True)
+        ("K1 grouped", "K11 zcull"), zcull=True)
     path_ms["stack6"], _, path_launches["stack6"] = drive(
         "stack6", scene6, tr6, li6, H, W, n_frames,
-        ("K1 setup", "K2 raster+shade"), per_frame={"K1 setup": 6})
+        ("K1 grouped", "K2 raster+shade"))
 
     # The forced-height paths, through the ops entry points with the route
     # knobs (neither package's Renderer takes a tile height): the setup,
@@ -3080,8 +3117,96 @@ def main():
 
     time_k1("headline", obj, cfg, head_tr, head_li)
     time_k1("textured 250k", *scene250[0], tr250, li250)
-    time_k1("stack6, one object", *scene6[0], tr6, li6)
     time_k1("deferred 1M", obj_def, cfg_def, tr_def, li_def)
+
+    k1_grouped_info, k13_info = {}, {}
+
+    def time_k1_grouped(path, scene_, tr_, li_):
+        """K1's grouped form on a whole scene's inputs, as the engine
+        launches it: bit-equal to its plain version and to one K1 launch
+        an object at the same rows (the setup such a scene took before),
+        timed beside both, with the bound of all the objects' bytes."""
+        name = "K1 grouped"
+        plan = setup.plan_scene_setup(scene_, li_.count)
+        params = scene_setup_params(
+            torch.stack([o.p for o, _ in scene_]), tr_, li_)
+        kw = dict(n_lights=li_.count, frame_height=H, frame_width=W)
+
+        def fn():
+            return setup.setup_scene_kernel(params, plan, **kw)
+
+        def plain():
+            return setup.setup_scene_plain(params, plan, **kw)
+        one = [k1_call(o, c, tr_, li_, H, W, tp=n, gid0=r0)[0]
+               for (o, c), r0, n in zip(scene_, plan.row0, plan.rows)]
+
+        def per_object():
+            return [f() for f in one]
+        max_err[name] = max(max_err[name], assert_equal(
+            f"{name} at {path}", fn(), plain()))
+        tables = per_object()
+        assert_equal(f"{name} at {path} against one K1 an object", fn(),
+                     (torch.cat([r for r, _ in tables]),
+                      torch.cat([b for _, b in tables], dim=1)))
+        del tables
+        tris = plan.num_triangles
+        log(f"# {name} == plain == one K1 an object at {path}, "
+            f"{len(scene_)} objects, {tris} tris {W}x{H}: bit-equal")
+        kms, pms = in_turns(fn, plain)
+        obj_ms = statistics.median([event_ms(per_object, 20)
+                                    for _ in range(2)])
+        host_ms, dev_ms, _ = profile_calls(fn, 20)
+        obj_host, obj_dev, _ = profile_calls(per_object, 20)
+        works = [setup_work(o.num_triangles, n, c.phong, li_.count,
+                            c.textured) for (o, c), n in zip(scene_,
+                                                             plan.rows)]
+        bms, by = bound(sum(w[0] for w in works), sum(w[1] for w in works))
+        timing.setdefault(name, (kms, pms, bms, by, None))
+        k1_grouped_info[path] = dict(
+            objects=len(scene_), kinds=len(plan.kinds), tris=tris,
+            rows=plan.total, ms=round(kms, 4), device_ms=round(dev_ms, 4),
+            host_ms=round(host_ms, 4), plain_ms=round(pms, 4),
+            bound_ms=round(bms, 6), bound_by=by,
+            one_k1_an_object_ms=round(obj_ms, 4),
+            one_k1_an_object_device_ms=round(obj_dev, 4),
+            one_k1_an_object_host_ms=round(obj_host, 4))
+        log(f"# {name} at {path}: kernel {kms:.4f} ms (profiler: device "
+            f"{dev_ms:.4f}, host {host_ms:.4f}), plain {pms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}); one K1 an object {obj_ms:.4f} ms "
+            f"(device {obj_dev:.4f}, host {obj_host:.4f})")
+
+    def time_k13(path, obj_):
+        """K13 on one object's planes: bit-equal to ``rotate_plain``,
+        timed beside it, with its byte bound (9 T floats of vertices and
+        of normals read and written once)."""
+        name = "K13 rotate"
+        rot = rotation_y(0.3, device=dev)
+
+        def fn():
+            return rotate_kernel(rot, obj_.vertices, obj_.normals)
+
+        def plain():
+            return rotate_plain(rot, obj_.vertices, obj_.normals)
+        max_err[name] = max(max_err[name], assert_equal(
+            f"{name} at {path}", fn(), plain()))
+        n = obj_.num_triangles
+        log(f"# {name} == plain at {path}, {n} tris: bit-equal")
+        kms, pms = in_turns(fn, plain)
+        host_ms, dev_ms, _ = profile_calls(fn, 20)
+        _, plain_dev, _ = profile_calls(plain, 20)
+        bms, by = bound(2 * 2 * 9 * n * 4, 2 * 9 * n * 5)
+        timing.setdefault(name, (kms, pms, bms, by, None))
+        k13_info[path] = dict(
+            tris=n, ms=round(kms, 4), device_ms=round(dev_ms, 4),
+            host_ms=round(host_ms, 4), plain_ms=round(pms, 4),
+            plain_device_ms=round(plain_dev, 4), bound_ms=round(bms, 6),
+            bound_by=by)
+        log(f"# {name} at {path}, {n} tris: kernel {kms:.4f} ms (profiler: "
+            f"device {dev_ms:.4f}, host {host_ms:.4f}), plain {pms:.4f} ms "
+            f"(device {plain_dev:.4f}), bound {bms:.4f} ms ({by})")
+
+    time_k1_grouped("stack6", scene6, tr6, li6)
+    time_k13("headline", obj)
     head_launch = prepare_scene(head_scene, head_tr, head_li, H, W)
     per_tile = head_launch.qbins.counts[:-2].reshape(-1, 2).sum(dim=1)
     log(f"# K2 load: {int((per_tile > 0).sum())} of {per_tile.numel()} "
@@ -3818,6 +3943,12 @@ def main():
             entry["ptxas"] = {f: v for f, v in k1_ptxas.items()
                               if f.endswith("true>" if "textured" in name
                                             else "false>")}
+        if name == "K1 grouped":
+            entry["by_path"] = k1_grouped_info
+            entry["ptxas"] = k1g_ptxas
+        if name == "K13 rotate":
+            entry["by_path"] = k13_info
+            entry["ptxas"] = k13_ptxas
         if name in dev_info:
             entry.update(dev_info[name])
         if name in strip_sweep:

@@ -6,7 +6,7 @@ the NumPy golden (scenes in models/route_scenes.py).
 | --- | --- | --- |
 | k3 | K1 -> K3 | T * 12 < H * W: rows 1; T >= 4096: K1 |
 | k4 | setup_records -> K7 -> K4 | T * 256 <= H * W: 16-row tiles; T > 512: sorted |
-| mixed | K1 + small object via K7 -> K2 | total T >= 4096: K1 for the sphere grid, the cube through setup_records, K7 and triangle_bbox_rows |
+| mixed | K1's grouped form -> K2 | total T >= 4096: one table, the sphere grid and the cube both through K1 (the JAX package sets the cube up with its XLA chain; the tables differ only on pad rows) |
 
 Each has a side-list variant with a large quad merged into one object's
 mesh, so that n_large > 0 under the route's expansion; every scene is held

@@ -36,23 +36,26 @@ def spies(monkeypatch):
 ROUTES = {  # route -> (tile_h, rows), K1 inputs, K7 inputs
     "k3": ((8, 1), [5428], []),
     "k4": ((16, 1), [], [(85, 528)]),
-    "mixed": ((8, 2), [4140], [(85, 128)]),
+    "mixed": ((8, 2), [4140, 12], []),
 }
 
 
 def test_route(case, spies):
-    """The scene's one raster launch, on the route's kernel, with the setup
-    form the JAX gates pick (K1 from 4096 triangles, else setup_records
-    and K7), and the side list filled only in the side-list variant; the
-    Renderer's frame is that launch's output."""
+    """The scene's one raster launch, on the route's kernel, with the
+    port's setup form (one object: K1 from 4096 triangles, else
+    setup_records and K7; several of 4096 or more in all: K1's grouped
+    form, every object through K1's plain version), and the side list
+    filled only in the side-list variant; the Renderer's frame is that
+    launch's output."""
     scene_t, tr, li = case["scene"]
     h, w = case["hw"]
     launch = tre.prepare_scene(scene_t, tr, li, h, w)
     want, k1, k7 = ROUTES[case["route"]]
-    if case["variant"] == "sidelist" and case["route"] != "mixed":
+    if case["variant"] == "sidelist":
         # The quad's 2 triangles join the one object (in the mixed scene
         # they join the cube, which still pads to 128).
-        k1 = [t + 2 for t in k1]
+        k1 = k1[:-1] + [k1[-1] + 2] if case["route"] == "mixed" else [
+            t + 2 for t in k1]
         k7 = [(r, t + 2) for r, t in k7]
     assert spies["k1"] == k1 and spies["k7"] == k7
     assert (launch.route.strategy, launch.route.tile_h,

@@ -143,3 +143,40 @@ def test_frames_are_the_same_with_spans_on(variant):
                        off.color.view(torch.int32))
     assert torch.equal(on.depth.view(torch.int32),
                        off.depth.view(torch.int32))
+
+
+def test_a_multi_object_draw_sets_up_in_the_scene_span(monkeypatch):
+    """A fused scene of several objects, 4096 triangles or more in all:
+    ``tr.scene`` inside ``tr.render``, ``tr.setup`` inside it, and the
+    grouped setup's launches made in ``tr.setup``. Under 4096 the chain
+    runs in ``tr.scene`` and K7 in ``tr.setup`` after it; one object opens
+    no ``tr.scene``."""
+    from test_torch_scene_setup import mixed_scene
+    from tpu_renderer_torch.models.scenes import to_torch_scene
+    from tpu_renderer_torch.ops import setup as tsp
+
+    scene, tr, li = to_torch_scene(*mixed_scene(0), device="cpu")
+    renderer = trt.Renderer(96, 128, device="cpu")
+    real, called_in = tsp.setup_scene_kernel, []
+
+    def grouped(*args, **kw):
+        called_in.append(prof._records[prof._stack[-1]][0])
+        return real(*args, **kw)
+    monkeypatch.setattr(tsp, "setup_scene_kernel", grouped)
+    with prof.spans() as records:
+        frame(renderer, scene, tr, li, 0.1)
+    names = [r[0] for r in records]
+    assert set(names) == LAYERS | {"tr.scene"}
+    assert names.count("tr.scene") == 1 and names.count("tr.setup") == 1
+    at = names.index("tr.scene")
+    assert records[at][1] == names.index("tr.render")
+    assert records[names.index("tr.setup")][1] == at
+    assert called_in == ["tr.setup"]
+    with prof.spans() as records:
+        frame(renderer, scene[2:5], tr, li, 0.1)  # 1,584 triangles
+    names = [r[0] for r in records]
+    assert records[names.index("tr.setup")][1] == names.index("tr.render")
+    assert "tr.scene" in names and called_in == ["tr.setup"]
+    with prof.spans() as records:
+        frame(renderer, scene[1:2], tr, li, 0.1)
+    assert "tr.scene" not in {r[0] for r in records}

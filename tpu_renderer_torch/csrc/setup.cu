@@ -37,6 +37,15 @@
 // 0.1049 ms textured on 250,632 triangles (bound 0.0515 ms). ptxas: 74-83
 // registers, 43,008 B of shared memory, no spill, in all four forms; the
 // stage limits an SM to 5 resident blocks (20 warps; registers allow 6).
+//
+// The grouped form (setup_kernel_grouped) sets up every object of one
+// <PHONG, TEXTURED> kind of a scene in one launch, each at its own rows of
+// the scene's table, so a scene of many objects costs at most four
+// launches instead of one or a chain of torch ops an object. Each object's
+// rows (its triangles and its pad) are a multiple of 128, so a block lies
+// in one object and finds it in a device table of plane pointers and
+// offsets; its rows are then set up exactly as the one-object kernel sets
+// them up (setup_row).
 
 #include "common.cuh"
 
@@ -48,24 +57,24 @@ constexpr int kSetupThreads = 128;
 constexpr int kEdgeChunks = kGidLane / 4;
 constexpr int kRowChunks = kRecLanes / 4;
 
+// The setup of row t of one object's table (t < T a triangle, T <= t < Tp
+// a pad row): its record row at recs + t * 128, its bbox column at bbox + t,
+// the bbox rows ``stride`` floats apart. ``staged`` is the warp's stage:
+// each warp's 32 rows of edge chunks, row after row. The stride of 21
+// chunks is odd, so the 8 lanes of a quarter-warp storing one chunk of
+// their rows, and 8 consecutive chunks of one row read back, fall in 8
+// distinct 16-byte bank groups.
 template <bool PHONG, bool TEXTURED>
-__global__ void __launch_bounds__(kSetupThreads) setup_kernel(
+__device__ __forceinline__ void setup_row(
     const float* __restrict__ params, int n_lights,
     const float* __restrict__ verts, const float* __restrict__ cols,
     const float* __restrict__ nrms, const float* __restrict__ uvs, int T,
-    int Tp, int gid0, float frame_h,
-    float frame_w, float* __restrict__ recs, float* __restrict__ bbox) {
-  // Each warp's 32 rows of edge chunks, row after row. The stride of 21
-  // chunks is odd, so the 8 lanes of a quarter-warp storing one chunk of
-  // their rows, and 8 consecutive chunks of one row read back, fall in 8
-  // distinct 16-byte bank groups.
-  __shared__ float4 stage[kSetupThreads / 32][32 * kEdgeChunks];
+    int Tp, int gid0, float frame_h, float frame_w, float* __restrict__ recs,
+    float* __restrict__ bbox, size_t stride, int t, float4* staged) {
   const int lane = threadIdx.x & 31;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int t0 = t - lane;  // the warp's first row
   if (t0 >= Tp) return;     // whole warps only: the write-out needs them all
   const bool real = t < T;
-  float4* const staged = stage[threadIdx.x >> 5];
   // Element [c][v] of a channel-major (C, 3, T) array; zeros past T.
   auto ld = [&](const float* a, int c, int v) -> float {
     return real ? a[(size_t)(c * 3 + v) * T + t] : 0.0f;
@@ -264,14 +273,14 @@ __global__ void __launch_bounds__(kSetupThreads) setup_kernel(
   ylo = clip_ieee(ylo, 0.0f, frame_h);
   yhi = clip_ieee(yhi, 0.0f, frame_h);
   if (t < Tp) {
-    bbox[0 * (size_t)Tp + t] = tri_valid ? 1.0f : 0.0f;
-    bbox[1 * (size_t)Tp + t] = ylo;
-    bbox[2 * (size_t)Tp + t] = yhi;
-    bbox[3 * (size_t)Tp + t] = xlo;
-    bbox[4 * (size_t)Tp + t] = xhi;
-    bbox[5 * (size_t)Tp + t] = 0.0f;
-    bbox[6 * (size_t)Tp + t] = 0.0f;
-    bbox[7 * (size_t)Tp + t] = 0.0f;
+    bbox[0 * stride + t] = tri_valid ? 1.0f : 0.0f;
+    bbox[1 * stride + t] = ylo;
+    bbox[2 * stride + t] = yhi;
+    bbox[3 * stride + t] = xlo;
+    bbox[4 * stride + t] = xhi;
+    bbox[5 * stride + t] = 0.0f;
+    bbox[6 * stride + t] = 0.0f;
+    bbox[7 * stride + t] = 0.0f;
   }
 
   // Write-out: one store instruction a row, lane l writing chunk l, so
@@ -290,6 +299,63 @@ __global__ void __launch_bounds__(kSetupThreads) setup_kernel(
       v.x = static_cast<float>(t0 + i + gid0);
     out[(size_t)i * kRowChunks] = v;
   }
+}
+
+// K1 on one object: a thread a row of its (Tp, 128) table.
+template <bool PHONG, bool TEXTURED>
+__global__ void __launch_bounds__(kSetupThreads) setup_kernel(
+    const float* __restrict__ params, int n_lights,
+    const float* __restrict__ verts, const float* __restrict__ cols,
+    const float* __restrict__ nrms, const float* __restrict__ uvs, int T,
+    int Tp, int gid0, float frame_h,
+    float frame_w, float* __restrict__ recs, float* __restrict__ bbox) {
+  __shared__ float4 stage[kSetupThreads / 32][32 * kEdgeChunks];
+  setup_row<PHONG, TEXTURED>(params, n_lights, verts, cols, nrms, uvs, T, Tp,
+                             gid0, frame_h, frame_w, recs, bbox, (size_t)Tp,
+                             blockIdx.x * blockDim.x + threadIdx.x,
+                             stage[threadIdx.x >> 5]);
+}
+
+// One object of a grouped launch: a row of the (n, 9) int64 table that
+// ops/setup.py's plan_scene_setup uploads.
+struct SetupObject {
+  const float* verts;  // (3, 3, t)
+  const float* cols;   // (4, 3, t)
+  const float* nrms;   // (3, 3, t)
+  const float* uvs;    // (2, 3, t), null when untextured
+  long long t;         // triangles
+  long long rows;      // its rows in the table: t and its pad, 128s
+  long long row0;      // its first row, which is its first gid
+  long long params;    // offset of its setup_params in the params table
+  long long block0;    // its first block in the launch
+};
+static_assert(sizeof(SetupObject) == 72, "the table's rows are 9 int64");
+
+// K1 on every object of one <PHONG, TEXTURED> kind of a scene, one launch:
+// the objects' rows are 128s, so each 128-thread block lies in one object,
+// the last whose first block is at or before the block's (the table is in
+// block order); the block's threads test 128 entries at a time and count
+// them. Each object is set up as setup_kernel sets it up alone, written at
+// its own rows of the scene's (total, 128) table and (8, total) bbox rows.
+template <bool PHONG, bool TEXTURED>
+__global__ void __launch_bounds__(kSetupThreads) setup_kernel_grouped(
+    const SetupObject* __restrict__ objs, int n_objs,
+    const float* __restrict__ params, int n_lights, int total, float frame_h,
+    float frame_w, float* __restrict__ recs, float* __restrict__ bbox) {
+  __shared__ float4 stage[kSetupThreads / 32][32 * kEdgeChunks];
+  const long long block = blockIdx.x;
+  int found = 0;
+  for (int base = 0; base < n_objs; base += kSetupThreads) {
+    const int j = base + threadIdx.x;
+    found += __syncthreads_count(j < n_objs && objs[j].block0 <= block);
+  }
+  const SetupObject o = objs[found - 1];
+  setup_row<PHONG, TEXTURED>(
+      params + o.params, n_lights, o.verts, o.cols, o.nrms, o.uvs, (int)o.t,
+      (int)o.rows, (int)o.row0, frame_h, frame_w,
+      recs + (size_t)o.row0 * kRecLanes, bbox + o.row0, (size_t)total,
+      (int)(block - o.block0) * kSetupThreads + threadIdx.x,
+      stage[threadIdx.x >> 5]);
 }
 
 }  // namespace tr
@@ -322,5 +388,25 @@ extern "C" int tr_setup(const float* params, int n_lights, int phong,
                              : tr::launch_setup<false, false>);
   launch(params, n_lights, verts, cols, nrms, uvs, T, Tp, gid0, frame_h,
          frame_w, recs, bbox, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// objs: n_objs rows of SetupObject, all of one kind, in block order, whose
+// rows come to ``blocks`` blocks of 128; params (n, 12 + 7 n_lights) f32;
+// recs (total, 128) and bbox (8, total) f32.
+extern "C" int tr_setup_grouped(const void* objs, int n_objs, int blocks,
+                                const float* params, int n_lights, int phong,
+                                int textured, int total, int frame_h,
+                                int frame_w, float* recs, float* bbox,
+                                void* stream) {
+  if (n_objs < 1 || blocks < 1 || total < blocks * tr::kSetupThreads)
+    return 1;  // cudaErrorInvalidValue
+  auto kernel = phong ? (textured ? tr::setup_kernel_grouped<true, true>
+                                  : tr::setup_kernel_grouped<true, false>)
+                      : (textured ? tr::setup_kernel_grouped<false, true>
+                                  : tr::setup_kernel_grouped<false, false>);
+  kernel<<<blocks, tr::kSetupThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const tr::SetupObject*>(objs), n_objs, params, n_lights,
+      total, (float)frame_h, (float)frame_w, recs, bbox);
   return static_cast<int>(cudaGetLastError());
 }

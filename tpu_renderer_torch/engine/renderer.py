@@ -10,9 +10,10 @@ PyTorch counterpart of ``tpu_renderer.engine.renderer``, both branches of
   K3 or K4 by route) rasterizes, samples the texture (K5, 'scalar'
   addressing, nearest or bilinear, within the fused atlas limits), shades
   and packs ARGB. Several such objects render in ONE raster launch
-  (``prepare_scene``): their tables concatenate with global triangle ids,
-  their textures stack into one atlas, and the kernel picks each pixel's
-  object from the winner's id;
+  (``prepare_scene``): their records lie in one table with global
+  triangle ids (from 4096 triangles in all, set up by K1's grouped form,
+  one launch per kind of object), their textures stack into one atlas,
+  and the kernel picks each pixel's object from the winner's id;
 - G-buffer: a textured object the fused path cannot take (``uv_mode=
   'avx'``, a texture over the atlas limits) rasterizes into a G-buffer
   (``ops.gbuffer``: K8, or K9 with K10), then ``ops.shading.shade_merge``
@@ -48,23 +49,26 @@ from ..core.types import (
     resolve_device,
 )
 from ..geometry.vertex import setup_records, setup_triangles
-from ..ops.binning import triangle_bbox_rows
 from ..ops.gbuffer import rasterize_gbuffer
 from ..ops.raster import (
     ObjSpec,
     RasterLaunch,
-    finish_records,
     pack_texture_atlas,
     prepare_raster,
     run_shaded,
     texture_fits_fused,
 )
 from ..ops.raster_reference import rasterize_reference
-from ..ops.setup import FUSED_SETUP_MIN, SetupOut, setup_for_raster
+from ..ops.setup import (
+    FUSED_SETUP_MIN,
+    object_rows,
+    plan_scene_setup,
+    setup_for_raster,
+    setup_scene,
+)
 from ..ops.shading import merge_over, shade_merge, shade_merge_plain
 from ..utils.profiling import annotate
 
-_OBJ_PAD = 128  # each object's table pads its triangle axis to this
 BACKENDS = ("kernels", "reference")
 
 
@@ -143,64 +147,55 @@ def _tex_spec(slot_off: int, obj: RenderObject, cfg: ObjectConfig):
 def _scene_table(scene, transform: ProjectiveTransform, lights: LightData,
                  frame_height: int, frame_width: int):
     """(table, objspecs, atlas) of several objects in ONE launch
-    (renderer.py:229): their record tables concatenate into a scene-global
-    table whose gid lanes carry the submission order, their textures
-    (each distinct tensor once) stack into one atlas, and the kernel
-    shades each pixel by its winner's object (static gid ranges).
+    (renderer.py:229): their record tables lie one after another in a
+    scene-global table whose gid lanes carry the submission order, their
+    textures (each distinct tensor once) stack into one atlas, and the
+    kernel shades each pixel by its winner's object (static gid ranges).
+    The assembly runs in the ``tr.scene`` span.
 
     One setup form for the whole scene: from FUSED_SETUP_MIN triangles in
-    all, each object goes through setup_for_raster (K1 for large objects;
-    small ones take setup_records -> pad to 128 -> K7 -> bboxes from the
-    channel-major rows); below it, every object takes setup_records, padded
-    to 128, and the concatenated table goes through one K7 in the raster
-    stage. Pad rows are invalid records that never win; the next object's
-    gids start after them (gid += T + pad)."""
-    fused_setup = sum(o.num_triangles for o, _ in scene) >= FUSED_SETUP_MIN
-    tables, bboxes, raw = [], [], []
-    textures, tex_slot = [], {}
-    gid = true_t = 0
-    for obj, cfg in scene:
-        T = obj.num_triangles
+    all, ``setup_scene`` sets up every object, small ones included, at its
+    rows of one table (``plan_scene_setup``: K1's grouped form, one launch
+    per kind of object); below it, every object takes setup_records, and
+    the concatenated table goes through one K7 in the raster stage. Either
+    way each object's rows are ``object_rows``: its pad rows are invalid
+    records that never win, and the next object's gids start after them."""
+    with annotate("tr.scene"):
+        fused_setup = (sum(o.num_triangles for o, _ in scene)
+                       >= FUSED_SETUP_MIN)
         if fused_setup:
-            out = setup_for_raster(obj, transform, lights, cfg, gid0=gid,
-                                   frame_height=frame_height,
-                                   frame_width=frame_width)
-            if isinstance(out, SetupOut):
-                rt, pad = out.recs, out.recs.shape[0] - T
-                bboxes.append(out.bbox)
-            else:  # small object below the kernel's own threshold
-                pad = -T % _OBJ_PAD
-                rt_cm = torch.nn.functional.pad(out, (0, pad))
-                rt = finish_records(rt_cm)[:T + pad]
-                bboxes.append(triangle_bbox_rows(rt_cm, frame_height,
-                                                 frame_width))
+            plan = plan_scene_setup(scene, lights.count)
+            gids = plan.row0
         else:
-            pad = -T % _OBJ_PAD
-            rt = torch.nn.functional.pad(
-                setup_records(obj, transform, lights, cfg, gid0=gid),
-                (0, pad))
-        tables.append(rt)
-        slot = None
-        if cfg.textured:
-            slot = tex_slot.setdefault(id(obj.texture), len(textures))
-            if slot == len(textures):
-                textures.append(obj.texture)
-        raw.append((obj, cfg, gid, slot))
-        gid += T + pad
-        true_t += T
-    atlas, offs = (pack_texture_atlas(textures) if textures
-                   else (None, []))
-    objspecs = tuple(
-        ObjSpec(lo, lo + obj.num_triangles, cfg.phong,
-                None if slot is None else _tex_spec(offs[slot], obj, cfg))
-        for obj, cfg, lo, slot in raw)
-    if fused_setup:
-        table = SetupOut(torch.cat(tables),
-                         [torch.cat(parts) for parts in zip(*bboxes)],
-                         true_t)
-    else:
-        table = torch.cat(tables, dim=1)
-    return table, objspecs, atlas
+            tables, gids, gid = [], [], 0
+            for obj, cfg in scene:
+                T = obj.num_triangles
+                pad = object_rows(T) - T
+                tables.append(torch.nn.functional.pad(
+                    setup_records(obj, transform, lights, cfg, gid0=gid),
+                    (0, pad)))
+                gids.append(gid)
+                gid += T + pad
+        textures, tex_slot, slots = [], {}, []
+        for obj, cfg in scene:
+            slot = None
+            if cfg.textured:
+                slot = tex_slot.setdefault(id(obj.texture), len(textures))
+                if slot == len(textures):
+                    textures.append(obj.texture)
+            slots.append(slot)
+        atlas, offs = (pack_texture_atlas(textures) if textures
+                       else (None, []))
+        objspecs = tuple(
+            ObjSpec(lo, lo + obj.num_triangles, cfg.phong,
+                    None if slot is None else _tex_spec(offs[slot], obj, cfg))
+            for (obj, cfg), lo, slot in zip(scene, gids, slots))
+        if fused_setup:
+            table = setup_scene(plan, transform, lights, frame_height,
+                                frame_width)
+        else:
+            table = torch.cat(tables, dim=1)
+        return table, objspecs, atlas
 
 
 def object_specs(obj: RenderObject, cfg: ObjectConfig):

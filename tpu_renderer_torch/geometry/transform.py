@@ -2,14 +2,21 @@
 ``tpu_renderer.geometry.transform``, elementwise form only): rotations and
 the object's position.
 
+``rotate_object`` runs K13 (``rotate_kernel``, csrc/transform.cu) on the
+card, one launch an object, and ``rotate_plain``, the same f32 products
+and sums as torch ops, on the CPU.
+
 The rotation matrices follow the entry points' device rule: a tensor
 angle keeps its device; a Python number goes to ``device``, the card
 unless the caller asks for the CPU (``core.types.resolve_device``)."""
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from .. import _cuda
 from ..core.math import scalar
 from ..core.types import RenderObject, resolve_device
 from ..utils.profiling import annotate
@@ -56,8 +63,9 @@ def rotation_z(angle, device="cuda") -> torch.Tensor:
     ])
 
 
-def rotate_object(obj: RenderObject, rot: torch.Tensor) -> RenderObject:
-    """Rotate vertices and normals by a 3x3 matrix (colors/uvs unchanged):
+def rotate_plain(rot: torch.Tensor, vertices: torch.Tensor,
+                 normals: torch.Tensor):
+    """(vertices, normals) rotated by ``rot`` as torch ops, on any device:
     out_i = (rot[i,0]*x + rot[i,1]*y) + rot[i,2]*z on the channel planes."""
 
     def rot3(arr):
@@ -66,9 +74,48 @@ def rotate_object(obj: RenderObject, rot: torch.Tensor) -> RenderObject:
             for i in range(3)
         ])
 
+    return rot3(vertices), rot3(normals)
+
+
+def rotate_kernel(rot: torch.Tensor, vertices: torch.Tensor,
+                  normals: torch.Tensor):
+    """K13: ``rotate_plain``'s planes, bit-equal. CUDA tensors launch
+    ``tr_rotate`` (csrc/transform.cu), vertices and normals in one launch,
+    counted in ``rotate_kernel.launches``; CPU tensors run
+    ``rotate_plain``. ``rot`` is taken as f32 on the planes' device, as
+    the plain version's products take it."""
+    dev = vertices.device
+    if dev.type == "cpu":
+        return rotate_plain(rot, vertices, normals)
+    if dev.type != "cuda":
+        raise ValueError(f"K13 runs on CUDA or CPU tensors, not {dev}")
+    T = vertices.shape[2]
+    rot = rot.to(device=dev, dtype=F32).contiguous()
+    _cuda.check_tensor("rot", rot, dev, F32, (3, 3))
+    _cuda.check_tensor("vertices", vertices, dev, F32, (3, 3, T))
+    _cuda.check_tensor("normals", normals, dev, F32, (3, 3, T))
+    v_out, n_out = torch.empty_like(vertices), torch.empty_like(normals)
+    if T:
+        _cuda.launch("tr_rotate", dev, rot.data_ptr(), vertices.data_ptr(),
+                     normals.data_ptr(), 3 * T, v_out.data_ptr(),
+                     n_out.data_ptr())
+        rotate_kernel.launches += 1
+    return v_out, n_out
+
+
+rotate_kernel.launches = 0
+_cuda.declare("tr_rotate", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+
+
+def rotate_object(obj: RenderObject, rot: torch.Tensor) -> RenderObject:
+    """Rotate vertices and normals by a 3x3 matrix (colors/uvs unchanged):
+    out_i = (rot[i,0]*x + rot[i,1]*y) + rot[i,2]*z on the channel planes,
+    K13 on the card (``rotate_kernel``)."""
     with annotate("tr.geometry"):
-        return obj._replace(vertices=rot3(obj.vertices),
-                            normals=rot3(obj.normals))
+        vertices, normals = rotate_kernel(rot, obj.vertices, obj.normals)
+        return obj._replace(vertices=vertices, normals=normals)
 
 
 def translate_object(obj: RenderObject, p) -> RenderObject:

@@ -155,22 +155,40 @@ def gouraud_vertex_colors(colors, normals, cam, lights: LightData,
     return out
 
 
-def setup_params(obj_p, transform: ProjectiveTransform,
-                 lights: LightData) -> torch.Tensor:
-    """Flat f32 vector: [dat, fl, m2p, cx, cy, p xyz, ambient rgba,
-    (light_p xyz, light_I rgba) per light]."""
-    parts = [
+def _param_parts(transform: ProjectiveTransform, lights: LightData):
+    """(camera, lights) parts of ``setup_params``, each a flat tensor: the
+    values before and after the object's position."""
+    head = [
         transform.distance_above_target.reshape(1),
         transform.focal_length.reshape(1),
         transform.meters_to_pixels.reshape(1),
         transform.screen_center.reshape(2),
-        obj_p.reshape(3),
-        lights.ambient.reshape(4),
     ]
+    tail = [lights.ambient.reshape(4)]
     for k in range(lights.count):
-        parts.append(lights.light_p[k].reshape(3))
-        parts.append(lights.light_intensity[k].reshape(4))
-    return torch.cat([p.to(F32) for p in parts])
+        tail.append(lights.light_p[k].reshape(3))
+        tail.append(lights.light_intensity[k].reshape(4))
+    return head, tail
+
+
+def setup_params(obj_p, transform: ProjectiveTransform,
+                 lights: LightData) -> torch.Tensor:
+    """Flat f32 vector: [dat, fl, m2p, cx, cy, p xyz, ambient rgba,
+    (light_p xyz, light_I rgba) per light]."""
+    head, tail = _param_parts(transform, lights)
+    return torch.cat([p.to(F32) for p in head + [obj_p.reshape(3)] + tail])
+
+
+def scene_setup_params(ps: torch.Tensor, transform: ProjectiveTransform,
+                       lights: LightData) -> torch.Tensor:
+    """``setup_params`` of n objects at once, row i that of the object at
+    ``ps[i]`` ((n, 3)): (n, 12 + 7 * lights.count) f32, the same values."""
+    head, tail = _param_parts(transform, lights)
+    n = ps.shape[0]
+    head = torch.cat([p.to(F32) for p in head])
+    tail = torch.cat([p.to(F32) for p in tail])
+    return torch.cat([head.expand(n, -1), ps.to(F32),
+                      tail.expand(n, -1)], dim=1)
 
 
 def setup_fields(params, verts, cols, nrms, n_lights: int, phong: bool,

@@ -6,7 +6,7 @@ what chip_smoke.py renders on the card against the CPU.
 | --- | --- | --- |
 | k3 | K1 -> K3 | config 2's teapot, 5,428 tris, Gouraud, 256x256 |
 | k4 | setup_records -> K7 -> K4 | construct_sphere(12), 528 tris, Phong, 384x384 |
-| mixed | K1 + small object via K7 -> K2 | construct_sphere_grid(46, 45) + a 0.15-unit cube, 4,152 tris, 128x128 |
+| mixed | K1's grouped form, both objects (the cube below 4096) -> K2 | construct_sphere_grid(46, 45) + a 0.15-unit cube, 4,152 tris, 128x128 |
 | k4multi | setup_records x 3 -> K7 -> K4 | sphere(12) Phong + torus(16, 8) + cube, 796 tris (1,024 padded), 512x512 |
 | k2multi | setup_records x 3 -> K7 -> K2 | config 5's three untextured objects, 3,244 tris (3,456 padded), 96x128 |
 | k6 | setup_records -> K7 -> K6, 16-row tiles | config 1's cube, 12 tris, 128x128 |

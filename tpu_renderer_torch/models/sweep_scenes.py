@@ -62,7 +62,7 @@ PART_ENTRIES = 32  # ops.raster.RASTER_PART_ENTRIES
 LARGE_CAPACITY = 2048  # ops.raster: side-list slots
 MAX_FUSED_TEX_DIM = 512  # ops.raster: the fused atlas's longest side
 TILE_W = 128
-OBJ_PAD = 128  # engine.renderer: objects of a launch pad to this
+OBJ_PAD = 128  # ops.setup: small objects of a launch pad to this
 
 FAMILIES = ("thresholds", "part_edges", "ties", "side_list", "ragged",
             "budgets", "textures", "zcull", "bands")
@@ -176,17 +176,18 @@ def entry(rt, path, zcull=False) -> str:
 
 
 def setup_launches(sg) -> dict:
-    """{C entry: launches} of a fused draw's setup: K1 (``tr_setup``) for
-    each object of FUSED_SETUP_MIN triangles or more where the scene
-    reaches it, K7 (``tr_records``) once for a scene below it, once per
-    smaller object above it."""
+    """{C entry: launches} of a fused draw's setup: K7 (``tr_records``)
+    once for a draw below FUSED_SETUP_MIN triangles; above it, K1
+    (``tr_setup``) once for one object, K1's grouped form
+    (``tr_setup_grouped``) once per <phong, textured> kind of several."""
     counts = _counts(sg)
-    if sum(counts) < FUSED_SETUP_MIN or len(counts) == 1 and (
-            counts[0] < FUSED_SETUP_MIN):
+    if sum(counts) < FUSED_SETUP_MIN:
         return {"tr_records": 1}
-    k1 = sum(t >= FUSED_SETUP_MIN for t in counts)
-    out = {"tr_setup": k1, "tr_records": len(counts) - k1}
-    return {k: n for k, n in out.items() if n}
+    if len(counts) == 1:
+        return {"tr_setup": 1}
+    return {"tr_setup_grouped": len({
+        (bool(c.get("phong", False)), c.get("texture") is not None)
+        for _, c in sg})}
 
 
 def form(sg, frame, path="fused", strategy="auto", tile_h=None,

@@ -13,11 +13,19 @@ the white Gouraud base -- written straight into
 ``setup_kernel`` launches the CUDA kernel (``csrc/setup.cu``) on CUDA
 tensors and runs ``setup_plain``, the same f32 math in the same op order
 on (3, Tp) rows, on CPU tensors.
+
+A scene of several objects is set up in one table (``setup_scene``):
+``plan_scene_setup`` lays the objects out at their gid offsets and, on the
+card, uploads a table of their planes and offsets; ``setup_scene_kernel``
+then runs K1's grouped form, one launch per <PHONG, TEXTURED> kind
+present, small objects included, and ``setup_scene_plain`` loops over
+``setup_plain`` into the same table.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -36,6 +44,7 @@ from ..geometry.vertex import (
     F_YMAX,
     F_YMIN,
     REC_LANES,
+    scene_setup_params,
     setup_fields,
     setup_params,
     setup_records,
@@ -50,6 +59,9 @@ SETUP_BLK = 1024  # triangles per block of the padded table
 # (geometry.vertex.setup_records, torch ops) instead of the K1 kernel, as
 # the JAX package runs its XLA chain there.
 FUSED_SETUP_MIN = 4096
+# The small-object chain pads each object's table to this many rows.
+OBJ_PAD = 128
+SETUP_THREADS = 128  # K1's block: the grouped launch's unit of rows
 
 
 class SetupOut:
@@ -105,7 +117,7 @@ def setup_records_fused(obj: RenderObject, transform: ProjectiveTransform,
     if frame_height is None or frame_width is None:
         raise ValueError("setup_records_fused needs the global frame dims")
     T = obj.num_triangles
-    tp = -(-max(T, 1) // blk) * blk
+    tp = object_rows(max(T, 1), blk)
     params = setup_params(obj.p, transform, lights)
     recs, bbox = setup_kernel(
         params, obj.vertices, obj.colors, obj.normals,
@@ -194,4 +206,166 @@ def setup_plain(params, verts, cols, nrms, *, n_lights: int, phong: bool,
         torch.stack([tri_valid.to(F32), ylo, yhi, xlo, xhi]),
         rec.new_zeros((3, tp)),
     ])
+    return recs, bbox
+
+
+def object_rows(T: int, blk: int | None = None) -> int:
+    """An object's rows in a record table: its T triangles rounded up to a
+    multiple of ``blk``, by default the pad its own setup gives it, K1's
+    (``_setup_blk``) from FUSED_SETUP_MIN triangles, the small-object
+    chain's (OBJ_PAD) below, so always a multiple of SETUP_THREADS. The
+    one-object table, the small objects' concatenated table and the
+    grouped table all lay their rows out by it."""
+    if blk is None:
+        blk = _setup_blk(T) if T >= FUSED_SETUP_MIN else OBJ_PAD
+    return -(-T // blk) * blk
+
+
+class ScenePlan(NamedTuple):
+    """A scene's objects laid out in one record table.
+
+    objects: per object in submission order, (p, verts, cols, nrms, uvs or
+    None, phong); row0: its first row, which is its first gid; rows: its
+    rows (``object_rows``); kinds: per <PHONG, TEXTURED> kind present,
+    (phong, textured, first entry of ``table``, entries, blocks); table:
+    on the card, the (n, SCENE_FIELDS) int64 rows of csrc/setup.cu's
+    SetupObject, grouped by kind, else None."""
+
+    objects: tuple
+    row0: tuple
+    rows: tuple
+    kinds: tuple
+    table: torch.Tensor | None
+
+    @property
+    def total(self) -> int:
+        return self.row0[-1] + self.rows[-1]
+
+    @property
+    def num_triangles(self) -> int:
+        return sum(int(o[1].shape[2]) for o in self.objects)
+
+
+SCENE_FIELDS = 9  # int64 fields of csrc/setup.cu's SetupObject
+KINDS = ((True, False), (True, True), (False, False), (False, True))
+
+
+def plan_scene_setup(scene, n_lights: int) -> ScenePlan:
+    """The ScenePlan of ``scene`` ([(RenderObject, ObjectConfig)]): each
+    object's rows follow the last's. On the card it checks every plane and
+    uploads the table from pinned memory, with no wait for the device."""
+    objects, row0, rows, at = [], [], [], 0
+    for obj, cfg in scene:
+        n = object_rows(obj.num_triangles)
+        objects.append((obj.p, obj.vertices, obj.colors, obj.normals,
+                        obj.uvs if cfg.textured else None, bool(cfg.phong)))
+        row0.append(at)
+        rows.append(n)
+        at += n
+    dev = objects[0][1].device
+    entries, kinds = [], []
+    for phong, textured in KINDS:
+        first, blocks = len(entries), 0
+        for i, (_, v, c, nr, uv, ph) in enumerate(objects):
+            if (ph, uv is not None) != (phong, textured):
+                continue
+            entries.append((v, c, nr, uv, i, blocks))
+            blocks += rows[i] // SETUP_THREADS
+        if blocks:
+            kinds.append((phong, textured, first, len(entries) - first,
+                          blocks))
+    table = None
+    if dev.type == "cuda":
+        stride = 12 + 7 * n_lights
+        flat = []
+        for v, c, nr, uv, i, block0 in entries:
+            T = int(v.shape[2])
+            planes = [("verts", v, 3), ("cols", c, 4), ("nrms", nr, 3)]
+            if uv is not None:
+                planes.append(("uvs", uv, 2))
+            for name, t, ch in planes:
+                _cuda.check_tensor(name, t, dev, F32, (ch, 3, T))
+            flat.append((v.data_ptr(), c.data_ptr(), nr.data_ptr(),
+                         0 if uv is None else uv.data_ptr(), T, rows[i],
+                         row0[i], i * stride, block0))
+        table = torch.tensor(flat, dtype=torch.int64,
+                             pin_memory=True).to(dev, non_blocking=True)
+    return ScenePlan(tuple(objects), tuple(row0), tuple(rows), tuple(kinds),
+                     table)
+
+
+def setup_scene(plan: ScenePlan, transform: ProjectiveTransform,
+                lights: LightData, frame_height: int,
+                frame_width: int) -> SetupOut:
+    """The scene's record table and bbox rows as one SetupOut: every
+    object's ``setup_params`` in one batched op, then
+    ``setup_scene_kernel``. Row g is gid g; an object's pad rows are
+    invalid records."""
+    with annotate("tr.setup"):
+        params = scene_setup_params(torch.stack([o[0] for o in plan.objects]),
+                                    transform, lights)
+        recs, bbox = setup_scene_kernel(
+            params, plan, n_lights=lights.count, frame_height=frame_height,
+            frame_width=frame_width)
+        return SetupOut(recs, (bbox[0] > 0.5, bbox[1], bbox[2], bbox[3],
+                               bbox[4]), plan.num_triangles)
+
+
+def setup_scene_kernel(params, plan: ScenePlan, *, n_lights: int,
+                       frame_height: int, frame_width: int):
+    """Grouped K1: (recs (total, 128) f32, bbox (8, total) f32) of every
+    object of ``plan`` at its rows, ``params`` its (n, 12 + 7 * n_lights)
+    ``scene_setup_params``.
+
+    CUDA tensors launch ``tr_setup_grouped`` (csrc/setup.cu
+    ``setup_kernel_grouped``) once per kind of ``plan.kinds`` and count
+    the launches in ``setup_scene_kernel.launches``; CPU tensors run
+    ``setup_scene_plain``."""
+    kw = dict(n_lights=n_lights, frame_height=frame_height,
+              frame_width=frame_width)
+    dev = params.device
+    if dev.type == "cpu":
+        return setup_scene_plain(params, plan, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"K1 runs on CUDA or CPU tensors, not {dev}")
+    total = plan.total
+    _cuda.check_tensor("params", params, dev, F32,
+                       (len(plan.rows), 12 + 7 * n_lights))
+    if plan.table is None or plan.table.device != dev:
+        raise ValueError("the plan's table is not on the params' card")
+    if not total < 2 ** 24:
+        raise ValueError(f"{total} rows: the f32 gid lane is exact to 2^24")
+    recs = torch.empty((total, REC_LANES), dtype=F32, device=dev)
+    bbox = torch.empty((8, total), dtype=F32, device=dev)
+    base = plan.table.data_ptr()
+    for phong, textured, first, count, blocks in plan.kinds:
+        _cuda.launch(
+            "tr_setup_grouped", dev, base + first * SCENE_FIELDS * 8, count,
+            blocks, params.data_ptr(), n_lights, int(phong), int(textured),
+            total, int(frame_height), int(frame_width), recs.data_ptr(),
+            bbox.data_ptr())
+        setup_scene_kernel.launches += 1
+    return recs, bbox
+
+
+setup_scene_kernel.launches = 0
+_cuda.declare("tr_setup_grouped", [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+
+
+def setup_scene_plain(params, plan: ScenePlan, *, n_lights: int,
+                      frame_height: int, frame_width: int):
+    """Plain grouped K1: ``setup_plain`` of each object, with its row of
+    ``params``, its first row as gid0 and its rows as tp, into one
+    table."""
+    recs = params.new_empty((plan.total, REC_LANES))
+    bbox = params.new_empty((8, plan.total))
+    for i, ((_, verts, cols, nrms, uvs, phong), r0, n) in enumerate(
+            zip(plan.objects, plan.row0, plan.rows)):
+        recs[r0:r0 + n], bbox[:, r0:r0 + n] = setup_plain(
+            params[i], verts, cols, nrms, n_lights=n_lights, phong=phong,
+            gid0=r0, frame_height=frame_height, frame_width=frame_width,
+            tp=n, uvs=uvs)
     return recs, bbox

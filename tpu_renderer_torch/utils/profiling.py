@@ -5,10 +5,12 @@
   of each frame.
 - annotate(): the program's span. Each layer of a frame runs inside one,
   at the function where its work starts: ``tr.render`` (the engine,
-  ``Renderer.render``), ``tr.geometry`` (``rotate_object``), ``tr.setup``,
-  ``tr.binning``, ``tr.raster`` and ``tr.shade`` (the deferred shade, pack
-  and merge). Off, a span costs one flag test; ``spans()`` turns them on
-  and hands back what they recorded, and ``self_ms`` reads it.
+  ``Renderer.render``), ``tr.geometry`` (``rotate_object``), ``tr.scene``
+  (the assembly of a multi-object draw, ``engine.renderer._scene_table``,
+  with its ``tr.setup`` inside), ``tr.setup``, ``tr.binning``,
+  ``tr.raster`` and ``tr.shade`` (the deferred shade, pack and merge).
+  Off, a span costs one flag test; ``spans()`` turns them on and hands
+  back what they recorded, and ``self_ms`` reads it.
 - trace(): a torch.profiler trace of a block (host and card), the spans
   in it, written for TensorBoard's profiler plugin or chrome://tracing.
 """
