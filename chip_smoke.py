@@ -87,8 +87,8 @@ Phases (any failure raises and the script exits nonzero):
    the crop of the card's whole frame;
 5. paths, each through Renderer(device="cuda") for 3 warm-up and 20 timed
    frames, every object rotated about y each frame (K13, once an object a
-   frame), the launch counts set to 0 just before the path and read just
-   after:
+   frame), every sorted draw binned by K14 (once a frame), the launch counts
+   set to 0 just before the path and read just after:
    - headline: a 1,001,112-triangle dense Phong sphere
      (construct_sphere_grid(708, 707)) at 1920x1080: K1 and K2 once per
      frame; its last frame is held to the sphere's analytic silhouette
@@ -152,7 +152,13 @@ Phases (any failure raises and the script exits nonzero):
    device time from a profiler trace and the time of zeroing its outputs,
    the card's own write of those bytes; K1's grouped form on stack6's six
    objects, also bit-equal to and timed beside one K1 launch an object at
-   the same rows; K13 on the headline's planes; K3,
+   the same rows; K13 on the headline's planes; K14, the sorted binning,
+   on K1's bboxes of each of the benchmark's five cells (portbench's
+   configurations at their frame sizes, the fused or G-buffer route the
+   engine takes), integer-exact against ``bin_for_raster_plain``, with its
+   device ops (none named like a kernel the benchmark's order split finds,
+   the last no memset) and its byte bound (the bbox planes read, the keys
+   written, the sort's radix passes over keys and indices, the outputs); K3,
    K4, K6, K8 and the 32-row K4, K6, K8, whose event times are near the
    launch floor, also with their device and host time from a profiler
    trace; K6 and K8, 16 and 32 rows, also beside the card zeroing their
@@ -229,7 +235,7 @@ Phases (any failure raises and the script exits nonzero):
    and gathers it; four gloo ranks (spawned by ``entry.run_ranks`` with
    backend="gloo", the kernels built once before; on one card they share
    it) render the headline at 1920x1080 tiled over ('ty', 'tx') = (2, 2),
-   each rank launching K1 and K2 once (its counts set to 0 just before
+   each rank launching K1, K14 and K2 once (its counts set to 0 just before
    and read just after), and config 5 object-sharded over ('obj', 'ty') =
    (2, 2); then ``dryrun_multichip(4)`` on gloo. Every frame bit-equal to
    the unsharded one; a failing rank fails the script. The wall ms of
@@ -237,7 +243,7 @@ Phases (any failure raises and the script exits nonzero):
    ranks time-slice one card, so they measure no scale-out;
 10. cards (``cards_phase``), with four cards or more: four NCCL ranks,
    rank r on cuda:r, each a warm-up and one timed frame at 1920x1080 of
-   the headline tiled over ('ty', 'tx') = (2, 2) (K1 and K2 once a rank
+   the headline tiled over ('ty', 'tx') = (2, 2) (K1, K14 and K2 once a rank
    and nothing else), the headline over ('tr',) = 4 (250,278 triangles a
    card, then one all-gather of the (z, colour, key) planes), stack6 over
    ('host', 'ty') = (2, 2) and config 5 over ('obj', 'ty') = (2, 2), then
@@ -265,8 +271,10 @@ Phases (any failure raises and the script exits nonzero):
    with the claimed stream counts, side list and drops; its outputs (z,
    gid, colour; the G-buffer's gid and 11 planes) are bit-equal to its
    plain version on the card, its stats to the CPU's;
-   K11's skipped batches equal the serial replay; K1 and K7 against their
-   plain versions; scenes that drop nothing (up to 10,000 triangles) are
+   K11's skipped batches equal the serial replay; every sorted form's bins
+   and side-list gate from K14 integer-exact against the CPU's plain
+   binning, one K14 launch a sorted draw; K1 and K7 against their plain
+   versions; scenes that drop nothing (up to 10,000 triangles) are
    bit-equal to the NumPy spec, each fused form and the whole frame. One
    line per family; every kernel form (K1-K11, K4 and K9 at 16, 32 and
    the band form) launched. ``python3 chip_smoke.py --sweep-only
@@ -397,7 +405,30 @@ KERNELS = {
         source="tpu_renderer_torch/csrc/transform.cu",
         replaces="none: tpu_renderer/geometry/transform.py rotate_object "
                  "is XLA ops", path="headline"),
+    "K14 binning": dict(
+        source="tpu_renderer_torch/csrc/binning.cu",
+        replaces="none: tpu_renderer/ops/binning.py bin_triangles_queue "
+                 "is XLA ops", path="headline"),
 }
+# The kernels of the sorted strategy's draws, each binned once by K14.
+SORTED = {"K2 raster+shade", "K3 raster+shade rows 1",
+          "K4 raster+shade 16-row", "K4 raster+shade 32-row",
+          "K4 raster+shade band", "K9 G-buffer sorted", "K11 zcull",
+          "K11 zcull rows 1"}
+# K14 at the benchmark's cells (portbench/configs, BENCHMARK.json): (cell,
+# configuration, frame height, width); each binned on the route the engine
+# takes for it, the fused one or the G-buffer one (deferred).
+K14_CELLS = (
+    ("sphere1m_phong.orbit_1080p", "sphere1m_phong", 1080, 1920),
+    ("sphere1m_deferred.orbit_1080p", "sphere1m_deferred", 1080, 1920),
+    ("sphere1m_phong.orbit_2160p", "sphere1m_phong", 2160, 3840),
+    ("sphere1m_deferred.orbit_2160p", "sphere1m_deferred", 2160, 3840),
+    ("sphere_cluster.orbit_1080p", "sphere_cluster", 1080, 1920))
+# Kernel names the benchmark's order split (portbench/trace.py) finds by
+# substring: none of K14's may hold one.
+SPLIT_NAMES = ("setup_kernel", "records_kernel", "part_scan_kernel",
+               "split_walk_kernel", "split_finalize_kernel",
+               "band_walk_kernel", "mask_kernel")
 # The wrapper whose launch counter a KERNELS entry reads: K1 textured is
 # K1's wrapper with uvs; K5 runs inside K2's launches on its path, K10
 # inside K9's; the 32-row forms of K6, K8 and K9 and K9's band form are
@@ -1450,9 +1481,10 @@ def mesh_phase(dev, smi_line, head_scene, head_tr, head_li, h, w):
     for rank, frames in enumerate(ranks):
         local, full, ms, gather_ms, launches = frames["headline"]
         counted = {n: c for n, c in launches.items() if c}
-        if counted != {"setup.setup_kernel": 1, "raster.raster_kernel": 1}:
+        if counted != {"setup.setup_kernel": 1, "raster.bin_for_raster": 1,
+                       "raster.raster_kernel": 1}:
             raise AssertionError(f"mesh headline, rank {rank}: launches "
-                                 f"{counted}, want K1 and K2 once")
+                                 f"{counted}, want K1, K14 and K2 once")
         r0, c0 = (rank // 2) * lh, (rank % 2) * lw
         assert_equal(f"mesh headline, rank {rank}'s rect", frame_of(local),
                      tuple(p[r0:r0 + lh, c0:c0 + lw] for p in head_want))
@@ -1472,7 +1504,7 @@ def mesh_phase(dev, smi_line, head_scene, head_tr, head_li, h, w):
     n_tris = head_scene[0][0].num_triangles
     log(f"# mesh gloo x{MESH_RANKS} on {dev}: headline ({n_tris} tris) "
         f"{w}x{h} tiled over (2, 2), {lw}x{lh} a "
-        f"rank, K1 and K2 once on every rank, each rect and the gathered "
+        f"rank, K1, K14 and K2 once on every rank, each rect and the gathered "
         f"frame == the unsharded frame, bit-equal; config 5 object-sharded "
         f"over ('obj', 'ty') = (2, 2) == Renderer's frame, bit-equal")
 
@@ -1553,7 +1585,7 @@ def cards_phase(smi_lines, h, w):
     Cases, each at h x w, a warm-up frame then one timed frame a rank
     (entry.mesh_frames; the launch counts set to 0 just before it):
     - the headline tiled over ('ty', 'tx') = (2, 2): every rank launches
-      K1 and K2 once and nothing else, then gather_framebuffer;
+      K1, K14 and K2 once and nothing else, then gather_framebuffer;
     - the headline geometry-sharded over ('tr',) = 4: 250,278 triangles a
       card through K1, K9 + K10 and the shade, then the fold's one
       all-gather of the (z, colour, key) planes (its gather ms: that
@@ -1634,10 +1666,11 @@ def cards_phase(smi_lines, h, w):
                                          f"{rank}'s {what}: {diff}")
             counted = {n: c for n, c in launches.items() if c}
             if mode == "tiled" and counted != {"setup.setup_kernel": 1,
+                                               "raster.bin_for_raster": 1,
                                                "raster.raster_kernel": 1}:
                 raise AssertionError(f"cards phase, {name}, rank {rank}: "
-                                     f"launches {counted}, want K1 and K2 "
-                                     f"once")
+                                     f"launches {counted}, want K1, K14 and "
+                                     f"K2 once")
             per["render_ms"].append(ms)
             per["gather_ms"].append(gather_ms)
             per["launches"].append(counted)
@@ -1675,7 +1708,7 @@ SWEEP_KERNELS = {
 SWEEP_MUST = ("K1", "K1 grouped", "K2", "K3", "K4 <16>", "K4 <32>",
               "K4 band", "K5", "K6", "K7", "K8", "K9 + K10 <8>",
               "K9 + K10 <16>", "K9 + K10 <32>", "K9 + K10 band", "K10",
-              "K11 rows 1", "K11 rows 2")
+              "K11 rows 1", "K11 rows 2", "K14")
 SWEEP_GOLDEN_MAX_TRIS = 10000  # larger scenes are held to the plain versions
 
 
@@ -1927,6 +1960,7 @@ def sweep_phase(dev, smi_line, families=None, seeds=None):
                             f"{form.tile_h} zcull {form.zcull} (route "
                             f"{form.route}, {form.entry})")
                     before = {k: w.launches for k, w in wrappers.items()}
+                    k14_before = raster.bin_for_raster.launches
                     launch = sweep_launch(sc, form, scene, tr, li)
                     mid = {k: w.launches for k, w in wrappers.items()}
                     setup_got = {k: mid[k] - before[k] for k in mid
@@ -1948,11 +1982,25 @@ def sweep_phase(dev, smi_line, families=None, seeds=None):
                              else ("z", "gid", "color"))
                     sweep_bits_differ(what, names, got, want, sc.origin)
                     t0 = time.perf_counter()
-                    cpu_stats = sweep_stats(sweep_launch(sc, form, *cpu))
+                    cpu_launch = sweep_launch(sc, form, *cpu)
+                    cpu_stats = sweep_stats(cpu_launch)
                     spent["cpu_stats"] += time.perf_counter() - t0
                     if stats != cpu_stats:
                         raise AssertionError(f"{what}: stats {stats} on the "
                                              f"card, {cpu_stats} on the CPU")
+                    # K14: the bins and the side-list gate, integer-exact
+                    # against the CPU's plain binning, one launch a draw
+                    sorted_form = launch.route.strategy == "sorted"
+                    k14 = raster.bin_for_raster.launches - k14_before
+                    if k14 != int(sorted_form):
+                        raise AssertionError(f"{what}: K14 launched {k14}")
+                    if sorted_form:
+                        assert_equal(
+                            f"{what}: K14 bins against the CPU's",
+                            tuple(launch.operands[1]) + (launch.operands[2],),
+                            tuple(cpu_launch.operands[1])
+                            + (cpu_launch.operands[2],))
+                        counts["K14"] = counts.get("K14", 0) + 1
                     for k, n in list(setup_got.items()) + list(ran.items()):
                         key = sweep_kernel(k, launch.route.tile_h)
                         counts[key] = counts.get(key, 0) + n
@@ -2080,7 +2128,7 @@ def main():
         torch_scene as route_torch_scene
     from tpu_renderer_torch.models.sphere import construct_sphere
     from tpu_renderer_torch.models.textures import checkerboard
-    from tpu_renderer_torch.ops import gbuffer, raster, setup
+    from tpu_renderer_torch.ops import binning, gbuffer, raster, setup
     from tpu_renderer_torch.ops.shading import shade_merge, shade_merge_plain
     from tpu_renderer_torch.geometry.transform import (rotate_kernel,
                                                        rotate_plain,
@@ -2106,6 +2154,7 @@ def main():
         "K4 raster+shade band": raster.raster_narrow_any_kernel,
         "K12 deferred shade": shade_merge,
         "K13 rotate": rotate_kernel,
+        "K14 binning": raster.bin_for_raster,
     }
 
     # 1. Device.
@@ -2149,8 +2198,25 @@ def main():
                              f"kernel: {mask_ptxas}; of the band walk: "
                              f"{band_ptxas}; of K1 grouped: {k1g_ptxas}; "
                              f"of K13: {k13_ptxas}")
+    k14_ptxas = {}
+    for label, mangled in (
+            ("bin_entries_kernel<short, 1>",
+             r"_ZN2tr18bin_entries_kernelIsLi1EEE"),
+            ("bin_entries_kernel<short, 2>",
+             r"_ZN2tr18bin_entries_kernelIsLi2EEE"),
+            ("bin_entries_kernel<int, 1>",
+             r"_ZN2tr18bin_entries_kernelIiLi1EEE"),
+            ("bin_entries_kernel<int, 2>",
+             r"_ZN2tr18bin_entries_kernelIiLi2EEE"),
+            ("bin_bounds_kernel<short>", r"_ZN2tr17bin_bounds_kernelIsE"),
+            ("bin_bounds_kernel<int>", r"_ZN2tr17bin_bounds_kernelIiE"),
+            ("bin_finish_kernel", r"_ZN2tr17bin_finish_kernelE")):
+        for info in ptxas_info(_cuda.build_info["log"], label,
+                               mangled).values():
+            k14_ptxas[label] = info
     for form, info in k1_ptxas.items():
         log(f"# K1 ptxas {form}: {json.dumps(info)}")
+    log(f"# K14 ptxas: {json.dumps(k14_ptxas)}")
     for form, info in mask_ptxas.items():
         log(f"# K6/K8 ptxas {form}: {json.dumps(info)}")
     for form, info in band_ptxas.items():
@@ -2698,6 +2764,7 @@ def main():
         launches = {n: wr.launches for n, wr in wrappers.items()}
         want = {n: n_frames if n in kernels else 0 for n in wrappers}
         want["K13 rotate"] = n_frames * len(scene)
+        want["K14 binning"] = n_frames if set(kernels) & SORTED else 0
         if launches != want:
             raise AssertionError(f"{path}: launches {launches} in "
                                  f"{n_frames} frames, want {want}")
@@ -3205,8 +3272,103 @@ def main():
             f"device {dev_ms:.4f}, host {host_ms:.4f}), plain {pms:.4f} ms "
             f"(device {plain_dev:.4f}), bound {bms:.4f} ms ({by})")
 
+    def k14_cell(config, h, w):
+        """K1's bbox planes of a benchmark configuration's scene at a frame
+        size (its objects unturned, portbench's own constructors) and the
+        route the engine bins it on: the fused one, or the G-buffer one
+        where an object is over the fused limits."""
+        from portbench import harness as pb_harness
+        from portbench import scene as pb_scene
+        from tpu_renderer_torch.engine.renderer import _scene_table
+
+        with open(os.path.join(ROOT, "portbench", "configs",
+                               config + ".json")) as f:
+            cfg_ = json.load(f)
+        sg_, tr_d, li_d = pb_scene.build(cfg_, h, w,
+                                         np.random.default_rng(0))
+        sc_, tr_, li_ = pb_harness.device_scene(sg_, tr_d, li_d, dev)
+        if len(sc_) == 1:
+            (o, c), = sc_
+            table = setup.setup_for_raster(o, tr_, li_, c, frame_height=h,
+                                           frame_width=w)
+            fused = _obj_fusable(o, c)
+        else:
+            table, _, _ = _scene_table(sc_, tr_, li_, h, w)
+            fused = True
+        t_ = table.num_triangles
+        route = (raster.raster_route(t_, h, w, len(sc_)) if fused
+                 else gbuffer.gbuffer_route(t_, h, w))
+        return table.bbox, route
+
+    def call_ops(fn):
+        """The device ops of one call of ``fn``, in the order they ran."""
+        from torch.autograd import DeviceType
+
+        events = trace_calls(fn, 1)
+        ops = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                      and e.name != "call"),
+                     key=lambda e: e.time_range.start)
+        return [e.name for e in ops]
+
+    def time_k14(cell, config, h, w):
+        """K14 on a benchmark cell's bbox planes and route: integer-exact
+        against ``bin_for_raster_plain``, timed beside it, its device ops
+        (none named like a kernel the benchmark's order split looks for,
+        the last no memset), and its byte bound: the five bbox planes read
+        (17 B a triangle), the keys written, each radix pass of the sort
+        reading and writing every key and its 8-byte index (8-bit digits:
+        as many passes as key bytes), the outputs written."""
+        name = "K14 binning"
+        bbox, route = k14_cell(config, h, w)
+
+        def fn():
+            return raster.bin_for_raster(bbox, route, h, w)
+
+        def plain():
+            return raster.bin_for_raster_plain(bbox, route, h, w)
+
+        def flat(out):
+            return tuple(out[0]) + (out[1],)
+        max_err[name] = max(max_err[name], assert_equal(
+            f"{name} at {cell}", flat(fn()), flat(plain())))
+        kms, pms = in_turns(fn, plain)
+        host_ms, dev_ms, _ = profile_calls(fn, 20)
+        _, plain_dev, _ = profile_calls(plain, 5)
+        ops = call_ops(fn)
+        if "Memset" in ops[-1] or any(k in op for op in ops
+                                      for k in SPLIT_NAMES):
+            raise AssertionError(f"{name} at {cell}: device ops {ops}")
+        n = int(bbox[0].numel())
+        lay = binning.queue_layout(n, h, w, route.tile_h, raster.TILE_W,
+                                   route.blk, route.expansion,
+                                   route.budget_factor, route.rows)
+        kb = 2 if lay.key_dtype is torch.int16 else 4
+        nbytes = (17 * n + kb * lay.n_keys + kb * 2 * (kb + 8) * lay.n_keys
+                  + 4 * lay.streams * (lay.eb + 2 * (lay.ntiles + 1))
+                  + 4 * (lay.ntiles + raster.LARGE_CAPACITY))
+        bms, by = bound(nbytes, 0)
+        timing.setdefault(name, (kms, pms, bms, by, None))
+        q = fn()[0]
+        k14_info[cell] = dict(
+            tris=n, frame=[w, h], route=list(route[:4]),
+            key_bits=8 * kb, keys=lay.n_keys, eb=lay.eb,
+            real_entries=int(q.n_real), n_large=int(q.n_large),
+            ms=round(kms, 4), device_ms=round(dev_ms, 4),
+            host_ms=round(host_ms, 4), plain_ms=round(pms, 4),
+            plain_device_ms=round(plain_dev, 4), bound_ms=round(bms, 6),
+            bound_by=by, device_ops=len(ops),
+            ops=[op[:48] for op in ops])
+        log(f"# {name} at {cell} ({n} tris, route {tuple(route[:4])}, "
+            f"{8 * kb}-bit keys): kernel {kms:.4f} ms (profiler: device "
+            f"{dev_ms:.4f}, host {host_ms:.4f}; {len(ops)} device ops), "
+            f"plain {pms:.4f} ms (device {plain_dev:.4f}), bound "
+            f"{bms:.4f} ms ({by}); ops {[op[:40] for op in ops]}")
+
     time_k1_grouped("stack6", scene6, tr6, li6)
     time_k13("headline", obj)
+    k14_info = {}
+    for cell_, config_, h_, w_ in K14_CELLS:
+        time_k14(cell_, config_, h_, w_)
     head_launch = prepare_scene(head_scene, head_tr, head_li, H, W)
     per_tile = head_launch.qbins.counts[:-2].reshape(-1, 2).sum(dim=1)
     log(f"# K2 load: {int((per_tile > 0).sum())} of {per_tile.numel()} "
@@ -3949,6 +4111,9 @@ def main():
         if name == "K13 rotate":
             entry["by_path"] = k13_info
             entry["ptxas"] = k13_ptxas
+        if name == "K14 binning":
+            entry["by_cell"] = k14_info
+            entry["ptxas"] = k14_ptxas
         if name in dev_info:
             entry.update(dev_info[name])
         if name in strip_sweep:

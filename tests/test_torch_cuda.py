@@ -1125,20 +1125,24 @@ def baseline_torch_scene(n, h, w, device):
     return ts.to_torch_scene(sg, tr_d, li_d, device=device)
 
 
-# name: (scene function, (h, w), the kernels one frame launches)
+# name: (scene function, (h, w), the kernels one frame launches; K14,
+# raster.bin_for_raster, bins each sorted draw)
 CROSS_CARD = {
     "headline (K1 + K2)": (
         lambda h, w, dev: ts.stack_scene(708, 707, 1, h, w, device=dev),
-        (1080, 1920), {"setup.setup_kernel": 1, "raster.raster_kernel": 1}),
+        (1080, 1920), {"setup.setup_kernel": 1, "raster.bin_for_raster": 1,
+                       "raster.raster_kernel": 1}),
     "config 5 (K7 + K4)": (
         lambda h, w, dev: baseline_torch_scene(5, h, w, dev), (1080, 1920),
-        {"raster.finish_records": 1, "raster.raster_narrow_kernel": 1}),
+        {"raster.finish_records": 1, "raster.bin_for_raster": 1,
+         "raster.raster_narrow_kernel": 1}),
     "config 3 avx (K8)": (
         config3_avx_scene, (512, 512),
         {"raster.finish_records": 1, "gbuffer.raster_pass": 1}),
     "deferred 40k (K9 + K10)": (
         deferred40k_scene, (1080, 1920),
-        {"setup.setup_kernel": 1, "gbuffer.raster_pass_queue": 1}),
+        {"setup.setup_kernel": 1, "raster.bin_for_raster": 1,
+         "gbuffer.raster_pass_queue": 1}),
 }
 
 

@@ -188,13 +188,16 @@ def host_frame(fb):
 
 def launch_counters() -> dict:
     """{name: wrapper} of every kernel wrapper that counts its launches
-    (``wrapper.launches``: one per CUDA launch, none on the CPU)."""
+    (``wrapper.launches``: one per CUDA launch, none on the CPU), each
+    under the module that defines it (``ops.gbuffer`` imports
+    ``raster.bin_for_raster``, counted once)."""
     from .ops import gbuffer, raster, setup
 
     return {f"{m.__name__.rsplit('.', 1)[1]}.{n}": f
             for m in (setup, raster, gbuffer)
             for n, f in sorted(vars(m).items())
-            if callable(f) and hasattr(f, "launches")}
+            if callable(f) and hasattr(f, "launches")
+            and getattr(f, "__module__", None) == m.__name__}
 
 
 SHARDED = {"tiled": pm.render_scene_tiled,

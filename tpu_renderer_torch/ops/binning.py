@@ -8,7 +8,8 @@ in ``n_dropped``), ``count_subset_per_tile``,
 ``_large_side_list`` (the searchsorted form), ``_bin_queue_rows`` (row
 packing, two strip streams) and the single-stream branch of
 ``bin_triangles_queue``. Every array compares integer-exact with the JAX
-package's:
+package's (these torch ops are the plain version; on CUDA tensors the
+sorted strategy runs K14, ``bin_queue_kernel``, below):
 
 - sort keys are int64 ``(tile << 32) | tri``, one sort per stream, which
   orders entries exactly like the JAX package's packed u32 keys (and its
@@ -23,11 +24,13 @@ package's:
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import _cuda
 from ..core.math import clip, maximum, minimum, scalar, to_i32
 from ..geometry.vertex import EDGE_STRIDE
 
@@ -420,3 +423,119 @@ def bin_triangles_queue(height: int, width: int, tile_h: int, tile_w: int,
         bbox, height, width, tile_h, tile_w, blk, expansion, budget_factor,
         large_capacity, row0, col0,
     )
+
+
+# ---------------------------------------------------------------------------
+# K14: the sorted strategy's binning as CUDA kernels around one sort
+# ---------------------------------------------------------------------------
+
+KEY16_VALUES = 2 ** 15  # distinct sort keys an int16 key holds (0..32767)
+
+
+def sort_key_dtype(n_values: int) -> torch.dtype:
+    """The narrowest sort key for keys 0..n_values - 1: int16 up to
+    KEY16_VALUES values (the sort then makes two radix passes), else
+    int32."""
+    return torch.int16 if n_values <= KEY16_VALUES else torch.int32
+
+
+class QueueLayout(NamedTuple):
+    """A sorted draw's shapes as K14 lays them out: ``streams`` streams of
+    ``slots`` slots a triangle (2 per strip stream under row packing, else
+    the expansion), entries triangle-major (triangle t's slot j of stream s
+    at t * streams * slots + s * slots + j), each keyed s * (ntiles + 1) +
+    tile (tile ntiles for a dead slot) in ``key_dtype``; ``eb`` entries a
+    stream kept."""
+
+    streams: int
+    slots: int
+    tiles_y: int
+    tiles_x: int
+    ntiles: int
+    eb: int
+    n_keys: int
+    key_dtype: torch.dtype
+
+
+def queue_layout(T: int, height: int, width: int, tile_h: int, tile_w: int,
+                 blk: int, expansion: int, budget_factor: float,
+                 row_split: int = 1) -> QueueLayout:
+    """The layout of ``bin_triangles_queue``'s streams over T triangles
+    (the bbox planes' length) on the local (height, width) rect."""
+    slots = 2 if row_split > 1 else expansion
+    tiles_y, tiles_x = -(-height // tile_h), -(-width // tile_w)
+    ntiles = tiles_y * tiles_x
+    return QueueLayout(row_split, slots, tiles_y, tiles_x, ntiles,
+                       entry_budget(T, blk, budget_factor, slots),
+                       T * row_split * slots,
+                       sort_key_dtype(row_split * (ntiles + 1)))
+
+
+def check_kernel_layout(lay: QueueLayout) -> None:
+    """Raise unless K14 takes the layout: one or two streams (every route's),
+    streams * slots a power of two of at least 4 (whole 8-byte words of keys,
+    and a shift from an entry to its triangle), fewer than 2^31 keys."""
+    per = lay.streams * lay.slots
+    if lay.streams not in (1, 2) or per < 4 or per & (per - 1) or (
+            lay.n_keys >= 2 ** 31):
+        raise ValueError(
+            f"K14 takes one or two streams of a power-of-two number (>= 4 in "
+            f"all) of slots and < 2^31 keys, not {lay.streams} x "
+            f"{lay.slots} slots, {lay.n_keys} keys")
+
+
+def bin_queue_kernel(bbox, height: int, width: int, tile_h: int, tile_w: int,
+                     blk: int, expansion: int, budget_factor: float,
+                     large_capacity: int, row0: int = 0, col0: int = 0,
+                     row_split: int = 1):
+    """K14 (csrc/binning.cu): ``bin_triangles_queue`` and the side-list
+    gate (``count_subset_per_tile`` over its ``large_ids``) of CUDA bbox
+    planes -> (QueueBins, lcounts (ntiles,) i32), integer-exact against
+    them. Two C entries around one stable ``torch.sort`` of the
+    ``queue_layout`` keys: the entries (keys and the large mask), then the
+    tile bounds and side list, and the outputs. No host sync: every shape
+    is known from T and the grid."""
+    valid = bbox[0]
+    dev = valid.device
+    T = int(valid.shape[0])
+    lay = queue_layout(T, height, width, tile_h, tile_w, blk, expansion,
+                       budget_factor, row_split)
+    check_kernel_layout(lay)
+    if dev.type != "cuda":
+        raise ValueError(f"K14 runs on CUDA tensors, not {dev}")
+    _cuda.check_tensor("tri_valid", valid, dev, torch.bool, (T,))
+    for name, t in zip(("ylo", "yhi", "xlo", "xhi"), bbox[1:]):
+        _cuda.check_tensor(name, t, dev, F32, (T,))
+    rs, nst = lay.streams, lay.streams * (lay.ntiles + 1)
+    key_bytes = 2 if lay.key_dtype is torch.int16 else 4
+    grid = (T, rs, lay.slots, lay.tiles_y, lay.tiles_x, tile_h, tile_w,
+            row0, col0)
+    planes = tuple(t.data_ptr() for t in bbox)
+    keys = torch.empty((lay.n_keys,), dtype=lay.key_dtype, device=dev)
+    nwords, nblocks = -(-T // 32), -(-T // 256)
+    sizes = (nwords, nblocks, nst, 1, rs * lay.eb, nst, nst, large_capacity,
+             lay.ntiles, 4)
+    (words, block_large, first, n_all, sorted_tri, starts, counts, large_ids,
+     lcounts, stats) = torch.empty((sum(sizes),), dtype=I32,
+                                   device=dev).split(sizes)
+    _cuda.launch("tr_bin_entries", dev, *planes, *grid, key_bytes,
+                 keys.data_ptr(), words.data_ptr(), block_large.data_ptr())
+    skeys, perm = torch.sort(keys, stable=True)
+    _cuda.launch("tr_bin_finish", dev, skeys.data_ptr(), key_bytes,
+                 perm.data_ptr(), words.data_ptr(), block_large.data_ptr(),
+                 *planes, *grid, lay.eb, large_capacity, first.data_ptr(),
+                 n_all.data_ptr(), sorted_tri.data_ptr(), starts.data_ptr(),
+                 counts.data_ptr(), large_ids.data_ptr(), lcounts.data_ptr(),
+                 stats.data_ptr())
+    n_large, n_dropped, n_real, util = stats.unbind()
+    return QueueBins(sorted_tri=sorted_tri, starts=starts, counts=counts,
+                     large_ids=large_ids, n_large=n_large,
+                     n_dropped=n_dropped, n_real=n_real,
+                     budget_util=util.view(F32)), lcounts
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_GRID = [_I] * 9  # T, rs, slots, tiles_y, tiles_x, tile_h, tile_w, row0, col0
+_cuda.declare("tr_bin_entries", [_P] * 5 + _GRID + [_I] + [_P] * 4)
+_cuda.declare("tr_bin_finish", [_P, _I, _P, _P, _P] + [_P] * 5 + _GRID
+              + [_I, _I] + [_P] * 8 + [_P])

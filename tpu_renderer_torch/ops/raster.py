@@ -99,6 +99,7 @@ from ..utils.profiling import annotate
 from .binning import (
     QueueBins,
     TileBins,
+    bin_queue_kernel,
     bin_triangles,
     bin_triangles_queue,
     count_subset_per_tile,
@@ -378,7 +379,32 @@ def bin_for_raster(bbox, route: RasterRoute, height: int, width: int,
                    row0: int = 0, col0: int = 0):
     """Binning stage of a sorted draw over the local (height, width) rect
     at origin (row0, col0) from the global-frame ``bbox``: (QueueBins,
-    lcounts (ntiles,) i32, the side-list gate per tile)."""
+    lcounts (ntiles,) i32, the side-list gate per tile).
+
+    CUDA tensors launch K14 (``binning.bin_queue_kernel``, csrc/binning.cu:
+    two C entries around one sort) and count the draw in
+    ``bin_for_raster.launches``; CPU tensors run ``bin_for_raster_plain``."""
+    dev = bbox[0].device
+    if dev.type == "cuda":
+        out = bin_queue_kernel(
+            bbox, height, width, route.tile_h, TILE_W, route.blk,
+            route.expansion, route.budget_factor, LARGE_CAPACITY, row0, col0,
+            route.rows)
+        bin_for_raster.launches += 1
+        return out
+    if dev.type != "cpu":
+        raise ValueError(f"binning runs on CUDA or CPU tensors, not {dev}")
+    return bin_for_raster_plain(bbox, route, height, width, row0, col0)
+
+
+bin_for_raster.launches = 0
+
+
+def bin_for_raster_plain(bbox, route: RasterRoute, height: int, width: int,
+                         row0: int = 0, col0: int = 0):
+    """Plain ``bin_for_raster``, torch ops on any device:
+    ``bin_triangles_queue``, then ``count_subset_per_tile`` over its side
+    list."""
     qbins = bin_triangles_queue(
         height, width, route.tile_h, TILE_W, route.blk,
         expansion=route.expansion, budget_factor=route.budget_factor,
