@@ -18,9 +18,9 @@ Phases (any failure raises and the script exits nonzero):
    one process per source (cached under tpu_renderer_torch/_build by a
    hash of the sources), and prints the registers, shared memory, stack
    frame and spills of each of K1's four instantiations, of the mask
-   kernel's eight (K6 and K8 at strips of 1, 2, 4 and 8 rows) and of the
-   band form's walk (K4 and K9 at other heights: one instantiation, which
-   must report its registers and spills) from ``-Xptxas -v``;
+   kernel's two (K6 and K8, a frame row a block) and of the band form's
+   walk (K4, and K9 above 8 rows: one instantiation, which must report its
+   registers and spills) from ``-Xptxas -v``;
 3. kernels: each kernel against its plain-PyTorch version on the card,
    bit-equal outputs required, with the route of every launch asserted:
    - K1 (setup) and K2 (raster + shade, 8-row tiles, row packing 2) on a
@@ -33,9 +33,9 @@ Phases (any failure raises and the script exits nonzero):
      at ragged padded lengths: config 2's teapot at tp = T and T + 1000,
      the headline sphere at tp = T;
    - K7 (record transpose) on config 4's channel-major table, and K4
-     (16-row tiles) on config 4's sphere at 1920x1080, and on config 5's
-     objects at 1920x1080 in one launch: the three untextured ones, and
-     all four (K5 nearest on the quad);
+     (16-row tiles, the band form) on config 4's sphere at 1920x1080, and
+     on config 5's objects at 1920x1080 in one launch: the three
+     untextured ones, and all four (K5 nearest on the quad);
    - K2 on config 5's three untextured objects at 96x128 (several objects
      under row packing);
    - K6 (the mask strategy) on config 1 (16-row tiles), config 3 (K5
@@ -47,19 +47,18 @@ Phases (any failure raises and the script exits nonzero):
      512x512 (8-row tiles),
      with and without the merged large quad (K10, the side-list fold, runs
      inside K9's launch with it), and on config 4's sphere at 1920x1080
-     (16-row tiles); K8 (mask) on config 3 with 'avx' addressing and on
-     config 1 at 512x512;
-   - the 32-row forms (256-thread blocks for the split kernels), the
-     route scenes of models/route_scenes.py forced to 32-row tiles: K4
-     (sorted) and K6 (mask), with and without side-list triangles,
-     textured (K5) and not, one and several objects; K8 and K9 (K10 on the
-     side-list scenes), gid and all 11 planes; K6 (K5 bilinear) and K8 on
-     64-row tiles, which only the mask kernels run, on the 528-triangle
-     sphere forced to the mask strategy;
-   - the band form (K4, and K9 with K10, on sorted heights without a form
-     of their own) at 24, 40, 48, 56 and 64 rows, at the default part size
-     and at 16 entries a part, the parts read back: K4 on the route
-     scenes' 528-triangle sphere with and without the side list, textured
+     (16-row tiles, the band form); K8 (mask) on config 3 with 'avx'
+     addressing and on config 1 at 512x512;
+   - the route scenes of models/route_scenes.py forced to 32-row tiles:
+     K4 (sorted, the band form) and K6 (mask), with and without side-list
+     triangles, textured (K5) and not, one and several objects; K8 and K9
+     (K10 on the side-list scenes), gid and all 11 planes; K6 (K5
+     bilinear) and K8 on 64-row tiles, which only the mask kernels run, on
+     the 528-triangle sphere forced to the mask strategy;
+   - the band form (K4, and K9 with K10, on sorted heights above 8 rows)
+     at 24, 40, 48, 56 and 64 rows, at the default part size and at 16
+     entries a part, the parts read back: K4 on the route scenes'
+     528-triangle sphere with and without the side list, textured
      (K5), and their multi-object scenes, K9 on the sphere, its side-list
      and G-buffer variants, both on a cube with a 16-unit quad behind it
      at 1408x256, whose quad takes the side list at every height;
@@ -127,13 +126,13 @@ Phases (any failure raises and the script exits nonzero):
      partner;
    - the 32-row paths, through the ops entry points with the route knobs
      (rasterize_shaded, or rasterize_gbuffer + shade_merge): config 4
-     @32 (K7, K4 on 32-row tiles, expansion 32, budget 4); 40k @32
-     (construct_sphere_grid(140, 143), 40,040 Phong triangles, bench.py
-     --scale's first point, at 1920x1080: K1, K4 at 32 rows, expansion 8,
-     budget 2); config 3 @32 (K7, K6 at 32 rows with K5 bilinear); config
-     3 avx @32 (K7, K8 at 32 rows, the deferred shade); deferred 40k @32
-     (deferred 1M's construction on the 40k sphere: K1, K9 at 32 rows with
-     the quad on the side list, K10);
+     @32 (K7, K4's band form on 32-row tiles, expansion 32, budget 4);
+     40k @32 (construct_sphere_grid(140, 143), 40,040 Phong triangles,
+     bench.py --scale's first point, at 1920x1080: K1, K4 at 32 rows,
+     expansion 8, budget 2); config 3 @32 (K7, K6 at 32 rows with K5
+     bilinear); config 3 avx @32 (K7, K8 at 32 rows, the deferred shade);
+     deferred 40k @32 (deferred 1M's construction on the 40k sphere: K1,
+     K9's band form at 32 rows with the quad on the side list, K10);
    - the band paths, the same way: 40k @24 and 40k @64 (K1, K4 in the band
      form), deferred 40k @24 and @64 (K1, K9 + K10 in the band form, the
      shade), headline @64 (the headline's sphere forced to 64-row tiles:
@@ -162,11 +161,7 @@ Phases (any failure raises and the script exits nonzero):
    K4, K6, K8 and the 32-row K4, K6, K8, whose event times are near the
    launch floor, also with their device and host time from a profiler
    trace; K6 and K8, 16 and 32 rows, also beside the card zeroing their
-   outputs, their floor, and over a sweep of the mask strips' height
-   (MASK_STRIP_ROWS: 1, 2, 4, 8 rows) on configs 1 and 3, config 3 avx,
-   their 32-row forms, the 528-triangle sphere forced to the mask strategy
-   and its 64-row tiles, each strip height's frame bit-equal to the plain
-   version, by device time in turns; K7 also beside ``t().contiguous()``,
+   outputs, their floor; K7 also beside ``t().contiguous()``,
    the one PyTorch call that
    transposes, in turns, and each call's host and device time from a
    profiler trace); K5, which has no launch of its own, as the
@@ -177,8 +172,9 @@ Phases (any failure raises and the script exits nonzero):
    turns, with their spread; K8 on config 3
    avx, K9 on deferred 1M, and K10 as K9's time on deferred 1M beside
    K9's on the same sphere without the quad; the split kernels (K2 on the
-   headline, K4 on 32-row tiles on 40k, K9 on deferred 1M and deferred
-   40k @32, K11 on stack6 zcull) also held bit-equal at 16 entries a part,
+   headline, K4's band form on 32-row tiles on 40k, K9 on deferred 1M and
+   deferred 40k @32, K11 on stack6 zcull) also held bit-equal at 16
+   entries a part,
    with their part counts read back from the kernel and held equal to the
    bins', timed beside one part a stream of a tile in turns, and (but
    K11) over a sweep of the entries a part; K11 on stack6 zcull's first
@@ -187,16 +183,13 @@ Phases (any failure raises and the script exits nonzero):
    its bound the launch's work scaled to the batches it folds, and on
    bench.py's order of the stack (outermost first); the 32-row forms (K4
    on config 4 and 40k, K6 on config 3, K8 on config 3 avx, K9 and K10 on
-   deferred 40k), each also beside the 16-row form and the 'auto' route's
-   form on the same scene, in turns, with the same frame; the band form
+   deferred 40k); the band form
    (K4 on 40k @24, 40k @64 and headline @64, frame 0 of that path held to
    its plain version on the card; K9 on deferred 40k @24 and @64; each
    with the walk's device time and its stage A pairs and empty (part,
    band) items against a per-band walk's, counted from the launch's data;
    the split phase at 24 rows; K10 as K9's band form with the quad beside
-   the sphere alone) and the band form at 16 and 32 rows against the 16-
-   and 32-row forms on 40k, config 4, config 5 untextured and textured
-   and deferred 40k, in turns, the same frame; K12, the deferred shade,
+   the sphere alone); K12, the deferred shade,
    on deferred 1M's G-buffer at 1920x1080 and 3840x2160 beside its plain
    chain (shade, pack, merge), by events and by device time from profiler
    traces, with its byte bound, and the fused-against-deferred
@@ -276,8 +269,8 @@ Phases (any failure raises and the script exits nonzero):
    binning, one K14 launch a sorted draw; K1 and K7 against their plain
    versions; scenes that drop nothing (up to 10,000 triangles) are
    bit-equal to the NumPy spec, each fused form and the whole frame. One
-   line per family; every kernel form (K1-K11, K4 and K9 at 16, 32 and
-   the band form) launched. ``python3 chip_smoke.py --sweep-only
+   line per family; every kernel form (K1-K11, K9 at 8 rows and in the
+   band form) launched. ``python3 chip_smoke.py --sweep-only
    [FAMILY ...]`` runs the device, build and sweep phases alone.
 
 ``python3 chip_smoke.py --band-ab OTHER`` runs the device and build
@@ -333,7 +326,7 @@ KERNELS = {
     "K3 raster+shade rows 1": dict(
         source="tpu_renderer_torch/csrc/raster.cu",
         replaces="tpu_renderer/ops/raster_pallas.py:2355", path="config 2"),
-    "K4 raster+shade 16-row": dict(
+    "K4 raster+shade band 16-row": dict(
         source="tpu_renderer_torch/csrc/raster.cu",
         replaces="tpu_renderer/ops/raster_pallas.py:2372", path="config 4"),
     "K5 texture sampling": dict(
@@ -362,7 +355,7 @@ KERNELS = {
         source="tpu_renderer_torch/csrc/raster.cu",
         replaces="tpu_renderer/ops/raster_pallas.py:2384",
         path="stack6 zcull"),
-    "K4 raster+shade 32-row": dict(
+    "K4 raster+shade band 32-row": dict(
         source="tpu_renderer_torch/csrc/raster.cu",
         replaces="tpu_renderer/ops/raster_pallas.py:2372",
         path="config 4 @32"),
@@ -374,11 +367,11 @@ KERNELS = {
         source="tpu_renderer_torch/csrc/raster.cu",
         replaces="tpu_renderer/ops/raster_pallas.py:1756",
         path="config 3 avx @32"),
-    "K9 G-buffer sorted 32-row": dict(
+    "K9 G-buffer sorted band 32-row": dict(
         source="tpu_renderer_torch/csrc/raster.cu",
         replaces="tpu_renderer/ops/raster_pallas.py:1853",
         path="deferred 40k @32"),
-    "K10 G-buffer side list 32-row": dict(
+    "K10 G-buffer side list band 32-row": dict(
         source="tpu_renderer_torch/csrc/raster.cu",
         replaces="tpu_renderer/ops/raster_pallas.py:2018",
         path="deferred 40k @32"),
@@ -412,7 +405,6 @@ KERNELS = {
 }
 # The kernels of the sorted strategy's draws, each binned once by K14.
 SORTED = {"K2 raster+shade", "K3 raster+shade rows 1",
-          "K4 raster+shade 16-row", "K4 raster+shade 32-row",
           "K4 raster+shade band", "K9 G-buffer sorted", "K11 zcull",
           "K11 zcull rows 1"}
 # K14 at the benchmark's cells (portbench/configs, BENCHMARK.json): (cell,
@@ -431,21 +423,21 @@ SPLIT_NAMES = ("setup_kernel", "records_kernel", "part_scan_kernel",
                "band_walk_kernel", "mask_kernel")
 # The wrapper whose launch counter a KERNELS entry reads: K1 textured is
 # K1's wrapper with uvs; K5 runs inside K2's launches on its path, K10
-# inside K9's; the 32-row forms of K6, K8 and K9 and K9's band form are
-# their wrappers at other heights (K4's 32-row and band forms have
-# wrappers of their own).
+# inside K9's; the rows at other heights are their wrappers (K4's band
+# form at 16 and 32 rows is K4's band wrapper, K9's band form K9's).
 COUNTER = {"K1 setup textured": "K1 setup", "K5 texture sampling":
            "K2 raster+shade", "K10 G-buffer side list": "K9 G-buffer sorted",
+           "K4 raster+shade band 16-row": "K4 raster+shade band",
+           "K4 raster+shade band 32-row": "K4 raster+shade band",
            "K6 raster+shade mask 32-row": "K6 raster+shade mask",
            "K8 G-buffer mask 32-row": "K8 G-buffer mask",
-           "K9 G-buffer sorted 32-row": "K9 G-buffer sorted",
-           "K10 G-buffer side list 32-row": "K9 G-buffer sorted",
+           "K9 G-buffer sorted band 32-row": "K9 G-buffer sorted",
+           "K10 G-buffer side list band 32-row": "K9 G-buffer sorted",
            "K9 G-buffer sorted band": "K9 G-buffer sorted",
            "K10 G-buffer side list band": "K9 G-buffer sorted"}
 GBUF_BYTES_PER_PX = 48  # gid and 11 f32 planes
 ONE_PART = 2 ** 31 - 1  # a part size that keeps each stream of a tile whole
 K5_ROUNDS = 6  # profiler traces of each K5 call, in turns
-STRIP_ROWS = (1, 2, 4, 8)  # the mask kernels' strip heights
 BAND_HEIGHTS = (24, 40, 48, 56, 64)  # sorted heights run in the band form
 
 
@@ -606,21 +598,6 @@ def with_part_entries(value, fn, wrapper=None, seen=None):
             raster.RASTER_PART_ENTRIES = old
             if seen is not None:
                 seen[value] = wrapper.part_offsets
-    return run
-
-
-def with_strip_rows(value, fn):
-    """``fn`` run with ``ops.raster.MASK_STRIP_ROWS`` (the rows of the mask
-    kernels' strips) set to ``value``."""
-    from tpu_renderer_torch.ops import raster
-
-    def run():
-        old = raster.MASK_STRIP_ROWS
-        raster.MASK_STRIP_ROWS = value
-        try:
-            return fn()
-        finally:
-            raster.MASK_STRIP_ROWS = old
     return run
 
 
@@ -1700,15 +1677,13 @@ def cards_phase(smi_lines, h, w):
 SWEEP_KERNELS = {
     "tr_setup": "K1", "tr_setup_grouped": "K1 grouped", "tr_records": "K7",
     "tr_raster": "K2",
-    "tr_raster_rows1": "K3", "tr_raster_narrow": "K4 <16>",
-    "tr_raster_narrow32": "K4 <32>", "tr_raster_narrow_any": "K4 band",
+    "tr_raster_rows1": "K3", "tr_raster_narrow_any": "K4 band",
     "tr_raster_mask": "K6", "tr_gbuffer_mask": "K8",
     "tr_raster_zcull": "K11 rows 2", "tr_raster_rows1_zcull": "K11 rows 1"}
 # every kernel form the sweep must launch at least once
-SWEEP_MUST = ("K1", "K1 grouped", "K2", "K3", "K4 <16>", "K4 <32>",
-              "K4 band", "K5", "K6", "K7", "K8", "K9 + K10 <8>",
-              "K9 + K10 <16>", "K9 + K10 <32>", "K9 + K10 band", "K10",
-              "K11 rows 1", "K11 rows 2", "K14")
+SWEEP_MUST = ("K1", "K1 grouped", "K2", "K3", "K4 band", "K5", "K6", "K7",
+              "K8", "K9 + K10 <8>", "K9 + K10 band", "K10", "K11 rows 1",
+              "K11 rows 2", "K14")
 SWEEP_GOLDEN_MAX_TRIS = 10000  # larger scenes are held to the plain versions
 
 
@@ -1722,8 +1697,6 @@ def sweep_wrappers():
         "tr_records": raster.finish_records,
         "tr_raster": raster.raster_kernel,
         "tr_raster_rows1": raster.raster_rows1_kernel,
-        "tr_raster_narrow": raster.raster_narrow_kernel,
-        "tr_raster_narrow32": raster.raster_narrow32_kernel,
         "tr_raster_narrow_any": raster.raster_narrow_any_kernel,
         "tr_raster_mask": raster.raster_mask_kernel,
         "tr_raster_zcull": raster.raster_zcull_kernel,
@@ -1735,10 +1708,9 @@ def sweep_wrappers():
 
 def sweep_kernel(entry, tile_h):
     """The kernel form a launch of ``entry`` counts as in the sweep: K9's
-    by its tile height (8, 16, 32 or the band form)."""
+    by its tile height (8 rows, or the band form)."""
     if entry == "tr_gbuffer_queue":
-        return ("K9 + K10 band" if tile_h not in (8, 16, 32)
-                else f"K9 + K10 <{tile_h}>")
+        return "K9 + K10 <8>" if tile_h == 8 else "K9 + K10 band"
     return SWEEP_KERNELS[entry]
 
 
@@ -2143,14 +2115,12 @@ def main():
         "K1 grouped": setup.setup_scene_kernel,
         "K2 raster+shade": raster.raster_kernel,
         "K3 raster+shade rows 1": raster.raster_rows1_kernel,
-        "K4 raster+shade 16-row": raster.raster_narrow_kernel,
         "K6 raster+shade mask": raster.raster_mask_kernel,
         "K7 record transpose": raster.finish_records,
         "K8 G-buffer mask": gbuffer.raster_pass,
         "K9 G-buffer sorted": gbuffer.raster_pass_queue,
         "K11 zcull": raster.raster_zcull_kernel,
         "K11 zcull rows 1": raster.raster_rows1_zcull_kernel,
-        "K4 raster+shade 32-row": raster.raster_narrow32_kernel,
         "K4 raster+shade band": raster.raster_narrow_any_kernel,
         "K12 deferred shade": shade_merge,
         "K13 rotate": rotate_kernel,
@@ -2189,7 +2159,7 @@ def main():
                            r"_ZN2tr20setup_kernel_groupedI(Lb[01])E(Lb[01])E")
     k13_ptxas = ptxas_info(_cuda.build_info["log"], "rotate_kernel",
                            r"_ZN2tr13rotate_kernelE")
-    if len(k1_ptxas) != 4 or len(mask_ptxas) != 2 * len(STRIP_ROWS) or \
+    if len(k1_ptxas) != 4 or len(mask_ptxas) != 2 or \
             len(band_ptxas) != 1 or len(k1g_ptxas) != 4 or \
             len(k13_ptxas) != 1 or not all(
                 {"registers", "spill_stores"} <= set(v)
@@ -2330,17 +2300,20 @@ def main():
         (raster.finish_records_plain(table4),))
     log(f"# K7 == plain on config 4's {tuple(table4.shape)} table: "
         "bit-equal")
-    check_launch("K4 raster+shade 16-row", "config 4 at 1920x1080",
-                 prepare_scene(scene4, tr4, li4, H, W), (16, 1), 1)
+    check_launch("K4 raster+shade band", "config 4 at 1920x1080",
+                 prepare_scene(scene4, tr4, li4, H, W), (16, 1), 1,
+                 err_key="K4 raster+shade band 16-row")
     sg5full = scenes.baseline_scene(5, H, W)[0]
     sg5 = sg5full[:3]
     scene5, tr5, li5 = torch_scene(sg5, H, W, dev)
-    check_launch("K4 raster+shade 16-row",
+    check_launch("K4 raster+shade band",
                  "config 5 untextured at 1920x1080",
-                 prepare_scene(scene5, tr5, li5, H, W), (16, 1), 3)
+                 prepare_scene(scene5, tr5, li5, H, W), (16, 1), 3,
+                 err_key="K4 raster+shade band 16-row")
     scene5f, tr5f, li5f = torch_scene(sg5full, H, W, dev)
-    check_launch("K4 raster+shade 16-row", "config 5 at 1920x1080",
-                 prepare_scene(scene5f, tr5f, li5f, H, W), (16, 1), 4, 1)
+    check_launch("K4 raster+shade band", "config 5 at 1920x1080",
+                 prepare_scene(scene5f, tr5f, li5f, H, W), (16, 1), 4, 1,
+                 err_key="K4 raster+shade band 16-row")
     sg, (h, w) = route_scene("k2multi")
     scene, tr, li = torch_scene(sg, h, w, dev)
     check_launch("K2 raster+shade", f"config 5 untextured at {w}x{h}",
@@ -2399,7 +2372,8 @@ def main():
         if (quad is not None) != (n_large > 0):
             raise AssertionError(f"{label}: n_large {n_large}")
     check_gbuffer("K9 G-buffer sorted", "config 4 at 1920x1080",
-                  gbuffer.prepare_gbuffer(table4, H, W), ("sorted", 16))
+                  gbuffer.prepare_gbuffer(table4, H, W), ("sorted", 16),
+                  " band")
     sg3avx = [(sg3[0][0], dict(sg3[0][1], uv_mode="avx"))]
     scene3avx, _, _ = torch_scene(sg3avx, 512, 512, dev)
     for label, (obj_, cfg_), tr_, li_ in (
@@ -2409,8 +2383,8 @@ def main():
                       gbuffer_launch(obj_, cfg_, tr_, li_, 512, 512),
                       ("mask", 16))
 
-    # The 32-row forms (256-thread blocks) on the route scenes, forced to
-    # 32-row tiles: K4 (sorted) and K6 (mask) with and without the side
+    # The route scenes forced to 32-row tiles: K4 (sorted, the band form)
+    # and K6 (mask) with and without the side
     # list, textured (K5) and not, one and several objects; K8 and K9 (K10
     # on the side-list scenes: the 2.2-unit quad covers 36 tiles of 32 rows
     # at 384x384, more than the expansion of 32), gid and all 11 planes.
@@ -2423,13 +2397,14 @@ def main():
         mask = name in MASK_NAMES
         sg, (h, w) = route_scene(name, variant)
         scene, tr, li = torch_scene(sg, h, w, dev)
-        kname = "K6 raster+shade mask" if mask else "K4 raster+shade 32-row"
+        kname = "K6 raster+shade mask" if mask else "K4 raster+shade band"
         n_large = check_launch(
             kname, f"route {name} ({variant}) at {w}x{h}, 32-row tiles",
             prepare_scene(scene, tr, li, h, w, tile_h=32,
                           strategy="mask" if mask else "sorted"),
             (32, 1), n_obj, n_tex, err_key=(
-                "K6 raster+shade mask 32-row" if mask else kname))
+                "K6 raster+shade mask 32-row" if mask else
+                "K4 raster+shade band 32-row"))
         if (variant == "sidelist") != (n_large > 0):
             raise AssertionError(f"route {name} ({variant}) at 32 rows: "
                                  f"n_large {n_large}")
@@ -2444,29 +2419,28 @@ def main():
             "K9 G-buffer sorted",
             f"route {name} ({variant}) at {w}x{h}, 32-row tiles",
             gbuffer_launch(*scene[0], tr, li, h, w, strategy=strategy,
-                           tile_h=32), (strategy, 32), " 32-row")
+                           tile_h=32), (strategy, 32),
+            " 32-row" if strategy == "mask" else " band 32-row")
         if (variant != "base" and strategy == "sorted") != (n_large > 0):
             raise AssertionError(f"route {name} ({variant}) G-buffer at 32 "
                                  f"rows: n_large {n_large}")
     # 64-row tiles, which only the mask kernels run (any multiple of 8
     # rows): K6 with K5 bilinear and K8 on the 528-triangle sphere forced to
-    # the mask strategy, whose longest list outgrows one batch of every
-    # strip height.
+    # the mask strategy, whose longest list outgrows one batch of a row.
     sg_k4, (h_k4, w_k4) = route_scene("k4", "textured")
     sg_k4 = [(sg_k4[0][0], dict(sg_k4[0][1], filter_mode="bilinear"))]
     scene_k4, tr_k4, li_k4 = torch_scene(sg_k4, h_k4, w_k4, dev)
-    mask64 = prepare_scene(scene_k4, tr_k4, li_k4, h_k4, w_k4,
-                           strategy="mask", tile_h=64)
     check_launch("K6 raster+shade mask", f"route k4 (528 tris, bilinear), "
-                 f"strategy='mask', at {w_k4}x{h_k4}, 64-row tiles", mask64,
-                 (64, 1), 1, 1)
-    gbuf64 = gbuffer_launch(*scene_k4[0], tr_k4, li_k4, h_k4, w_k4,
-                            strategy="mask", tile_h=64)
+                 f"strategy='mask', at {w_k4}x{h_k4}, 64-row tiles",
+                 prepare_scene(scene_k4, tr_k4, li_k4, h_k4, w_k4,
+                               strategy="mask", tile_h=64), (64, 1), 1, 1)
     check_gbuffer("K8 G-buffer mask", f"route k4 (528 tris), strategy='mask',"
-                  f" at {w_k4}x{h_k4}, 64-row tiles", gbuf64, ("mask", 64))
+                  f" at {w_k4}x{h_k4}, 64-row tiles", gbuffer_launch(
+                      *scene_k4[0], tr_k4, li_k4, h_k4, w_k4,
+                      strategy="mask", tile_h=64), ("mask", 64))
 
-    # The band form (K4 and K9 + K10 on sorted heights without a form of
-    # their own) at every height of BAND_HEIGHTS, at the default part size
+    # The band form (K4 and K9 + K10 on sorted heights above 8 rows) at
+    # every height of BAND_HEIGHTS, at the default part size
     # and at 16 entries a part, the parts the kernel counted read back and
     # held to the bins': K4 on the route scenes with and without the side
     # list, textured (K5) and not, one and several objects, and on a cube
@@ -2838,11 +2812,11 @@ def main():
         ("K1 setup", "K3 raster+shade rows 1"))
     path_ms["config 4"], _, path_launches["config 4"] = drive(
         "config 4", scene4, tr4, li4, H, W, n_frames,
-        ("K7 record transpose", "K4 raster+shade 16-row"))
+        ("K7 record transpose", "K4 raster+shade band"))
     path_ms["config 5 untextured"], _, path_launches[
         "config 5 untextured"] = drive(
         "config 5 untextured", scene5, tr5, li5, H, W, n_frames,
-        ("K7 record transpose", "K4 raster+shade 16-row"))
+        ("K7 record transpose", "K4 raster+shade band"))
 
     # The textured 250k point: K1 and K2 held to their plain versions at
     # full shape, then driven.
@@ -2870,7 +2844,7 @@ def main():
             ("config 1", scene1, tr1, li1, 512, 512, "K6 raster+shade mask"),
             ("config 3", scene3, tr3, li3, 512, 512, "K6 raster+shade mask"),
             ("config 5", scene5f, tr5f, li5f, H, W,
-             "K4 raster+shade 16-row")):
+             "K4 raster+shade band")):
         path_ms[path], _, path_launches[path] = drive(
             path, sc_, tr_, li_, h, w, n_frames,
             ("K7 record transpose", kern))
@@ -3010,9 +2984,9 @@ def main():
               sg_def[0][1])]
     forced_paths = (
         ("config 4 @32", sg4, H, W, fused_ops_frame(H, W, "sorted", 32),
-         ("K7 record transpose", "K4 raster+shade 32-row")),
+         ("K7 record transpose", "K4 raster+shade band")),
         ("40k @32", sg40, H, W, fused_ops_frame(H, W, "sorted", 32),
-         ("K1 setup", "K4 raster+shade 32-row")),
+         ("K1 setup", "K4 raster+shade band")),
         ("config 3 @32", sg3, 512, 512, fused_ops_frame(512, 512, "mask", 32),
          ("K7 record transpose", "K6 raster+shade mask")),
         ("config 3 avx @32", sg3avx, 512, 512,
@@ -3300,15 +3274,23 @@ def main():
                  else gbuffer.gbuffer_route(t_, h, w))
         return table.bbox, route
 
-    def call_ops(fn):
-        """The device ops of one call of ``fn``, in the order they ran."""
+    def call_ops(fn, n=5, attempts=3):
+        """The device ops of one call of ``fn``, in the order they ran: the
+        first call's of a trace of ``n`` (one stream, so the calls' ops do
+        not interleave). The profiler now and then loses a short trace's
+        device ops; a trace whose ops are not n calls' worth is taken
+        again, up to ``attempts`` traces, and refused if none is."""
         from torch.autograd import DeviceType
 
-        events = trace_calls(fn, 1)
-        ops = sorted((e for e in events if e.device_type == DeviceType.CUDA
-                      and e.name != "call"),
-                     key=lambda e: e.time_range.start)
-        return [e.name for e in ops]
+        for _ in range(attempts):
+            ops = sorted((e for e in trace_calls(fn, n)
+                          if e.device_type == DeviceType.CUDA
+                          and e.name != "call"),
+                         key=lambda e: e.time_range.start)
+            if ops and len(ops) % n == 0:
+                return [e.name for e in ops[:len(ops) // n]]
+        raise AssertionError(f"profile of {n} calls: {len(ops)} device ops "
+                             f"in each of {attempts} traces")
 
     def time_k14(cell, config, h, w):
         """K14 on a benchmark cell's bbox planes and route: integer-exact
@@ -3377,9 +3359,10 @@ def main():
     time_launch("K2 raster+shade", f"headline {T} tris {W}x{H}", head_launch)
     time_launch("K3 raster+shade rows 1", "config 2 5,428 tris 512x512",
                 prepare_scene(scene2, tr2, li2, 512, 512), device=True)
-    time_launch("K4 raster+shade 16-row", "config 4 2,208 tris 1920x1080",
-                prepare_scene(scene4, tr4, li4, H, W), device=True)
-    time_launch("K4 raster+shade 16-row (config 5)",
+    time_launch("K4 raster+shade band 16-row", "config 4 2,208 tris "
+                "1920x1080", prepare_scene(scene4, tr4, li4, H, W),
+                device=True)
+    time_launch("K4 raster+shade band 16-row (config 5)",
                 "config 5 3,246 tris 1920x1080",
                 prepare_scene(scene5f, tr5f, li5f, H, W))
     time_launch("K6 raster+shade mask", "config 3 12 tris 512x512",
@@ -3484,7 +3467,8 @@ def main():
             device_time(name, label, launch)
         return kms, pms, work
 
-    # The split kernels (K9, K2, K4 on 32-row tiles, K11): at P = 16 held
+    # The split kernels (K9, K2, K4 and K9 on 32-row tiles in the band
+    # form, K11): at P = 16 held
     # bit-equal to the plain version (the default P is held where each is
     # timed), the parts of the A/B's calls read back and held to the
     # bins' count, the A/B of the default P against one part a stream of a
@@ -3575,12 +3559,10 @@ def main():
         f"{k9_ms:.4f} ms against K9 on the sphere alone {k9s_ms:.4f} ms, "
         f"bound {bms10:.6f} ms ({by10})")
 
-    # The 32-row forms at their paths' shapes: each held bit-equal to its
-    # plain version, timed beside it, with its bound (K10 as K9's time with
-    # the quad beside K9's on the 40k sphere alone, both at 32 rows). Then
-    # the A/B: each beside the 16-row form on the same scene and, where the
-    # 'auto' route takes another, that form, in turns (32, other, other,
-    # 32), their outputs cropped to the frame bit-equal and drop-free.
+    # The 32-row forms at their paths' shapes: K4 and K9 (with K10) in the
+    # band form, K6 and K8 in rows, each held bit-equal to its plain
+    # version, timed beside it, with its bound (K10 as K9's time with the
+    # quad beside K9's on the 40k sphere alone, both at 32 rows).
     def check_route(label, launch, want):
         r = launch.route
         got = (r.strategy, r.tile_h, r.rows, r.expansion, r.policy_factor)
@@ -3588,148 +3570,69 @@ def main():
             raise AssertionError(f"{label}: route {r}, drops "
                                  f"{int(launch.stats()['bins_dropped'])}")
 
-    def fused_forms(sc, tr_, li_, h, w, strategy, auto=False):
-        forms = {str(t): prepare_scene(sc, tr_, li_, h, w, strategy=strategy,
-                                       tile_h=t) for t in (32, 16)}
-        if auto:
-            forms["auto"] = prepare_scene(sc, tr_, li_, h, w)
-        return forms
-
-    def gbuffer_forms(sc, tr_, li_, h, w, strategy, auto=False):
-        forms = {str(t): gbuffer_launch(*sc[0], tr_, li_, h, w,
-                                        strategy=strategy, tile_h=t)
-                 for t in (32, 16)}
-        if auto:
-            forms["auto"] = gbuffer_launch(*sc[0], tr_, li_, h, w)
-        return forms
-
     sc40, tr40, li40 = torch_scene(sg40, H, W, dev)
     sc40d, tr40d, li40d = torch_scene(sg40d, H, W, dev)
     sc40s, _, _ = torch_scene([(sg40[0][0], sg_def[0][1])], H, W, dev)
     T40 = sc40[0][0].num_triangles
     assert T40 == 40_040, T40
-    ab_forms = {
-        "config 4": (fused_forms(scene4, tr4, li4, H, W, "sorted"), H, W),
-        "40k": (fused_forms(sc40, tr40, li40, H, W, "sorted", True), H, W),
-        "config 3": (fused_forms(scene3, tr3, li3, 512, 512, "mask"), 512,
-                     512),
-        "config 3 avx": (gbuffer_forms(scene3avx, tr3, li3, 512, 512,
-                                       "mask"), 512, 512),
-        "deferred 40k": (gbuffer_forms(sc40d, tr40d, li40d, H, W, "sorted",
-                                       True), H, W),
+    forms32 = {
+        "config 4": prepare_scene(scene4, tr4, li4, H, W, strategy="sorted",
+                                  tile_h=32),
+        "40k": prepare_scene(sc40, tr40, li40, H, W, strategy="sorted",
+                             tile_h=32),
+        "config 3": prepare_scene(scene3, tr3, li3, 512, 512,
+                                  strategy="mask", tile_h=32),
+        "config 3 avx": gbuffer_launch(*scene3avx[0], tr3, li3, 512, 512,
+                                       strategy="mask", tile_h=32),
+        "deferred 40k": gbuffer_launch(*sc40d[0], tr40d, li40d, H, W,
+                                       strategy="sorted", tile_h=32),
     }
-    check_route("config 4 @32", ab_forms["config 4"][0]["32"],
-                ("sorted", 32, 1, 32, 4))
-    check_route("40k @32", ab_forms["40k"][0]["32"], ("sorted", 32, 1, 8, 2))
-    check_route("deferred 40k @32", ab_forms["deferred 40k"][0]["32"],
+    check_route("config 4 @32", forms32["config 4"], ("sorted", 32, 1, 32, 4))
+    check_route("40k @32", forms32["40k"], ("sorted", 32, 1, 8, 2))
+    check_route("deferred 40k @32", forms32["deferred 40k"],
                 ("sorted", 32, 1, 8, 2))
-    per_tile = ab_forms["40k"][0]["32"].qbins.counts[:-1]
-    log(f"# K4 32-row load on 40k: {int((per_tile > 0).sum())} of "
+    per_tile = forms32["40k"].qbins.counts[:-1]
+    log(f"# K4 band 32-row load on 40k: {int((per_tile > 0).sum())} of "
         f"{per_tile.numel()} tiles hold entries, {int(per_tile.sum())} "
         f"entries, max {int(per_tile.max())} in one tile")
-    time_launch("K4 raster+shade 32-row", "config 4 2,208 tris 1920x1080, "
-                "32-row tiles", ab_forms["config 4"][0]["32"], device=True)
-    time_launch("K4 raster+shade 32-row (40k)", f"40k {T40} tris 1920x1080, "
-                "32-row tiles", ab_forms["40k"][0]["32"])
-    split_phase("K4 raster+shade 32-row", f"40k {T40} tris 1920x1080, "
-                "32-row tiles", ab_forms["40k"][0]["32"])
+    time_launch("K4 raster+shade band 32-row", "config 4 2,208 tris "
+                "1920x1080, 32-row tiles", forms32["config 4"], device=True)
+    time_launch("K4 raster+shade band 32-row (40k)", f"40k {T40} tris "
+                "1920x1080, 32-row tiles", forms32["40k"])
+    split_phase("K4 raster+shade band 32-row", f"40k {T40} tris 1920x1080, "
+                "32-row tiles", forms32["40k"])
     time_launch("K6 raster+shade mask 32-row", "config 3 12 tris 512x512, "
-                "32-row tiles", ab_forms["config 3"][0]["32"], device=True)
+                "32-row tiles", forms32["config 3"], device=True)
     mask_floor("K6 raster+shade mask 32-row", "config 3 12 tris 512x512, "
-               "32-row tiles", ab_forms["config 3"][0]["32"])
+               "32-row tiles", forms32["config 3"])
     kms, pms, work = time_gbuffer(
         "K8 G-buffer mask 32-row", "config 3 avx 12 tris 512x512, 32-row "
-        "tiles", ab_forms["config 3 avx"][0]["32"], device=True)
+        "tiles", forms32["config 3 avx"], device=True)
     mask_floor("K8 G-buffer mask 32-row", "config 3 avx 12 tris 512x512, "
-               "32-row tiles", ab_forms["config 3 avx"][0]["32"])
+               "32-row tiles", forms32["config 3 avx"])
     timing["K8 G-buffer mask 32-row"] = (kms, pms) + bound(*work) + (None,)
-
-    # The mask kernels' strip height: each scene's launch at every height
-    # of STRIP_ROWS, its outputs bit-equal to the plain version, timed by
-    # the mask kernel's device time over two profiler traces of 20 calls
-    # each, the heights in turns (1 2 4 8 8 4 2 1).
-    strip_sweep = {}
-    for key, label, launch in (
-            ("K6 raster+shade mask", "config 1",
-             prepare_scene(scene1, tr1, li1, 512, 512)),
-            ("K6 raster+shade mask", "config 3",
-             prepare_scene(scene3, tr3, li3, 512, 512)),
-            ("K6 raster+shade mask", "route k4 (528 tris, bilinear) "
-             "strategy='mask'",
-             prepare_scene(scene_k4, tr_k4, li_k4, h_k4, w_k4,
-                           strategy="mask")),
-            ("K6 raster+shade mask", "route k4 (528 tris, bilinear) "
-             "strategy='mask', "
-             "64-row tiles", mask64),
-            ("K8 G-buffer mask", "config 3 avx", c3_launch),
-            ("K8 G-buffer mask", "route k4 (528 tris) strategy='mask', "
-             "64-row tiles", gbuf64),
-            ("K6 raster+shade mask 32-row", "config 3 @32",
-             ab_forms["config 3"][0]["32"]),
-            ("K8 G-buffer mask 32-row", "config 3 avx @32",
-             ab_forms["config 3 avx"][0]["32"])):
-        want = launch.run_plain()
-        runs = [with_strip_rows(s_, launch.run) for s_ in STRIP_ROWS]
-        for s_, run in zip(STRIP_ROWS, runs):
-            max_err[key] = max(max_err[key], assert_equal(
-                f"{key} at {label}, strips of {s_} rows", run(), want))
-        got = device_ms_in_turns([(run, "mask_kernel") for run in runs], 20,
-                                 2)
-        row = {s_: round(statistics.median(v), 4)
-               for s_, v in zip(STRIP_ROWS, got)}
-        strip_sweep.setdefault(key, {})[label] = row
-        log(f"# {key} sweep of the strip rows at {label} (tile_h "
-            f"{launch.route.tile_h}; device ms, median of 2 traces in "
-            f"turns; every frame bit-equal): {json.dumps(row)}")
-    d40 = ab_forms["deferred 40k"][0]["32"]
+    d40 = forms32["deferred 40k"]
     n_large40 = int(d40.qbins.n_large)
     if n_large40 != 2:
         raise AssertionError(f"deferred 40k @32: n_large {n_large40}, not 2")
     k9_32, k9p_32, work_q32 = time_gbuffer(
-        "K9 G-buffer sorted 32-row", f"deferred 40k {T40 + 2} tris "
+        "K9 G-buffer sorted band 32-row", f"deferred 40k {T40 + 2} tris "
         "1920x1080, 32-row tiles", d40)
-    timing["K9 G-buffer sorted 32-row"] = (k9_32, k9p_32) + bound(
+    timing["K9 G-buffer sorted band 32-row"] = (k9_32, k9p_32) + bound(
         *work_q32) + (None,)
-    split_phase("K9 G-buffer sorted 32-row", f"deferred 40k {T40 + 2} tris "
-                "1920x1080, 32-row tiles", d40)
+    split_phase("K9 G-buffer sorted band 32-row", f"deferred 40k {T40 + 2} "
+                "tris 1920x1080, 32-row tiles", d40)
     k9s_32, _, work_s32 = time_gbuffer(
-        "K9 G-buffer sorted 32-row", f"the 40k sphere alone {T40} tris "
+        "K9 G-buffer sorted band 32-row", f"the 40k sphere alone {T40} tris "
         "1920x1080, 32-row tiles", gbuffer_launch(
             *sc40s[0], tr40d, li40d, H, W, strategy="sorted", tile_h=32))
     bms10b, by10b = bound(*(max(a - b, 0) for a, b in zip(work_q32,
                                                           work_s32)))
-    timing["K10 G-buffer side list 32-row"] = (k9_32, k9p_32, bms10b, by10b,
-                                               None)
-    log(f"# K10 G-buffer side list 32-row ({n_large40} triangles): K9 with "
-        f"it {k9_32:.4f} ms against K9 on the 40k sphere alone "
+    timing["K10 G-buffer side list band 32-row"] = (k9_32, k9p_32, bms10b,
+                                                    by10b, None)
+    log(f"# K10 G-buffer side list band 32-row ({n_large40} triangles): K9 "
+        f"with it {k9_32:.4f} ms against K9 on the 40k sphere alone "
         f"{k9s_32:.4f} ms, bound {bms10b:.6f} ms ({by10b})")
-    ab32 = {}
-    for label, (forms, h, w) in ab_forms.items():
-        gbuf_form = isinstance(forms["32"], gbuffer.GBufferLaunch)
-
-        def crop(out, h=h, w=w, gbuf_form=gbuf_form):
-            if gbuf_form:
-                return out[0][:h, :w], out[1][:, :h, :w]
-            return tuple(a[:h, :w] for a in out)
-
-        want = crop(forms["32"].run())
-        row = {}
-        for tag, other in forms.items():
-            if tag == "32":
-                continue
-            r = other.route
-            if int(other.stats()["bins_dropped"]) != 0:
-                raise AssertionError(f"{label}, {tag} form: drops")
-            assert_equal(f"{label}: the {tag} form ({r.strategy}, tile_h "
-                         f"{r.tile_h}, rows {r.rows}) against the 32-row one",
-                         crop(other.run()), want)
-            ms32, ms_o = in_turns(forms["32"].run, other.run, 20, 20)
-            row[tag] = dict(tile_h=r.tile_h, rows=r.rows,
-                            ms_32=round(ms32, 4), ms=round(ms_o, 4))
-            log(f"# 32-row A/B on {label}: 32-row {ms32:.4f} ms against the "
-                f"{tag} form (tile_h {r.tile_h}, rows {r.rows}) "
-                f"{ms_o:.4f} ms, same frame")
-        ab32[label] = row
 
     # The band form at its paths' shapes: K4 on 40k @24 (its row), 40k @64
     # and headline @64 (frame 0 of that path, held to its plain version on
@@ -3740,10 +3643,7 @@ def main():
     # and the (part, band) items that held no in-span pair); the split
     # phase at 24 rows (P = 16, the parts read back, one part a stream);
     # K10 as K9's band form with the quad beside the 40k sphere alone at
-    # 24 rows. Then the A/B at 16 and 32 rows: the band form (K4's band
-    # wrapper, K9's ``band=True``) on the operands of the <16> and <32>
-    # launches of 40k, config 4, config 5 untextured and textured and
-    # deferred 40k, in turns, the same frame.
+    # 24 rows.
     band_info = {"K4 raster+shade band": {}, "K9 G-buffer sorted band": {}}
 
     def band_walk(path, launch):
@@ -3833,40 +3733,6 @@ def main():
         f"the 40k sphere alone {k9s_b:.4f} ms (the walk's device time "
         f"{walk_q:.4f} against {walk10:.4f}), bound {bms10c:.6f} ms "
         f"({by10c})")
-    band_vs_forms = {}
-    ab_cells = {
-        "40k": ab_forms["40k"][0],
-        "config 4": ab_forms["config 4"][0],
-        "config 5 untextured": fused_forms(scene5, tr5, li5, H, W, "sorted"),
-        "config 5": fused_forms(scene5f, tr5f, li5f, H, W, "sorted"),
-        "deferred 40k": ab_forms["deferred 40k"][0],
-    }
-    for cell, forms in ab_cells.items():
-        band_vs_forms[cell] = {}
-        for t in (16, 32):
-            form = forms[str(t)]
-            if isinstance(form, gbuffer.GBufferLaunch):
-                def band_run(form=form):
-                    return gbuffer.raster_pass_queue(
-                        *form.operands, band=True, **form.options)
-                key = "K9 G-buffer sorted band"
-            else:
-                def band_run(form=form, t=t):
-                    return raster.raster_narrow_any_kernel(
-                        *form.operands, tile_h=t, **form.options)
-                key = "K4 raster+shade band"
-            if form.route.tile_h != t or int(
-                    form.stats()["bins_dropped"]) != 0:
-                raise AssertionError(f"{cell} at {t} rows: {form.route}")
-            max_err[key] = max(max_err[key], assert_equal(
-                f"the band form at {t} rows on {cell} against <{t}>",
-                band_run(), form.run()))
-            ms_band, ms_form = in_turns(band_run, form.run, 20, 20)
-            band_vs_forms[cell][t] = dict(band_ms=round(ms_band, 4),
-                                    form_ms=round(ms_form, 4))
-            log(f"# band A/B on {cell} at {t} rows: the band form "
-                f"{ms_band:.4f} ms against <{t}> {ms_form:.4f} ms (in "
-                "turns), same frame")
 
     # K11 on stack6 zcull's first frame: held bit-equal to its plain
     # version and to K2 split on the same operands, timed beside its plain
@@ -4116,9 +3982,7 @@ def main():
             entry["ptxas"] = k14_ptxas
         if name in dev_info:
             entry.update(dev_info[name])
-        if name in strip_sweep:
-            entry["strip_rows"] = raster.MASK_STRIP_ROWS
-            entry["strip_sweep_device_ms"] = strip_sweep[name]
+        if name.startswith(("K6 ", "K8 ")):
             entry["ptxas"] = {f: v for f, v in mask_ptxas.items()
                               if f.endswith("true>" if "G-buffer" in name
                                             else "false>")}
@@ -4126,16 +3990,14 @@ def main():
             entry["by_shape"] = k12_info
         if name == "K10 G-buffer side list":
             entry["k9_without_side_list_ms"] = round(k9s_ms, 4)
-        if name == "K10 G-buffer side list 32-row":
+        if name == "K10 G-buffer side list band 32-row":
             entry["k9_without_side_list_ms"] = round(k9s_32, 4)
         if name == "K10 G-buffer side list band":
             entry["k9_without_side_list_ms"] = round(k9s_b, 4)
         if name in band_info:
             entry["by_path"] = band_info[name]
-        if name.endswith(" band"):
+        if " band" in name:
             entry["ptxas"] = band_ptxas
-        if name == "K4 raster+shade band":
-            entry["against_forms"] = band_vs_forms
         if name in split_info:
             entry.update(split_info[name])
         if name == "K7 record transpose":
@@ -4159,7 +4021,6 @@ def main():
         "headline_span_ms": span_ms,
         "textured_250k_fused_vs_deferred_ms": [round(fused_ms, 4),
                                                round(def_ms, 4)],
-        "ab_32_rows": ab32,
         "band_paths_frame0": band_drops,
         "band_peak_memory_gib": round(band_peak_gib, 2),
         "headline_frame_timer": frame_timer,

@@ -25,7 +25,8 @@ def test_route(case, monkeypatch):
     launch = tre.prepare_scene(scene_t, tr, li, h, w)
     want = (16, 1) if case["route"] == "k4" else (8, 2)
     assert (launch.route.tile_h, launch.route.rows) == want
-    assert launch.kernel is trp.RASTER_KERNELS[want]
+    assert launch.kernel is trp.RASTER_KERNELS.get(
+        want, trp.raster_narrow_any_kernel)
     gid, table = 0, []
     for obj, cfg in scene_t:
         T = obj.num_triangles

@@ -169,8 +169,9 @@ def route_launch(name, variant, device):
     return prepare_scene(scene, tr, li, h, w)
 
 
-ROUTE_KERNEL = {"k3": "raster_rows1_kernel", "k4": "raster_narrow_kernel",
-                "mixed": "raster_kernel", "k4multi": "raster_narrow_kernel",
+ROUTE_KERNEL = {"k3": "raster_rows1_kernel",
+                "k4": "raster_narrow_any_kernel", "mixed": "raster_kernel",
+                "k4multi": "raster_narrow_any_kernel",
                 "k2multi": "raster_kernel", "k6": "raster_mask_kernel",
                 "k6multi": "raster_mask_kernel"}
 
@@ -360,8 +361,8 @@ def test_route_subrect_origin_on_card(cuda, name):
 SPLIT_ROUTES = {  # kernel -> (route scene, wrapper, prepare_scene knobs)
     "K2": ("mixed", "raster_kernel", {}),
     "K3": ("k3", "raster_rows1_kernel", {}),
-    "K4": ("k4", "raster_narrow_kernel", {}),
-    "K4@32": ("k4", "raster_narrow32_kernel",
+    "K4": ("k4", "raster_narrow_any_kernel", {}),
+    "K4@32": ("k4", "raster_narrow_any_kernel",
               dict(strategy="sorted", tile_h=32)),
 }
 
@@ -381,8 +382,9 @@ def split_parts(launch, part_entries):
 @pytest.mark.parametrize("part_entries", [1, 16, trp.RASTER_PART_ENTRIES])
 @pytest.mark.parametrize("kernel", sorted(SPLIT_ROUTES))
 def test_split_raster_equals_plain(cuda, monkeypatch, kernel, part_entries):
-    """K2, K3, K4 and K4 on 32-row tiles with each tile's streams split
-    into parts of 1, 16 and the default RASTER_PART_ENTRIES entries, merged
+    """K2, K3 (the split form), K4 on 16- and on 32-row tiles (the band
+    form) with each tile's streams split into parts of 1, 16 and the
+    default RASTER_PART_ENTRIES entries, merged
     by the (z desc, gid asc) key and shaded by the finalize: z, gid and
     colour bit-equal to raster_plain without and with the side list,
     textured (K5), and in a sub-rect at (37, 21); one launch counted each,
@@ -477,8 +479,8 @@ def test_gbuffer_subrect_and_tile_height_on_card(cuda):
 def test_split_k9_equals_plain(cuda, monkeypatch, tile_h, part_entries):
     """K9 with each tile's entries split into parts of 1, 16 and the
     default RASTER_PART_ENTRIES entries, merged by the (z desc, gid asc) key:
-    gid and the 11 planes bit-equal to gbuffer_plain at 8, 16 and 32 rows,
-    without and with the side list (K10, a part of its own), in a sub-rect
+    gid and the 11 planes bit-equal to gbuffer_plain at 8 rows (the split
+    form), 16 and 32 (the band form), without and with the side list (K10, a part of its own), in a sub-rect
     at (37, 21), and on the k4 scene with every triangle drawn twice (equal
     z across parts, the smaller gid wins); one launch counted each, its
     part offsets as the bins give them."""
@@ -517,7 +519,7 @@ def test_split_k9_equals_plain(cuda, monkeypatch, tile_h, part_entries):
             assert int(out_k[0].max()) < obj.num_triangles
 
 
-BAND_HEIGHTS = (24, 40, 48, 56, 64)  # heights without a form of their own
+BAND_HEIGHTS = (24, 40, 48, 56, 64)  # band heights no route picks
 
 
 def band_cases(device):
@@ -544,7 +546,7 @@ def test_band_form_equals_plain(cuda, monkeypatch, tile_h, part_entries):
     """K4 (``raster_narrow_any_kernel``) and K9 + K10 in the band form at
     24 to 64 rows, parts of 16 and the default entries: z, gid and colour
     (K5 on the textured sphere), and gid and the 11 planes, bit-equal to
-    the plain version and to the 16-row form's frame; one launch counted,
+    the plain version and to the 16-row frame; one launch counted,
     the part offsets as the bins give them, the side list reached."""
     from tpu_renderer_torch.engine.renderer import prepare_scene
 
@@ -651,9 +653,10 @@ def test_binning_on_card_equals_cpu_at_every_height(cuda):
 
 @pytest.mark.parametrize("tile_h", [16, 32])
 def test_band_form_at_16_and_32_rows(cuda, tile_h):
-    """The band form asked for at the heights of forms of their own (K4's
-    band wrapper, K9's ``band=True``): bit-equal to the plain version and
-    to ``<16>`` / ``<32>`` on the same operands, one launch counted."""
+    """The 16- and 32-row routes are the band form (K4's
+    ``raster_narrow_any_kernel`` with the height in its options, K9's
+    ``tr_gbuffer_queue``), bit-equal to the plain version, one launch
+    counted."""
     from tpu_renderer_torch.engine.renderer import prepare_scene
 
     for label, scene, tr, li, (h, w) in band_cases(cuda):
@@ -664,21 +667,18 @@ def test_band_form_at_16_and_32_rows(cuda, tile_h):
                                      frame_width=w)
         gbuf = tgb.prepare_gbuffer(table, h, w, strategy="sorted",
                                    tile_h=tile_h)
-        for launch, band, wrapper in (
-                (fused, lambda: trp.raster_narrow_any_kernel(
-                    *fused.operands, tile_h=tile_h, **fused.options),
-                 trp.raster_narrow_any_kernel),
-                (gbuf, lambda: tgb.raster_pass_queue(
-                    *gbuf.operands, band=True, **gbuf.options),
-                 tgb.raster_pass_queue)):
+        assert fused.options["tile_h"] == tile_h
+        for launch, wrapper in ((fused, trp.raster_narrow_any_kernel),
+                                (gbuf, tgb.raster_pass_queue)):
+            assert launch.kernel is wrapper, label
+            assert launch.route.tile_h == tile_h, label
             n0 = wrapper.launches
-            out_b = band()
+            out_b = launch.run()
             assert wrapper.launches == n0 + 1
-            out_f, out_p = launch.run(), launch.run_plain()
+            out_p = launch.run_plain()
             torch.cuda.synchronize()
-            for a, b, c in zip(out_b, out_f, out_p):
+            for a, b in zip(out_b, out_p):
                 assert torch.equal(bits(a), bits(b)), label
-                assert torch.equal(bits(a), bits(c)), label
 
 
 def test_band_form_refuses_other_heights(cuda):
@@ -710,7 +710,7 @@ def test_band_form_refuses_other_heights(cuda):
     ("k4", "base", "sorted"), ("k4", "sidelist", "sorted"),
     ("k6", "base", "mask"), ("k6", "gbuffer", "mask")])
 def test_gbuffer_32_rows_equals_plain(cuda, name, variant, strategy):
-    """K8 and K9 on 32-row tiles (256-thread blocks), K9 with the side
+    """K8 and K9 on 32-row tiles (K9 in the band form), K9 with the side
     list (K10; the 2.2-unit quad covers the 36 tiles of the 384 x 384
     frame, more than the expansion of 32): gid and the 11 planes
     bit-equal to the plain version, one launch counted."""
@@ -734,8 +734,8 @@ def test_gbuffer_32_rows_equals_plain(cuda, name, variant, strategy):
     ("k4multi", "sidelist"), ("k2multi", "textured"), ("k6", "textured"),
     ("k6multi", "base"), ("k6multi", "textured")])
 def test_32_row_kernel_equals_plain(cuda, name, variant):
-    """K4 (sorted, ``raster_narrow32_kernel``) and K6 (mask) on 32-row
-    tiles, with and without the side list, textured (K5) and not, one and
+    """K4 (sorted, the band form ``raster_narrow_any_kernel``) and K6
+    (mask) on 32-row tiles, with and without the side list, textured (K5) and not, one and
     several objects: z, gid and colour bit-equal to the plain version,
     one launch counted on the route's wrapper."""
     from tpu_renderer_torch.engine.renderer import prepare_scene
@@ -745,7 +745,7 @@ def test_32_row_kernel_equals_plain(cuda, name, variant):
     launch = prepare_scene(scene, tr, li, h, w, strategy=strategy,
                            tile_h=32)
     wrapper = (trp.raster_mask_kernel if strategy == "mask"
-               else trp.raster_narrow32_kernel)
+               else trp.raster_narrow_any_kernel)
     assert launch.kernel is wrapper and launch.route.tile_h == 32
     n0 = wrapper.launches
     out_k = launch.run()
@@ -770,42 +770,38 @@ def k4_mask_scene(filter_mode, device):
 
 def assert_mask_lists(bins, longest):
     """Some tile's list is longer than ``longest`` entries (more than one
-    batch of a strip) and some tile has none."""
+    batch of a row) and some tile has none."""
     assert int(bins.counts.max()) > longest
     assert int((bins.counts == 0).sum()) > 0
 
 
-def assert_strips_equal_plain(launch, wrapper, monkeypatch):
-    """At every strip height (``MASK_STRIP_ROWS`` 1, 2, 4, 8) one launch
-    counted on ``wrapper``, every output bit-equal to the plain version on
-    the same card tensors; returns the kernel's outputs at the default
-    height."""
+def assert_strips_equal_plain(launch, wrapper):
+    """One launch counted on ``wrapper``, a block a frame row, every
+    output bit-equal to the plain version on the same card tensors;
+    returns the kernel's outputs."""
     assert launch.kernel is wrapper
     out_p = launch.run_plain()
-    for rows in (1, 2, 4, 8, trp.MASK_STRIP_ROWS):
-        with monkeypatch.context() as m:
-            m.setattr(trp, "MASK_STRIP_ROWS", rows)
-            n0 = wrapper.launches
-            out_k = launch.run()
-            assert wrapper.launches == n0 + 1
-        torch.cuda.synchronize()
-        for a, b in zip(out_k, out_p):
-            assert torch.equal(bits(a), bits(b)), rows
+    n0 = wrapper.launches
+    out_k = launch.run()
+    assert wrapper.launches == n0 + 1
+    torch.cuda.synchronize()
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(bits(a), bits(b))
     return out_k
 
 
 MASK_TILE_HEIGHTS = [8, 16, 32, 64]
-SUBRECT = (300, 300, 37, 21)  # rows, cols, row0, col0: off the strip grid
+SUBRECT = (300, 300, 37, 21)  # rows, cols, row0, col0: off the tile grid
 
 
 @pytest.mark.parametrize("tile_h", MASK_TILE_HEIGHTS)
 @pytest.mark.parametrize("case", ["nearest", "bilinear", "sub-rect"])
-def test_mask_strips_k6_equals_plain(cuda, monkeypatch, tile_h, case):
-    """K6, each tile folded strip by strip at every strip height, on route
-    k4's 528-triangle sphere forced to the mask strategy (lists longer than
-    the 32-entry batches of 4-row strips, the 64 of 1-row ones at 64 rows;
-    empty tiles) with K5 nearest and bilinear, and (bilinear) into a 300 x
-    300 sub-rect at (37, 21), off the strip grid, also equal to the whole
+def test_mask_strips_k6_equals_plain(cuda, tile_h, case):
+    """K6, each tile folded row by row, on route k4's 528-triangle sphere
+    forced to the mask strategy (lists longer than 32 entries, and than
+    the 64-entry batches of a row at 64 rows; empty tiles) with K5 nearest
+    and bilinear, and (bilinear) into a 300 x 300 sub-rect at (37, 21),
+    off the tile grid, also equal to the whole
     frame's crop: z, gid and colour bit-equal to the plain version, one
     launch counted a call; 64-row tiles too, which only the mask kernels
     run."""
@@ -818,8 +814,7 @@ def test_mask_strips_k6_equals_plain(cuda, monkeypatch, tile_h, case):
                            strategy="mask", tile_h=tile_h)
     assert launch.route.tile_h == tile_h
     assert_mask_lists(launch.operands[1], 32)
-    out_k = assert_strips_equal_plain(launch, trp.raster_mask_kernel,
-                                      monkeypatch)
+    out_k = assert_strips_equal_plain(launch, trp.raster_mask_kernel)
     assert int((out_k[1] >= 0).sum()) > 1000
     if case == "sub-rect":
         full = prepare_scene(scene, tr, li, h, w, strategy="mask",
@@ -831,9 +826,8 @@ def test_mask_strips_k6_equals_plain(cuda, monkeypatch, tile_h, case):
 
 @pytest.mark.parametrize("tile_h", MASK_TILE_HEIGHTS)
 @pytest.mark.parametrize("case", ["frame", "sub-rect"])
-def test_mask_strips_k8_equals_plain(cuda, monkeypatch, tile_h, case):
-    """K8, each tile folded strip by strip at every strip height, on the
-    same forced-mask sphere (its uv fields set), the whole frame and the
+def test_mask_strips_k8_equals_plain(cuda, tile_h, case):
+    """K8, each tile folded row by row, on the same forced-mask sphere (its uv fields set), the whole frame and the
     sub-rect at (37, 21): gid and the 11 planes bit-equal to the plain
     version, one launch counted a call."""
     scene, tr, li, (h, w) = k4_mask_scene("nearest", cuda)
@@ -845,13 +839,13 @@ def test_mask_strips_k8_equals_plain(cuda, monkeypatch, tile_h, case):
                                  tile_h)
     assert (launch.route.strategy, launch.route.tile_h) == ("mask", tile_h)
     assert_mask_lists(launch.operands[1], 32)
-    out_k = assert_strips_equal_plain(launch, tgb.raster_pass, monkeypatch)
+    out_k = assert_strips_equal_plain(launch, tgb.raster_pass)
     assert int((out_k[0] >= 0).sum()) > 1000
 
 
-def test_mask_kernels_refuse_bad_heights(cuda, monkeypatch):
+def test_mask_kernels_refuse_bad_heights(cuda):
     """K6 and K8 raise on a tile height that is not a multiple of 8, naming
-    the rule, and on a strip height that does not divide 8."""
+    the rule."""
     from tpu_renderer_torch.engine.renderer import prepare_scene
 
     scene, tr, li, (h, w) = k4_mask_scene("nearest", cuda)
@@ -865,11 +859,6 @@ def test_mask_kernels_refuse_bad_heights(cuda, monkeypatch):
         with pytest.raises(ValueError, match="multiple of 8 rows on CUDA"):
             tgb.rasterize_gbuffer(table, h, w, strategy="mask",
                                   tile_h=tile_h)
-    monkeypatch.setattr(trp, "MASK_STRIP_ROWS", 3)
-    with pytest.raises(RuntimeError, match="tr_raster_mask launch failed"):
-        prepare_scene(scene, tr, li, h, w, strategy="mask", tile_h=16).run()
-    with pytest.raises(RuntimeError, match="tr_gbuffer_mask launch failed"):
-        tgb.rasterize_gbuffer(table, h, w, strategy="mask", tile_h=16)
 
 
 @pytest.mark.parametrize("name, variant, backend", [
@@ -1135,7 +1124,7 @@ CROSS_CARD = {
     "config 5 (K7 + K4)": (
         lambda h, w, dev: baseline_torch_scene(5, h, w, dev), (1080, 1920),
         {"raster.finish_records": 1, "raster.bin_for_raster": 1,
-         "raster.raster_narrow_kernel": 1}),
+         "raster.raster_narrow_any_kernel": 1}),
     "config 3 avx (K8)": (
         config3_avx_scene, (512, 512),
         {"raster.finish_records": 1, "gbuffer.raster_pass": 1}),

@@ -139,7 +139,8 @@ def test_forced_shaded_route_vs_jax(case):
     assert (r.strategy, r.tile_h, r.rows) == route
     assert launch.kernel is (
         trp.raster_mask_kernel if r.strategy == "mask"
-        else trp.RASTER_KERNELS[(r.tile_h, r.rows)])
+        else trp.RASTER_KERNELS.get((r.tile_h, r.rows),
+                                    trp.raster_narrow_any_kernel))
     cov, z, color, stats = trp.rasterize_shaded(table, tr, li,
                                                 *shaded_args(case), *tex)
     jcov, jz, jcolor, jstats = jax_shaded(case)
@@ -245,7 +246,7 @@ def test_sidelist_32_rows_sorted_equals_mask_and_golden(kind):
                                                                  32)
         assert int(stats["bins_dropped"]) == 0
         if strategy == "sorted":
-            assert launch.kernel in (trp.raster_narrow32_kernel,
+            assert launch.kernel in (trp.raster_narrow_any_kernel,
                                      tgb.raster_pass_queue)
             assert int(launch.qbins.n_large) == 2
     want = (gd > -3.0e38, gd, gc) if kind == "shaded" else (gcov, ggbuf)

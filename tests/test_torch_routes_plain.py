@@ -12,7 +12,8 @@ def test_plain_versions_touch_no_launch_counter(case):
     """CPU tensors run the plain versions, which count no launch."""
     scene_t, tr, li = case["scene"]
     h, w = case["hw"]
-    wrappers = list(trp.RASTER_KERNELS.values()) + [trp.finish_records]
+    wrappers = list(trp.RASTER_KERNELS.values()) + [
+        trp.raster_narrow_any_kernel, trp.finish_records]
     before = [k.launches for k in wrappers]
     trt.render_scene(None, scene_t, tr, li, frame_height=h, frame_width=w)
     assert [k.launches for k in wrappers] == before

@@ -91,17 +91,16 @@ def test_scenes_take_their_routes(family):
             entries |= {f.entry for f, _ in checked_launches(sc)}
     want = {
         "thresholds": {"tr_raster_mask", "tr_raster", "tr_raster_rows1",
-                       "tr_raster_narrow", "tr_gbuffer_mask",
+                       "tr_raster_narrow_any", "tr_gbuffer_mask",
                        "tr_gbuffer_queue", "tr_raster_zcull",
                        "tr_raster_rows1_zcull"},
         "side_list": {"tr_raster", "tr_raster_rows1", "tr_raster_zcull",
                       "tr_raster_rows1_zcull", "tr_gbuffer_queue"},
-        "ragged": {"tr_raster", "tr_raster_rows1", "tr_raster_narrow",
-                   "tr_raster_narrow32", "tr_raster_narrow_any",
+        "ragged": {"tr_raster", "tr_raster_rows1", "tr_raster_narrow_any",
                    "tr_raster_mask", "tr_gbuffer_queue", "tr_gbuffer_mask"},
         "budgets": {"tr_raster", "tr_raster_mask", "tr_gbuffer_mask",
                     "tr_gbuffer_queue"},
-        "textures": {"tr_raster_mask", "tr_raster_narrow",
+        "textures": {"tr_raster_mask", "tr_raster_narrow_any",
                      "tr_gbuffer_mask", "tr_gbuffer_queue", "tr_raster"},
         "zcull": {"tr_raster_zcull", "tr_raster_rows1_zcull", "tr_raster",
                   "tr_raster_rows1"},
@@ -133,9 +132,8 @@ def test_part_edges_streams_and_tiles():
                 assert len(empty) >= 1, cols
     assert {n for n, _ in seen} == set(ss.PART_COUNTS)
     assert {e for _, e in seen} >= {
-        "tr_raster", "tr_raster_rows1", "tr_raster_narrow",
-        "tr_raster_narrow32", "tr_raster_narrow_any", "tr_gbuffer_queue",
-        "tr_raster_zcull", "tr_raster_rows1_zcull"}
+        "tr_raster", "tr_raster_rows1", "tr_raster_narrow_any",
+        "tr_gbuffer_queue", "tr_raster_zcull", "tr_raster_rows1_zcull"}
 
 
 def parts_apart(launch, pairs):
@@ -174,5 +172,5 @@ def test_ties_records_and_parts():
                     assert parts_apart(launch, sc.ties) == len(sc.ties)
             assert {f.entry for f, _ in launches} >= (
                 {"tr_raster", "tr_raster_zcull"} if sc.name == "dense" else
-                {"tr_raster_mask", "tr_raster_rows1", "tr_raster_narrow",
+                {"tr_raster_mask", "tr_raster_rows1",
                  "tr_raster_narrow_any"})

@@ -1,5 +1,5 @@
-"""The sorted kernels K4 and K9 + K10 at tile heights without a form of
-their own (24, 40, 48, 64 rows): on CUDA tensors the band form
+"""The sorted kernels K4 and K9 + K10 at tile heights no route picks
+(24, 40, 48, 64 rows): on CUDA tensors the band form
 (``ops.raster.raster_narrow_any_kernel``, K9's ``tr_gbuffer_queue``), on
 the CPU the plain fold, which takes any height.
 

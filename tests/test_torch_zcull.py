@@ -78,7 +78,7 @@ def test_zcull_frame_vs_jax_and_golden(rows):
 
 
 @pytest.mark.parametrize("name, variant, kernel", [
-    ("k4", "base", "raster_narrow_kernel"),
+    ("k4", "base", "raster_narrow_any_kernel"),
     ("k6", "base", "raster_mask_kernel"),
     ("k6multi", "base", "raster_mask_kernel"),
 ])

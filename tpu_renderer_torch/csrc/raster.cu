@@ -11,21 +11,19 @@
 //                     rows_packed=2; two strip streams per tile);
 //   tr_raster_rows1   K3: sorted, 8-row tiles, one stream (wide=True,
 //                     rows_packed=1, :2355-2371);
-//   tr_raster_narrow  K4: sorted, 16-row tiles, one stream (the narrow
-//                     form, :2372-2380, _chunk_best :910 per CHUNK_T chunk);
-//   tr_raster_narrow32
-//                     K4 on 32-row tiles (the narrow form at tile_h 32);
 //   tr_raster_narrow_any
-//                     K4 on tiles of any other multiple of 8 rows, the
-//                     height a runtime value (the band form, below);
+//                     K4: sorted, one stream, tiles of any multiple of 8
+//                     rows above 8 (the narrow form, :2372-2380,
+//                     _chunk_best :910 per CHUNK_T chunk), the height a
+//                     runtime value (the band form, below);
 //   tr_raster_mask    K6: mask strategy, tiles of any multiple of 8 rows,
 //                     each tile's padded triangle list (bin_triangles), no
-//                     side list, folded strip by strip (see "The mask
-//                     strategy" below);
+//                     side list, folded a frame row a block (see "The
+//                     mask strategy" below);
 //   tr_gbuffer_mask   K8: K6's fold, the G-buffer finalize (gbuffer_tile);
-//   tr_gbuffer_queue  K9 + K10: one sorted stream, 8-, 16- or 32-row tiles,
-//                     or any other multiple of 8 rows in the band form,
-//                     into a G-buffer;
+//   tr_gbuffer_queue  K9 + K10: one sorted stream into a G-buffer, 8-row
+//                     tiles in the split form, any other multiple of 8
+//                     rows in the band form;
 //   tr_raster_zcull, tr_raster_rows1_zcull
 //                     K11: K2 and K3 with the zcull branch (zcull and wide,
 //                     :2384-2394, bound _spanex_block_zmax :2151): a batch
@@ -37,7 +35,10 @@
 // into parts that many blocks fold in parallel, the side list (K10 on the
 // G-buffer route) one more part of each tile it reaches, and merge the
 // parts by a (z desc, gid asc) key per pixel before a finalize per tile
-// (see "The sorted strategy, each tile's entries split" below). The TPU
+// (see "The sorted strategy, each tile's entries split" below): on 8-row
+// tiles (K2, K3, K11, K9) in the split form, whose blocks fold a part into
+// winners in registers; on every other multiple of 8 rows (K4, K9 + K10)
+// in the band form, whose blocks merge each fragment into its key. The TPU
 // ran K10 as a second grid and merged the two G-buffers by that rule; here
 // the key merge does it, so no second (11, H, W) buffer exists.
 // Each runs stage-A span setup (_stage_a_fill :1120, which has the same
@@ -71,11 +72,10 @@
 //
 // Design: the TPU ran a sequential grid of (tile, record block) work items
 // that carried each tile's z / gid / attribute scratch from one item to the
-// next. Here a block of 128 threads (256 for the split kernels' 32-row
-// tiles, see Tile) folds a run of one tile's entries (the mask strategy:
-// all of them, over one strip of its rows; the sorted one: a part) into the
-// winners of those rows' 128 columns in registers, reading recs[ids[i]]
-// directly, from the sorted streams
+// next. Here a block of 128 threads folds a run of one tile's entries (the
+// mask strategy: all of them, over one of its rows; the split form: a part)
+// into the winners of those rows' 128 columns in registers, reading
+// recs[ids[i]] directly, from the sorted streams
 // (starts / counts at STREAMS * tile + stream) or the mask strategy's
 // per-tile list (ids at tile * capacity, counts[tile]). Entries go in
 // batches of one (entry, row) pair per thread:
@@ -83,9 +83,9 @@
 //      16-byte loads;
 //   2. thread p runs stage A's depth part for pair p (span bounds, z left
 //      value and per-pixel increment) into shared memory;
-//   3. thread x, owning column x of the tile (and on 32-row tiles half of its
-//      rows), folds every pair of the batch into its per-row winners: (z,
-//      gid, k), k the step from the span's left end.
+//   3. thread x, owning column x of the tile, folds every pair of the batch
+//      into its per-row winners: (z, gid, k), k the step from the span's
+//      left end.
 // The winner rule is the lexicographic best (z descending, gid ascending)
 // over fragments with z > DEPTH_CLEAR, which is what the TPU's strict '>'
 // first-writer folds over gid-ordered lists plus the gid-aware side-list
@@ -94,7 +94,7 @@
 // record (row gid of the table) for only the planes that pixel's object
 // reads (colour, normal, u/z v/z 1/z), with the same f32 operations, so
 // the value al + k * inc is the one the fold would have kept. Registers
-// stay at 3 * min(rows, 16) winner values whatever the scene's planes
+// stay at 3 * rows winner values (rows 8 or 1) whatever the scene's planes
 // (config 5 needs 10), and one template serves every field set. Every tile
 // is written, so empty tiles need no masking afterwards. Tensor cores and
 // TMA are left for later work.
@@ -113,42 +113,9 @@ constexpr int kRecStride = 92;   // shared row stride: 16 B aligned
 // Depth part of stage A for one (entry, row) pair.
 constexpr int Q_MINX = 0, Q_MAXX = 1, Q_XOFF = 2, Q_ZL = 3, Q_ZINC = 4;
 constexpr int kNumQ = 5;
-constexpr int kMaxRows = 16;     // winner rows a thread keeps in registers
 
-// The block of a TILE_H-row tile (or of a mask strip: 1, 2, 4 or 8 rows).
-// Up to 16 rows one thread owns a column and all of its rows (kThreads
-// threads). Taller tiles give each column TILE_H / 16 threads, thread t
-// owning rows [t / 128 * 16, + 16) of column t % 128: the split kernels'
-// 32-row tiles run 256 threads, and no thread keeps more than 16 rows of
-// winners (3 x 16 registers), as the 16-row tiles' threads do.
-template <int TILE_H>
-struct Tile {
-  static_assert(TILE_H > 0 && (8 % TILE_H == 0 || TILE_H % 8 == 0) &&
-                    (TILE_H <= kMaxRows || TILE_H % kMaxRows == 0),
-                "tile height");
-  static constexpr int kThreads =
-      TILE_H <= kMaxRows ? tr::kThreads : kTileW * (TILE_H / kMaxRows);
-  static constexpr int kRows = TILE_H * kTileW / kThreads;  // per thread
-};
-
-// This thread's tile column and the first tile row it owns. The 8- and
-// 16-row tiles take threadIdx.x (unsigned, as it is) and 0, so their code is
-// what it was before taller tiles existed.
-template <int TILE_H>
-__device__ __forceinline__ unsigned tile_col() {
-  if constexpr (Tile<TILE_H>::kThreads == kTileW)
-    return threadIdx.x;
-  else
-    return threadIdx.x % kTileW;
-}
-template <int TILE_H>
-__device__ __forceinline__ int row_first() {
-  if constexpr (Tile<TILE_H>::kThreads == kTileW)
-    return 0;
-  else
-    return threadIdx.x / kTileW * Tile<TILE_H>::kRows;
-}
-
+// The winners of a thread's column over ROWS rows of a tile (the split
+// form's 8, a mask strip's 1): thread x of a block owns column x.
 template <int ROWS>
 struct Winners {
   float z[ROWS];
@@ -157,13 +124,13 @@ struct Winners {
 };
 
 // A block's batch: BATCH staged records, one (entry, row) pair a thread.
-template <int THREADS, int BATCH = kMaxBatch>
+template <int BATCH = kMaxBatch>
 struct SharedT {
   float rec[BATCH][kRecStride];
-  float span[kNumQ][THREADS];
-  int gid[THREADS];
+  float span[kNumQ][kThreads];
+  int gid[kThreads];
 };
-using Shared = SharedT<kThreads>;
+using Shared = SharedT<>;
 
 // Everything the finalize reads besides the winners. The shaded kernels
 // write z, gid and colour; the G-buffer kernels gid and the 11 planes.
@@ -357,7 +324,6 @@ template <int TILE_H, int NROWS>
 __device__ __forceinline__ bool batch_occluded(
     const Shared& sh, const Winners<TILE_H>& win, int row_lo,
     const unsigned long long* keys, size_t key_stride) {
-  static_assert(Tile<TILE_H>::kThreads == kThreads, "one thread a column");
   constexpr int kWarps = kThreads / 32;
   __shared__ float red[2][kWarps];
   const float inf = __int_as_float(0x7f800000);
@@ -400,21 +366,19 @@ __device__ __forceinline__ bool batch_occluded(
 
 // Stage the records ids[0..ne), run stage A on their (entry, row) pairs for
 // tile rows [row_lo, row_lo + NROWS), and fold the pairs into the winners
-// of this thread's rows of its column. ne <= BATCH and ne * NROWS <= the
-// block's threads. With CULL (K11) a batch that cannot win a pixel
-// (batch_occluded, against ``keys``) skips its fold and, when ``skipped``
-// is not null, adds one to it.
+// of this thread's column. ne <= BATCH and ne * NROWS <= kThreads. With
+// CULL (K11) a batch that cannot win a pixel (batch_occluded, against
+// ``keys``) skips its fold and, when ``skipped`` is not null, adds one to
+// it.
 template <int TILE_H, int NROWS, bool CULL = false, int BATCH = kMaxBatch>
 __device__ __forceinline__ void fold_batch(
     const float* __restrict__ recs, const int* __restrict__ ids, int ne,
-    int row_lo, int row_base, float w_f, float xc,
-    SharedT<Tile<TILE_H>::kThreads, BATCH>& sh,
-    Winners<Tile<TILE_H>::kRows>& win, int* skipped = nullptr,
+    int row_lo, int row_base, float w_f, float xc, SharedT<BATCH>& sh,
+    Winners<TILE_H>& win, int* skipped = nullptr,
     const unsigned long long* keys = nullptr, size_t key_stride = 0) {
-  constexpr int kBlock = Tile<TILE_H>::kThreads;
   constexpr int kPer = kRecLoad / 4;
   __syncthreads();  // the previous batch has been folded
-  for (int i = threadIdx.x; i < ne * kPer; i += kBlock) {
+  for (int i = threadIdx.x; i < ne * kPer; i += kThreads) {
     const int e = i / kPer, q = i - e * kPer;
     const float4* src =
         reinterpret_cast<const float4*>(recs + (size_t)ids[e] * kRecLanes);
@@ -438,10 +402,8 @@ __device__ __forceinline__ void fold_batch(
       return;
     }
   }
-  const int r0 = row_first<TILE_H>();
 #pragma unroll
-  for (int rl = 0; rl < Tile<TILE_H>::kRows; ++rl) {
-    const int r = r0 + rl;
+  for (int r = 0; r < TILE_H; ++r) {
     if (r < row_lo || r >= row_lo + NROWS) continue;
     for (int e = 0; e < ne; ++e) {
       const int p = e * NROWS + (r - row_lo);
@@ -450,10 +412,10 @@ __device__ __forceinline__ void fold_batch(
       const float k = sh.span[Q_XOFF][p] + (xc - minx);
       const float z = sh.span[Q_ZL][p] + k * sh.span[Q_ZINC][p];
       const int g = sh.gid[p];
-      if (z > win.z[rl] || (z == win.z[rl] && g < win.g[rl])) {
-        win.z[rl] = z;
-        win.g[rl] = g;
-        win.k[rl] = k;
+      if (z > win.z[r] || (z == win.z[r] && g < win.g[r])) {
+        win.z[r] = z;
+        win.g[r] = g;
+        win.k[r] = k;
       }
     }
   }
@@ -524,21 +486,20 @@ __device__ __forceinline__ unsigned shade_pixel(const Finalize& f, int g,
 // Write this thread's pixels of the tile: z, gid and colour; uncovered
 // pixels pack the zero base.
 template <int TILE_H>
-__device__ __forceinline__ void finalize_tile(
-    const Finalize& f, const Winners<Tile<TILE_H>::kRows>& win, int ty,
-    int tx, int row_base, float xc) {
-  const int r0 = row_first<TILE_H>();
+__device__ __forceinline__ void finalize_tile(const Finalize& f,
+                                              const Winners<TILE_H>& win,
+                                              int ty, int tx, int row_base,
+                                              float xc) {
 #pragma unroll
-  for (int rl = 0; rl < Tile<TILE_H>::kRows; ++rl) {
-    const int r = r0 + rl;
+  for (int r = 0; r < TILE_H; ++r) {
     const size_t o = (size_t)(ty * TILE_H + r) * f.out_w + tx * kTileW +
-                     tile_col<TILE_H>();
-    f.z_out[o] = win.z[rl];
-    f.gid_out[o] = win.g[rl];
+                     threadIdx.x;
+    f.z_out[o] = win.z[r];
+    f.gid_out[o] = win.g[r];
     f.color_out[o] =
-        win.g[rl] >= 0 ? shade_pixel(f, win.g[rl], win.z[rl], win.k[rl], xc,
-                                     static_cast<float>(row_base + r))
-                       : 0u;
+        win.g[r] >= 0 ? shade_pixel(f, win.g[r], win.z[r], win.k[r], xc,
+                                    static_cast<float>(row_base + r))
+                      : 0u;
   }
 }
 
@@ -574,19 +535,17 @@ __device__ __forceinline__ void attr_lanes(int c, int& j0, int& jg) {
 }
 
 template <int TILE_H>
-__device__ __forceinline__ void gbuffer_tile(
-    const Finalize& f, const Winners<Tile<TILE_H>::kRows>& win, int ty,
-    int tx, int row_base) {
-  const int r0 = row_first<TILE_H>();
+__device__ __forceinline__ void gbuffer_tile(const Finalize& f,
+                                             const Winners<TILE_H>& win,
+                                             int ty, int tx, int row_base) {
 #pragma unroll
-  for (int rl = 0; rl < Tile<TILE_H>::kRows; ++rl) {
-    const int r = r0 + rl;
+  for (int r = 0; r < TILE_H; ++r) {
     const size_t o = (size_t)(ty * TILE_H + r) * f.out_w + tx * kTileW +
-                     tile_col<TILE_H>();
-    const int g = win.g[rl];
+                     threadIdx.x;
+    const int g = win.g[r];
     f.gid_out[o] = g;
     float* px = f.gbuf_out + o;
-    px[0] = win.z[rl];
+    px[0] = win.z[r];
     if (g >= 0) {
       const float* rec = f.recs + (size_t)g * kRecLanes;
       RowSpan s;
@@ -595,7 +554,7 @@ __device__ __forceinline__ void gbuffer_tile(
       for (int c = 0; c < kAttrPlanes; ++c) {
         int j0, jg;
         attr_lanes(c, j0, jg);
-        px[(c + 1) * f.plane] = attr_at(rec, s, j0, jg, win.k[rl]);
+        px[(c + 1) * f.plane] = attr_at(rec, s, j0, jg, win.k[r]);
       }
     } else {
 #pragma unroll
@@ -616,9 +575,9 @@ __device__ __forceinline__ void init_winners(Winners<ROWS>& win) {
 
 // The tile's outputs: the G-buffer (GBUF) or z, gid and colour.
 template <int TILE_H, bool GBUF>
-__device__ __forceinline__ void write_tile(
-    const Finalize& f, const Winners<Tile<TILE_H>::kRows>& win, int ty,
-    int tx, int row_base, float xc) {
+__device__ __forceinline__ void write_tile(const Finalize& f,
+                                           const Winners<TILE_H>& win, int ty,
+                                           int tx, int row_base, float xc) {
   if constexpr (GBUF)
     gbuffer_tile<TILE_H>(f, win, ty, tx, row_base);
   else
@@ -627,28 +586,24 @@ __device__ __forceinline__ void write_tile(
 
 // ---------------------------------------------------------------------------
 // K6 (shaded) and K8 (G-buffer): the mask strategy, one block per (tile,
-// row strip). Tile t's triangles are ids[t * capacity + i] for i <
-// counts[t], in submission order; each covers all of the tile's rows.
+// row). Tile t's triangles are ids[t * capacity + i] for i < counts[t], in
+// submission order; each covers all of the tile's rows.
 //
 // One block a tile, each thread finalizing its column's TILE_H pixels in
 // series, left the card nearly empty on the frames this strategy draws
 // (128 blocks of 4 warps for config 3's 16-row tiles at 512x512, 64 of 8
 // warps at 32 rows), and each thread's chain of dependent divisions, texel
 // loads and square roots uncovered: the finalize took 0.030 of its 0.037
-// ms there (PERF.md, section 6). Here the frame is cut into strips
-// of S rows (S divides 8, so every tile height the Pallas kernels take,
-// any multiple of 8, is a whole number of strips): strip sy holds frame
-// rows [row0 + sy * S, + S), block (sy, tx) folds the WHOLE list of tile
-// (sy / (tile_h / S), tx) over its strip's rows only, then writes them.
-// 128 threads, one a column, S rows of winners each; a batch stages 128 /
-// S records, at most kMaxStripBatch (64 at S = 1 and 2, 32 at S = 4).
-// Stage A still runs once per (entry, row) pair over the whole tile; only
-// the record staging repeats in each strip, from L2. The wrapper's S is
-// ops.raster.MASK_STRIP_ROWS (1, the fastest of the sweep). Exact: every
-// row lies in one strip, each strip folds the whole list with the fold's
-// (z desc, gid asc) rule, and row sy * S + r of the frame is the int the
-// one-block form computed as row0 + ty * tile_h + r, so every float is the
-// same.
+// ms there (PERF.md, section 6). Here the frame is cut into strips of S =
+// 1 row, the fastest on every scene of a sweep of 1, 2, 4 and 8 rows on an
+// H100 (PERF.md): strip sy is frame row row0 + sy, and block (sy, tx) folds
+// the WHOLE list of tile (sy / tile_h, tx) over that row only, then writes
+// it. 128 threads, one a column, one winner each; a batch stages
+// kMaxStripBatch records. Stage A still runs once per (entry, row) pair
+// over the whole tile; only the record staging repeats in each row, from
+// L2. Exact: each row folds the whole list with the fold's (z desc, gid
+// asc) rule, and row sy of the strips is the int the one-block form
+// computed as row0 + ty * tile_h + r, so every float is the same.
 // ---------------------------------------------------------------------------
 
 template <int S, bool GBUF>
@@ -657,11 +612,11 @@ __global__ void __launch_bounds__(kThreads) mask_kernel(
     int strips, Finalize f) {
   constexpr int kBatch =
       kThreads / S < kMaxStripBatch ? kThreads / S : kMaxStripBatch;
-  __shared__ __align__(16) SharedT<kThreads, kBatch> sh;
+  __shared__ __align__(16) SharedT<kBatch> sh;
   const int sy = blockIdx.x / f.tiles_x, tx = blockIdx.x - sy * f.tiles_x;
   const int tile = sy / strips * f.tiles_x + tx;
   const int row_base = f.row0 + sy * S;
-  const float xc = static_cast<float>(f.col0 + tx * kTileW + tile_col<S>());
+  const float xc = static_cast<float>(f.col0 + tx * kTileW + threadIdx.x);
   Winners<S> win;
   init_winners(win);
   const int* list = ids + (size_t)tile * capacity;
@@ -672,30 +627,17 @@ __global__ void __launch_bounds__(kThreads) mask_kernel(
   write_tile<S, GBUF>(f, win, sy, tx, row_base, xc);
 }
 
-// One mask launch: tiles of tile_h rows (a multiple of 8) in strips of
-// strip_rows (1, 2, 4 or 8).
+// One mask launch: tiles of tile_h rows (a multiple of 8), one block a
+// (row, tile column).
 template <bool GBUF>
 int mask_launch(const int* ids, const int* counts, int capacity, int tile_h,
-                int strip_rows, int tiles_y, const Finalize& f,
-                cudaStream_t s) {
-  if (tile_h < 8 || tile_h % 8 != 0 || strip_rows < 1 || 8 % strip_rows)
-    return 1;  // invalid value
-  const int strips = tile_h / strip_rows;
+                int tiles_y, const Finalize& f, cudaStream_t s) {
+  if (tile_h < 8 || tile_h % 8 != 0) return 1;  // invalid value
+  const int strips = tile_h;  // a tile's strips of one row
   const long long grid = (long long)tiles_y * strips * f.tiles_x;
   if (grid > 0x7FFFFFFFLL) return 1;
-  const unsigned g = static_cast<unsigned>(grid);
-  if (strip_rows == 1)
-    mask_kernel<1, GBUF><<<g, kThreads, 0, s>>>(ids, counts, capacity,
-                                                strips, f);
-  else if (strip_rows == 2)
-    mask_kernel<2, GBUF><<<g, kThreads, 0, s>>>(ids, counts, capacity,
-                                                strips, f);
-  else if (strip_rows == 4)
-    mask_kernel<4, GBUF><<<g, kThreads, 0, s>>>(ids, counts, capacity,
-                                                strips, f);
-  else
-    mask_kernel<8, GBUF><<<g, kThreads, 0, s>>>(ids, counts, capacity,
-                                                strips, f);
+  mask_kernel<1, GBUF><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
+      ids, counts, capacity, strips, f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -809,19 +751,18 @@ __device__ __forceinline__ void fold_kz(const float* rec, float yf, float w_f,
 template <int TILE_H>
 __device__ __forceinline__ size_t tile_pixel(const Finalize& f, int ty,
                                              int tx, int r) {
-  return (size_t)(ty * TILE_H + r) * f.out_w + tx * kTileW +
-         tile_col<TILE_H>();
+  return (size_t)(ty * TILE_H + r) * f.out_w + tx * kTileW + threadIdx.x;
 }
 
-// Fold ids[0..ne) in batches of the block's threads / NROWS entries over
-// tile rows [row_lo, row_lo + NROWS).
+// Fold ids[0..ne) in batches of kThreads / NROWS entries over tile rows
+// [row_lo, row_lo + NROWS).
 template <int TILE_H, int NROWS, bool CULL>
-__device__ __forceinline__ void fold_run(
-    const int* ids, int ne, int row_lo, int row_base, float xc,
-    const Finalize& f, SharedT<Tile<TILE_H>::kThreads>& sh,
-    Winners<Tile<TILE_H>::kRows>& win, int* skipped,
-    const unsigned long long* keys) {
-  constexpr int kBatch = Tile<TILE_H>::kThreads / NROWS;
+__device__ __forceinline__ void fold_run(const int* ids, int ne, int row_lo,
+                                         int row_base, float xc,
+                                         const Finalize& f, Shared& sh,
+                                         Winners<TILE_H>& win, int* skipped,
+                                         const unsigned long long* keys) {
+  constexpr int kBatch = kThreads / NROWS;
   static_assert(kBatch <= kMaxBatch, "batch exceeds shared rows");
   for (int b0 = 0; b0 < ne; b0 += kBatch)
     fold_batch<TILE_H, NROWS, CULL>(f.recs, ids + b0, min(kBatch, ne - b0),
@@ -865,13 +806,13 @@ __device__ __forceinline__ int part_run(
 }
 
 template <int TILE_H, int STREAMS, bool CULL>
-__global__ void __launch_bounds__(Tile<TILE_H>::kThreads) split_walk_kernel(
+__global__ void __launch_bounds__(kThreads) split_walk_kernel(
     const int* __restrict__ sorted_tri, const int* __restrict__ starts,
     const int* __restrict__ counts, const int* __restrict__ large_ids,
     const int* __restrict__ n_large, const int* __restrict__ part_off,
     int nfb, int part_entries, Finalize f,
     unsigned long long* __restrict__ keys, int* skipped) {
-  __shared__ __align__(16) SharedT<Tile<TILE_H>::kThreads> sh;
+  __shared__ __align__(16) Shared sh;
   constexpr int kStrip = TILE_H / STREAMS;  // rows each stream covers
   const int n = part_off[nfb];
   for (int part = blockIdx.x; part < n; part += gridDim.x) {
@@ -882,11 +823,10 @@ __global__ void __launch_bounds__(Tile<TILE_H>::kThreads) split_walk_kernel(
                                        part_entries, h, ids, ne);
     const int ty = tile / f.tiles_x, tx = tile - ty * f.tiles_x;
     const int row_base = f.row0 + ty * TILE_H;
-    const float xc =
-        static_cast<float>(f.col0 + tx * kTileW + tile_col<TILE_H>());
+    const float xc = static_cast<float>(f.col0 + tx * kTileW + threadIdx.x);
     const unsigned long long* tile_keys =
         keys + tile_pixel<TILE_H>(f, ty, tx, 0);
-    Winners<Tile<TILE_H>::kRows> win;
+    Winners<TILE_H> win;
     init_winners(win);
     if constexpr (kStrip == TILE_H && !CULL) {
       // One stream: its parts and the side list fold over the same rows.
@@ -902,39 +842,34 @@ __global__ void __launch_bounds__(Tile<TILE_H>::kThreads) split_walk_kernel(
         fold_run<TILE_H, TILE_H, false>(ids, ne, 0, row_base, xc, f, sh, win,
                                         nullptr, nullptr);
     }
-    const int r0 = row_first<TILE_H>();
 #pragma unroll
-    for (int rl = 0; rl < Tile<TILE_H>::kRows; ++rl)
-      if (win.g[rl] >= 0)
-        atomicMax(keys + tile_pixel<TILE_H>(f, ty, tx, r0 + rl),
-                  winner_key(win.z[rl], win.g[rl]));
+    for (int r = 0; r < TILE_H; ++r)
+      if (win.g[r] >= 0)
+        atomicMax(keys + tile_pixel<TILE_H>(f, ty, tx, r),
+                  winner_key(win.z[r], win.g[r]));
   }
 }
 
 // The tile's outputs from the keys: z, gid and colour, or (GBUF) gid and
 // the 11 planes.
 template <int TILE_H, bool GBUF>
-__global__ void __launch_bounds__(Tile<TILE_H>::kThreads)
+__global__ void __launch_bounds__(kThreads)
     split_finalize_kernel(const unsigned long long* __restrict__ keys,
                           Finalize f) {
   const int tile = blockIdx.x;
   const int ty = tile / f.tiles_x, tx = tile - ty * f.tiles_x;
   const int row_base = f.row0 + ty * TILE_H;
-  const float xc =
-      static_cast<float>(f.col0 + tx * kTileW + tile_col<TILE_H>());
-  Winners<Tile<TILE_H>::kRows> win;
+  const float xc = static_cast<float>(f.col0 + tx * kTileW + threadIdx.x);
+  Winners<TILE_H> win;
   init_winners(win);
-  const int r0 = row_first<TILE_H>();
 #pragma unroll
-  for (int rl = 0; rl < Tile<TILE_H>::kRows; ++rl) {
-    const unsigned long long key =
-        keys[tile_pixel<TILE_H>(f, ty, tx, r0 + rl)];
+  for (int r = 0; r < TILE_H; ++r) {
+    const unsigned long long key = keys[tile_pixel<TILE_H>(f, ty, tx, r)];
     if (key == 0ull) continue;  // no winner: DEPTH_CLEAR, gid -1, k 0
     const int g = static_cast<int>(0xFFFFFFFFu - static_cast<unsigned>(key));
-    win.g[rl] = g;
-    fold_kz(f.recs + (size_t)g * kRecLanes,
-            static_cast<float>(row_base + r0 + rl), f.w_f, xc, win.k[rl],
-            win.z[rl]);
+    win.g[r] = g;
+    fold_kz(f.recs + (size_t)g * kRecLanes, static_cast<float>(row_base + r),
+            f.w_f, xc, win.k[r], win.z[r]);
   }
   write_tile<TILE_H, GBUF>(f, win, ty, tx, row_base, xc);
 }
@@ -973,7 +908,7 @@ template <int TILE_H, int STREAMS, bool CULL>
 cudaError_t resident_blocks(int* blocks) {
   static int cached[kMaxDevices] = {};
   return occupancy_blocks(split_walk_kernel<TILE_H, STREAMS, CULL>,
-                          Tile<TILE_H>::kThreads, cached, blocks);
+                          kThreads, cached, blocks);
 }
 
 // The four device ops of one split launch: zero the keys, count the parts,
@@ -998,19 +933,22 @@ int split_raster(const int* sorted_tri, const int* starts, const int* counts,
       (long long)entries / part_entries + (STREAMS + 1LL) * nfb;
   const int grid = static_cast<int>(most < resident ? most : resident);
   split_walk_kernel<TILE_H, STREAMS, CULL>
-      <<<grid, Tile<TILE_H>::kThreads, 0, s>>>(
+      <<<grid, kThreads, 0, s>>>(
           sorted_tri, starts, counts, large_ids, n_large, part_off, nfb,
           part_entries, f, keys, skipped);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   split_finalize_kernel<TILE_H, GBUF>
-      <<<nfb, Tile<TILE_H>::kThreads, 0, s>>>(keys, f);
+      <<<nfb, kThreads, 0, s>>>(keys, f);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
-// The band form: K4 and K9 + K10 at every other multiple of 8 rows (24, 40,
-// 48, 56, 64, ...), the tile height a runtime value. The Pallas kernels take
-// any multiple of 8 rows; the forms above are compiled for 8, 16 and 32.
+// The band form: K4 and K9 + K10 at every multiple of 8 rows above 8 (16,
+// 24, 32, ...), the tile height a runtime value. The Pallas kernels take
+// any multiple of 8 rows; the split form above is compiled for 8 only.
+// At 16 and 32 rows the band form took 0.13-0.63x of the device time of
+// split forms compiled for those heights, on every scene timed on an H100
+// (PERF.md, section 6), so they were retired.
 //
 // The walk's unit of work is the part (part_scan_kernel<1> unchanged: a
 // stream part of at most P entries, or a tile's side list), and a block
@@ -1044,7 +982,7 @@ int split_raster(const int* sorted_tri, const int* starts, const int* counts,
 // and z from the key's gid (fold_kz) one block per (tile, 8-row band) of
 // an 8-row tiling of the frame, band b of tile (ty, tx) being rows row0 +
 // (ty * bands + b) * 8 + r, the same ints as the walk's rows.
-// Why fragments and not column threads: on the sorted heights a part's
+// Why fragments and not column threads: on the taller heights a part's
 // entries are runs of nearby small triangles that reach one or two of the
 // tile's bands; a column-thread fold (each of 128 threads testing every
 // pair of a batch on its column) spends 128 tests a pair for the one to
@@ -1299,14 +1237,14 @@ Finalize make_gbuffer(const float* recs, int tile_h, int tiles_y, int tiles_x,
 
 }  // namespace tr
 
-// K2 / K3 / K4: the sorted strategy's streams and side list, split into
-// parts of at most part_entries stream entries, the side list one more part
-// of each tile whose lcounts gate is open. entries: the length of
+// K2 / K3: the sorted strategy's streams and side list on 8-row tiles, split
+// into parts of at most part_entries stream entries, the side list one more
+// part of each tile whose lcounts gate is open. entries: the length of
 // sorted_tri (the parts' bound, for the grid). keys: (hp * wp) u64
-// scratch, hp = tiles_y * TILE_H, wp = tiles_x * 128. part_off:
-// (tiles_y * tiles_x + 1) i32, left holding each tile's first part and,
-// last, the parts' total.
-#define TR_RASTER_ENTRY(NAME, TILE_H, STREAMS)                                 \
+// scratch, hp = tiles_y * 8, wp = tiles_x * 128. part_off: (tiles_y *
+// tiles_x + 1) i32, left holding each tile's first part and, last, the
+// parts' total.
+#define TR_RASTER_ENTRY(NAME, STREAMS)                                         \
   extern "C" int NAME(const float* recs, const int* sorted_tri,                \
                       const int* starts, const int* counts,                    \
                       const int* large_ids, const int* n_large,                \
@@ -1321,23 +1259,22 @@ Finalize make_gbuffer(const float* recs, int tile_h, int tiles_y, int tiles_x,
         part_entries < 1)                                                      \
       return 1;                                                                \
     const int nfb = tiles_y * tiles_x;                                         \
-    return tr::split_raster<TILE_H, STREAMS, false, false>(                    \
+    return tr::split_raster<8, STREAMS, false, false>(                         \
         sorted_tri, starts, counts, large_ids, n_large, lcounts, entries,      \
         part_entries,                                                          \
         tr::make_finalize(recs, params, objs, texs, atlas, aw, n_obj,          \
                           n_lights, tiles_x, row0, col0, frame_w, z, gid,      \
                           color),                                              \
-        nfb, part_off, keys, (size_t)nfb * TILE_H * tr::kTileW, nullptr,       \
+        nfb, part_off, keys, (size_t)nfb * 8 * tr::kTileW, nullptr,            \
         static_cast<cudaStream_t>(stream));                                    \
   }
 
-TR_RASTER_ENTRY(tr_raster, 8, 2)           // K2
-TR_RASTER_ENTRY(tr_raster_rows1, 8, 1)     // K3
-TR_RASTER_ENTRY(tr_raster_narrow, 16, 1)   // K4
-TR_RASTER_ENTRY(tr_raster_narrow32, 32, 1) // K4, 32-row tiles
+TR_RASTER_ENTRY(tr_raster, 2)        // K2
+TR_RASTER_ENTRY(tr_raster_rows1, 1)  // K3
 
-// K4 on tiles of any other multiple of 8 rows, in the band form: K4's
-// operands and tile_h; keys (hp * wp) u64, hp = tiles_y * tile_h.
+// K4: tiles of any multiple of 8 rows (the routes send it 16 rows and
+// more), one stream, in the band form: K2's operands and tile_h; keys (hp *
+// wp) u64, hp = tiles_y * tile_h.
 extern "C" int tr_raster_narrow_any(
     const float* recs, const int* sorted_tri, const int* starts,
     const int* counts, const int* large_ids, const int* n_large,
@@ -1390,56 +1327,53 @@ extern "C" int tr_raster_narrow_any(
 TR_RASTER_ZCULL_ENTRY(tr_raster_zcull, 2)        // K11 on K2's route
 TR_RASTER_ZCULL_ENTRY(tr_raster_rows1_zcull, 1)  // K11 on K3's route
 
-// K6: tiles of any multiple of 8 rows, folded in strips of strip_rows (1,
-// 2, 4 or 8) rows.
+// K6: tiles of any multiple of 8 rows, folded a row a block.
 extern "C" int tr_raster_mask(const float* recs, const int* ids,
                               const int* counts, const float* params,
                               const int* objs, const int* texs,
                               const unsigned* atlas, int capacity, int tile_h,
-                              int strip_rows, int n_obj, int n_lights, int aw,
-                              int tiles_y, int tiles_x, int row0, int col0,
-                              int frame_w, float* z, int* gid,
-                              unsigned* color, void* stream) {
+                              int n_obj, int n_lights, int aw, int tiles_y,
+                              int tiles_x, int row0, int col0, int frame_w,
+                              float* z, int* gid, unsigned* color,
+                              void* stream) {
   if (n_obj < 1 || tiles_y < 1 || tiles_x < 1 || capacity < 1) return 1;
   return tr::mask_launch<false>(
-      ids, counts, capacity, tile_h, strip_rows, tiles_y,
+      ids, counts, capacity, tile_h, tiles_y,
       tr::make_finalize(recs, params, objs, texs, atlas, aw, n_obj, n_lights,
                         tiles_x, row0, col0, frame_w, z, gid, color),
       static_cast<cudaStream_t>(stream));
 }
 
-// K8: the mask strategy into a G-buffer, as K6 any multiple of 8 rows in
-// strips; gid (out_h, out_w) i32 and gbuf (11, out_h, out_w) f32, out_h =
-// tiles_y * tile_h.
+// K8: the mask strategy into a G-buffer, as K6 any multiple of 8 rows a
+// row a block; gid (out_h, out_w) i32 and gbuf (11, out_h, out_w) f32,
+// out_h = tiles_y * tile_h.
 extern "C" int tr_gbuffer_mask(const float* recs, const int* ids,
                                const int* counts, int capacity, int tile_h,
-                               int strip_rows, int tiles_y, int tiles_x,
-                               int row0, int col0, int frame_w, int* gid,
-                               float* gbuf, void* stream) {
+                               int tiles_y, int tiles_x, int row0, int col0,
+                               int frame_w, int* gid, float* gbuf,
+                               void* stream) {
   if (tiles_y < 1 || tiles_x < 1 || capacity < 1) return 1;
   return tr::mask_launch<true>(
-      ids, counts, capacity, tile_h, strip_rows, tiles_y,
+      ids, counts, capacity, tile_h, tiles_y,
       tr::make_gbuffer(recs, tile_h, tiles_y, tiles_x, row0, col0, frame_w,
                        gid, gbuf),
       static_cast<cudaStream_t>(stream));
 }
 
-// K9 + K10: the sorted strategy's single stream into a G-buffer, 8-, 16- or
-// 32-row tiles, any other multiple of 8 rows in the band form; each tile's
-// stream split into parts of at most
-// part_entries entries, the side list one more part of each tile whose
-// lcounts gate is open. entries: the length of sorted_tri (the parts'
-// bound, for the grid). keys: (hp * wp) u64 scratch, hp = tiles_y *
-// tile_h, wp = tiles_x * 128. part_off: (tiles_y * tiles_x + 1) i32, left
-// holding each tile's first part and, last, the parts' total.
-// band != 0: the band form at every height, 8, 16 and 32 too (beside the
-// forms of those heights; the routes pass 0).
+// K9 + K10: the sorted strategy's single stream into a G-buffer, 8-row
+// tiles in the split form, any other multiple of 8 rows in the band form;
+// each tile's stream split into parts of at most part_entries entries, the
+// side list one more part of each tile whose lcounts gate is open. entries:
+// the length of sorted_tri (the parts' bound, for the grid). keys: (hp *
+// wp) u64 scratch, hp = tiles_y * tile_h, wp = tiles_x * 128. part_off:
+// (tiles_y * tiles_x + 1) i32, left holding each tile's first part and,
+// last, the parts' total.
 extern "C" int tr_gbuffer_queue(const float* recs, const int* sorted_tri,
                                 const int* starts, const int* counts,
                                 const int* large_ids, const int* n_large,
-                                const int* lcounts, int tile_h, int band,
-                                int tiles_y, int tiles_x, int row0, int col0,
-                                int frame_w, int entries, int part_entries,
+                                const int* lcounts, int tile_h, int tiles_y,
+                                int tiles_x, int row0, int col0, int frame_w,
+                                int entries, int part_entries,
                                 unsigned long long* keys, int* part_off,
                                 int* gid, float* gbuf, void* stream) {
   if (tiles_y < 1 || tiles_x < 1 || entries < 0 || part_entries < 1)
@@ -1449,16 +1383,8 @@ extern "C" int tr_gbuffer_queue(const float* recs, const int* sorted_tri,
   const int nfb = tiles_y * tiles_x;
   const size_t n_keys = f.plane;  // hp * wp
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!band && tile_h == 8)
+  if (tile_h == 8)
     return tr::split_raster<8, 1, false, true>(
-        sorted_tri, starts, counts, large_ids, n_large, lcounts, entries,
-        part_entries, f, nfb, part_off, keys, n_keys, nullptr, s);
-  if (!band && tile_h == 16)
-    return tr::split_raster<16, 1, false, true>(
-        sorted_tri, starts, counts, large_ids, n_large, lcounts, entries,
-        part_entries, f, nfb, part_off, keys, n_keys, nullptr, s);
-  if (!band && tile_h == 32)
-    return tr::split_raster<32, 1, false, true>(
         sorted_tri, starts, counts, large_ids, n_large, lcounts, entries,
         part_entries, f, nfb, part_off, keys, n_keys, nullptr, s);
   return tr::band_raster<true>(tile_h, sorted_tri, starts, counts, large_ids,

@@ -171,8 +171,7 @@ def entry(rt, path, zcull=False) -> str:
     if tile_h == 8:
         name = "tr_raster" if rows == 2 else "tr_raster_rows1"
         return name + "_zcull" if zcull else name
-    return {16: "tr_raster_narrow", 32: "tr_raster_narrow32"}.get(
-        tile_h, "tr_raster_narrow_any")
+    return "tr_raster_narrow_any"
 
 
 def setup_launches(sg) -> dict:
@@ -721,7 +720,7 @@ def _band_px(rng, y_top, y_bot, x, width):
 
 def bands(seed, heights=BAND_HEIGHTS, rows=320):
     """Scenes at the band walk's edges (the sorted route at heights
-    without a form of their own): a frame of ``rows`` rows and 128-column
+    above 8 rows): a frame of ``rows`` rows and 128-column
     tile columns, laid out left to right:
 
     - columns 0-1: at every band boundary 8k of the frame, triangles

@@ -9,8 +9,8 @@ golden/cpu_reference.py:302); uncovered pixels hold DEPTH_CLEAR and zeros,
 and gid -1. It holds three kernels, in ``csrc/raster.cu``:
 
 - K8, ``raster_pass``: the mask strategy (``_raster_kernel_tilelist``
-  :1756), each tile folding its ``bin_triangles`` list in place, in
-  strips of ``ops.raster.MASK_STRIP_ROWS`` rows that many blocks fold;
+  :1756), each tile folding its ``bin_triangles`` list in place, a frame
+  row a block;
 - K9, ``raster_pass_queue``: the sorted strategy's single stream
   (``_raster_kernel_queue`` :1853), each tile's entries split into parts
   of at most ``ops.raster.RASTER_PART_ENTRIES`` that many blocks fold in
@@ -23,13 +23,11 @@ Each wrapper launches its kernel on CUDA tensors and runs its plain
 version on CPU tensors: ``gbuffer_plain``, the plain raster's fragments and
 winners (``ops.raster.raster_fragments``, ``resolve_winners``) over all 10
 attribute planes. Both CUDA entries take any multiple of 8 rows, as the
-Pallas kernels: K9's is compiled for 8-, 16- and 32-row tiles
-(``ops.raster.CUDA_TILE_HEIGHTS``: the 'auto' route's heights and the
-Pallas kernels' default of 32, 256-thread blocks) and runs every other
-multiple of 8 in the band form (each part folded over only the rows its
-entries reach, fragment by fragment, csrc/raster.cu); K8 folds strips.
-Other heights raise on CUDA tensors; the plain version takes any tile
-height.
+Pallas kernels. K9 has one form a height: 8-row tiles the split form
+(K2's, whose blocks fold a part into winners in registers), every other
+multiple of 8 the band form (K4's: each part folded over only the rows
+its entries reach, fragment by fragment, csrc/raster.cu). Other heights
+raise on CUDA tensors; the plain version takes any tile height.
 """
 
 from __future__ import annotations
@@ -106,7 +104,7 @@ def raster_pass(recs, bins: TileBins, *, tile_h: int, tiles_y: int,
     """K8, the mask strategy into a G-buffer (tiles of any multiple of 8
     rows): each tile folds its list ``bins.ids`` (submission order,
     ``bins.counts`` entries) over all of its rows, reading the records in
-    place, one block a strip of ``ops.raster.MASK_STRIP_ROWS`` rows.
+    place, one block a frame row.
     Returns (gid (hp, wp) i32, gbuf (11, hp, wp) f32) for every tile, hp =
     tiles_y * tile_h, wp = tiles_x * 128. CUDA tensors launch
     ``tr_gbuffer_mask`` and count ``raster_pass.launches``; CPU tensors
@@ -128,30 +126,28 @@ def raster_pass(recs, bins: TileBins, *, tile_h: int, tiles_y: int,
     _cuda.launch(
         "tr_gbuffer_mask", dev,
         recs.data_ptr(), bins.ids.data_ptr(), bins.counts.data_ptr(),
-        capacity, tile_h, _raster.MASK_STRIP_ROWS, tiles_y, tiles_x, row0,
-        col0, frame_width, gid.data_ptr(), gbuf.data_ptr())
+        capacity, tile_h, tiles_y, tiles_x, row0, col0, frame_width,
+        gid.data_ptr(), gbuf.data_ptr())
     raster_pass.launches += 1
     return gid, gbuf
 
 
 def raster_pass_queue(recs, qbins: QueueBins, lcounts, *, tile_h: int,
                       tiles_y: int, tiles_x: int, row0: int, col0: int,
-                      frame_width: int, band: bool = False):
+                      frame_width: int):
     """K9 + K10, the sorted strategy into a G-buffer: each tile's stream
     entries, and where ``lcounts`` is open the side list
     ``qbins.large_ids``, folded in parts of at most
     ``ops.raster.RASTER_PART_ENTRIES`` entries (the side list one part)
     and merged by the (z desc, gid asc) key; tiles of any multiple of 8
-    rows on CUDA tensors (8, 16 and 32 in forms of their own, every other
-    height in the band form). Outputs as ``raster_pass``'s.
+    rows on CUDA tensors (8 rows in the split form, every other height in
+    the band form). Outputs as ``raster_pass``'s.
     CUDA tensors launch ``tr_gbuffer_queue`` (the key fill, the part count, the
     walk and the finalize are its device ops), count
     ``raster_pass_queue.launches`` once (K10 runs inside that call) and leave
     the parts' offsets on the device in ``raster_pass_queue.part_offsets``
     ((tiles + 1,) i32, tile t's parts from [t] to [t + 1], the last the total);
-    CPU tensors run ``gbuffer_plain``. ``band`` runs the band form at
-    every height, 8, 16 and 32 too (the routes never ask for it: it
-    measures the band form beside those heights' forms)."""
+    CPU tensors run ``gbuffer_plain``."""
     dev = recs.device
     nfb = tiles_y * tiles_x
     if qbins.starts.shape[0] != nfb + 1:
@@ -178,8 +174,8 @@ def raster_pass_queue(recs, qbins: QueueBins, lcounts, *, tile_h: int,
         "tr_gbuffer_queue", dev,
         recs.data_ptr(), qbins.sorted_tri.data_ptr(), qbins.starts.data_ptr(),
         qbins.counts.data_ptr(), qbins.large_ids.data_ptr(),
-        qbins.n_large.data_ptr(), lcounts.data_ptr(), tile_h, int(band),
-        tiles_y, tiles_x, row0, col0, frame_width, qbins.sorted_tri.shape[0],
+        qbins.n_large.data_ptr(), lcounts.data_ptr(), tile_h, tiles_y,
+        tiles_x, row0, col0, frame_width, qbins.sorted_tri.shape[0],
         _raster.RASTER_PART_ENTRIES, keys.data_ptr(), part_off.data_ptr(),
         gid.data_ptr(), gbuf.data_ptr())
     raster_pass_queue.launches += 1
@@ -190,10 +186,10 @@ def raster_pass_queue(recs, qbins: QueueBins, lcounts, *, tile_h: int,
 raster_pass.launches = 0
 raster_pass_queue.launches = 0
 raster_pass_queue.part_offsets = None
-_cuda.declare("tr_gbuffer_mask", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+_cuda.declare("tr_gbuffer_mask", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
               + [ctypes.c_void_p] * 3)
 _cuda.declare("tr_gbuffer_queue", [ctypes.c_void_p] * 7
-              + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 5)
+              + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 5)
 
 
 def gbuffer_plain(recs, qbins: QueueBins, lcounts, *, tile_h: int,

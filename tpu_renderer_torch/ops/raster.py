@@ -7,13 +7,11 @@ or bilinear, within the fused atlas limits) or not. It holds five kernels:
 - K2, K3 and K4: the Pallas ``_raster_kernel_queue_shaded``
   (raster_pallas.py:2192) on the sorted strategy's routes -- 8-row tiles
   with row packing 2 (K2, ``raster_kernel``), 8-row tiles with one stream
-  (K3, ``raster_rows1_kernel``), 16- or 32-row tiles with one stream (K4,
-  ``raster_narrow_kernel``, ``raster_narrow32_kernel``), and K4 on tiles of
-  any other height (``raster_narrow_any_kernel``: on CUDA any multiple of
-  8 rows, in the band form);
+  (K3, ``raster_rows1_kernel``), and taller tiles with one stream (K4,
+  ``raster_narrow_any_kernel``: on CUDA any multiple of 8 rows);
 - K6: the Pallas ``_raster_kernel_tilelist_shaded`` (raster_pallas.py:2121),
   the mask strategy (``raster_mask_kernel``), tiles of any multiple of 8
-  rows, each folded in strips of ``MASK_STRIP_ROWS`` rows by many blocks;
+  rows, each folded a row a block;
 - K5: the texture fetch of their finalize (``_sample_texture_atlas`` :755,
   ``_sample_texture_atlas_bilinear`` :863), a device function of
   ``csrc/shade.cuh`` with no launch of its own; its plain version is
@@ -23,27 +21,27 @@ or bilinear, within the fused atlas limits) or not. It holds five kernels:
 
 Each wrapper launches its CUDA kernel on CUDA tensors and runs its plain
 version on CPU tensors. Every CUDA raster kernel takes any multiple of 8
-rows, as the Pallas kernels: the sorted ones are compiled for 8-, 16- and
-32-row tiles (``CUDA_TILE_HEIGHTS``) and run every other multiple of 8 in
-the band form (``tr_raster_narrow_any``, K9's ``tr_gbuffer_queue``: each
-part folded over only the rows its entries reach, fragment by fragment);
-the mask ones (K6, K8) fold any
-multiple of 8 in strips. Other heights raise on CUDA tensors
-(``check_cuda_tile_h``); the plain versions take any height. On the
-sorted routes one wrapper call is four device ops: the CUDA code cuts
-each tile's streams into parts of at most ``RASTER_PART_ENTRIES`` entries
-(the side list one more part), many blocks fold the parts (in the band
-form one atomic merge a fragment), a 64-bit (z desc, gid asc) key per
-pixel merges them, and a finalize block per tile (per 8-row band in the
-band form) shades the winners,
-as K9 does (``ops.gbuffer``). The raster kernels' plain
-version, ``raster_plain``, is vectorised over the binned entries (the mask
-strategy's lists go in as one stream, ``mask_plain``); each pixel's winner
-is the lexicographic best (z descending, gid ascending) over fragments
-with z > DEPTH_CLEAR, which is what the TPU kernels' strict '>'
-first-writer folds over gid-ordered lists plus the sorted strategy's
-gid-aware side-list merge compute. Multi-object launches pick each pixel's
-object from the winner's gid (``_finalize_shade``, raster_pallas.py:1600).
+rows, as the Pallas kernels; other heights raise on CUDA tensors
+(``check_cuda_tile_h``), and the plain versions take any height. The
+sorted kernels have one form a height: 8-row tiles (K2, K3, K11, and K9 in
+``ops.gbuffer``) the split form, whose blocks fold a part of a tile's
+entries into winners in registers; every other multiple of 8 (K4, and K9
++ K10) the band form (``tr_raster_narrow_any``, ``tr_gbuffer_queue``),
+whose blocks fold a part over only the rows its entries reach, fragment by
+fragment. Either way one wrapper call is four device ops: the CUDA code
+cuts each tile's streams into parts of at most ``RASTER_PART_ENTRIES``
+entries (the side list one more part), many blocks fold the parts, a
+64-bit (z desc, gid asc) key per pixel merges them, and a finalize block
+per tile (per 8-row band in the band form) shades the winners. The mask
+kernels (K6, K8) fold each tile's list a frame row a block. The raster
+kernels' plain version, ``raster_plain``, is vectorised over the binned
+entries (the mask strategy's lists go in as one stream, ``mask_plain``);
+each pixel's winner is the lexicographic best (z descending, gid
+ascending) over fragments with z > DEPTH_CLEAR, which is what the TPU
+kernels' strict '>' first-writer folds over gid-ordered lists plus the
+sorted strategy's gid-aware side-list merge compute. Multi-object launches
+pick each pixel's object from the winner's gid (``_finalize_shade``,
+raster_pallas.py:1600).
 
 K11, the occlusion skip (``zcull``), is K2 and K3 with a per-batch cull
 (``raster_zcull_kernel``, ``raster_rows1_zcull_kernel``) against the
@@ -131,21 +129,12 @@ LARGE_CAPACITY = 2048  # side-list slots (bin_triangles_queue default)
 CHUNK_T = 8  # the mask strategy's list capacity rounds up to this
 MASK_MAX_CAPACITY = 4096
 STRATEGIES = ("auto", "mask", "sorted")
-# Tile heights the sorted CUDA kernels are compiled for; they run every
-# other multiple of 8 rows in the band form (csrc/raster.cu).
-CUDA_TILE_HEIGHTS = (8, 16, 32)
 # K2, K3, K4, K9, K11: stream entries per part (csrc/raster.cu, "The
 # sorted strategy, each tile's entries split"), chosen on an H100 by
 # chip_smoke.py's sweeps (PERF.md). It spreads the work and changes no
 # output: any int in [1, 2^31) gives the same frame, bit for bit; 2^31 - 1
 # gives one part a stream of a tile.
 RASTER_PART_ENTRIES = 32
-# K6, K8: rows of the strips each mask tile is folded in, one block a strip
-# (csrc/raster.cu, "the mask strategy, one block per (tile, row strip)"),
-# chosen on an H100 by chip_smoke.py's sweep (PERF.md). Any of 1, 2, 4, 8
-# (the divisors of 8, so every multiple-of-8 tile height is whole strips)
-# gives the same frame, bit for bit.
-MASK_STRIP_ROWS = 1
 _MASK_BLOCK_BYTES_CAP = 4 * 1024 * 1024  # one tile's list of records
 _MASK_TOTAL_BYTES_CAP = 512 * 1024 * 1024  # all tiles' lists of records
 # The f32 gid lane is exact only up to 2**24 triangles per scene.
@@ -577,32 +566,13 @@ def raster_rows1_kernel(recs, qbins, lcounts, params, objs, texs, atlas,
                    qbins, lcounts, params, objs, texs, atlas, **kw)
 
 
-def raster_narrow_kernel(recs, qbins, lcounts, params, objs, texs, atlas,
-                         **kw):
-    """K4 (16-row tiles, one stream): outputs (tiles_y * 16, tiles_x *
-    128); ``tr_raster_narrow``, counted in
-    ``raster_narrow_kernel.launches``."""
-    return _raster(raster_narrow_kernel, "tr_raster_narrow", 16, 1, recs,
-                   qbins, lcounts, params, objs, texs, atlas, **kw)
-
-
-def raster_narrow32_kernel(recs, qbins, lcounts, params, objs, texs, atlas,
-                           **kw):
-    """K4 on 32-row tiles (one stream; 256-thread blocks, two threads a
-    column): outputs (tiles_y * 32, tiles_x * 128); ``tr_raster_narrow32``,
-    counted in ``raster_narrow32_kernel.launches``."""
-    return _raster(raster_narrow32_kernel, "tr_raster_narrow32", 32, 1,
-                   recs, qbins, lcounts, params, objs, texs, atlas, **kw)
-
-
 def raster_narrow_any_kernel(recs, qbins, lcounts, params, objs, texs,
                              atlas, *, tile_h: int, **kw):
-    """K4 on tiles of any height without a form of its own (24, 40, 48, 64,
+    """K4, the sorted strategy on tiles taller than 8 rows (16, 24, 32,
     ...; one stream): outputs (tiles_y * tile_h, tiles_x * 128). CUDA
-    tensors take a multiple of 8 (``check_cuda_tile_h``; 16 and 32 too,
-    beside those heights' own forms), launch ``tr_raster_narrow_any`` (the
-    band form: each part folded over only the rows its entries reach,
-    fragment by fragment, csrc/raster.cu), count
+    tensors take a multiple of 8 (``check_cuda_tile_h``), launch
+    ``tr_raster_narrow_any`` (the band form: each part folded over only the
+    rows its entries reach, fragment by fragment, csrc/raster.cu), count
     ``raster_narrow_any_kernel.launches`` once and leave the parts' offsets
     in ``raster_narrow_any_kernel.part_offsets``; CPU tensors run
     ``raster_plain`` at any height, with the bins' own streams."""
@@ -626,10 +596,9 @@ def raster_mask_kernel(recs, bins: TileBins, params, objs, texs, atlas, *,
                        col0: int, frame_width: int, n_lights: int):
     """K6, the mask strategy (tiles of any multiple of 8 rows): each tile
     folds its list ``bins.ids`` (submission order, ``bins.counts`` entries)
-    over all of its rows, reading the records in place, one block a strip
-    of ``MASK_STRIP_ROWS`` rows; outputs as K2's. CUDA tensors launch
-    ``tr_raster_mask`` and count ``raster_mask_kernel.launches``; CPU
-    tensors run ``mask_plain``."""
+    over all of its rows, reading the records in place, one block a frame
+    row; outputs as K2's. CUDA tensors launch ``tr_raster_mask`` and count
+    ``raster_mask_kernel.launches``; CPU tensors run ``mask_plain``."""
     dev = recs.device
     kw = dict(tile_h=tile_h, tiles_y=tiles_y, tiles_x=tiles_x, row0=row0,
               col0=col0, frame_width=frame_width, n_lights=n_lights)
@@ -652,9 +621,8 @@ def raster_mask_kernel(recs, bins: TileBins, params, objs, texs, atlas, *,
         "tr_raster_mask", dev,
         recs.data_ptr(), bins.ids.data_ptr(), bins.counts.data_ptr(),
         params.data_ptr(), objs.data_ptr(), texs.data_ptr(), atlas_ptr,
-        capacity, tile_h, MASK_STRIP_ROWS, n_obj, n_lights, aw, tiles_y,
-        tiles_x, row0, col0, frame_width, z.data_ptr(), gid.data_ptr(),
-        color.data_ptr(),
+        capacity, tile_h, n_obj, n_lights, aw, tiles_y, tiles_x, row0, col0,
+        frame_width, z.data_ptr(), gid.data_ptr(), color.data_ptr(),
     )
     raster_mask_kernel.launches += 1
     return z, gid, color.view(torch.uint32)
@@ -686,17 +654,14 @@ def raster_rows1_zcull_kernel(recs, qbins, lcounts, params, objs, texs,
                    zcull=True, skipped=skipped, **kw)
 
 
-for _fn in (raster_kernel, raster_rows1_kernel, raster_narrow_kernel,
-            raster_narrow32_kernel, raster_narrow_any_kernel,
+for _fn in (raster_kernel, raster_rows1_kernel, raster_narrow_any_kernel,
             raster_mask_kernel, raster_zcull_kernel,
             raster_rows1_zcull_kernel):
     _fn.launches = 0
-for _fn in (raster_kernel, raster_rows1_kernel, raster_narrow_kernel,
-            raster_narrow32_kernel, raster_narrow_any_kernel,
+for _fn in (raster_kernel, raster_rows1_kernel, raster_narrow_any_kernel,
             raster_zcull_kernel, raster_rows1_zcull_kernel):
     _fn.part_offsets = None
-for _entry in ("tr_raster", "tr_raster_rows1", "tr_raster_narrow",
-               "tr_raster_narrow32"):
+for _entry in ("tr_raster", "tr_raster_rows1"):
     _cuda.declare(_entry, [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
                   + [ctypes.c_void_p] * 6)
 _cuda.declare("tr_raster_narrow_any", [ctypes.c_void_p] * 11
@@ -704,16 +669,14 @@ _cuda.declare("tr_raster_narrow_any", [ctypes.c_void_p] * 11
 for _entry in ("tr_raster_zcull", "tr_raster_rows1_zcull"):
     _cuda.declare(_entry, [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
                   + [ctypes.c_void_p] * 7)
-_cuda.declare("tr_raster_mask", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
+_cuda.declare("tr_raster_mask", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
               + [ctypes.c_void_p] * 4)
 
-# (tile_h, rows) -> wrapper of the sorted strategy; every other height
-# takes raster_narrow_any_kernel.
+# (tile_h, rows) -> wrapper of the sorted strategy on 8-row tiles; every
+# other height takes raster_narrow_any_kernel.
 RASTER_KERNELS = {
     (8, 2): raster_kernel,
     (8, 1): raster_rows1_kernel,
-    (16, 1): raster_narrow_kernel,
-    (32, 1): raster_narrow32_kernel,
 }
 ZCULL_KERNELS = {  # (tile_h, rows) -> K11's wrapper on that route
     (8, 2): raster_zcull_kernel,
@@ -1241,8 +1204,8 @@ def prepare_raster(table, objspecs: tuple, transform: ProjectiveTransform,
     object; ``atlas`` is the scene's ``pack_texture_atlas`` when any object
     is textured. ``capacity`` is the mask strategy's list length (default
     ``mask_capacity``); ``strategy`` and ``tile_h`` force the route
-    (``raster_route``; on the sorted strategy the routes of
-    ``RASTER_KERNELS`` take their own forms and every other height K4's
+    (``raster_route``; on the sorted strategy the 8-row routes of
+    ``RASTER_KERNELS`` take K2 or K3 and every other height K4's
     ``raster_narrow_any_kernel``, whose options carry ``tile_h``);
     ``budget_override`` is the sorted strategy's budget factor. ``zcull``
     launches K11 in place of K2 or K3 on 8-row tiles; on taller tiles (K4)
