@@ -85,8 +85,9 @@ Phases (any failure raises and the script exits nonzero):
    tile grid, on the fused, G-buffer and reference branches, also against
    the crop of the card's whole frame;
 5. paths, each through Renderer(device="cuda") for 3 warm-up and 20 timed
-   frames, every object rotated about y each frame (K13, once an object a
-   frame), every sorted draw binned by K14 (once a frame), the launch counts
+   frames, every object rotated about y each frame (one launch a frame:
+   K13's grouped form on several objects, K13 on one), every sorted draw
+   binned by K14 (once a frame), the launch counts
    set to 0 just before the path and read just after:
    - headline: a 1,001,112-triangle dense Phong sphere
      (construct_sphere_grid(708, 707)) at 1920x1080: K1 and K2 once per
@@ -151,7 +152,9 @@ Phases (any failure raises and the script exits nonzero):
    device time from a profiler trace and the time of zeroing its outputs,
    the card's own write of those bytes; K1's grouped form on stack6's six
    objects, also bit-equal to and timed beside one K1 launch an object at
-   the same rows; K13 on the headline's planes; K14, the sorted binning,
+   the same rows; K13 on the headline's planes, and its grouped form on
+   sphere_cluster's 137 objects beside one K13 an object, with a frame's
+   whole deferred rotation beside the eager one; K14, the sorted binning,
    on K1's bboxes of each of the benchmark's five cells (portbench's
    configurations at their frame sizes, the fused or G-buffer route the
    engine takes), integer-exact against ``bin_for_raster_plain``, with its
@@ -2102,9 +2105,14 @@ def main():
     from tpu_renderer_torch.models.textures import checkerboard
     from tpu_renderer_torch.ops import binning, gbuffer, raster, setup
     from tpu_renderer_torch.ops.shading import shade_merge, shade_merge_plain
-    from tpu_renderer_torch.geometry.transform import (rotate_kernel,
-                                                       rotate_plain,
-                                                       rotation_y)
+    from tpu_renderer_torch.geometry.transform import (
+        resolve_scene,
+        rotate_kernel,
+        rotate_kernel_grouped,
+        rotate_object,
+        rotate_plain,
+        rotation_y,
+    )
     from tpu_renderer_torch.geometry.vertex import scene_setup_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2124,6 +2132,7 @@ def main():
         "K4 raster+shade band": raster.raster_narrow_any_kernel,
         "K12 deferred shade": shade_merge,
         "K13 rotate": rotate_kernel,
+        "K13 grouped": rotate_kernel_grouped,
         "K14 binning": raster.bin_for_raster,
     }
 
@@ -2159,9 +2168,12 @@ def main():
                            r"_ZN2tr20setup_kernel_groupedI(Lb[01])E(Lb[01])E")
     k13_ptxas = ptxas_info(_cuda.build_info["log"], "rotate_kernel",
                            r"_ZN2tr13rotate_kernelE")
+    k13_ptxas.update(ptxas_info(_cuda.build_info["log"],
+                                "rotate_kernel_grouped",
+                                r"_ZN2tr21rotate_kernel_groupedE"))
     if len(k1_ptxas) != 4 or len(mask_ptxas) != 2 or \
             len(band_ptxas) != 1 or len(k1g_ptxas) != 4 or \
-            len(k13_ptxas) != 1 or not all(
+            len(k13_ptxas) != 2 or not all(
                 {"registers", "spill_stores"} <= set(v)
                 for v in band_ptxas.values()):
         raise AssertionError(f"ptxas lines of K1: {k1_ptxas}; of the mask "
@@ -2712,8 +2724,9 @@ def main():
         """Render n_frames of the scene, rotated a little each frame,
         through Renderer(**knobs) on the card (or ``render(scene)`` ->
         (framebuffer, stats)), the launch counts set to 0 just before and
-        read just after: each of ``kernels`` launched once a frame, K13
-        once an object a frame (``rotated``), the others never. Returns (ms per frame, the last framebuffer,
+        read just after: each of ``kernels`` launched once a frame, the
+        rotation (``rotated``) once a frame, K13's grouped form on a scene
+        of several objects and K13 on one, the others never. Returns (ms per frame, the last framebuffer,
         launches)."""
         if render is None:
             renderer = trt.Renderer(h, w, device=dev, **knobs)
@@ -2737,7 +2750,9 @@ def main():
         torch.cuda.synchronize()
         launches = {n: wr.launches for n, wr in wrappers.items()}
         want = {n: n_frames if n in kernels else 0 for n in wrappers}
-        want["K13 rotate"] = n_frames * len(scene)
+        many = len(scene) > 1
+        want["K13 rotate"] = 0 if many else n_frames
+        want["K13 grouped"] = n_frames if many else 0
         want["K14 binning"] = n_frames if set(kernels) & SORTED else 0
         if launches != want:
             raise AssertionError(f"{path}: launches {launches} in "
@@ -3246,6 +3261,84 @@ def main():
             f"device {dev_ms:.4f}, host {host_ms:.4f}), plain {pms:.4f} ms "
             f"(device {plain_dev:.4f}), bound {bms:.4f} ms ({by})")
 
+    def time_k13_grouped(path, config, h, w):
+        """K13's grouped form on a benchmark configuration's objects (one
+        matrix, as the benchmark's frames turn them), bit-equal to
+        ``rotate_plain`` and to one K13 launch an object, timed beside
+        those launches in turns; then a frame's whole rotation through the
+        program, every ``rotate_object`` call and the draw's
+        ``resolve_scene``, beside the eager calls it replaced (one K13 and
+        a ``_replace`` an object)."""
+        from portbench import harness as pb_harness
+        from portbench import scene as pb_scene
+
+        name = "K13 rotate"
+        with open(os.path.join(ROOT, "portbench", "configs",
+                               config + ".json")) as f:
+            cfg_ = json.load(f)
+        sg_, tr_d, li_d = pb_scene.build(cfg_, h, w,
+                                         np.random.default_rng(0))
+        sc_, _, _ = pb_harness.device_scene(sg_, tr_d, li_d, dev)
+        rot = rotation_y(0.3, device=dev)
+        items = [(rot, o.vertices, o.normals) for o, _ in sc_]
+
+        def fn():
+            return rotate_kernel_grouped(items)
+
+        def per_object():
+            return [rotate_kernel(*it) for it in items]
+
+        def flat(outs):
+            return [t for pair in outs for t in pair]
+        want = flat(rotate_plain(*it) for it in items)
+        max_err[name] = max(max_err[name], assert_equal(
+            f"K13 grouped at {path}", flat(fn()), want))
+        assert_equal(f"K13 an object at {path}", flat(per_object()), want)
+        del want
+        tris = sum(o.num_triangles for o, _ in sc_)
+        log(f"# K13 grouped == plain == one K13 an object at {path}, "
+            f"{len(sc_)} objects, {tris} tris: bit-equal")
+        o1 = event_ms(per_object, 20)
+        g1, g2 = event_ms(fn, 20), event_ms(fn, 20)
+        o2 = event_ms(per_object, 20)
+        kms, obj_ms = statistics.median([g1, g2]), statistics.median([o1, o2])
+        host_ms, dev_ms, _ = profile_calls(fn, 20)
+        obj_host, obj_dev, _ = profile_calls(per_object, 20)
+
+        def deferred():
+            return resolve_scene([(rotate_object(o, rot), c) for o, c in sc_])
+
+        def eager():
+            return [(o._replace(vertices=v, normals=n_), c) for (o, c), (
+                v, n_) in zip(sc_, per_object())]
+        before = (rotate_kernel_grouped.launches, rotate_kernel.launches)
+        deferred()
+        if (rotate_kernel_grouped.launches - before[0],
+                rotate_kernel.launches - before[1]) != (1, 0):
+            raise AssertionError(f"K13 grouped at {path}: a frame's "
+                                 f"rotation launched more than once")
+        d_host, d_dev, _ = profile_calls(deferred, 20)
+        e_host, e_dev, _ = profile_calls(eager, 20)
+        bms, by = bound(2 * 2 * 9 * tris * 4, 2 * 9 * tris * 5)
+        k13_info[path] = dict(
+            objects=len(sc_), tris=tris, grouped_ms=round(kms, 4),
+            grouped_device_ms=round(dev_ms, 4),
+            grouped_host_ms=round(host_ms, 4),
+            one_k13_an_object_ms=round(obj_ms, 4),
+            one_k13_an_object_device_ms=round(obj_dev, 4),
+            one_k13_an_object_host_ms=round(obj_host, 4),
+            frame_rotation_host_ms=round(d_host, 4),
+            frame_rotation_device_ms=round(d_dev, 4),
+            eager_frame_rotation_host_ms=round(e_host, 4),
+            eager_frame_rotation_device_ms=round(e_dev, 4),
+            bound_ms=round(bms, 6), bound_by=by)
+        log(f"# K13 grouped at {path}, {len(sc_)} objects, {tris} tris: "
+            f"kernel {kms:.4f} ms (profiler: device {dev_ms:.4f}, host "
+            f"{host_ms:.4f}); one K13 an object {obj_ms:.4f} ms (device "
+            f"{obj_dev:.4f}, host {obj_host:.4f}); a frame's rotation, "
+            f"deferred: host {d_host:.4f}, device {d_dev:.4f}; eager: host "
+            f"{e_host:.4f}, device {e_dev:.4f}; bound {bms:.4f} ms ({by})")
+
     def k14_cell(config, h, w):
         """K1's bbox planes of a benchmark configuration's scene at a frame
         size (its objects unturned, portbench's own constructors) and the
@@ -3348,6 +3441,7 @@ def main():
 
     time_k1_grouped("stack6", scene6, tr6, li6)
     time_k13("headline", obj)
+    time_k13_grouped("cluster", "sphere_cluster", 1080, 1920)
     k14_info = {}
     for cell_, config_, h_, w_ in K14_CELLS:
         time_k14(cell_, config_, h_, w_)

@@ -98,7 +98,8 @@ def test_spans_do_not_nest_and_close_on_an_error():
 def test_a_frame_records_the_layers_spans(variant, names):
     """The fused route (K7 -> K6) and the G-buffer route (K7 -> K8, the
     deferred shade): exactly the layers' span names, one ``tr.render``
-    root a frame, every other span inside it but ``tr.geometry``."""
+    root a frame, every other span inside it but the ``rotate_object``
+    calls' ``tr.geometry`` (the draw's resolve opens one inside)."""
     scene, tr, li, (h, w) = torch_scene("k6", variant, "cpu")
     renderer = trt.Renderer(h, w, device="cpu")
     with prof.spans() as records:

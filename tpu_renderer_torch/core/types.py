@@ -121,6 +121,11 @@ class RenderObject(NamedTuple):
     def num_triangles(self) -> int:
         return self.vertices.shape[2]
 
+    @property
+    def device(self) -> torch.device:
+        """The device of its planes."""
+        return self.vertices.device
+
 
 def _to_channel_major(arr, channels: int, device=None) -> torch.Tensor:
     """(V, C) classic soup -> (C, 3, T) channel-major layout."""

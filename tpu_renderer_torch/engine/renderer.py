@@ -48,6 +48,7 @@ from ..core.types import (
     make_framebuffer,
     resolve_device,
 )
+from ..geometry.transform import resolve_scene
 from ..geometry.vertex import setup_records, setup_triangles
 from ..ops.gbuffer import rasterize_gbuffer
 from ..ops.raster import (
@@ -368,9 +369,12 @@ def render_scene(framebuffer: Framebuffer | None,
     renders in one raster launch (prepare_scene), otherwise objects draw
     one after another (fused, G-buffer or reference each); both give the
     same frame. ``framebuffer=None`` is a fresh (frame_height,
-    frame_width) frame; the origin and knobs are ``render_object``'s."""
+    frame_width) frame; the origin and knobs are ``render_object``'s.
+    The scene's pending rotations (``rotate_object``) are computed first,
+    together (``geometry.transform.resolve_scene``)."""
     if framebuffer is None and (frame_height is None or frame_width is None):
         raise ValueError("render_scene(framebuffer=None) needs frame dims")
+    scene = resolve_scene(scene)
     knobs = dict(capacity=capacity, budget_override=budget_override,
                  zcull=zcull)
     if backend == "kernels" and len(scene) > 1 and _scene_batchable(scene):
@@ -431,10 +435,9 @@ class Renderer:
         'reference' backend bins nothing and reports nothing)."""
         with annotate("tr.render"):
             for obj, _ in scene:
-                if obj.vertices.device.type != self.device.type:
+                if obj.device.type != self.device.type:
                     raise ValueError(
-                        f"scene on {obj.vertices.device}, renderer on "
-                        f"{self.device}")
+                        f"scene on {obj.device}, renderer on {self.device}")
             fb = (None if self.clear_color == 0 else make_framebuffer(
                 self.height, self.width, self.clear_color,
                 device=self.device))

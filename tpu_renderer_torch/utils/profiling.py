@@ -5,7 +5,8 @@
   of each frame.
 - annotate(): the program's span. Each layer of a frame runs inside one,
   at the function where its work starts: ``tr.render`` (the engine,
-  ``Renderer.render``), ``tr.geometry`` (``rotate_object``), ``tr.scene``
+  ``Renderer.render``), ``tr.geometry`` (``rotate_object``, and the
+  draw's ``resolve_scene`` inside ``tr.render``), ``tr.scene``
   (the assembly of a multi-object draw, ``engine.renderer._scene_table``,
   with its ``tr.setup`` inside), ``tr.setup``, ``tr.binning``,
   ``tr.raster`` and ``tr.shade`` (the deferred shade, pack and merge).
